@@ -1,0 +1,766 @@
+"""LLaMA-family transformer in PyTorch: the port of
+``lmcache_tpu/models/llama.py`` for the dense llama path.
+
+- parameters are a plain dict of tensors mirroring the JAX pytree, layers
+  **stacked** on a leading ``[L, ...]`` axis (``params["layers"]["wq"][l]``),
+  applied as ``x @ W``; :func:`params_from_jax` carries a JAX tree across
+  unchanged;
+- the layer loop is a Python loop (the JAX file's ``lax.scan``);
+- the KV cache is one tensor ``[L, 2, B, H_kv, S_max, D]`` — HEAD-major,
+  read by the attention kernel with no relayout. :func:`forward` writes the
+  new tokens' K/V into it **in place** (JAX returns a new, donated buffer);
+  ``cache_to_blob``/``blob_into_cache`` convert to/from the token-major
+  cache-engine blob ``[L, 2, T, H_kv, D]``;
+- attention is :func:`lmcache_tpu_torch.ops.flash_attention`, fed directly
+  from the cache: the Hopper kernel on CUDA tensors, the plain version on CPU
+  tensors. Prefill-with-cached-prefix and decode are one code path with
+  different ``T``.
+
+``LlamaConfig`` is a copy of the JAX dataclass with its presets, so every
+config of the JAX package can be built here; :func:`forward` raises
+``NotImplementedError`` for the family traits this port does not run yet
+(ROADMAP, module item 6).
+"""
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from lmcache_tpu_torch.ops.attention import flash_attention
+from lmcache_tpu_torch.utils import resolve_device
+
+Params = Dict[str, Any]
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    dim: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 32
+    hidden_dim: int = 11008
+    norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    max_seq_len: int = 16384
+    dtype: str = "bfloat16"
+    # qkv projection bias (Qwen family; reference CacheGen family table
+    # includes Qwen-7B, cachegen_basics.py:36)
+    attention_bias: bool = False
+    # sliding-window attention (Mistral family); None = full causal
+    sliding_window: "Optional[int]" = None
+    # partial rotary (GLM family — the reference CacheGen table includes
+    # glm, cachegen_basics.py): rotate only the first rotary_dim of each
+    # head; None = full head_dim. GLM also pairs adjacent channels
+    # ("interleaved") instead of llama's half-split.
+    rotary_dim: "Optional[int]" = None
+    rope_interleaved: bool = False
+    # RoPE frequency scaling for context extension. "linear" divides
+    # every frequency by the factor (longchat's rope condensation);
+    # "llama3" rescales only low-frequency channels with a smooth
+    # interpolation band (llama-3.1's scheme); "yarn" is NTK-by-parts
+    # interpolation with an attention-temperature mscale (Qwen long-
+    # context). Flat fields (not a dict) keep the config hashable for
+    # jit static args.
+    rope_scaling_type: "Optional[str]" = None  # linear|llama3|yarn|longrope
+    rope_scaling_factor: float = 1.0
+    rope_low_freq_factor: float = 1.0  # llama3
+    rope_high_freq_factor: float = 4.0  # llama3
+    rope_beta_fast: float = 32.0  # yarn
+    rope_beta_slow: float = 1.0  # yarn
+    rope_attention_factor: "Optional[float]" = None  # yarn/longrope mscale
+    rope_original_max_seq: "Optional[int]" = None
+    # longrope (Phi-3 family): per-dim frequency dividers [rd/2], chosen
+    # ONCE at config time (long_factor when the deployment context
+    # exceeds the pretraining context, else short_factor). HF switches
+    # factor sets dynamically on the running seq_len, which silently
+    # invalidates every already-cached K the moment a sequence crosses
+    # the boundary — a static per-deployment choice is what keeps cached
+    # chunks reusable (and is what serving engines do).
+    rope_freq_factors: "Optional[Tuple[float, ...]]" = None
+
+    @property
+    def rope_scaling_spec(self):
+        """Hashable tuple for the rope helpers; None when unscaled."""
+        if self.rope_scaling_type is None:
+            return None
+        return (self.rope_scaling_type, self.rope_scaling_factor,
+                self.rope_low_freq_factor, self.rope_high_freq_factor,
+                self.rope_original_max_seq, self.rope_beta_fast,
+                self.rope_beta_slow, self.rope_attention_factor,
+                self.rope_freq_factors)
+    # sandwich norms (Glm4-0414 family, HF `glm4` arch): extra RMSNorms
+    # on the attention and MLP *outputs* before the residual add
+    # (post_self_attn_layernorm / post_mlp_layernorm in modeling_glm4)
+    post_norms: bool = False
+    # pre-norms on the block INPUTS (llama convention). OLMo-2 norms
+    # only the outputs: pre_norms=False + post_norms=True reproduces
+    # x + norm(attn(x)) / x + norm(mlp(x)) (modeling_olmo2)
+    pre_norms: bool = True
+    # RMSNorm over the FULL projected q/k vectors ([H*D]) before the
+    # head reshape and rope (OLMo-2) — unlike qk_norm's per-head norm
+    qk_norm_flat: bool = False
+    # per-head RMSNorm on q and k before RoPE (Qwen3 family)
+    qk_norm: bool = False
+    # sparse mixture-of-experts MLP (Mixtral / Qwen3-MoE families);
+    # None = dense SwiGLU. norm_topk_prob renormalizes the selected
+    # experts' probabilities — mathematically identical to Mixtral's
+    # softmax-over-top-k-logits (softmax restricted to a subset ==
+    # renormalized softmax), so one flag covers both families.
+    n_experts: "Optional[int]" = None
+    n_experts_per_tok: int = 2
+    moe_hidden_dim: "Optional[int]" = None  # expert width; None=hidden_dim
+    norm_topk_prob: bool = True
+    # decoupled head dim (Qwen3-4B-class: head_dim != dim // n_heads);
+    # None = dim // n_heads
+    head_dim_override: "Optional[int]" = None
+    # --- Gemma-family traits -------------------------------------------
+    # MLP activation on the gate projection: "silu" (llama SwiGLU) or
+    # "gelu_tanh" (Gemma's GeGLU, HF hidden_activation
+    # "gelu_pytorch_tanh")
+    mlp_act: str = "silu"
+    # RMSNorm multiplies by (1 + weight) in float32 (Gemma convention;
+    # weights are deltas around identity)
+    norm_one_offset: bool = False
+    # embeddings scaled by sqrt(dim) after lookup (Gemma)
+    embed_scale: bool = False
+    # attention scores bounded to (-cap, cap) via cap*tanh(s/cap)
+    # before masking (Gemma-2 attn_logit_softcapping)
+    attn_logit_softcap: "Optional[float]" = None
+    # final lm_head logits bounded the same way (Gemma-2
+    # final_logit_softcapping)
+    final_logit_softcap: "Optional[float]" = None
+    # attention score scale = query_pre_attn_scalar**-0.5 instead of
+    # head_dim**-0.5 (Gemma-2; e.g. 27B uses dim/n_heads != head_dim)
+    query_pre_attn_scalar: "Optional[float]" = None
+    # alternating local/global attention: with pattern p, layer i uses
+    # FULL attention iff (i + 1) % p == 0 and the sliding window
+    # otherwise (Gemma-2: p=2; Gemma-3: p=6). None = every layer slides
+    # when sliding_window is set (Mistral).
+    sliding_window_pattern: "Optional[int]" = None
+    # explicit per-layer is-global map [L] (HF `layer_types` lists:
+    # True = full_attention). Overrides sliding_window_pattern.
+    global_layer_map: "Optional[Tuple[bool, ...]]" = None
+    # dual-theta rotary (Gemma-3): sliding layers rope at this base
+    # frequency with NO context-extension scaling; global layers keep
+    # rope_theta + rope_scaling (HF rope_local_base_freq)
+    rope_local_theta: "Optional[float]" = None
+    # --- Llama-4 family traits (iRoPE) ---------------------------------
+    # local-attention kind for non-global layers: "sliding" (trailing
+    # window of sliding_window positions, Mistral/Gemma) or "chunked"
+    # (block-diagonal chunks of sliding_window positions, Llama-4
+    # attention_chunk_size)
+    local_attention_kind: str = "sliding"
+    # global (full-attention) layers carry NO positional encoding —
+    # identity rotation — while local layers rope normally (Llama-4
+    # no_rope_layers; from_hf verifies the HF masks align)
+    nope_on_global_layers: bool = False
+    # weightless L2 norm on q and k AFTER rope, rope layers only
+    # (Llama-4 use_qk_norm — unlike qk_norm's learned RMS before rope)
+    qk_l2_norm: bool = False
+    # NoPE-layer query temperature (arXiv:2501.19399, Llama-4):
+    # q *= 1 + attn_scale * log1p(floor((pos + 1) / attn_floor_scale))
+    attn_temperature_tuning: bool = False
+    attn_floor_scale: float = 8192.0
+    attn_scale: float = 0.1
+    # MoE routing style: "softmax_topk" (Mixtral/Qwen3: softmax probs,
+    # top-k, optional renorm, output-weighted), "llama4" (top-k on
+    # LOGITS, sigmoid gates scaling the expert INPUT, plus an always-on
+    # shared expert of width hidden_dim; moe_hidden_dim = routed width),
+    # or "gpt_oss" (biased router, softmax over the top-k logits,
+    # biased experts with the clamped gated activation
+    # (up+1) * gate * sigmoid(1.702 * gate), gate/up clamped at
+    # moe_act_limit)
+    moe_style: str = "softmax_topk"
+    moe_act_limit: float = 7.0  # gpt_oss swiglu clamp
+    # --- GPT-OSS family traits -----------------------------------------
+    # learned per-head attention-sink logits joined to every softmax
+    # normalization and then dropped (params["layers"]["sinks"] [L, H])
+    attn_sinks: bool = False
+    # bias on the attention OUTPUT projection (GPT-OSS o_proj; HF
+    # zero-inits it so random-weight parity can't see a dropped load —
+    # released checkpoints carry trained values)
+    attention_out_bias: bool = False
+
+    @property
+    def head_dim(self) -> int:
+        return self.head_dim_override or self.dim // self.n_heads
+
+    @property
+    def sm_scale(self) -> "Optional[float]":
+        """Attention score scale override; None = 1/sqrt(head_dim)."""
+        if self.query_pre_attn_scalar is None:
+            return None
+        return float(self.query_pre_attn_scalar)**-0.5
+
+    def layer_windows(self) -> np.ndarray:
+        """Per-layer bool [L]: True where the layer attends GLOBALLY
+        (full causal), False where it uses the sliding window. All-True
+        when no window is configured; all-False (every layer windowed)
+        for Mistral-style uniform windows."""
+        if self.sliding_window is None:
+            return np.ones(self.n_layers, bool)
+        if self.global_layer_map is not None:
+            if len(self.global_layer_map) != self.n_layers:
+                raise ValueError(
+                    f"global_layer_map has {len(self.global_layer_map)} "
+                    f"entries for {self.n_layers} layers")
+            return np.asarray(self.global_layer_map, bool)
+        if self.sliding_window_pattern is None:
+            return np.zeros(self.n_layers, bool)
+        p = self.sliding_window_pattern
+        return np.asarray(
+            [(i + 1) % p == 0 for i in range(self.n_layers)], bool)
+
+    @staticmethod
+    def tiny(**over) -> "LlamaConfig":
+        """Small config for tests — geometry chosen to still exercise GQA
+        and 128-lane tiling."""
+        kw = dict(vocab_size=512, dim=256, n_layers=4, n_heads=4,
+                  n_kv_heads=2, hidden_dim=512, max_seq_len=1024,
+                  dtype="float32")
+        kw.update(over)
+        return LlamaConfig(**kw)
+
+    @staticmethod
+    def tinyllama_1_1b() -> "LlamaConfig":
+        return LlamaConfig(vocab_size=32000, dim=2048, n_layers=22,
+                           n_heads=32, n_kv_heads=4, hidden_dim=5632,
+                           max_seq_len=2048, rope_theta=10000.0)
+
+    @staticmethod
+    def llama2_7b() -> "LlamaConfig":
+        return LlamaConfig()
+
+    @staticmethod
+    def longchat_7b_16k() -> "LlamaConfig":
+        # llama-2-7b arch with 16k context via linear rope condensation
+        # (factor 8 over the 2k base — the reference's CacheGen eval
+        # model, lmcache/serde/cachegen_basics.py:36)
+        return LlamaConfig(max_seq_len=16384, rope_theta=10000.0,
+                           rope_scaling_type="linear",
+                           rope_scaling_factor=8.0,
+                           rope_original_max_seq=2048)
+
+    @staticmethod
+    def mistral_7b() -> "LlamaConfig":
+        return LlamaConfig(vocab_size=32000, dim=4096, n_layers=32,
+                           n_heads=32, n_kv_heads=8, hidden_dim=14336,
+                           rope_theta=1000000.0, max_seq_len=32768,
+                           sliding_window=4096)
+
+    @staticmethod
+    def llama3_8b() -> "LlamaConfig":
+        return LlamaConfig(vocab_size=128256, dim=4096, n_layers=32,
+                           n_heads=32, n_kv_heads=8, hidden_dim=14336,
+                           rope_theta=500000.0, max_seq_len=8192)
+
+    @staticmethod
+    def llama3_1_8b() -> "LlamaConfig":
+        # llama-3.1-8b: llama3 geometry + frequency-dependent rope
+        # scaling to 128k (the reference CacheGen family table's
+        # llama-3.1 entry)
+        return LlamaConfig(vocab_size=128256, dim=4096, n_layers=32,
+                           n_heads=32, n_kv_heads=8, hidden_dim=14336,
+                           rope_theta=500000.0, max_seq_len=131072,
+                           rope_scaling_type="llama3",
+                           rope_scaling_factor=8.0,
+                           rope_low_freq_factor=1.0,
+                           rope_high_freq_factor=4.0,
+                           rope_original_max_seq=8192)
+
+    @staticmethod
+    def qwen_7b() -> "LlamaConfig":
+        # Qwen/Qwen2-7B geometry; attention_bias=True is the family trait
+        return LlamaConfig(vocab_size=152064, dim=3584, n_layers=28,
+                           n_heads=28, n_kv_heads=4, hidden_dim=18944,
+                           rope_theta=1000000.0, max_seq_len=32768,
+                           attention_bias=True)
+
+    @staticmethod
+    def glm4_9b() -> "LlamaConfig":
+        # THUDM/glm-4-9b-chat geometry (HF `glm` arch): multi-query
+        # attention (2 kv heads), qkv bias, interleaved partial rotary
+        return LlamaConfig(vocab_size=151552, dim=4096, n_layers=40,
+                           n_heads=32, n_kv_heads=2, hidden_dim=13696,
+                           rope_theta=10000.0, max_seq_len=131072,
+                           attention_bias=True, rotary_dim=64,
+                           rope_interleaved=True)
+
+    @staticmethod
+    def qwen3_8b() -> "LlamaConfig":
+        # Qwen/Qwen3-8B: per-head q/k RMSNorm before RoPE, no qkv bias
+        return LlamaConfig(vocab_size=151936, dim=4096, n_layers=36,
+                           n_heads=32, n_kv_heads=8, hidden_dim=12288,
+                           rope_theta=1000000.0, max_seq_len=40960,
+                           qk_norm=True)
+
+    @staticmethod
+    def qwen3_4b() -> "LlamaConfig":
+        # Qwen/Qwen3-4B: head_dim (128) decoupled from dim/n_heads (80)
+        return LlamaConfig(vocab_size=151936, dim=2560, n_layers=36,
+                           n_heads=32, n_kv_heads=8, hidden_dim=9728,
+                           rope_theta=1000000.0, max_seq_len=40960,
+                           qk_norm=True, head_dim_override=128)
+
+    @staticmethod
+    def mixtral_8x7b() -> "LlamaConfig":
+        # mistralai/Mixtral-8x7B: 8 SwiGLU experts, top-2 routing
+        return LlamaConfig(vocab_size=32000, dim=4096, n_layers=32,
+                           n_heads=32, n_kv_heads=8, hidden_dim=14336,
+                           rope_theta=1000000.0, max_seq_len=32768,
+                           n_experts=8, n_experts_per_tok=2)
+
+    @staticmethod
+    def qwen3_moe_30b_a3b() -> "LlamaConfig":
+        # Qwen/Qwen3-30B-A3B: 128 narrow experts, top-8, qk-norm
+        return LlamaConfig(vocab_size=151936, dim=2048, n_layers=48,
+                           n_heads=32, n_kv_heads=4, hidden_dim=6144,
+                           rope_theta=1000000.0, max_seq_len=40960,
+                           qk_norm=True, head_dim_override=128,
+                           n_experts=128, n_experts_per_tok=8,
+                           moe_hidden_dim=768)
+
+    @staticmethod
+    def glm4_0414_9b() -> "LlamaConfig":
+        # THUDM/GLM-4-9B-0414 (HF `glm4` arch): glm4_9b geometry plus
+        # the family's sandwich norms on attention/MLP outputs
+        return LlamaConfig(vocab_size=151552, dim=4096, n_layers=40,
+                           n_heads=32, n_kv_heads=2, hidden_dim=13696,
+                           rope_theta=10000.0, max_seq_len=32768,
+                           attention_bias=True, rotary_dim=64,
+                           rope_interleaved=True, post_norms=True)
+
+    @staticmethod
+    def gemma2_9b() -> "LlamaConfig":
+        # google/gemma-2-9b: GeGLU, (1+w) norms, scaled embeddings,
+        # sandwich norms, alternating 4k-local/global attention,
+        # score + logit softcaps, decoupled head_dim 256
+        return LlamaConfig(vocab_size=256000, dim=3584, n_layers=42,
+                           n_heads=16, n_kv_heads=8, hidden_dim=14336,
+                           rope_theta=10000.0, max_seq_len=8192,
+                           norm_eps=1e-6, head_dim_override=256,
+                           mlp_act="gelu_tanh", norm_one_offset=True,
+                           embed_scale=True, post_norms=True,
+                           attn_logit_softcap=50.0,
+                           final_logit_softcap=30.0,
+                           query_pre_attn_scalar=256.0,
+                           sliding_window=4096,
+                           sliding_window_pattern=2)
+
+    @staticmethod
+    def gemma3_4b() -> "LlamaConfig":
+        # google/gemma-3-4b (text stack): gemma-2 traits minus the
+        # softcaps, plus per-head qk-norm, 5-local:1-global attention
+        # (pattern 6, 1k window), and dual-theta rotary — sliding layers
+        # at 10k base, global layers at 1M with linear factor-8 scaling
+        return LlamaConfig(vocab_size=262208, dim=2560, n_layers=34,
+                           n_heads=8, n_kv_heads=4, hidden_dim=10240,
+                           rope_theta=1000000.0, max_seq_len=131072,
+                           norm_eps=1e-6, head_dim_override=256,
+                           mlp_act="gelu_tanh", norm_one_offset=True,
+                           embed_scale=True, post_norms=True,
+                           qk_norm=True, query_pre_attn_scalar=256.0,
+                           sliding_window=1024,
+                           sliding_window_pattern=6,
+                           rope_local_theta=10000.0,
+                           rope_scaling_type="linear",
+                           rope_scaling_factor=8.0,
+                           rope_original_max_seq=131072)
+
+    @staticmethod
+    def llama4_scout_17b_16e() -> "LlamaConfig":
+        # meta-llama/Llama-4-Scout-17B-16E: iRoPE — 3 chunked-attention
+        # rope layers then 1 NoPE full-attention layer (pattern 4),
+        # 8192-token chunks, post-rope L2 qk-norm, NoPE query
+        # temperature, 16-expert sigmoid top-1 MoE with a shared expert
+        return LlamaConfig(vocab_size=202048, dim=5120, n_layers=48,
+                           n_heads=40, n_kv_heads=8, hidden_dim=8192,
+                           rope_theta=500000.0, max_seq_len=10485760,
+                           rope_interleaved=True, sliding_window=8192,
+                           sliding_window_pattern=4,
+                           local_attention_kind="chunked",
+                           nope_on_global_layers=True, qk_l2_norm=True,
+                           attn_temperature_tuning=True,
+                           n_experts=16, n_experts_per_tok=1,
+                           moe_hidden_dim=8192, moe_style="llama4",
+                           rope_scaling_type="llama3",
+                           rope_scaling_factor=8.0,
+                           rope_low_freq_factor=1.0,
+                           rope_high_freq_factor=4.0,
+                           rope_original_max_seq=8192)
+
+    @staticmethod
+    def olmo2_7b() -> "LlamaConfig":
+        # allenai/OLMo-2-1124-7B: norms on the block OUTPUTS only
+        # (x + norm(attn(x))), full-width qk-norms before the head
+        # reshape, otherwise llama geometry
+        return LlamaConfig(vocab_size=100352, dim=4096, n_layers=32,
+                           n_heads=32, n_kv_heads=32, hidden_dim=11008,
+                           rope_theta=500000.0, max_seq_len=4096,
+                           pre_norms=False, post_norms=True,
+                           qk_norm_flat=True)
+
+    @staticmethod
+    def gpt_oss_20b() -> "LlamaConfig":
+        # openai/gpt-oss-20b: per-head attention SINKS joined to every
+        # softmax, alternating 128-token sliding / full layers
+        # (pattern 2), biased qkv, yarn rope to 128k, and a 32-expert
+        # top-4 MoE with biased clamped-GLU experts
+        return LlamaConfig(vocab_size=201088, dim=2880, n_layers=24,
+                           n_heads=64, n_kv_heads=8, hidden_dim=2880,
+                           head_dim_override=64, rope_theta=150000.0,
+                           max_seq_len=131072, attention_bias=True,
+                           attention_out_bias=True,
+                           attn_sinks=True, sliding_window=128,
+                           sliding_window_pattern=2,
+                           n_experts=32, n_experts_per_tok=4,
+                           moe_hidden_dim=2880, moe_style="gpt_oss",
+                           rope_scaling_type="yarn",
+                           rope_scaling_factor=32.0,
+                           rope_beta_fast=32.0, rope_beta_slow=1.0,
+                           rope_original_max_seq=4096)
+
+    @staticmethod
+    def phi3_mini_4k() -> "LlamaConfig":
+        # microsoft/Phi-3-mini-4k-instruct: MHA (32/32 heads), fused
+        # qkv/gate_up checkpoints, 2047-token sliding window. The 128k
+        # variants add longrope scaling (load via from_hf — the per-dim
+        # factor lists live in the checkpoint config).
+        return LlamaConfig(vocab_size=32064, dim=3072, n_layers=32,
+                           n_heads=32, n_kv_heads=32, hidden_dim=8192,
+                           rope_theta=10000.0, max_seq_len=4096,
+                           sliding_window=2047)
+
+
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+
+
+def torch_dtype(cfg: LlamaConfig) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+# traits of LlamaConfig that forward() does not run yet, each with the value
+# that switches it off
+_UNPORTED = {
+    "n_experts": None, "sliding_window": None, "attn_logit_softcap": None,
+    "attn_sinks": False, "qk_norm": False, "qk_norm_flat": False,
+    "rope_local_theta": None, "nope_on_global_layers": False,
+    "qk_l2_norm": False, "attn_temperature_tuning": False,
+    "post_norms": False, "pre_norms": True,
+}
+
+
+def check_supported(cfg: LlamaConfig) -> None:
+    """Raise ``NotImplementedError`` for a config trait not ported yet."""
+    for name, off in _UNPORTED.items():
+        if getattr(cfg, name) != off:
+            raise NotImplementedError(
+                f"LlamaConfig.{name}={getattr(cfg, name)!r} is not ported "
+                f"yet (ROADMAP, module item 6)")
+
+
+def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
+                device="cuda") -> Params:
+    """Random weights in the JAX tree's layout (``init_params`` of the JAX
+    file): normal / sqrt(fan_in), norms at 1. Draws come from ``generator``
+    (which must live on ``device``), default a fresh one seeded 0."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    dt = torch_dtype(cfg)
+    L, dim, hd = cfg.n_layers, cfg.dim, cfg.head_dim
+    nh, nkv, hid = cfg.n_heads, cfg.n_kv_heads, cfg.hidden_dim
+
+    def w(shape, fan_in):
+        x = torch.randn(shape, generator=generator, device=dev)
+        return (x * fan_in**-0.5).to(dt)
+
+    layers = {
+        "wq": w((L, dim, nh * hd), dim),
+        "wk": w((L, dim, nkv * hd), dim),
+        "wv": w((L, dim, nkv * hd), dim),
+        "wo": w((L, nh * hd, dim), nh * hd),
+        "attn_norm": torch.ones((L, dim), dtype=dt, device=dev),
+        "mlp_norm": torch.ones((L, dim), dtype=dt, device=dev),
+        "w_gate": w((L, dim, hid), dim),
+        "w_up": w((L, dim, hid), dim),
+        "w_down": w((L, hid, dim), hid),
+    }
+    if cfg.norm_one_offset:
+        layers["attn_norm"].zero_()
+        layers["mlp_norm"].zero_()
+    if cfg.attention_bias:
+        for name, n in (("bq", nh * hd), ("bk", nkv * hd), ("bv", nkv * hd)):
+            layers[name] = torch.zeros((L, n), dtype=dt, device=dev)
+    if cfg.attention_out_bias:
+        layers["bo"] = torch.zeros((L, dim), dtype=dt, device=dev)
+    return {
+        "embed": w((cfg.vocab_size, dim), dim),
+        "layers": layers,
+        "final_norm": (torch.zeros if cfg.norm_one_offset else torch.ones)(
+            (dim,), dtype=dt, device=dev),
+        "lm_head": w((dim, cfg.vocab_size), dim),
+    }
+
+
+def _tensor_from_numpy(a, dtype: torch.dtype, device) -> torch.Tensor:
+    a = np.array(a)  # a private, writable copy
+    if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16: reinterpret bits
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype)
+
+
+def params_from_jax(tree_of_numpy: Params, cfg: LlamaConfig,
+                    device="cuda") -> Params:
+    """Carry a JAX llama param tree (``lmcache_tpu.models.llama``: keys
+    ``embed``, ``layers.{wq, wk, wv, wo, attn_norm, mlp_norm, w_gate, w_up,
+    w_down, ...}``, ``final_norm``, ``lm_head``), given as numpy arrays,
+    onto the port's parameters unchanged, in ``cfg.dtype`` on ``device``."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dt = torch_dtype(cfg)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        return _tensor_from_numpy(x, dt, dev)
+
+    return conv(tree_of_numpy)
+
+
+def new_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
+                 device="cuda") -> torch.Tensor:
+    """Fresh KV cache [L, 2, B, H_kv, S, D] — HEAD-major, zeroed.
+
+    The live pool is head-major so the attention kernel reads it directly;
+    the cache-blob wire format stays token-major ([L, 2, T, H, D], the
+    reference's vllm fmt) and is transposed once per chunk at the
+    inject/read boundary, not per step.
+    """
+    return torch.zeros(
+        (cfg.n_layers, 2, batch, cfg.n_kv_heads, max_len, cfg.head_dim),
+        dtype=torch_dtype(cfg), device=resolve_device(device))
+
+
+def cache_to_blob(cache: torch.Tensor, b: int = 0,
+                  n: "Optional[int]" = None) -> torch.Tensor:
+    """One batch row of the head-major pool as a wire-format cache blob
+    [L, 2, n, H, D] (the reference's vllm fmt). A VIEW of the pool: it
+    changes when the pool is written (the storage tier copies what it
+    keeps)."""
+    g = cache[:, :, b] if n is None else cache[:, :, b, :, :n]
+    return g.transpose(2, 3)
+
+
+def blob_into_cache(cache: torch.Tensor, blob: torch.Tensor, b: int = 0,
+                    pos: int = 0) -> torch.Tensor:
+    """Write a wire blob [L, 2, t, H, D] into the head-major pool at token
+    offset ``pos`` of batch row ``b``, in place; returns ``cache``."""
+    t = blob.shape[2]
+    cache[:, :, b, :, pos:pos + t] = blob.transpose(2, 3)
+    return cache
+
+
+def _rms_norm(x, weight, eps, one_offset=False):
+    x32 = x.float()
+    rms = torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+    if one_offset:
+        return (x32 * rms * (1.0 + weight.float())).to(x.dtype)
+    return (x32 * rms).to(x.dtype) * weight
+
+
+def _act(x, kind):
+    """Gate activation: llama SwiGLU's silu or Gemma GeGLU's tanh-gelu."""
+    if kind == "silu":
+        return F.silu(x)
+    if kind == "gelu_tanh":
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown mlp_act {kind!r}")
+
+
+def rope_inv_freq(theta, rd, scaling=None, device=None):
+    """Rotary inverse frequencies [rd/2] (fp32) and the attention-temperature
+    scale, with optional context-extension scaling
+    (``LlamaConfig.rope_scaling_spec``): ``linear``, ``llama3``, ``yarn``
+    and ``longrope``, as in the JAX file's ``rope_inv_freq``."""
+    inv_freq = 1.0 / (theta**(
+        torch.arange(0, rd, 2, dtype=torch.float32, device=device) / rd))
+    if scaling is None:
+        return inv_freq, 1.0
+    kind, factor, low, high, orig_max = scaling[:5]
+    if kind == "linear":
+        return inv_freq / factor, 1.0
+    if kind == "llama3":
+        wavelen = 2.0 * math.pi / inv_freq
+        scaled = torch.where(wavelen > orig_max / low, inv_freq / factor,
+                             inv_freq)
+        smooth = (orig_max / wavelen - low) / (high - low)
+        interp = (1.0 - smooth) / factor * inv_freq + smooth * inv_freq
+        mid = (wavelen <= orig_max / low) & (wavelen >= orig_max / high)
+        return torch.where(mid, interp, scaled), 1.0
+    if kind == "yarn":
+        beta_fast, beta_slow, attn_factor = scaling[5:8]
+        if attn_factor is not None:
+            mscale = attn_factor
+        elif factor > 1.0:
+            mscale = 0.1 * float(np.log(factor)) + 1.0
+        else:
+            mscale = 1.0
+
+        def correction_dim(beta):
+            return (rd * np.log(orig_max / (beta * 2.0 * np.pi))
+                    / (2.0 * np.log(theta)))
+
+        lo = max(int(np.floor(correction_dim(beta_fast))), 0)
+        hi = min(int(np.ceil(correction_dim(beta_slow))), rd - 1)
+        ramp = torch.clamp(
+            (torch.arange(rd // 2, dtype=torch.float32, device=device) - lo)
+            / max(hi - lo, 1e-3), 0.0, 1.0)
+        extrap_w = 1.0 - ramp  # 1 where extrapolated (high freq)
+        return (inv_freq / factor * (1.0 - extrap_w)
+                + inv_freq * extrap_w), mscale
+    if kind == "longrope":
+        attn_factor, freq_factors = scaling[7:9]
+        if attn_factor is not None:
+            mscale = attn_factor
+        elif factor > 1.0:
+            mscale = float(np.sqrt(1.0 + np.log(factor) / np.log(orig_max)))
+        else:
+            mscale = 1.0
+        ext = torch.as_tensor(freq_factors, dtype=torch.float32,
+                              device=device)
+        if ext.shape != inv_freq.shape:
+            raise ValueError(
+                f"longrope needs {inv_freq.shape[0]} per-dim factors, "
+                f"got {ext.shape[0]}")
+        return inv_freq / ext, mscale
+    raise ValueError(f"unknown rope scaling type {kind!r}")
+
+
+def _rope(x, positions, theta, rotary_dim=None, interleaved=False,
+          scaling=None):
+    """HF-convention rotary embedding. x: [B, T, H, D]; positions: [B, T].
+    ``rotary_dim`` rotates only the leading channels; ``interleaved`` pairs
+    channels (2i, 2i+1) instead of the llama half-split (i, i + D/2)."""
+    D = x.shape[-1]
+    rd = rotary_dim or D
+    xr = x[..., :rd].float()
+    inv_freq, mscale = rope_inv_freq(theta, rd, scaling, device=x.device)
+    angles = positions[..., None].float() * inv_freq  # [B, T, rd/2]
+    if interleaved:
+        cos = torch.repeat_interleave(torch.cos(angles), 2, dim=-1)
+        sin = torch.repeat_interleave(torch.sin(angles), 2, dim=-1)
+        x1, x2 = xr[..., 0::2], xr[..., 1::2]
+        rotated = torch.stack([-x2, x1], dim=-1).reshape(xr.shape)
+    else:
+        cos = torch.cat([torch.cos(angles)] * 2, dim=-1)
+        sin = torch.cat([torch.sin(angles)] * 2, dim=-1)
+        x1, x2 = xr[..., :rd // 2], xr[..., rd // 2:]
+        rotated = torch.cat([-x2, x1], dim=-1)
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    out = (xr * (cos * mscale) + rotated * (sin * mscale)).to(x.dtype)
+    if rd == D:
+        return out
+    return torch.cat([out, x[..., rd:]], dim=-1)
+
+
+def _embed(params, cfg, tokens):
+    """Token embedding lookup, with Gemma's sqrt(dim) scaling."""
+    x = params["embed"][tokens]
+    if cfg.embed_scale:
+        x = x * torch.tensor(np.sqrt(cfg.dim), dtype=x.dtype)
+    return x
+
+
+def _lm_logits(x, params, cfg):
+    """Final-norm + lm_head, with Gemma-2's logit softcap."""
+    x = _rms_norm(x, params["final_norm"], cfg.norm_eps,
+                  cfg.norm_one_offset)
+    logits = (x @ params["lm_head"]).float()
+    if cfg.final_logit_softcap is not None:
+        c = cfg.final_logit_softcap
+        logits = c * torch.tanh(logits / c)
+    return logits
+
+
+def _layer(x, lp, cfg, kc, vc, positions, start_pos, kv_len):
+    """One decoder layer; writes this step's K/V into ``kc``/``vc``
+    ([B, H_kv, S, D] views of the pool) in place."""
+    B, T = x.shape[:2]
+    hd = cfg.head_dim
+    h = _rms_norm(x, lp["attn_norm"], cfg.norm_eps, cfg.norm_one_offset)
+    q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
+    if cfg.attention_bias:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    q = q.reshape(B, T, cfg.n_heads, hd)
+    k = k.reshape(B, T, cfg.n_kv_heads, hd)
+    v = v.reshape(B, T, cfg.n_kv_heads, hd)
+    q = _rope(q, positions, cfg.rope_theta, cfg.rotary_dim,
+              cfg.rope_interleaved, cfg.rope_scaling_spec)
+    k = _rope(k, positions, cfg.rope_theta, cfg.rotary_dim,
+              cfg.rope_interleaved, cfg.rope_scaling_spec)
+
+    # scatter [B, T, H, D] into the head-major pool at each row's offset
+    rows = torch.arange(B, device=x.device)[:, None]
+    kc[rows, :, positions] = k.to(kc.dtype)
+    vc[rows, :, positions] = v.to(vc.dtype)
+
+    attn = flash_attention(q, kc, vc, start_pos, kv_len, kv_head_major=True,
+                           sm_scale=cfg.sm_scale)
+    y = attn.reshape(B, T, -1).to(x.dtype) @ lp["wo"]
+    if cfg.attention_out_bias:
+        y = y + lp["bo"]
+    x = x + y
+
+    h = _rms_norm(x, lp["mlp_norm"], cfg.norm_eps, cfg.norm_one_offset)
+    gate = _act((h @ lp["w_gate"]).float(), cfg.mlp_act)
+    up = (h @ lp["w_up"]).float()
+    return x + (gate * up).to(x.dtype) @ lp["w_down"]
+
+
+@torch.no_grad()
+def forward(
+    params: Params,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # int [B, T]
+    start_pos: torch.Tensor,  # int [B] — write offset / #cached tokens
+    kv_cache: torch.Tensor,  # [L, 2, B, H_kv, S, D] (head-major pool)
+    *,
+    last_logit_only: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One forward step (prefill when T>1, decode when T==1).
+
+    The tokens' KV is written **in place** into ``kv_cache`` at
+    ``start_pos[b]`` (which may be a view, such as one slot of a serving
+    pool) and the queries attend to everything up to ``start_pos[b] + T``.
+    Cached-prefix reuse = writing retrieved chunks into the cache and
+    calling this with only the suffix tokens. Returns (logits
+    [B, T, vocab] fp32, kv_cache); with ``last_logit_only`` the lm_head runs
+    on the final position only (logits [B, 1, vocab]).
+    """
+    check_supported(cfg)
+    B, T = tokens.shape
+    dev = kv_cache.device
+    start_pos = start_pos.to(device=dev, dtype=torch.int32)
+    positions = start_pos[:, None] + torch.arange(
+        T, device=dev, dtype=torch.int32)[None, :]  # [B, T]
+    kv_len = start_pos + T
+    x = _embed(params, cfg, tokens.to(dev))
+    lps = params["layers"]
+    for li in range(cfg.n_layers):
+        lp = {name: w[li] for name, w in lps.items()}
+        x = _layer(x, lp, cfg, kv_cache[li, 0], kv_cache[li, 1],
+                   positions.long(), start_pos, kv_len)
+    if last_logit_only:
+        x = x[:, -1:]
+    return _lm_logits(x, params, cfg), kv_cache
