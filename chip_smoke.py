@@ -8,20 +8,37 @@ Phases, in order; any failure exits non-zero:
 1. build every CUDA kernel of the package from its sources (one ``nvcc``
    per source, all at once) and print the build time and nvcc's report;
 2. hold each kernel against its plain PyTorch version on the card, in
-   bf16, at the shapes the main path gives it;
-3. the main path at full width, tinyllama-1.1B with random weights from a
-   seeded generator: full prefill of CTX + SUFFIX = 16384 tokens, store of
-   the CTX prefix into the "cuda" cache tier, retrieve (15872 hits), inject,
-   suffix prefill; the reuse logits must agree with the full prefill's; TTFT
-   full and reuse (best of 3 after a warm-up); one ``torch.profiler``
-   window over each (device idle share, the kernels that take the time);
-4. serving: a ``ServingEngine`` answers four waves of greedy prompts; a
-   repeated wave must hit the cache and give the same tokens, and a
+   bf16, at the shapes the paths below give it: ``flash_attention`` and the
+   four paged-attention kernels (bf16 and int8 arenas);
+3. the dense main path at full width, tinyllama-1.1B with random weights
+   from a seeded generator: full prefill of CTX + SUFFIX = 16384 tokens,
+   store of the CTX prefix into the "cuda" cache tier, retrieve (15872
+   hits), inject, suffix prefill; the reuse logits must agree with the full
+   prefill's; TTFT full and reuse (best of 3 after a warm-up); one
+   ``torch.profiler`` window over each (device idle share, the kernels
+   that take the time);
+4. dense serving: a ``ServingEngine`` answers four waves of greedy prompts;
+   a repeated wave must hit the cache and give the same tokens, and a
    suffix prefilled over an injected prefix must agree with an engine
    that has no cache tier (``phase_serving``);
-5. the launch counts of phases 3 and 4 (prefill and decode, each > 0);
-6. the yardstick: each kernel's time at phase 2's shapes beside its bound,
-   its plain version and one PyTorch library call.
+5. paged serving, path A: a ``PagedServingEngine`` over a bf16 and then an
+   int8 page arena, tinyllama-1.1B (head dim 64: the streaming kernels),
+   four waves: fresh prompts against the dense engine's logits, the same
+   prompts served from resident pages, a fresh engine served by retrieve +
+   page injection, and an arena so small that decode growth preempts a
+   request, which resumes and finishes; one ``torch.profiler`` window over
+   a batched decode step (``phase_paged_tinyllama``);
+6. paged serving, path B: Phi-3-mini-4k at full width and depth (head dim
+   96, sliding window 2047: the one-page-per-step kernels), two prompts of
+   about 3000 tokens over a bf16 and then an int8 arena; the logits of the
+   last prompt token are held against ``forward_paged*`` run with the plain
+   attention on the same arena (``phase_paged_phi3``);
+7. the launch counts of phases 3 to 6, read per phase with every count set
+   to 0 just before it (prefill and decode, each > 0 where the phase runs
+   them);
+8. the yardstick: each kernel's time at phase 2's shapes beside its bound,
+   its plain version and a PyTorch library time (SDPA; for a paged arena
+   the gather of the live pages into dense K/V, then SDPA).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without printing a result
@@ -41,7 +58,9 @@ from lmcache_tpu_torch import (LMCacheEngine, LMCacheEngineConfig,
 from lmcache_tpu_torch import ops
 from lmcache_tpu_torch.models import llama
 from lmcache_tpu_torch.ops import _build
-from lmcache_tpu_torch.serving import SamplingParams, ServingEngine
+from lmcache_tpu_torch.ops import paged_attention as pa
+from lmcache_tpu_torch.serving import (PagedServingEngine, Request,
+                                       SamplingParams, ServingEngine)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 FLOP/s
 PEAK_BYTES_S = 3.35e12
@@ -58,8 +77,47 @@ REL_L2_KERNEL = 1e-2
 # reuse vs full prefill logits: bf16 activations through 22 layers, suffix
 # rows computed in GEMMs of other shapes
 REL_L2_REUSE = 5e-2
+# first-token logits over an int8 page arena against the bf16 arena's: K and
+# V carry one symmetric int8 rounding per token (half a step of absmax / 127
+# over the token's heads and channels), through every layer
+REL_L2_INT8 = 1e-1
 
 CTX, SUFFIX = 15872, 512
+PAGE = 64  # page size of both paged paths
+
+# the port's kernels: name -> (wrapper, source, TPU kernel it replaces)
+KERNELS = {
+    "flash_attention": (
+        ops.flash_attention, "lmcache_tpu_torch/ops/csrc/flash_attention.cu",
+        "lmcache_tpu/ops/attention.py:110"),
+    "paged_attention": (
+        pa.paged_attention, "lmcache_tpu_torch/ops/csrc/paged_attention.cu",
+        "lmcache_tpu/ops/paged_attention.py:171"),
+    "quantized_paged_attention": (
+        pa.quantized_paged_attention,
+        "lmcache_tpu_torch/ops/csrc/paged_attention.cu",
+        "lmcache_tpu/ops/paged_attention.py:182"),
+    "paged_attention_dma": (
+        pa.paged_attention_dma,
+        "lmcache_tpu_torch/ops/csrc/paged_stream_attention.cu",
+        "lmcache_tpu/ops/paged_attention.py:583"),
+    "quantized_paged_attention_dma": (
+        pa.quantized_paged_attention_dma,
+        "lmcache_tpu_torch/ops/csrc/paged_stream_attention.cu",
+        "lmcache_tpu/ops/paged_attention.py:885"),
+}
+
+
+def reset_launch_counts():
+    for wrapper, _, _ in KERNELS.values():
+        wrapper.launches.clear()
+
+
+def read_launch_counts():
+    """{kernel: {"prefill": n, "decode": m}} of the kernels launched since
+    the last reset."""
+    return {name: dict(wrapper.launches)
+            for name, (wrapper, _, _) in KERNELS.items() if wrapper.launches}
 
 
 def log(msg):
@@ -114,8 +172,9 @@ def attention_cases():
     path gives the kernel, tinyllama (H 32, H_kv 4, D 64): phase 3's suffix
     prefill over the 15872 cached tokens and its 16384-token full prefill,
     phase 4's 512-token prefill segments (from scratch, or over 1536
-    injected tokens) and its batched decode with one parked row; then a 2048-token prefill, ragged decode over up to 16k
-    tokens, and one llama-2-7b geometry (H = H_kv = 32, D 128)."""
+    injected tokens) and its batched decode with one parked row; then a
+    2048-token prefill, ragged decode over up to 16k tokens, and one
+    llama-2-7b geometry (H = H_kv = 32, D 128)."""
     return [
         ("tinyllama suffix prefill", 1, 512, 32, 4, 64, 16384, [CTX],
          [CTX + SUFFIX]),
@@ -178,30 +237,174 @@ def attention_bound(case):
     return t_bytes * 1e3, "bytes"
 
 
+def hold_against_plain(kernel, case_name, out, ref):
+    """Max abs error of a kernel's output against its plain version's;
+    exits when it is outside the stated tolerance."""
+    ref = ref.float()
+    diff = (out.float() - ref).abs()
+    max_abs = diff.max().item()
+    excess = (diff - RTOL_KERNEL * ref.abs()).max().item()
+    rel = (diff.norm() / ref.norm()).item()
+    ok = (bool(torch.isfinite(out.float()).all())
+          and excess <= ATOL_KERNEL and rel <= REL_L2_KERNEL)
+    log(f"  {kernel} | {case_name}: out {tuple(out.shape)} max_abs_err "
+        f"{max_abs:.3e} rel_l2 {rel:.3e} (tolerance |err| <= {ATOL_KERNEL} "
+        f"+ {RTOL_KERNEL:.4f}|ref|, rel_l2 <= {REL_L2_KERNEL}) "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise SystemExit(f"{kernel} disagrees with its plain version at "
+                         f"{case_name}")
+    return max_abs
+
+
 def phase_kernels():
+    """{kernel: worst max abs error over its cases}."""
     log("== phase 2: kernels vs plain versions (bf16, on the card)")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    worst = 0.0
+    worst = {name: 0.0 for name in KERNELS}
     for case in attention_cases():
         q, k, v, qo, kl = make_attention_inputs(case, gen)
         out = ops.flash_attention(q, k, v, qo, kl, kv_head_major=True)
-        ref = plain_attention(q, k, v, qo, kl).float()
+        ref = plain_attention(q, k, v, qo, kl)
         torch.cuda.synchronize()
-        diff = (out.float() - ref).abs()
-        max_abs = diff.max().item()
-        excess = (diff - RTOL_KERNEL * ref.abs()).max().item()
-        rel = (diff.norm() / ref.norm()).item()
-        ok = (bool(torch.isfinite(out.float()).all())
-              and excess <= ATOL_KERNEL and rel <= REL_L2_KERNEL)
-        log(f"  {case[0]}: out {tuple(out.shape)} max_abs_err {max_abs:.3e} "
-            f"rel_l2 {rel:.3e} (tolerance |err| <= {ATOL_KERNEL} + "
-            f"{RTOL_KERNEL:.4f}|ref|, rel_l2 <= {REL_L2_KERNEL}) "
-            f"{'ok' if ok else 'FAILED'}")
-        if not ok:
-            raise SystemExit(f"flash_attention disagrees at {case[0]}")
-        worst = max(worst, max_abs)
-        del q, k, v, out, ref, diff
+        worst["flash_attention"] = max(
+            worst["flash_attention"],
+            hold_against_plain("flash_attention", case[0], out, ref))
+        del q, k, v, out, ref
+    for case in paged_cases():
+        args, kw = make_paged_inputs(case, gen)
+        out = KERNELS[case["kernel"]][0](*args, **kw)
+        ref = paged_plain(case)(*args, **kw)
+        torch.cuda.synchronize()
+        worst[case["kernel"]] = max(
+            worst[case["kernel"]],
+            hold_against_plain(case["kernel"], case["name"], out, ref))
+        del args, out, ref
     return worst
+
+
+# ------------------------------------------- the paged kernels' shapes ---
+
+# serving geometry of path A: prompts of 2049 tokens, up to 96 new tokens
+PAGED_MAX_SEQ = 2176
+# page-table widths the engines give the kernels: S + 1 parking position
+NP_TINYLLAMA = -(-(PAGED_MAX_SEQ + 1) // PAGE)
+NP_PHI3 = -(-(4096 + 1) // PAGE)
+PHI3_WINDOW = 2047
+
+
+def paged_cases():
+    """The shapes the two paged paths give the four kernels, each for the
+    bf16 and the int8 arena. ``table``: "fragmented" (a seeded permutation
+    of page ids), "consecutive", and rows listed in ``idle`` all point at
+    the null page 0, as the engine's idle decode rows do (parked at
+    position S, kv_len S + 1)."""
+    tiny = dict(H=32, Hkv=4, D=64, window=None)
+    phi3 = dict(H=32, Hkv=32, D=96, window=PHI3_WINDOW)
+    S = PAGED_MAX_SEQ
+    shapes = [
+        # path A, tinyllama (D 64): the streaming kernels
+        dict(name="tinyllama serving decode, 4 rows live", B=4, T=1,
+             q_off=[2100, 2080, 2120, 2060], NP=NP_TINYLLAMA, **tiny),
+        dict(name="tinyllama serving decode, 1 of 4 rows live", B=4, T=1,
+             q_off=[2100, S, S, S], NP=NP_TINYLLAMA, idle=[1, 2, 3], **tiny),
+        dict(name="tinyllama serving decode, the live row alone", B=1, T=1,
+             q_off=[2100], NP=NP_TINYLLAMA, **tiny),
+        dict(name="tinyllama serving prefill segment", B=1, T=512,
+             q_off=[1536], NP=NP_TINYLLAMA, **tiny),
+        dict(name="tinyllama decode 16k, fragmented pages", B=4, T=1,
+             q_off=[16383, 9000, 3000, 0], NP=257, **tiny),
+        dict(name="tinyllama decode 16k, consecutive pages", B=4, T=1,
+             q_off=[16383, 9000, 3000, 0], NP=257, table="consecutive",
+             **tiny),
+        # path B, Phi-3-mini-4k (D 96, window 2047): one page per step
+        dict(name="phi3 serving decode", B=2, T=1, q_off=[3010, 2990],
+             NP=NP_PHI3, **phi3),
+        dict(name="phi3 serving prefill segment", B=1, T=512, q_off=[2560],
+             NP=NP_PHI3, **phi3),
+    ]
+    cases = []
+    for quant in (False, True):
+        for shape in shapes:
+            stream = shape["D"] == 64
+            kernel = (("quantized_" if quant else "") + "paged_attention"
+                      + ("_dma" if stream else ""))
+            cases.append(dict(shape, kernel=kernel, quant=quant,
+                              kv_len=[o + shape["T"] for o in shape["q_off"]],
+                              table=shape.get("table", "fragmented"),
+                              idle=shape.get("idle", [])))
+    return cases
+
+
+def make_paged_inputs(case, gen):
+    """A layer's slice of an arena, as ``forward_paged*`` passes it, and a
+    page table of distinct ids per live sequence. Returns (args, kwargs) of
+    the case's entry point and of its plain version."""
+    dev = "cuda"
+    B, T, H, Hkv, D, NP = (case[k] for k in ("B", "T", "H", "Hkv", "D", "NP"))
+    P = B * NP + 1
+    q = torch.randn((B, T, H, D), generator=gen, device=dev).bfloat16()
+    if case["table"] == "fragmented":
+        ids = torch.randperm(P - 1, generator=gen, device=dev) + 1
+    else:
+        ids = torch.arange(1, P, device=dev)
+    table = ids.reshape(B, NP).to(torch.int32)
+    for b in case["idle"]:
+        table[b] = 0
+    table = table.contiguous()
+    qo = torch.tensor(case["q_off"], dtype=torch.int32, device=dev)
+    kl = torch.tensor(case["kv_len"], dtype=torch.int32, device=dev)
+    kw = dict(sliding_window=case["window"])
+    if case["quant"]:
+        arena = torch.randint(-127, 128, (2, P, Hkv, PAGE, D), generator=gen,
+                              device=dev, dtype=torch.int32).to(torch.int8)
+        # scales of unit-variance tokens: absmax / 127 is about 0.03
+        scale = (torch.rand((2, P, PAGE), generator=gen, device=dev) * 0.02
+                 + 0.02)
+        return (q, arena[0], arena[1], scale[0], scale[1], table, qo, kl), kw
+    arena = torch.randn((2, P, Hkv, PAGE, D), generator=gen,
+                        device=dev).bfloat16()
+    return (q, arena[0], arena[1], table, qo, kl), kw
+
+
+def paged_plain(case):
+    return (pa.quantized_paged_attention_reference if case["quant"]
+            else pa.paged_attention_reference)
+
+
+def paged_live(case):
+    """Per sequence: (live (query, key) pairs, live pages). A key is live
+    for a query under the causal limit, kv_len and the window; a page is
+    live when it holds a key that some query of the sequence sees."""
+    pairs, pages = 0, 0
+    W = case["window"]
+    for b, (q_off, kv_len) in enumerate(zip(case["q_off"], case["kv_len"])):
+        qpos = q_off + np.arange(case["T"])
+        hi = np.minimum(qpos, kv_len - 1)  # last live key of each query
+        lo = np.maximum(qpos - W + 1, 0) if W else np.zeros_like(qpos)
+        pairs += int(np.maximum(hi - lo + 1, 0).sum())
+        if b in case["idle"]:
+            continue  # every slot of an idle row is the one null page
+        if hi.max() >= lo.min():
+            pages += int(hi.max()) // PAGE - int(lo.min()) // PAGE + 1
+    return pairs, pages + bool(case["idle"])
+
+
+def paged_bound(case):
+    """Least time (ms) for the work these inputs need: 4*D operations per
+    live (query, key) pair and query head; bytes are q and out once, the
+    live K/V pages once and, for an int8 arena, their scale rows."""
+    pairs, pages = paged_live(case)
+    B, T, H, Hkv, D = (case[k] for k in ("B", "T", "H", "Hkv", "D"))
+    flops = 4.0 * D * H * pairs
+    kv_bytes = 2 * pages * Hkv * PAGE * D * (1 if case["quant"] else 2)
+    if case["quant"]:
+        kv_bytes += 2 * pages * PAGE * 4
+    nbytes = 2 * (2 * B * T * H * D) + kv_bytes
+    t_flops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
+    if t_flops >= t_bytes:
+        return t_flops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
 
 
 # ---------------------------------------------------------------- phase 3 ---
@@ -311,14 +514,15 @@ def _first_diverging(a, b):
         for r, s in zip(a, b)]
 
 
-def _logits_agree(name, got, want):
-    """Same top-1 and relative L2 within REL_L2_REUSE, per request."""
+def _logits_agree(name, got, want, tol=REL_L2_REUSE, same_top1=True):
+    """Relative L2 within ``tol`` and (unless ``same_top1`` is off) the
+    same top-1, per request."""
     rel = [((g - w).norm() / w.norm()).item() for g, w in zip(got, want)]
     same_top = [int(g.argmax()) == int(w.argmax()) for g, w in zip(got, want)]
-    ok = all(same_top) and max(rel) <= REL_L2_REUSE
-    log(f"  {name}: first-token logits rel_l2 "
-        f"{[f'{r:.3e}' for r in rel]} same top-1 {same_top} (tolerance "
-        f"{REL_L2_REUSE}) {'ok' if ok else 'FAILED'}")
+    ok = (all(same_top) or not same_top1) and max(rel) <= tol
+    log(f"  {name}: logits rel_l2 {[f'{r:.3e}' for r in rel]} same top-1 "
+        f"{same_top}{'' if same_top1 else ' (reported)'} (tolerance {tol}) "
+        f"{'ok' if ok else 'FAILED'}")
     return ok
 
 
@@ -386,7 +590,7 @@ def phase_serving(cfg, params):
         return reqs, [eng.first_logits[r.request_id] for r in reqs]
 
     eng = serving_engine(engine)
-    w1, _ = wave(eng, "wave 1", repeat)
+    w1, l1 = wave(eng, "wave 1", repeat)
     w2, _ = wave(eng, "wave 2", repeat)
     w3, l3 = wave(eng, "wave 3", fresh)
     w4, l4 = wave(eng, "wave 4", fresh)
@@ -415,14 +619,285 @@ def phase_serving(cfg, params):
         failed.append("wave 4 missed the cache or its logits disagree")
     if failed:
         raise SystemExit("; ".join(failed))
+    return repeat, l1
 
 
-# ---------------------------------------------------------------- phase 6 ---
+# ---------------------------------------------------------- phases 5, 6 ---
+
+TIGHT_PAGES = 101  # wave 4's arena: 100 usable pages for 3 x 34
+
+
+def _tier(name, cfg):
+    return LMCacheEngine(
+        LMCacheEngineConfig(local_device="cuda"),
+        LMCacheEngineMetadata(model_name=name, world_size=1, worker_id=0,
+                              fmt="vllm", dtype=cfg.dtype))
+
+
+def paged_engine(cfg, params, **kw):
+    """A PagedServingEngine (page 64, 512-token prefill segments) that keeps
+    what the checks read: ``prefill_logits[request_id]``, one ``(tokens
+    sampled before, logits)`` per completed prefill (the first token; then
+    one per resume after a preemption), ``injected_pages``, the pages
+    written by ``_inject_pages``, and ``decode_logits``, the logits of every
+    batched decode step once ``keep_decode_logits`` is set."""
+    eng = PagedServingEngine(cfg, params, page_size=PAGE, prefill_chunk=512,
+                             **kw)
+    eng.prefill_logits = {}
+    eng.injected_pages = 0
+    eng.keep_decode_logits = False
+    eng.decode_logits = []
+    finish, inject, forward = (eng._finish_prefill, eng._inject_pages,
+                               eng._forward)
+
+    def finish_and_keep(req, logits):
+        eng.prefill_logits.setdefault(req.request_id, []).append(
+            (len(req.output_tokens), logits.float().clone()))
+        finish(req, logits)
+
+    def inject_and_count(blob, pages):
+        eng.injected_pages += len(pages)
+        inject(blob, pages)
+
+    def forward_and_keep(params, cfg, tokens, *args, **kwargs):
+        logits, pool = forward(params, cfg, tokens, *args, **kwargs)
+        if eng.keep_decode_logits and tokens.shape == (eng.B, 1):
+            eng.decode_logits.append(logits[:, 0].float().clone())
+        return logits, pool
+
+    eng._finish_prefill = finish_and_keep
+    eng._inject_pages = inject_and_count
+    eng._forward = forward_and_keep
+    return eng
+
+
+def paged_wave(eng, name, prompts, max_new):
+    """Serve ``prompts`` greedily. Returns (requests, first-token logits,
+    pages injected from the cache tier)."""
+    injected = eng.injected_pages
+    t0 = time.perf_counter()
+    reqs = eng.generate(prompts, SamplingParams(max_new_tokens=max_new))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if eng.cache_engine is not None:
+        eng.cache_engine.engine_.flush()
+    injected = eng.injected_pages - injected
+    first = min(r.arrival_s + r.ttft_s for r in reqs)
+    last = max(r.finish_s for r in reqs)
+    n_dec = sum(len(r.output_tokens) - 1 for r in reqs)
+    log(f"  {name}: TTFT ms {[round(r.ttft_s * 1e3, 2) for r in reqs]} "
+        f"cached_prefix_len {[r.cached_prefix_len for r in reqs]} injected "
+        f"pages {injected} preemptions {[r.num_preemptions for r in reqs]} "
+        f"decode {n_dec / (last - first):.1f} tok/s, wall {wall:.2f} s")
+    for r in reqs:
+        if len(r.output_tokens) != max_new:
+            raise SystemExit(f"{name}: request {r.request_id} ended with "
+                             f"{len(r.output_tokens)} of {max_new} tokens")
+    first_logits = [eng.prefill_logits[r.request_id][0][1] for r in reqs]
+    return reqs, first_logits, injected
+
+
+def profile_decode_step(eng, prompts, arena):
+    """Bring the prompts to decode, then time and profile one batched
+    decode step (3 of the 4 rows live, the fourth parked on the null
+    page)."""
+    for p in prompts:
+        eng.add_request(Request(p, SamplingParams(max_new_tokens=16)))
+    while eng.waiting or eng.prefilling:
+        eng.step()
+    step_ms = wall_best(eng.step)
+    prof = profile_window(f"paged decode step, {arena} arena, 3 of 4 rows "
+                          f"live (step alone {step_ms:.3f} ms, best of 3)",
+                          eng.step)
+    eng.run()
+    prof["step_ms"] = step_ms
+    return prof
+
+
+def paged_tinyllama_waves(cfg, params, prompts, dense_logits, kv_dtype):
+    """The four waves over one arena dtype. Returns (wave 1's first-token
+    logits, the decode step's profile)."""
+    native = kv_dtype == "native"
+    arena = "bf16" if native else "int8"
+    log(f"  -- {arena} arena")
+    tier = _tier(f"tinyllama-1.1b-paged-{arena}", cfg)
+    kw = dict(max_batch=4, max_seq=PAGED_MAX_SEQ, cache_engine=tier,
+              prefill_token_budget=3 * 512, kv_dtype=kv_dtype)
+    n = len(prompts)
+    hit = (len(prompts[0]) - 1) // PAGE * PAGE  # whole pages, last token out
+    # an int8 arena re-quantizes what comes back from the tier
+    tol = REL_L2_REUSE if native else REL_L2_INT8
+    failed = []
+
+    eng = paged_engine(cfg, params, num_pages=256, **kw)
+    w1, l1, _ = paged_wave(eng, "wave 1 (fresh prompts)", prompts, 32)
+    if native and not _logits_agree("wave 1 vs the dense engine's wave 1",
+                                    l1, dense_logits):
+        failed.append("wave 1 disagrees with the dense engine")
+    w2, _, inj2 = paged_wave(eng, "wave 2 (resident pages)", prompts, 32)
+    d12 = _first_diverging(w1, w2)
+    log(f"  wave 2: first differing token vs wave 1 {d12}")
+    if not (all(r.cached_prefix_len == hit for r in w2) and inj2 == 0
+            and d12 == [None] * n):
+        failed.append("wave 2 was not served from resident pages alone, or "
+                      "changed greedy tokens")
+    profile = profile_decode_step(eng, prompts, arena)
+
+    # a fresh engine on the same tier: nothing resident
+    eng = paged_engine(cfg, params, num_pages=256, **kw)
+    w3, l3, inj3 = paged_wave(eng, "wave 3 (retrieve + inject)", prompts, 32)
+    d13 = _first_diverging(w1, w3)
+    log(f"  wave 3: first differing token vs wave 1 {d13}"
+        f"{'' if native else ' (reported: the arena re-quantizes)'}")
+    if not (all(r.cached_prefix_len == hit for r in w3)
+            and inj3 == n * hit // PAGE
+            and (d13 == [None] * n or not native)
+            and _logits_agree("wave 3 vs wave 1", l3, l1, tol, native)):
+        failed.append("wave 3 missed the tier or disagrees with wave 1")
+
+    # wave 4: the same prompts with 96 new tokens, so that decode crosses a
+    # page boundary; first on a roomy arena, then on one that cannot hold
+    # three requests of 34 pages. Both engines are fresh, so both restore
+    # the prompts from the tier.
+    eng = paged_engine(cfg, params, num_pages=256, **kw)
+    eng.keep_decode_logits = True
+    ref, l_ref, _ = paged_wave(eng, "wave 4 reference (roomy arena)", prompts,
+                               96)
+    tight = paged_engine(cfg, params, num_pages=TIGHT_PAGES, **kw)
+    w4, l4, _ = paged_wave(tight, f"wave 4 (arena of {TIGHT_PAGES - 1} "
+                           f"pages)", prompts, 96)
+    tier.close()
+    d4 = _first_diverging(w4, ref)
+    log(f"  wave 4: first differing token vs the roomy arena {d4} "
+        f"(reported)")
+    if sum(r.num_preemptions for r in w4) == 0:
+        failed.append("wave 4 preempted nothing")
+    if not _logits_agree("wave 4 vs the roomy arena, first token", l4, l_ref,
+                         tol, native):
+        failed.append("wave 4's first-token logits disagree")
+    if len(eng.decode_logits) != 95:
+        failed.append(f"the roomy arena decoded in {len(eng.decode_logits)} "
+                      f"steps, not 95")
+    for r, r_ref in zip(w4, ref):
+        # each resume prefilled over the restored KV and sampled token k:
+        # hold its logits against the decode step that sampled token k on
+        # the roomy arena
+        for k, logits in tight.prefill_logits[r.request_id][1:]:
+            same_past = r.output_tokens[:k] == r_ref.output_tokens[:k]
+            log(f"  wave 4: request {r.request_id} resumed at token {k} "
+                f"with {r.cached_prefix_len} cached tokens; tokens before "
+                f"the resume equal the roomy arena's: {same_past}")
+            if not (same_past and r.cached_prefix_len >= hit
+                    and _logits_agree(
+                        f"wave 4 resume at token {k} vs the roomy arena",
+                        [logits], [eng.decode_logits[k - 1][r_ref.slot]],
+                        tol, native)):
+                failed.append(f"request {r.request_id} did not resume "
+                              f"where it was preempted")
+    if failed:
+        raise SystemExit(f"{arena} arena: " + "; ".join(failed))
+    return l1, profile
+
+
+def phase_paged_tinyllama(cfg, params, prompts, dense_logits):
+    log("== phase 5: PagedServingEngine, tinyllama-1.1B (D 64), four waves "
+        "per arena dtype")
+    launches, profiles, first = {}, [], {}
+    for kv_dtype, arena in (("native", "bf16"), ("int8", "int8")):
+        reset_launch_counts()
+        first[arena], profile = paged_tinyllama_waves(
+            cfg, params, prompts, dense_logits, kv_dtype)
+        launches[f"paged tinyllama {arena}"] = read_launch_counts()
+        profiles.append(profile)
+        torch.cuda.empty_cache()
+    if not _logits_agree("int8 arena vs bf16 arena, wave 1", first["int8"],
+                         first["bf16"], REL_L2_INT8, same_top1=False):
+        raise SystemExit("the int8 arena's logits left the bf16 arena's")
+    return launches, profiles
+
+
+def phase_paged_phi3():
+    log("== phase 6: PagedServingEngine, Phi-3-mini-4k (D 96, window 2047), "
+        "full width and depth")
+    cfg = llama.LlamaConfig.phi3_mini_4k()
+    params = llama.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (3000, 2987)]
+    launches, first = {}, {}
+    for kv_dtype, arena in (("native", "bf16"), ("int8", "int8")):
+        log(f"  -- {arena} arena")
+        reset_launch_counts()
+        eng = paged_engine(cfg, params, max_batch=2, max_seq=cfg.max_seq_len,
+                           num_pages=128, prefill_token_budget=2 * 512,
+                           kv_dtype=kv_dtype)
+        plain = {}
+        segment = eng._prefill_segment
+
+        def segment_and_plain(req, pos, seg):
+            """The engine's segment; for a prompt's last one, the same
+            segment again with the plain attention, on a copy of the arena
+            as the kernel path left it."""
+            logits = segment(req, pos, seg)
+            if pos + len(seg) == len(req.all_tokens):
+                pool = eng.kv_pool
+                pool = ({k: v.clone() for k, v in pool.items()}
+                        if isinstance(pool, dict) else pool.clone())
+                out, _ = eng._forward(
+                    eng.params, cfg,
+                    torch.as_tensor(seg, dtype=torch.long,
+                                    device="cuda")[None],
+                    torch.tensor([pos], dtype=torch.int32, device="cuda"),
+                    pool, eng._tables(eng.page_tables[req.slot:req.slot + 1]),
+                    use_kernel=False, last_logit_only=True)
+                plain[req.request_id] = out[0, -1].float()
+            return logits
+
+        eng._prefill_segment = segment_and_plain
+        reqs, first[arena], _ = paged_wave(eng, "two prompts, 16 new tokens",
+                                           prompts, 16)
+        launches[f"paged phi3 {arena}"] = read_launch_counts()
+        finite = all(bool(torch.isfinite(l).all()) for l in first[arena])
+        if not (finite and _logits_agree(
+                "last prompt token vs forward_paged with the plain attention",
+                first[arena], [plain[r.request_id] for r in reqs])):
+            raise SystemExit(f"phi3 {arena} arena: the kernel path disagrees "
+                             f"with the plain attention")
+        del eng, plain
+        torch.cuda.empty_cache()
+    if not _logits_agree("int8 arena vs bf16 arena", first["int8"],
+                         first["bf16"], REL_L2_INT8, same_top1=False):
+        raise SystemExit("phi3: the int8 arena's logits left the bf16 "
+                         "arena's")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 8 ---
+
+def cuda_ms_cold(fn, iters):
+    """Mean device time of ``fn`` in ms with the L2 cache flushed before
+    every call (a 128 MiB buffer is overwritten; the flush is outside the
+    timed events): what a caller pays who finds the arena cold, as a decode
+    step does that reads another layer's pages in each launch."""
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    fn()
+    for start, end in events:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / iters
+
 
 def phase_yardstick():
-    log("== phase 6: kernel time vs bound, plain version and SDPA")
+    """{kernel: rows}, one row per shape."""
+    log("== phase 8: kernel time vs bound, plain version and library calls")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    rows = []
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {name: [] for name in KERNELS}
     for case in attention_cases():
         name, B, T, H, Hkv, D, S, q_off, kv_len = case
         q, k, v, qo, kl = make_attention_inputs(case, gen)
@@ -435,7 +910,6 @@ def phase_yardstick():
         # one library call for the same function: SDPA, causal where the
         # mask is plain causal, else with the same mask
         qh = q.transpose(1, 2).contiguous()
-        sdpa = torch.nn.functional.scaled_dot_product_attention
         if T == S and max(q_off) == 0 and min(kv_len) == S:
             mask_kw = {"is_causal": True}
         else:
@@ -451,12 +925,71 @@ def phase_yardstick():
         row = {"shape": name, "ms": ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": bound_ms,
                "bound_by": bound_by}
-        log(f"  {name}: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}), plain {plain_ms:.4f} ms, SDPA "
+        log(f"  flash_attention | {name}: kernel {ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, SDPA "
             f"{library_ms:.4f} ms")
-        rows.append(row)
+        rows["flash_attention"].append(row)
         del q, k, v, qh, mask_kw
+
+    for case in paged_cases():
+        args, kw = make_paged_inputs(case, gen)
+        entry = KERNELS[case["kernel"]][0]
+        plain = paged_plain(case)
+        iters = 200 if case["T"] == 1 else 20
+        ms = cuda_ms(lambda: entry(*args, **kw), iters=iters)
+        cold_ms = cuda_ms_cold(lambda: entry(*args, **kw), iters=50)
+        plain_ms = cuda_ms(lambda: plain(*args, **kw), iters=3, warmup=1)
+        gather_ms, sdpa_ms = paged_library(case, args, iters)
+        bound_ms, bound_by = paged_bound(case)
+        row = {"shape": case["name"], "ms": ms, "cold_ms": cold_ms,
+               "plain_ms": plain_ms, "library_ms": gather_ms + sdpa_ms,
+               "library_gather_ms": gather_ms, "library_sdpa_ms": sdpa_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        log(f"  {case['kernel']} | {case['name']}: kernel {ms:.4f} ms (L2 "
+            f"flushed before each launch: {cold_ms:.4f} ms), bound "
+            f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
+            f"gather {gather_ms:.4f} ms + SDPA {sdpa_ms:.4f} ms")
+        rows[case["kernel"]].append(row)
+        del args
     return rows
+
+
+def paged_library(case, args, iters):
+    """No single PyTorch call reads a paged arena: the library yardstick is
+    the gather of the live pages into dense bf16 K/V [B, H_kv, S, D]
+    (dequantized for an int8 arena), then SDPA over it with the same mask.
+    Returns (gather ms, SDPA ms)."""
+    if case["quant"]:
+        q, k_pool, v_pool, k_scale, v_scale, table, qo, kl = args
+    else:
+        q, k_pool, v_pool, table, qo, kl = args
+        k_scale = v_scale = None
+    B, T, Hkv, D = case["B"], case["T"], case["Hkv"], case["D"]
+    n_live = -(-max(case["kv_len"]) // PAGE)
+    ids = table[:, :n_live].long()
+    S = n_live * PAGE
+
+    def dense(pool, scale):
+        x = pool[ids]  # [B, n, H_kv, page, D]
+        if scale is not None:
+            x = (x.float() * scale[ids][:, :, None, :, None]).bfloat16()
+        return x.permute(0, 2, 1, 3, 4).reshape(B, Hkv, S, D)
+
+    def gather():
+        return dense(k_pool, k_scale), dense(v_pool, v_scale)
+
+    k, v = gather()
+    qh = q.transpose(1, 2).contiguous()
+    kpos = torch.arange(S, device="cuda")[None, None]
+    qpos = (qo[:, None] + torch.arange(T, device="cuda")[None])[:, :, None]
+    mask = (kpos <= qpos) & (kpos < kl[:, None, None])
+    if case["window"]:
+        mask &= kpos > qpos - case["window"]
+    mask = mask[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return (cuda_ms(gather, iters=iters),
+            cuda_ms(lambda: sdpa(qh, k, v, attn_mask=mask, enable_gqa=True),
+                    iters=iters))
 
 
 def main():
@@ -485,40 +1018,60 @@ def main():
     params = llama.init_params(
         cfg, generator=torch.Generator(device="cuda").manual_seed(0))
 
+    # every path is driven with the counts at 0 and read just after
     launches = {}
-    ops.flash_attention.launches.clear()
+    reset_launch_counts()
     ttft = phase_main_path(cfg, params)
-    launches["main_path"] = dict(ops.flash_attention.launches)
-    ops.flash_attention.launches.clear()
-    phase_serving(cfg, params)
-    launches["serving"] = dict(ops.flash_attention.launches)
-
-    log("== phase 5: launch counts")
-    log(f"  flash_attention launches {launches}")
-    for phase, by_kind in launches.items():
-        for kind in ("prefill", "decode") if phase == "serving" else (
-                "prefill",):
-            if by_kind.get(kind, 0) <= 0:
-                raise SystemExit(f"flash_attention: no {kind} launch in "
-                                 f"{phase}")
-    del params
+    launches["main_path"] = read_launch_counts()
+    reset_launch_counts()
+    prompts, dense_logits = phase_serving(cfg, params)
+    launches["serving"] = read_launch_counts()
+    paged_launches, decode_profiles = phase_paged_tinyllama(
+        cfg, params, prompts, dense_logits)
+    launches.update(paged_launches)
+    del params, dense_logits
     torch.cuda.empty_cache()
+    launches.update(phase_paged_phi3())
+    reset_launch_counts()
+
+    log("== phase 7: launch counts")
+    for phase, counts in launches.items():
+        log(f"  {phase}: {counts}")
+    expected = {
+        "main_path": ("flash_attention", ("prefill",)),
+        "serving": ("flash_attention", ("prefill", "decode")),
+        "paged tinyllama bf16": ("paged_attention_dma",
+                                 ("prefill", "decode")),
+        "paged tinyllama int8": ("quantized_paged_attention_dma",
+                                 ("prefill", "decode")),
+        "paged phi3 bf16": ("paged_attention", ("prefill", "decode")),
+        "paged phi3 int8": ("quantized_paged_attention",
+                            ("prefill", "decode")),
+    }
+    for phase, (kernel, kinds) in expected.items():
+        for kind in kinds:
+            if launches[phase].get(kernel, {}).get(kind, 0) <= 0:
+                raise SystemExit(f"{kernel}: no {kind} launch in {phase}")
 
     rows = phase_yardstick()
-    head = rows[0]  # the bench shape: suffix prefill over the cached prefix
-    record = {"kernels": [{
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "lmcache_tpu_torch/ops/csrc/flash_attention.cu",
-        "replaces": "lmcache_tpu/ops/attention.py:110",
-        "launches": sum(sum(v.values()) for v in launches.values()),
-        "launches_by_phase": launches,
-        "max_abs_err": max_abs,
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-        "shapes": rows,
-    }], "ttft": ttft, "card": card}
+    kernels = []
+    for name, (_, source, replaces) in KERNELS.items():
+        by_phase = {phase: counts[name] for phase, counts in launches.items()
+                    if name in counts}
+        head = rows[name][0]  # the first shape its path gives it
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": sum(sum(c.values()) for c in by_phase.values()),
+            "launches_by_phase": by_phase,
+            "max_abs_err": max_abs[name],
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "shapes": rows[name],
+        })
+    record = {"kernels": kernels, "ttft": ttft,
+              "paged_decode_profiles": decode_profiles, "card": card}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

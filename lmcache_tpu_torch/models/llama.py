@@ -446,10 +446,10 @@ def torch_dtype(cfg: LlamaConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-# traits of LlamaConfig that forward() does not run yet, each with the value
-# that switches it off
+# traits of LlamaConfig that neither forward() nor forward_paged*() runs
+# yet, each with the value that switches it off
 _UNPORTED = {
-    "n_experts": None, "sliding_window": None, "attn_logit_softcap": None,
+    "n_experts": None, "attn_logit_softcap": None,
     "attn_sinks": False, "qk_norm": False, "qk_norm_flat": False,
     "rope_local_theta": None, "nope_on_global_layers": False,
     "qk_l2_norm": False, "attn_temperature_tuning": False,
@@ -457,21 +457,45 @@ _UNPORTED = {
 }
 
 
-def check_supported(cfg: LlamaConfig) -> None:
-    """Raise ``NotImplementedError`` for a config trait not ported yet."""
+def check_supported(cfg: LlamaConfig, paged: bool = False) -> None:
+    """Raise ``NotImplementedError`` for a config trait not ported yet.
+
+    The dense :func:`forward` (``paged=False``) refuses every sliding
+    window: its attention kernel has no window yet. The paged forwards
+    (``paged=True``) run a uniform ``"sliding"`` window (Mistral, Phi-3) and
+    refuse ``"chunked"`` windows and per-layer local/global patterns."""
     for name, off in _UNPORTED.items():
         if getattr(cfg, name) != off:
             raise NotImplementedError(
                 f"LlamaConfig.{name}={getattr(cfg, name)!r} is not ported "
                 f"yet (ROADMAP, module item 6)")
+    if cfg.sliding_window is None:
+        return
+    if not paged:
+        raise NotImplementedError(
+            f"LlamaConfig.sliding_window={cfg.sliding_window!r} is not "
+            f"ported yet for the dense forward (ROADMAP, module items 5 and "
+            f"6); the paged forwards run a uniform sliding window")
+    if cfg.local_attention_kind != "sliding":
+        raise NotImplementedError(
+            f"LlamaConfig.local_attention_kind="
+            f"{cfg.local_attention_kind!r} is not ported yet (ROADMAP, "
+            f"module item 5)")
+    if (cfg.sliding_window_pattern is not None
+            or cfg.global_layer_map is not None):
+        raise NotImplementedError(
+            "per-layer local/global attention (sliding_window_pattern, "
+            "global_layer_map) is not ported yet (ROADMAP, module item 6)")
 
 
 def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
                 device="cuda") -> Params:
     """Random weights in the JAX tree's layout (``init_params`` of the JAX
     file): normal / sqrt(fan_in), norms at 1. Draws come from ``generator``
-    (which must live on ``device``), default a fresh one seeded 0."""
-    check_supported(cfg)
+    (which must live on ``device``), default a fresh one seeded 0. The tree
+    serves the dense and the paged forwards alike, so a config that only the
+    paged path runs (a sliding window) is accepted here."""
+    check_supported(cfg, paged=True)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -526,7 +550,7 @@ def params_from_jax(tree_of_numpy: Params, cfg: LlamaConfig,
     ``embed``, ``layers.{wq, wk, wv, wo, attn_norm, mlp_norm, w_gate, w_up,
     w_down, ...}``, ``final_norm``, ``lm_head``), given as numpy arrays,
     onto the port's parameters unchanged, in ``cfg.dtype`` on ``device``."""
-    check_supported(cfg)
+    check_supported(cfg, paged=True)
     dev = resolve_device(device)
     dt = torch_dtype(cfg)
 
@@ -536,6 +560,27 @@ def params_from_jax(tree_of_numpy: Params, cfg: LlamaConfig,
         return _tensor_from_numpy(x, dt, dev)
 
     return conv(tree_of_numpy)
+
+
+def paged_pool_from_jax(pool_or_dict, device="cuda"):
+    """Carry a JAX page arena (``lmcache_tpu.models.paged``), given as numpy
+    arrays, onto ``device`` unchanged: a bf16/fp32 arena
+    ``[L, 2, P, H_kv, page, D]`` keeps its dtype, an int8 arena
+    ``{"sym" int8 [L, 2, P, H_kv, page, D], "scale" f32 [L, 2, P, page]}``
+    stays a dict. The result is the port's arena
+    (``lmcache_tpu_torch.models.paged``), so both packages can run one step
+    on the same pages."""
+    dev = resolve_device(device)
+    if isinstance(pool_or_dict, dict):
+        return {
+            "sym": _tensor_from_numpy(pool_or_dict["sym"], torch.int8, dev),
+            "scale": _tensor_from_numpy(pool_or_dict["scale"], torch.float32,
+                                        dev),
+        }
+    a = np.asarray(pool_or_dict)
+    dt = torch.bfloat16 if a.dtype.name == "bfloat16" else getattr(
+        torch, a.dtype.name)
+    return _tensor_from_numpy(a, dt, dev)
 
 
 def new_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
@@ -693,9 +738,9 @@ def _lm_logits(x, params, cfg):
     return logits
 
 
-def _layer(x, lp, cfg, kc, vc, positions, start_pos, kv_len):
-    """One decoder layer; writes this step's K/V into ``kc``/``vc``
-    ([B, H_kv, S, D] views of the pool) in place."""
+def _qkv_heads(x, lp, cfg, positions):
+    """Attention-input norm, q/k/v projections and RoPE of one layer.
+    Returns q [B, T, H, D], k and v [B, T, H_kv, D]."""
     B, T = x.shape[:2]
     hd = cfg.head_dim
     h = _rms_norm(x, lp["attn_norm"], cfg.norm_eps, cfg.norm_one_offset)
@@ -709,14 +754,13 @@ def _layer(x, lp, cfg, kc, vc, positions, start_pos, kv_len):
               cfg.rope_interleaved, cfg.rope_scaling_spec)
     k = _rope(k, positions, cfg.rope_theta, cfg.rotary_dim,
               cfg.rope_interleaved, cfg.rope_scaling_spec)
+    return q, k, v
 
-    # scatter [B, T, H, D] into the head-major pool at each row's offset
-    rows = torch.arange(B, device=x.device)[:, None]
-    kc[rows, :, positions] = k.to(kc.dtype)
-    vc[rows, :, positions] = v.to(vc.dtype)
 
-    attn = flash_attention(q, kc, vc, start_pos, kv_len, kv_head_major=True,
-                           sm_scale=cfg.sm_scale)
+def _attn_mlp_residual(x, attn, lp, cfg):
+    """The rest of a layer after attention: output projection and residual,
+    then the gated MLP and its residual. ``attn``: [B, T, H, D]."""
+    B, T = x.shape[:2]
     y = attn.reshape(B, T, -1).to(x.dtype) @ lp["wo"]
     if cfg.attention_out_bias:
         y = y + lp["bo"]
@@ -726,6 +770,22 @@ def _layer(x, lp, cfg, kc, vc, positions, start_pos, kv_len):
     gate = _act((h @ lp["w_gate"]).float(), cfg.mlp_act)
     up = (h @ lp["w_up"]).float()
     return x + (gate * up).to(x.dtype) @ lp["w_down"]
+
+
+def _layer(x, lp, cfg, kc, vc, positions, start_pos, kv_len):
+    """One decoder layer; writes this step's K/V into ``kc``/``vc``
+    ([B, H_kv, S, D] views of the pool) in place."""
+    B = x.shape[0]
+    q, k, v = _qkv_heads(x, lp, cfg, positions)
+
+    # scatter [B, T, H, D] into the head-major pool at each row's offset
+    rows = torch.arange(B, device=x.device)[:, None]
+    kc[rows, :, positions] = k.to(kc.dtype)
+    vc[rows, :, positions] = v.to(vc.dtype)
+
+    attn = flash_attention(q, kc, vc, start_pos, kv_len, kv_head_major=True,
+                           sm_scale=cfg.sm_scale)
+    return _attn_mlp_residual(x, attn, lp, cfg)
 
 
 @torch.no_grad()

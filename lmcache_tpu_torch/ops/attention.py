@@ -29,10 +29,17 @@ from lmcache_tpu_torch.ops import _build
 _NEG_INF = -1e30
 
 
-def mha_reference(q, k, v, q_offset, kv_len, sm_scale=None) -> torch.Tensor:
+def mha_reference(q, k, v, q_offset, kv_len, sm_scale=None,
+                  sliding_window: Optional[int] = None,
+                  zero_dead_rows: bool = False) -> torch.Tensor:
     """Plain PyTorch attention (token-major ``k/v [B, S, H_kv, D]``): the
-    kernel's plain version, computed in fp32 with a materialized score
-    matrix, and the CPU path of :func:`flash_attention`."""
+    kernels' plain version, computed in fp32 with a materialized score
+    matrix, and the CPU path of :func:`flash_attention`.
+
+    ``sliding_window``: keys older than that many positions behind the query
+    are masked too (``kpos > qpos - sliding_window``). A query that sees no
+    key averages V uniformly, as the JAX ``mha_reference`` does; with
+    ``zero_dead_rows`` it gives 0, as the kernels do."""
     B, T, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -48,10 +55,14 @@ def mha_reference(q, k, v, q_offset, kv_len, sm_scale=None) -> torch.Tensor:
     kpos = torch.arange(S, device=q.device)[None, None, :]  # [1, 1, S]
     qpos = (q_offset.to(q.device)[:, None] + ar_t[None, :])[:, :, None]
     mask = (kpos <= qpos) & (kpos < kv_len.to(q.device)[:, None, None])
+    if sliding_window is not None:
+        mask &= kpos > qpos - sliding_window
     scores = torch.where(mask[:, None, None], scores,
                          torch.tensor(_NEG_INF, device=q.device))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgts,bhsd->bhgtd", probs, vh)
+    if zero_dead_rows:
+        out = out * mask.any(dim=-1)[:, None, None, :, None]
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, D).to(q.dtype)
 
 

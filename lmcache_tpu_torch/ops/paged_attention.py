@@ -1,0 +1,331 @@
+"""Paged attention: decode/prefill over a page-table-indexed KV arena.
+
+The port of ``lmcache_tpu/ops/paged_attention.py``. Four entry points with
+the JAX signatures, each with a hand-written Hopper kernel of its own:
+
+- :func:`paged_attention` / :func:`quantized_paged_attention`: the general
+  kernel, one page per step, any head dim that is a multiple of 16
+  (``csrc/paged_attention.cu``);
+- :func:`paged_attention_dma` / :func:`quantized_paged_attention_dma`: the
+  decode-oriented kernel, which streams the live pages in tiles of up to 512
+  tokens with the next tile's loads in flight (head dims 64, 128, 256;
+  ``csrc/paged_stream_attention.cu``). The names are the JAX package's; on
+  the GPU the "dma" is ``cp.async``.
+
+Layouts: ``q [B, T, H, D]``; pools ``[P, H_kv, page, D]`` (head-major pages;
+any strides with unit stride along D, so a layer's slice of the arena is read
+in place); int8 arenas carry fp32 scale pools ``[P, page]``, one scale per
+(page, token) shared by all heads; ``page_table int32 [B, NP]``;
+``q_offset``/``kv_len int32 [B]``. Query ``t`` of sequence ``b`` sees key
+positions ``kpos <= min(q_offset[b] + t, kv_len[b] - 1)`` and, with
+``sliding_window=W``, ``kpos > q_offset[b] + t - W``. Page-table entries past
+a sequence's live pages may be any id: they are masked, not read.
+
+A query that sees no key (``kv_len == 0``, or a window with no live key)
+gives 0, on the card and on the CPU alike; the JAX ``*_reference`` functions
+average V uniformly there and the Pallas kernels give 0.
+``forward_paged`` never passes such a row.
+
+CUDA tensors go to the kernels, which raise on what they do not take; CPU
+tensors go to the plain versions (:func:`paged_attention_reference`,
+:func:`quantized_paged_attention_reference`). Each entry point counts its
+kernel launches in ``.launches`` ("prefill" for T > 1, "decode" for T == 1).
+"""
+
+import ctypes
+from collections import Counter
+from typing import Optional
+
+import torch
+
+from lmcache_tpu_torch.ops import _build
+from lmcache_tpu_torch.ops.attention import mha_reference
+
+SUPER_TOKENS = 512  # target tokens per key tile of the streaming kernel
+_SP_MAX = 8
+_SMEM_LIMIT = 232448  # bytes a block may use on sm_90 (227 KB)
+_GRID_HEAD_DIMS = (64, 96, 128, 256)
+_STREAM_HEAD_DIMS = (64, 128, 256)
+_NOT_PORTED = "is not ported yet (ROADMAP, module item 5)"
+
+
+def _super_pages(page: int) -> int:
+    """Page slots per key tile for a given page size."""
+    return max(1, min(SUPER_TOKENS // page, _SP_MAX))
+
+
+def _check_options(sliding_window, logit_softcap, window_kind, sinks):
+    if logit_softcap is not None:
+        raise NotImplementedError(f"logit_softcap {_NOT_PORTED}")
+    if sinks is not None:
+        raise NotImplementedError(f"attention sinks {_NOT_PORTED}")
+    if sliding_window is not None and window_kind != "sliding":
+        raise NotImplementedError(
+            f"window_kind={window_kind!r} {_NOT_PORTED}")
+    if sliding_window is not None and sliding_window <= 0:
+        raise ValueError(f"sliding_window must be positive: {sliding_window}")
+
+
+def _gather_pages(pool, page_table):
+    """[P, H_kv, page, D] pool -> token-major [B, NP*page, H_kv, D]."""
+    B, NP = page_table.shape
+    _, Hkv, page, D = pool.shape
+    return pool[page_table.long()].permute(0, 1, 3, 2, 4).reshape(
+        B, NP * page, Hkv, D)
+
+
+def paged_attention_reference(q, k_pool, v_pool, page_table, q_offset,
+                              kv_len, sliding_window=None, sm_scale=None,
+                              logit_softcap=None, window_kind="sliding",
+                              sinks=None) -> torch.Tensor:
+    """Gather the pages densely, then dense attention: the plain version of
+    :func:`paged_attention` and :func:`paged_attention_dma`."""
+    _check_options(sliding_window, logit_softcap, window_kind, sinks)
+    return mha_reference(q, _gather_pages(k_pool, page_table),
+                         _gather_pages(v_pool, page_table), q_offset, kv_len,
+                         sm_scale=sm_scale, sliding_window=sliding_window,
+                         zero_dead_rows=True)
+
+
+def quantized_paged_attention_reference(q, k_sym_pool, v_sym_pool,
+                                        k_scale_pool, v_scale_pool,
+                                        page_table, q_offset, kv_len,
+                                        sliding_window=None, sm_scale=None,
+                                        logit_softcap=None,
+                                        window_kind="sliding",
+                                        sinks=None) -> torch.Tensor:
+    """Dequantize the pages densely, then dense attention: the plain version
+    of the two int8 entry points."""
+    _check_options(sliding_window, logit_softcap, window_kind, sinks)
+    B, NP = page_table.shape
+    page = k_sym_pool.shape[2]
+
+    def deq(sym_pool, scale_pool):
+        x = _gather_pages(sym_pool, page_table).float()
+        s = scale_pool[page_table.long()].reshape(B, NP * page)
+        return x * s[:, :, None, None]
+
+    return mha_reference(q, deq(k_sym_pool, k_scale_pool),
+                         deq(v_sym_pool, v_scale_pool), q_offset, kv_len,
+                         sm_scale=sm_scale, sliding_window=sliding_window,
+                         zero_dead_rows=True)
+
+
+# ------------------------------------------------------------ the kernels ---
+
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
+             + [ctypes.c_longlong] * 14 + [ctypes.c_float, ctypes.c_void_p])
+_fns = {}
+
+
+def _kernel(lib_name: str, fn_name: str):
+    """The C entry point ``fn_name`` of library ``lib_name``, built at first
+    use, with its argument types set."""
+    fn = _fns.get(fn_name)
+    if fn is None:
+        lib = _build.load(lib_name)
+        fn = getattr(lib, fn_name)
+        if fn_name.endswith("smem_bytes"):
+            fn.argtypes = [ctypes.c_int] * (3 if "stream" in fn_name else 2)
+        else:
+            fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        _fns[fn_name] = fn
+    return fn
+
+
+def _check_cuda_args(q, k_pool, v_pool, k_scale, v_scale, page_table,
+                     q_offset, kv_len, head_dims):
+    """Raise on what the kernels cannot take: devices, dtypes, shapes,
+    strides and alignment (16-byte loads along D)."""
+    dev = q.device
+    quant = k_scale is not None
+    named = [("k_pool", k_pool), ("v_pool", v_pool),
+             ("page_table", page_table), ("q_offset", q_offset),
+             ("kv_len", kv_len)]
+    if quant:
+        named += [("k_scale_pool", k_scale), ("v_scale_pool", v_scale)]
+    for name, t in named:
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+    if q.dim() != 4 or k_pool.dim() != 4:
+        raise ValueError(f"q {tuple(q.shape)} must be [B, T, H, D] and the "
+                         f"pools {tuple(k_pool.shape)} [P, H_kv, page, D]")
+    B, _, H, D = q.shape
+    P, Hkv, page, Dk = k_pool.shape
+    if k_pool.shape != v_pool.shape:
+        raise ValueError(f"k_pool {tuple(k_pool.shape)} and v_pool "
+                         f"{tuple(v_pool.shape)} differ")
+    if Dk != D or Hkv <= 0 or H % Hkv:
+        raise ValueError(f"q {tuple(q.shape)} does not fit the pools "
+                         f"{tuple(k_pool.shape)}: H must be a multiple of "
+                         f"H_kv and the head dims equal")
+    if D not in head_dims:
+        raise ValueError(f"head dim {D} not supported by this kernel "
+                         f"(one of {head_dims})")
+    if page % 16:
+        raise ValueError(f"page size {page} must be a multiple of 16")
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"the CUDA kernel takes bfloat16 queries; q is "
+                         f"{q.dtype}")
+    pool_dtype = torch.int8 if quant else torch.bfloat16
+    vec = 16 if quant else 8  # elements per 16-byte load
+    for name, t, dt, n in (("q", q, torch.bfloat16, 8),
+                           ("k_pool", k_pool, pool_dtype, vec),
+                           ("v_pool", v_pool, pool_dtype, vec)):
+        if t.dtype != dt:
+            raise ValueError(f"the CUDA kernel takes {dt} here; {name} is "
+                             f"{t.dtype}")
+        if t.stride(-1) != 1 or any(s % n for s in t.stride()[:-1]):
+            raise ValueError(f"{name} needs unit stride along D and the "
+                             f"other strides a multiple of {n}: {t.stride()}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+    if quant:
+        for name, t in (("k_scale_pool", k_scale), ("v_scale_pool", v_scale)):
+            if (t.dtype != torch.float32 or t.shape != (P, page)
+                    or t.stride(1) != 1):
+                raise ValueError(f"{name} must be float32 [{P}, {page}] with "
+                                 f"unit stride along the page: "
+                                 f"{t.dtype} {tuple(t.shape)} {t.stride()}")
+    if (page_table.dtype != torch.int32 or page_table.dim() != 2
+            or page_table.shape[0] != B or not page_table.is_contiguous()):
+        raise ValueError(f"page_table must be contiguous int32 [{B}, NP]")
+    for name, t in (("q_offset", q_offset), ("kv_len", kv_len)):
+        if t.dtype != torch.int32 or t.shape != (B,) or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous int32 [{B}]")
+
+
+def _launch(entry, stream_kernel, q, k_pool, v_pool, k_scale, v_scale,
+            page_table, q_offset, kv_len, sliding_window, sm_scale):
+    quant = k_scale is not None
+    _check_cuda_args(q, k_pool, v_pool, k_scale, v_scale, page_table,
+                     q_offset, kv_len,
+                     _STREAM_HEAD_DIMS if stream_kernel else _GRID_HEAD_DIMS)
+    B, T, H, D = q.shape
+    P, Hkv, page, _ = k_pool.shape
+    NP = page_table.shape[1]
+    lib = "paged_stream_attention" if stream_kernel else "paged_attention"
+    sp = 1
+    if stream_kernel:
+        # the largest tile of page slots whose K, V, score and probability
+        # buffers fit the block's shared memory
+        smem = _kernel(lib, f"lmc_{lib}_smem_bytes")
+        sp = _super_pages(page)
+        while sp > 1 and smem(D, page, sp) > _SMEM_LIMIT:
+            sp //= 2
+        need = smem(D, page, sp)
+    else:
+        need = _kernel(lib, f"lmc_{lib}_smem_bytes")(D, page)
+    if need > _SMEM_LIMIT:
+        raise ValueError(f"page size {page} with head dim {D} needs {need} "
+                         f"bytes of shared memory, above {_SMEM_LIMIT}")
+    out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+    scale = sm_scale if sm_scale is not None else 1.0 / (D**0.5)
+    fn = _kernel(lib, f"lmc_{lib}_{'int8' if quant else 'bf16'}")
+    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             out.data_ptr(),
+             k_scale.data_ptr() if quant else None,
+             v_scale.data_ptr() if quant else None,
+             page_table.data_ptr(), q_offset.data_ptr(), kv_len.data_ptr(),
+             B, T, H, Hkv, D, NP, P, page, sliding_window or 0, sp,
+             q.stride(0), q.stride(1), q.stride(2),
+             k_pool.stride(0), k_pool.stride(1), k_pool.stride(2),
+             v_pool.stride(0), v_pool.stride(1), v_pool.stride(2),
+             out.stride(0), out.stride(1), out.stride(2),
+             k_scale.stride(0) if quant else 0,
+             v_scale.stride(0) if quant else 0,
+             scale, torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{entry.__name__} kernel launch failed: "
+                           f"cudaError {err}")
+    entry.launches["decode" if T == 1 else "prefill"] += 1
+    return out
+
+
+def _dispatch(entry, stream_kernel, q, k_pool, v_pool, k_scale, v_scale,
+              page_table, q_offset, kv_len, sliding_window, sm_scale,
+              logit_softcap, window_kind, sinks):
+    _check_options(sliding_window, logit_softcap, window_kind, sinks)
+    if q.device.type == "cpu":
+        if k_scale is None:
+            return paged_attention_reference(
+                q, k_pool, v_pool, page_table, q_offset, kv_len,
+                sliding_window=sliding_window, sm_scale=sm_scale)
+        return quantized_paged_attention_reference(
+            q, k_pool, v_pool, k_scale, v_scale, page_table, q_offset,
+            kv_len, sliding_window=sliding_window, sm_scale=sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    return _launch(entry, stream_kernel, q, k_pool, v_pool, k_scale, v_scale,
+                   page_table, q_offset, kv_len, sliding_window, sm_scale)
+
+
+def paged_attention(q, k_pool, v_pool, page_table, q_offset, kv_len, *,
+                    sliding_window: Optional[int] = None,
+                    sm_scale: Optional[float] = None,
+                    logit_softcap: Optional[float] = None,
+                    window_kind: str = "sliding",
+                    sinks=None) -> torch.Tensor:
+    """Attention over paged KV, one page per step; see the module docstring.
+
+    On CUDA tensors: ``paged_fwd<D, bf16>`` (bf16 q and pools, D of 64, 96,
+    128 or 256, page a multiple of 16); on CPU tensors
+    :func:`paged_attention_reference`. A row with no live key gives 0.
+    """
+    return _dispatch(paged_attention, False, q, k_pool, v_pool, None, None,
+                     page_table, q_offset, kv_len, sliding_window, sm_scale,
+                     logit_softcap, window_kind, sinks)
+
+
+def quantized_paged_attention(q, k_sym_pool, v_sym_pool, k_scale_pool,
+                              v_scale_pool, page_table, q_offset, kv_len, *,
+                              sliding_window: Optional[int] = None,
+                              sm_scale: Optional[float] = None,
+                              logit_softcap: Optional[float] = None,
+                              window_kind: str = "sliding",
+                              sinks=None) -> torch.Tensor:
+    """:func:`paged_attention` over an int8 page arena: pages are read at
+    half the bytes and dequantized in registers, the per-token scales applied
+    to the score and probability columns. On CUDA tensors:
+    ``paged_fwd<D, int8>``."""
+    return _dispatch(quantized_paged_attention, False, q, k_sym_pool,
+                     v_sym_pool, k_scale_pool, v_scale_pool, page_table,
+                     q_offset, kv_len, sliding_window, sm_scale,
+                     logit_softcap, window_kind, sinks)
+
+
+def paged_attention_dma(q, k_pool, v_pool, page_table, q_offset, kv_len, *,
+                        sliding_window: Optional[int] = None,
+                        sm_scale: Optional[float] = None,
+                        logit_softcap: Optional[float] = None,
+                        window_kind: str = "sliding",
+                        sinks=None) -> torch.Tensor:
+    """:func:`paged_attention` with the live pages streamed in tiles of
+    several page slots; same contract, preferred for decode. On CUDA
+    tensors: ``paged_stream_fwd<D, bf16>`` (D of 64, 128 or 256)."""
+    return _dispatch(paged_attention_dma, True, q, k_pool, v_pool, None,
+                     None, page_table, q_offset, kv_len, sliding_window,
+                     sm_scale, logit_softcap, window_kind, sinks)
+
+
+def quantized_paged_attention_dma(q, k_sym_pool, v_sym_pool, k_scale_pool,
+                                  v_scale_pool, page_table, q_offset,
+                                  kv_len, *,
+                                  sliding_window: Optional[int] = None,
+                                  sm_scale: Optional[float] = None,
+                                  logit_softcap: Optional[float] = None,
+                                  window_kind: str = "sliding",
+                                  sinks=None) -> torch.Tensor:
+    """:func:`quantized_paged_attention` with streamed tiles. On CUDA
+    tensors: ``paged_stream_fwd<D, int8>``."""
+    return _dispatch(quantized_paged_attention_dma, True, q, k_sym_pool,
+                     v_sym_pool, k_scale_pool, v_scale_pool, page_table,
+                     q_offset, kv_len, sliding_window, sm_scale,
+                     logit_softcap, window_kind, sinks)
+
+
+for _entry in (paged_attention, quantized_paged_attention,
+               paged_attention_dma, quantized_paged_attention_dma):
+    _entry.launches = Counter()
+del _entry

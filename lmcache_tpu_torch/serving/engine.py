@@ -106,6 +106,9 @@ def _sample_tokens(logits, temps, generators, topks, topps, *,
 
 class ServingEngine:
 
+    # whether this engine has an int8 KV residence (the paged engine does)
+    _int8_ported = False
+
     def __init__(
         self,
         cfg: llama.LlamaConfig,
@@ -127,15 +130,16 @@ class ServingEngine:
         spec_lookahead: int = 0,
         mesh=None,
     ):
-        for name, unported in (("kv_dtype='int8'", kv_dtype == "int8"),
+        for name, unported in (("kv_dtype='int8'", kv_dtype == "int8"
+                                and not self._int8_ported),
                                ("decode_block > 1", decode_block > 1),
                                ("spec_lookahead", bool(spec_lookahead)),
                                ("mesh", mesh is not None)):
             if unported:
                 raise ValueError(f"{name} is {_NOT_PORTED}")
-        if kv_dtype != "native":
+        if kv_dtype not in ("native", "int8"):
             raise ValueError(f"Invalid kv_dtype: {kv_dtype}")
-        llama.check_supported(cfg)
+        self._check_config(cfg)
         self.cfg = cfg
         self.params = params
         self.device = resolve_device(device)
@@ -147,10 +151,11 @@ class ServingEngine:
         # publish the prompt KV to the cache tiers the moment prefill
         # completes (TTFT time) instead of at request completion
         self.eager_store = eager_store
-        # S + 1 positions: idle / still-prefilling rows park their decode
-        # write at position S (the batched decode step writes every row)
-        self.kv_pool = llama.new_kv_cache(cfg, self.B, self.S + 1,
-                                          device=self.device)
+        self.kv_dtype = kv_dtype
+        # pool slack past S: parked idle-row writes land here (the batched
+        # decode step writes every row)
+        self._write_horizon = max(decode_block, spec_lookahead + 1)
+        self.kv_pool = self._alloc_pool()
         self.free_slots = list(range(self.B))
         self.waiting: List[Request] = []
         self.prefilling: List[Request] = []
@@ -169,6 +174,20 @@ class ServingEngine:
         self.admission_window = admission_window
         self.max_admission_bypass = max_admission_bypass
         self._head_bypasses = 0
+
+    def _check_config(self, cfg: llama.LlamaConfig) -> None:
+        """Refuse a config this engine's forward does not run."""
+        llama.check_supported(cfg)
+
+    def _alloc_pool(self):
+        """Allocate the engine's KV residence (dense slot pool), with
+        ``S + _write_horizon`` positions per slot: idle / still-prefilling
+        rows park their decode write at position S. Overridden by
+        PagedServingEngine to build the page arena instead, which keeps the
+        full ``[L, 2, B, H_kv, S_max, D]`` pool out of paged startup."""
+        return llama.new_kv_cache(self.cfg, self.B,
+                                  self.S + self._write_horizon,
+                                  device=self.device)
 
     # -- public API ---------------------------------------------------------
 
@@ -209,9 +228,7 @@ class ServingEngine:
         every running request."""
         self._admit_from_window()
         if self.waiting and not self.running and not self.prefilling:
-            raise RuntimeError(
-                f"scheduler stall: request {self.waiting[0].request_id} "
-                f"inadmissible with an idle engine")
+            self._on_admission_stall(self.waiting[0])
         budget = self.prefill_token_budget
         for req in list(self.prefilling):
             if budget <= 0:
@@ -242,6 +259,14 @@ class ServingEngine:
         """Resource check beyond a free slot (paged: arena pages)."""
         return True
 
+    def _on_admission_stall(self, req: Request) -> None:
+        """Nothing running or prefilling, yet the head request cannot be
+        admitted. The dense engine cannot reach this (a free slot is the
+        only resource); the paged engine raises MemoryError."""
+        raise RuntimeError(
+            f"scheduler stall: request {req.request_id} inadmissible "
+            f"with an idle engine")
+
     # -- internals ----------------------------------------------------------
 
     def _assign_slot_generator(self, req: Request) -> None:
@@ -262,13 +287,23 @@ class ServingEngine:
 
     def _begin_admit(self, req: Request) -> None:
         """Assign a slot, inject the cached prefix, and enqueue the
-        request for incremental prefill."""
+        request for incremental prefill. Resumed (preempted) requests
+        re-enter here: ``all_tokens`` includes their decoded tokens, whose
+        KV the preemptor stored to the cache tiers."""
         req.slot = self.free_slots.pop(0)
         req.state = RequestState.RUNNING
+        self._on_slot_assigned(req)
         cached = self._stream_inject(req, req.all_tokens)
         req.cached_prefix_len = cached
         req.prefill_pos = cached
         self.prefilling.append(req)
+
+    def _on_slot_assigned(self, req: Request) -> None:
+        """Hook: per-request residence setup (paged: page allocation)."""
+
+    def _on_prefill_complete(self, req: Request) -> None:
+        """Hook: the request's prompt KV is fully resident (paged:
+        register its pages for prefix sharing)."""
 
     def _advance_prefill(self, req: Request, budget: Optional[int] = None
                          ) -> int:
@@ -305,6 +340,7 @@ class ServingEngine:
         sample the first token from the last segment's ``logits`` and move
         the request to decoding."""
         self.prefilling.remove(req)
+        self._on_prefill_complete(req)
         if self.eager_store and self.cache_engine is not None:
             np_ = req.num_prompt_tokens
             self.cache_engine.store(req.all_tokens[:np_],

@@ -6,6 +6,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -22,7 +23,10 @@ def _port_files():
 
 def test_import_leaves_jax_and_lmcache_tpu_out():
     code = ("import sys, lmcache_tpu_torch, lmcache_tpu_torch.serving, "
-            "lmcache_tpu_torch.models, lmcache_tpu_torch.ops; "
+            "lmcache_tpu_torch.models, lmcache_tpu_torch.ops, "
+            "lmcache_tpu_torch.models.paged, "
+            "lmcache_tpu_torch.ops.paged_attention, "
+            "lmcache_tpu_torch.serving.paged_engine; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'lmcache_tpu' "
             "or m.startswith('lmcache_tpu.')]; print(bad)")
@@ -52,11 +56,18 @@ def test_no_jax_or_lmcache_tpu_import(path):
 
 def _entry_points():
     from lmcache_tpu_torch import LMCacheEngineConfig
-    from lmcache_tpu_torch.models import llama
-    from lmcache_tpu_torch.serving import ServingEngine
+    from lmcache_tpu_torch.models import llama, paged
+    from lmcache_tpu_torch.serving import PagedServingEngine, ServingEngine
     from lmcache_tpu_torch.storage.local_backend import LMCLocalBackend
     cfg = llama.LlamaConfig.tiny(n_layers=1)
     return {
+        "paged_pool": lambda: paged.new_paged_kv_pool(cfg, 4, 16),
+        "quantized_paged_pool": lambda: paged.new_quantized_paged_pool(
+            cfg, 4, 16),
+        "paged_serving_engine": lambda: PagedServingEngine(cfg, {},
+                                                           num_pages=4),
+        "paged_pool_from_jax": lambda: llama.paged_pool_from_jax(
+            np.zeros((1, 2, 4, 2, 16, 64), np.float32)),
         "init_params": lambda: llama.init_params(cfg),
         "new_kv_cache": lambda: llama.new_kv_cache(cfg, 1, 16),
         "cuda_tier": lambda: LMCLocalBackend(),
@@ -67,7 +78,10 @@ def _entry_points():
 
 
 @pytest.mark.parametrize("name", ["init_params", "new_kv_cache", "cuda_tier",
-                                  "serving_engine", "default_config_tier"])
+                                  "serving_engine", "default_config_tier",
+                                  "paged_pool", "quantized_paged_pool",
+                                  "paged_serving_engine",
+                                  "paged_pool_from_jax"])
 def test_entry_point_without_cuda_raises(name):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
@@ -81,3 +95,9 @@ def test_entry_points_run_on_cpu_when_asked():
     params = llama.init_params(cfg, device="cpu")
     assert params["layers"]["wq"].device.type == "cpu"
     assert llama.new_kv_cache(cfg, 1, 16, device="cpu").device.type == "cpu"
+    from lmcache_tpu_torch.serving import PagedServingEngine
+    for kv_dtype in ("native", "int8"):
+        eng = PagedServingEngine(cfg, params, num_pages=4, page_size=16,
+                                 max_seq=32, kv_dtype=kv_dtype, device="cpu")
+        pool = eng.kv_pool["sym"] if kv_dtype == "int8" else eng.kv_pool
+        assert pool.device.type == "cpu" and pool.shape[2] == 4

@@ -159,9 +159,21 @@ def test_rotary_variants_match_jax():
                                    dict(post_norms=True),
                                    dict(attn_sinks=True)])
 def test_unported_traits_raise(trait):
+    """The dense forward refuses each trait. A sliding window is run by the
+    paged forwards only, so its parameters can be made (the tree is the
+    same) and it is the dense ``forward`` that raises."""
     cfg = tl.LlamaConfig.tiny(n_layers=1, **trait)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.init_params(cfg, device="cpu")
+        tl.check_supported(cfg)
+    if "sliding_window" not in trait:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tl.init_params(cfg, device="cpu")
+        return
+    params = tl.init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="module items 5 and 6"):
+        tl.forward(params, cfg, torch.zeros((1, 2), dtype=torch.long),
+                   torch.zeros(1, dtype=torch.int32),
+                   tl.new_kv_cache(cfg, 1, 8, device="cpu"))
 
 
 @pytest.mark.parametrize("trait", [
