@@ -14,10 +14,20 @@
 - attention is :func:`lmcache_tpu_torch.ops.flash_attention`, fed directly
   from the cache: the Hopper kernel on CUDA tensors, the plain version on CPU
   tensors. Prefill-with-cached-prefix and decode are one code path with
-  different ``T``.
+  different ``T``;
+- :func:`forward_quantized` is the same step over an int8 pool
+  ``{"sym" [L, 2, B, H_kv, S, D] int8, "scale" [L, 2, B, S] fp32}``: the new
+  tokens are quantized per (layer, token) and written first, then attention
+  reads the pool through
+  :func:`lmcache_tpu_torch.ops.quantized_flash_attention`;
+- each layer attends under its own window: none, or ``cfg.sliding_window``
+  where ``cfg.layer_windows()`` says the layer is local (uniform for Mistral
+  and Phi-3, alternating for Gemma and GPT-OSS), sliding or chunked
+  (``cfg.local_attention_kind``), with the score softcap and the attention
+  sinks of the config.
 
 ``LlamaConfig`` is a copy of the JAX dataclass with its presets, so every
-config of the JAX package can be built here; :func:`forward` raises
+config of the JAX package can be built here; the forwards raise
 ``NotImplementedError`` for the family traits this port does not run yet
 (ROADMAP, module item 6).
 """
@@ -30,7 +40,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from lmcache_tpu_torch.ops.attention import flash_attention
+from lmcache_tpu_torch.ops.attention import flash_attention, mha_reference
+from lmcache_tpu_torch.ops.quantized_attention import (
+    quantize_tokens, quantized_attention_reference, quantized_flash_attention)
 from lmcache_tpu_torch.utils import resolve_device
 
 Params = Dict[str, Any]
@@ -446,11 +458,10 @@ def torch_dtype(cfg: LlamaConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-# traits of LlamaConfig that neither forward() nor forward_paged*() runs
-# yet, each with the value that switches it off
+# traits of LlamaConfig that no forward of the port runs yet, each with the
+# value that switches it off
 _UNPORTED = {
-    "n_experts": None, "attn_logit_softcap": None,
-    "attn_sinks": False, "qk_norm": False, "qk_norm_flat": False,
+    "n_experts": None, "qk_norm": False, "qk_norm_flat": False,
     "rope_local_theta": None, "nope_on_global_layers": False,
     "qk_l2_norm": False, "attn_temperature_tuning": False,
     "post_norms": False, "pre_norms": True,
@@ -460,32 +471,39 @@ _UNPORTED = {
 def check_supported(cfg: LlamaConfig, paged: bool = False) -> None:
     """Raise ``NotImplementedError`` for a config trait not ported yet.
 
-    The dense :func:`forward` (``paged=False``) refuses every sliding
-    window: its attention kernel has no window yet. The paged forwards
-    (``paged=True``) run a uniform ``"sliding"`` window (Mistral, Phi-3) and
-    refuse ``"chunked"`` windows and per-layer local/global patterns."""
+    The dense forwards (``paged=False``) run every attention pattern: a
+    uniform window, per-layer local/global layers, sliding or chunked, the
+    score softcap and attention sinks. The paged forwards (``paged=True``)
+    run a uniform ``"sliding"`` window (Mistral, Phi-3) and refuse the rest:
+    their kernels have no chunked window, softcap or sinks yet."""
     for name, off in _UNPORTED.items():
         if getattr(cfg, name) != off:
             raise NotImplementedError(
                 f"LlamaConfig.{name}={getattr(cfg, name)!r} is not ported "
                 f"yet (ROADMAP, module item 6)")
+    if cfg.local_attention_kind not in ("sliding", "chunked"):
+        raise ValueError(
+            f"unknown local_attention_kind {cfg.local_attention_kind!r}")
+    if not paged:
+        return
+    for name, off in (("attn_logit_softcap", None), ("attn_sinks", False)):
+        if getattr(cfg, name) != off:
+            raise NotImplementedError(
+                f"LlamaConfig.{name}={getattr(cfg, name)!r} is not ported "
+                f"yet for the paged forwards (ROADMAP, module item 5)")
     if cfg.sliding_window is None:
         return
-    if not paged:
-        raise NotImplementedError(
-            f"LlamaConfig.sliding_window={cfg.sliding_window!r} is not "
-            f"ported yet for the dense forward (ROADMAP, module items 5 and "
-            f"6); the paged forwards run a uniform sliding window")
     if cfg.local_attention_kind != "sliding":
         raise NotImplementedError(
             f"LlamaConfig.local_attention_kind="
-            f"{cfg.local_attention_kind!r} is not ported yet (ROADMAP, "
-            f"module item 5)")
+            f"{cfg.local_attention_kind!r} is not ported yet for the paged "
+            f"forwards (ROADMAP, module item 5)")
     if (cfg.sliding_window_pattern is not None
             or cfg.global_layer_map is not None):
         raise NotImplementedError(
             "per-layer local/global attention (sliding_window_pattern, "
-            "global_layer_map) is not ported yet (ROADMAP, module item 6)")
+            "global_layer_map) is not ported yet for the paged forwards "
+            "(ROADMAP, module item 6)")
 
 
 def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
@@ -493,9 +511,9 @@ def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
     """Random weights in the JAX tree's layout (``init_params`` of the JAX
     file): normal / sqrt(fan_in), norms at 1. Draws come from ``generator``
     (which must live on ``device``), default a fresh one seeded 0. The tree
-    serves the dense and the paged forwards alike, so a config that only the
-    paged path runs (a sliding window) is accepted here."""
-    check_supported(cfg, paged=True)
+    serves the dense and the paged forwards alike, so whatever either of
+    them runs is accepted here."""
+    check_supported(cfg)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -526,6 +544,8 @@ def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
             layers[name] = torch.zeros((L, n), dtype=dt, device=dev)
     if cfg.attention_out_bias:
         layers["bo"] = torch.zeros((L, dim), dtype=dt, device=dev)
+    if cfg.attn_sinks:
+        layers["sinks"] = torch.zeros((L, nh), dtype=dt, device=dev)
     return {
         "embed": w((cfg.vocab_size, dim), dim),
         "layers": layers,
@@ -548,9 +568,10 @@ def params_from_jax(tree_of_numpy: Params, cfg: LlamaConfig,
                     device="cuda") -> Params:
     """Carry a JAX llama param tree (``lmcache_tpu.models.llama``: keys
     ``embed``, ``layers.{wq, wk, wv, wo, attn_norm, mlp_norm, w_gate, w_up,
-    w_down, ...}``, ``final_norm``, ``lm_head``), given as numpy arrays,
-    onto the port's parameters unchanged, in ``cfg.dtype`` on ``device``."""
-    check_supported(cfg, paged=True)
+    w_down, sinks, ...}``, ``final_norm``, ``lm_head``), given as numpy
+    arrays, onto the port's parameters unchanged, in ``cfg.dtype`` on
+    ``device``."""
+    check_supported(cfg)
     dev = resolve_device(device)
     dt = torch_dtype(cfg)
 
@@ -570,17 +591,27 @@ def paged_pool_from_jax(pool_or_dict, device="cuda"):
     stays a dict. The result is the port's arena
     (``lmcache_tpu_torch.models.paged``), so both packages can run one step
     on the same pages."""
-    dev = resolve_device(device)
     if isinstance(pool_or_dict, dict):
-        return {
-            "sym": _tensor_from_numpy(pool_or_dict["sym"], torch.int8, dev),
-            "scale": _tensor_from_numpy(pool_or_dict["scale"], torch.float32,
-                                        dev),
-        }
+        return quantized_pool_from_jax(pool_or_dict, device)
+    dev = resolve_device(device)
     a = np.asarray(pool_or_dict)
     dt = torch.bfloat16 if a.dtype.name == "bfloat16" else getattr(
         torch, a.dtype.name)
     return _tensor_from_numpy(a, dt, dev)
+
+
+def quantized_pool_from_jax(pool: Dict[str, Any],
+                            device="cuda") -> Dict[str, torch.Tensor]:
+    """Carry a JAX int8 pool, given as numpy arrays, onto ``device``
+    unchanged: the dense ``new_quantized_kv_cache`` pool ``{"sym" int8
+    [L, 2, B, H_kv, S, D], "scale" f32 [L, 2, B, S]}`` or the int8 page
+    arena of :func:`paged_pool_from_jax` (the same keys). The result is the
+    port's pool, so both packages can run one step on the same symbols."""
+    dev = resolve_device(device)
+    return {
+        "sym": _tensor_from_numpy(pool["sym"], torch.int8, dev),
+        "scale": _tensor_from_numpy(pool["scale"], torch.float32, dev),
+    }
 
 
 def new_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
@@ -595,6 +626,24 @@ def new_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
     return torch.zeros(
         (cfg.n_layers, 2, batch, cfg.n_kv_heads, max_len, cfg.head_dim),
         dtype=torch_dtype(cfg), device=resolve_device(device))
+
+
+def new_quantized_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
+                           device="cuda") -> Dict[str, torch.Tensor]:
+    """Int8 KV pool: {"sym" [L, 2, B, H_kv, S, D] int8, zeroed, "scale"
+    [L, 2, B, S] fp32, initialised to 1}. Half the bytes of the
+    :func:`new_kv_cache` pool; read by the kernel that dequantizes inside
+    attention (``ops/quantized_attention.py``). One symmetric scale per
+    (layer, token), the CacheGen quantization granularity; head-major
+    symbols for the same reason as :func:`new_kv_cache`."""
+    dev = resolve_device(device)
+    L, Hkv, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "sym": torch.zeros((L, 2, batch, Hkv, max_len, D), dtype=torch.int8,
+                           device=dev),
+        "scale": torch.ones((L, 2, batch, max_len), dtype=torch.float32,
+                            device=dev),
+    }
 
 
 def cache_to_blob(cache: torch.Tensor, b: int = 0,
@@ -613,6 +662,33 @@ def blob_into_cache(cache: torch.Tensor, blob: torch.Tensor, b: int = 0,
     offset ``pos`` of batch row ``b``, in place; returns ``cache``."""
     t = blob.shape[2]
     cache[:, :, b, :, pos:pos + t] = blob.transpose(2, 3)
+    return cache
+
+
+def quantized_cache_to_blob(cache: Dict[str, torch.Tensor], b: int = 0,
+                            n: "Optional[int]" = None,
+                            dtype: torch.dtype = torch.float32
+                            ) -> torch.Tensor:
+    """One batch row of the int8 pool, dequantized to ``dtype``, as a
+    wire-format cache blob [L, 2, n, H, D]: a new tensor, not a view."""
+    sym, scale = cache["sym"][:, :, b], cache["scale"][:, :, b]
+    if n is not None:
+        sym, scale = sym[:, :, :, :n], scale[:, :, :n]
+    deq = (sym.float() * scale[:, :, None, :, None]).to(dtype)
+    return deq.transpose(2, 3)
+
+
+def blob_into_quantized_cache(cache: Dict[str, torch.Tensor],
+                              blob: torch.Tensor, b: int = 0,
+                              pos: int = 0) -> Dict[str, torch.Tensor]:
+    """Quantize a wire blob [L, 2, t, H, D] per (layer, K/V, token) over its
+    (H, D) axes, as the model quantizes what it writes, and write symbols
+    and scales into the int8 pool at token offset ``pos`` of batch row
+    ``b``, in place; returns ``cache``."""
+    t = blob.shape[2]
+    sym, scale = quantize_tokens(blob.to(cache["sym"].device), (3, 4))
+    cache["sym"][:, :, b, :, pos:pos + t] = sym.transpose(2, 3)
+    cache["scale"][:, :, b, pos:pos + t] = scale
     return cache
 
 
@@ -772,7 +848,31 @@ def _attn_mlp_residual(x, attn, lp, cfg):
     return x + (gate * up).to(x.dtype) @ lp["w_down"]
 
 
-def _layer(x, lp, cfg, kc, vc, positions, start_pos, kv_len):
+def _layer_windows(cfg):
+    """Per layer, the window its attention runs under: None where the layer
+    attends globally, ``cfg.sliding_window`` where it is local (the JAX
+    file's ``_attend_dispatch``, without its compiled branches)."""
+    return [None if g else cfg.sliding_window for g in cfg.layer_windows()]
+
+
+def _attention_options(cfg, lp, window):
+    """The options of one layer's attention call."""
+    return dict(sm_scale=cfg.sm_scale, sliding_window=window,
+                window_kind=cfg.local_attention_kind,
+                logit_softcap=cfg.attn_logit_softcap,
+                sinks=lp["sinks"].float() if cfg.attn_sinks else None)
+
+
+def _positions(start_pos, T, dev):
+    """(start_pos int32 [B] on ``dev``, positions int64 [B, T], kv_len)."""
+    start_pos = start_pos.to(device=dev, dtype=torch.int32)
+    positions = start_pos[:, None] + torch.arange(
+        T, device=dev, dtype=torch.int32)[None, :]
+    return start_pos, positions.long(), start_pos + T
+
+
+def _layer(x, lp, cfg, kc, vc, positions, start_pos, kv_len, window,
+           use_kernel):
     """One decoder layer; writes this step's K/V into ``kc``/``vc``
     ([B, H_kv, S, D] views of the pool) in place."""
     B = x.shape[0]
@@ -783,8 +883,40 @@ def _layer(x, lp, cfg, kc, vc, positions, start_pos, kv_len):
     kc[rows, :, positions] = k.to(kc.dtype)
     vc[rows, :, positions] = v.to(vc.dtype)
 
-    attn = flash_attention(q, kc, vc, start_pos, kv_len, kv_head_major=True,
-                           sm_scale=cfg.sm_scale)
+    opts = _attention_options(cfg, lp, window)
+    if use_kernel:
+        attn = flash_attention(q, kc, vc, start_pos, kv_len,
+                               kv_head_major=True, **opts)
+    else:
+        attn = mha_reference(q, kc.transpose(1, 2), vc.transpose(1, 2),
+                             start_pos, kv_len, **opts)
+    return _attn_mlp_residual(x, attn, lp, cfg)
+
+
+def _layer_quantized(x, lp, cfg, sym, scale, positions, start_pos, kv_len,
+                     window, use_kernel):
+    """:func:`_layer` over one layer of the int8 pool (``sym``
+    [2, B, H_kv, S, D], ``scale`` [2, B, S]): the new tokens are quantized
+    and written first, and attention reads them back quantized like every
+    older token."""
+    B = x.shape[0]
+    q, k, v = _qkv_heads(x, lp, cfg, positions)
+
+    rows = torch.arange(B, device=x.device)[:, None]
+    for i, new in enumerate((k, v)):
+        new_sym, new_scale = quantize_tokens(new, (2, 3))  # [B,T,H,D], [B,T]
+        sym[i][rows, :, positions] = new_sym
+        scale[i][rows, positions] = new_scale
+
+    opts = _attention_options(cfg, lp, window)
+    if use_kernel:
+        attn = quantized_flash_attention(q, sym[0], sym[1], scale[0],
+                                         scale[1], start_pos, kv_len,
+                                         kv_head_major=True, **opts)
+    else:
+        attn = quantized_attention_reference(
+            q, sym[0].transpose(1, 2), sym[1].transpose(1, 2), scale[0],
+            scale[1], start_pos, kv_len, **opts)
     return _attn_mlp_residual(x, attn, lp, cfg)
 
 
@@ -796,6 +928,7 @@ def forward(
     start_pos: torch.Tensor,  # int [B] — write offset / #cached tokens
     kv_cache: torch.Tensor,  # [L, 2, B, H_kv, S, D] (head-major pool)
     *,
+    use_kernel: bool = True,
     last_logit_only: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One forward step (prefill when T>1, decode when T==1).
@@ -806,21 +939,56 @@ def forward(
     Cached-prefix reuse = writing retrieved chunks into the cache and
     calling this with only the suffix tokens. Returns (logits
     [B, T, vocab] fp32, kv_cache); with ``last_logit_only`` the lm_head runs
-    on the final position only (logits [B, 1, vocab]).
+    on the final position only (logits [B, 1, vocab]). ``use_kernel=False``
+    (the JAX function's ``use_pallas=False``) computes attention with the
+    plain version on whatever device the cache lives on.
     """
     check_supported(cfg)
-    B, T = tokens.shape
+    T = tokens.shape[1]
     dev = kv_cache.device
-    start_pos = start_pos.to(device=dev, dtype=torch.int32)
-    positions = start_pos[:, None] + torch.arange(
-        T, device=dev, dtype=torch.int32)[None, :]  # [B, T]
-    kv_len = start_pos + T
+    start_pos, positions, kv_len = _positions(start_pos, T, dev)
     x = _embed(params, cfg, tokens.to(dev))
     lps = params["layers"]
-    for li in range(cfg.n_layers):
+    for li, window in enumerate(_layer_windows(cfg)):
         lp = {name: w[li] for name, w in lps.items()}
-        x = _layer(x, lp, cfg, kv_cache[li, 0], kv_cache[li, 1],
-                   positions.long(), start_pos, kv_len)
+        x = _layer(x, lp, cfg, kv_cache[li, 0], kv_cache[li, 1], positions,
+                   start_pos, kv_len, window, use_kernel)
+    if last_logit_only:
+        x = x[:, -1:]
+    return _lm_logits(x, params, cfg), kv_cache
+
+
+@torch.no_grad()
+def forward_quantized(
+    params: Params,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # int [B, T]
+    start_pos: torch.Tensor,  # int [B]
+    kv_cache: Dict[str, torch.Tensor],  # new_quantized_kv_cache()
+    *,
+    use_kernel: bool = True,
+    last_logit_only: bool = False,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`forward` over an int8 KV pool, dequantized inside attention.
+
+    The new tokens' K/V are quantized per (layer, token) and written **in
+    place** (symbols and scales) before the layer's attention, which reads
+    the whole pool, the new tokens included, as int8. The pool's tensors may
+    be views, such as one slot of a serving pool. Returns (logits fp32,
+    kv_cache).
+    """
+    check_supported(cfg)
+    T = tokens.shape[1]
+    sym_pool, scale_pool = kv_cache["sym"], kv_cache["scale"]
+    dev = sym_pool.device
+    start_pos, positions, kv_len = _positions(start_pos, T, dev)
+    x = _embed(params, cfg, tokens.to(dev))
+    lps = params["layers"]
+    for li, window in enumerate(_layer_windows(cfg)):
+        lp = {name: w[li] for name, w in lps.items()}
+        x = _layer_quantized(x, lp, cfg, sym_pool[li], scale_pool[li],
+                             positions, start_pos, kv_len, window,
+                             use_kernel)
     if last_logit_only:
         x = x[:, -1:]
     return _lm_logits(x, params, cfg), kv_cache

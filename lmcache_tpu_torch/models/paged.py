@@ -32,6 +32,7 @@ import torch
 
 from lmcache_tpu_torch.models import llama
 from lmcache_tpu_torch.ops import paged_attention as pa
+from lmcache_tpu_torch.ops.quantized_attention import quantize_tokens
 from lmcache_tpu_torch.utils import resolve_device
 
 _MESH_NOT_PORTED = "mesh is not ported yet (ROADMAP, module item 16)"
@@ -146,21 +147,6 @@ def _streams(cfg: llama.LlamaConfig) -> bool:
     rule for its ``_dma`` kernels)."""
     D = cfg.head_dim
     return D % 128 == 0 or 128 % D == 0
-
-
-def quantize_tokens(t: torch.Tensor, dims) -> Tuple[torch.Tensor,
-                                                    torch.Tensor]:
-    """Per-token symmetric int8 quantization over ``dims`` (the head and
-    channel axes): ``scale = absmax / 127`` (1/127 for an all-zero token),
-    symbols rounded half to even and clipped to +-127. Returns (int8
-    symbols, fp32 scales without ``dims``). Identical to the JAX package's
-    quantization, symbol for symbol."""
-    t32 = t.float()
-    absmax = t32.abs().amax(dim=dims)
-    scale = torch.where(absmax == 0.0, torch.ones_like(absmax),
-                        absmax) / 127.0
-    sym = torch.round(t32 / scale[(..., ) + (None, ) * len(dims)])
-    return torch.clamp(sym, -127, 127).to(torch.int8), scale
 
 
 def _paged_forward(params, cfg, tokens, start_pos, page_table, page, dev,

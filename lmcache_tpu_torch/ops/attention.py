@@ -8,6 +8,9 @@ One kernel serves both serving-phase shapes, as in
   the new tokens themselves);
 - **decode**: ``T == 1``.
 
+Options, as in the JAX file: a sliding or chunked window, a score softcap,
+attention sinks, and a pool row chosen on the device (``kv_slot``).
+
 Layouts: ``q [B, T, H, D]``; ``k/v [B, S, H_kv, D]`` (token-major) or, with
 ``kv_head_major=True``, ``[B, H_kv, S, D]`` (the serving pool's layout).
 ``H = G * H_kv``. Query ``t`` of sequence ``b`` sees key positions
@@ -15,7 +18,8 @@ Layouts: ``q [B, T, H, D]``; ``k/v [B, S, H_kv, D]`` (token-major) or, with
 
 :func:`flash_attention` runs the hand-written Hopper kernel
 (``csrc/flash_attention.cu``) on CUDA tensors and its plain version,
-:func:`mha_reference`, on CPU tensors.
+:func:`mha_reference`, on CPU tensors; :func:`flash_attention_dma` is the
+windowless variant that streams K/V (``csrc/flash_stream_attention.cu``).
 """
 
 import ctypes
@@ -31,104 +35,156 @@ _NEG_INF = -1e30
 
 def mha_reference(q, k, v, q_offset, kv_len, sm_scale=None,
                   sliding_window: Optional[int] = None,
-                  zero_dead_rows: bool = False) -> torch.Tensor:
+                  zero_dead_rows: bool = False,
+                  logit_softcap: Optional[float] = None,
+                  window_kind: str = "sliding",
+                  sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch attention (token-major ``k/v [B, S, H_kv, D]``): the
     kernels' plain version, computed in fp32 with a materialized score
     matrix, and the CPU path of :func:`flash_attention`.
 
     ``sliding_window``: keys older than that many positions behind the query
-    are masked too (``kpos > qpos - sliding_window``). A query that sees no
-    key averages V uniformly, as the JAX ``mha_reference`` does; with
-    ``zero_dead_rows`` it gives 0, as the kernels do."""
+    are masked too (``kpos > qpos - sliding_window``); with
+    ``window_kind="chunked"`` the same size bounds block-diagonal chunks
+    instead (``kpos // W == qpos // W``, Llama-4). ``logit_softcap`` bounds
+    the scores to (-cap, cap) by ``cap * tanh(s / cap)`` before the mask
+    (Gemma-2). ``sinks`` [H]: per-head attention-sink logits joined to the
+    softmax normalization and then dropped (GPT-OSS). A query that sees no
+    key averages V uniformly, as the JAX ``mha_reference`` does (0 with
+    sinks); with ``zero_dead_rows`` it gives 0, as the kernels do."""
     B, T, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
     scale = sm_scale if sm_scale is not None else 1.0 / (D**0.5)
+    if window_kind not in ("sliding", "chunked"):
+        raise ValueError(f"unknown window_kind {window_kind!r}")
 
     # [B, Hkv, G, T, D] x [B, Hkv, S, D] -> [B, Hkv, G, T, S]
     qh = q.reshape(B, T, Hkv, G, D).permute(0, 2, 3, 1, 4).float()
     kh = k.permute(0, 2, 1, 3).float()
     vh = v.permute(0, 2, 1, 3).float()
     scores = torch.einsum("bhgtd,bhsd->bhgts", qh, kh) * scale
+    if logit_softcap is not None:
+        scores = logit_softcap * torch.tanh(scores / logit_softcap)
 
     ar_t = torch.arange(T, device=q.device)
     kpos = torch.arange(S, device=q.device)[None, None, :]  # [1, 1, S]
     qpos = (q_offset.to(q.device)[:, None] + ar_t[None, :])[:, :, None]
     mask = (kpos <= qpos) & (kpos < kv_len.to(q.device)[:, None, None])
     if sliding_window is not None:
-        mask &= kpos > qpos - sliding_window
+        if window_kind == "chunked":
+            mask &= (kpos // sliding_window) == (qpos // sliding_window)
+        else:
+            mask &= kpos > qpos - sliding_window
     scores = torch.where(mask[:, None, None], scores,
                          torch.tensor(_NEG_INF, device=q.device))
-    probs = torch.softmax(scores, dim=-1)
+    if sinks is not None:
+        snk = sinks.to(device=q.device, dtype=torch.float32).reshape(
+            1, Hkv, G, 1, 1)
+        m = torch.maximum(scores.amax(dim=-1, keepdim=True), snk)
+        p = torch.exp(scores - m)
+        probs = p / (p.sum(dim=-1, keepdim=True) + torch.exp(snk - m))
+    else:
+        probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgts,bhsd->bhgtd", probs, vh)
     if zero_dead_rows:
         out = out * mask.any(dim=-1)[:, None, None, :, None]
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, D).to(q.dtype)
 
 
-_lib: Optional[ctypes.CDLL] = None
+class FlashArgs(ctypes.Structure):
+    """The kernels' argument block (``csrc/flash_common.cuh::FlashArgs``):
+    device pointers, sizes, options and strides in elements."""
+    _fields_ = (
+        [(n, ctypes.c_void_p) for n in (
+            "q", "k", "v", "out", "k_scale", "v_scale", "q_offset", "kv_len",
+            "sinks", "kv_slot")]
+        + [(n, ctypes.c_int) for n in ("T", "G", "S", "window", "chunked")]
+        + [("softcap", ctypes.c_float), ("scale", ctypes.c_float)]
+        + [(n, ctypes.c_longlong) for n in (
+            "qb", "qt", "qh", "kb", "kh", "ks", "vb", "vh", "vs", "ob", "ot",
+            "oh", "ksb", "kss", "vsb", "vss")])
 
 
-def _kernel():
-    global _lib
-    if _lib is None:
-        lib = _build.load("flash_attention")
-        fn = lib.lmc_flash_attention_bf16
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                       + [ctypes.c_longlong] * 12
-                       + [ctypes.c_float, ctypes.c_void_p])
+HEAD_DIMS = (64, 96, 128, 256)
+_entry_points = {}
+
+
+def load_entry(source: str, symbol: str):
+    """The C entry point ``symbol`` of ``csrc/<source>.cu`` (built at first
+    use), taking ``(FlashArgs*, B, H, H_kv, D, stream)``."""
+    fn = _entry_points.get(symbol)
+    if fn is None:
+        fn = getattr(_build.load(source), symbol)
+        fn.argtypes = ([ctypes.POINTER(FlashArgs)] + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib.lmc_flash_attention_bf16
+        _entry_points[symbol] = fn
+    return fn
 
 
-def _check_cuda_args(q, k, v, q_offset, kv_len, B, Hkv, S):
+def _check_cuda_args(q, k, v, q_offset, kv_len, B, Hkv, S,
+                     kv_dtype=torch.bfloat16, head_dims=HEAD_DIMS,
+                     pool_rows=False):
+    """Raise on what the kernels do not take. ``kv_dtype``: bfloat16 or int8
+    K/V; ``pool_rows``: K/V carry a whole pool (``kv_slot``), so their batch
+    need not be q's."""
     dev = q.device
     for name, t in (("k", k), ("v", v), ("q_offset", q_offset),
                     ("kv_len", kv_len)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(
-                f"the CUDA kernel takes bfloat16; {name} is {t.dtype}")
+    for name, t, dt in (("q", q, torch.bfloat16), ("k", k, kv_dtype),
+                        ("v", v, kv_dtype)):
+        if t.dtype != dt:
+            raise ValueError(f"the CUDA kernel takes {name} as "
+                             f"{str(dt).split('.')[-1]}; it is {t.dtype}")
         # 16-byte vector loads along D
-        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1]):
+        vec = 16 // t.element_size()
+        if t.stride(-1) != 1 or any(s % vec for s in t.stride()[:-1]):
             raise ValueError(f"{name} needs unit stride along D and the "
-                             f"other strides a multiple of 8: {t.stride()}")
+                             f"other strides a multiple of {vec}: "
+                             f"{t.stride()}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
     if k.shape != v.shape:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
     H, D = q.shape[2], q.shape[3]
-    if k.shape[0] != B or k.shape[3] != D or H % Hkv:
+    if (k.shape[0] != B and not pool_rows) or k.shape[3] != D or H % Hkv:
         raise ValueError(f"q {tuple(q.shape)} does not fit k "
                          f"{tuple(k.shape)}")
-    if D not in (64, 128):
-        raise ValueError(f"head dim {D} not supported (64 or 128)")
+    if D not in head_dims:
+        raise ValueError(f"head dim {D} not supported {head_dims}")
     for name, t in (("q_offset", q_offset), ("kv_len", kv_len)):
         if t.dtype != torch.int32 or t.shape != (B,) or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous int32 [{B}]")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    q_offset: torch.Tensor, kv_len: torch.Tensor, *,
-                    kv_head_major: bool = False,
-                    sm_scale: Optional[float] = None) -> torch.Tensor:
-    """Causal GQA flash attention; see the module docstring for shapes.
+def check_options(q, sliding_window, window_kind, logit_softcap, sinks,
+                  kv_slot, kv_head_major):
+    """Raise on option values no implementation takes (CPU or CUDA)."""
+    B, _, H, _ = q.shape
+    if window_kind not in ("sliding", "chunked"):
+        raise ValueError(f"unknown window_kind {window_kind!r}")
+    if sliding_window is not None and sliding_window <= 0:
+        raise ValueError(f"sliding_window must be positive: {sliding_window}")
+    if logit_softcap is not None and logit_softcap <= 0:
+        raise ValueError(f"logit_softcap must be positive: {logit_softcap}")
+    if sinks is not None and tuple(sinks.shape) != (H,):
+        raise ValueError(f"sinks must be [{H}]: {tuple(sinks.shape)}")
+    if kv_slot is not None:
+        if B != 1 or not kv_head_major:
+            raise ValueError("kv_slot requires B == 1 and kv_head_major")
+        if tuple(kv_slot.shape) != (1,):
+            raise ValueError(f"kv_slot must be [1]: {tuple(kv_slot.shape)}")
 
-    On CUDA tensors this launches the Hopper kernel (bf16 q/k/v, int32
-    ``q_offset``/``kv_len``, D of 64 or 128, any strides with unit stride
-    along D) and raises on anything it does not take; on CPU tensors it
-    computes :func:`mha_reference`. ``flash_attention.launches`` counts
-    kernel launches by phase ("prefill" for T > 1, "decode" for T == 1).
-    """
-    if q.device.type == "cpu":
-        if kv_head_major:
-            k, v = k.transpose(1, 2), v.transpose(1, 2)
-        return mha_reference(q, k, v, q_offset, kv_len, sm_scale=sm_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
+
+def fill_args(q, k, v, out, q_offset, kv_len, kv_head_major, sm_scale,
+              sliding_window=None, window_kind="sliding", logit_softcap=None,
+              sinks=None, kv_slot=None, k_scale=None, v_scale=None):
+    """The argument block of one launch, after the option tensors were
+    checked against q's device (sinks fp32 [H], kv_slot int32 [1], scales
+    fp32 [B, S], all read in place)."""
     B, T, H, D = q.shape
     if kv_head_major:
         Hkv, S = k.shape[1], k.shape[2]
@@ -138,20 +194,143 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         S, Hkv = k.shape[1], k.shape[2]
         ks = (k.stride(0), k.stride(2), k.stride(1))
         vs = (v.stride(0), v.stride(2), v.stride(1))
-    _check_cuda_args(q, k, v, q_offset, kv_len, B, Hkv, S)
-    out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
-    scale = sm_scale if sm_scale is not None else 1.0 / (D**0.5)
-    fn = _kernel()
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             q_offset.data_ptr(), kv_len.data_ptr(), B, T, H, Hkv, S, D,
-             q.stride(0), q.stride(1), q.stride(2), *ks, *vs,
-             out.stride(0), out.stride(1), out.stride(2), scale,
+    for name, t, dt, shape in (("sinks", sinks, torch.float32, (H,)),
+                               ("kv_slot", kv_slot, torch.int32, (1,))):
+        if t is None:
+            continue
+        if (t.device != q.device or t.dtype != dt or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"the CUDA kernel takes {name} as contiguous "
+                             f"{str(dt).split('.')[-1]} {list(shape)} on "
+                             f"{q.device}")
+    a = FlashArgs()
+    a.q, a.k, a.v, a.out = (t.data_ptr() for t in (q, k, v, out))
+    a.q_offset, a.kv_len = q_offset.data_ptr(), kv_len.data_ptr()
+    a.sinks = sinks.data_ptr() if sinks is not None else None
+    a.kv_slot = kv_slot.data_ptr() if kv_slot is not None else None
+    a.T, a.G, a.S = T, H // Hkv, S
+    a.window = sliding_window or 0
+    a.chunked = int(window_kind == "chunked")
+    a.softcap = logit_softcap or 0.0
+    a.scale = sm_scale if sm_scale is not None else 1.0 / (D**0.5)
+    a.qb, a.qt, a.qh = q.stride(0), q.stride(1), q.stride(2)
+    a.kb, a.kh, a.ks = ks
+    a.vb, a.vh, a.vs = vs
+    a.ob, a.ot, a.oh = out.stride(0), out.stride(1), out.stride(2)
+    if k_scale is not None:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if (t.device != q.device or t.dtype != torch.float32
+                    or tuple(t.shape) != (k.shape[0], S)):
+                raise ValueError(
+                    f"the CUDA kernel takes {name} as float32 "
+                    f"[{k.shape[0]}, {S}] on {q.device}: {t.dtype} "
+                    f"{tuple(t.shape)} on {t.device}")
+        a.k_scale, a.v_scale = k_scale.data_ptr(), v_scale.data_ptr()
+        a.ksb, a.kss = k_scale.stride()
+        a.vsb, a.vss = v_scale.stride()
+    return a, Hkv, S
+
+
+def launch(wrapper, fn, a, q, Hkv, sliding_window=None):
+    """Launch ``fn`` on q's current stream, raise if the launch is refused,
+    and add one to ``wrapper.launches`` under the phase ("prefill" for
+    T > 1, "decode" for T == 1, "+window" appended under a window)."""
+    B, T, H, D = q.shape
+    err = fn(ctypes.byref(a), B, H, Hkv, D,
              torch.cuda.current_stream(q.device).cuda_stream)
     if err:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
+        raise RuntimeError(f"{wrapper.__name__} kernel launch failed: "
                            f"cudaError {err}")
-    flash_attention.launches["decode" if T == 1 else "prefill"] += 1
+    phase = "decode" if T == 1 else "prefill"
+    wrapper.launches[phase + ("+window" if sliding_window else "")] += 1
+
+
+def slot_row(t, kv_slot):
+    """Row ``kv_slot[0]`` of a pool tensor, for the plain versions."""
+    slot = int(kv_slot[0])
+    return t[slot:slot + 1]
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_offset: torch.Tensor, kv_len: torch.Tensor, *,
+                    kv_head_major: bool = False,
+                    sm_scale: Optional[float] = None,
+                    sliding_window: Optional[int] = None,
+                    window_kind: str = "sliding",
+                    logit_softcap: Optional[float] = None,
+                    sinks: Optional[torch.Tensor] = None,
+                    kv_slot: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Causal GQA flash attention; see the module docstring for shapes and
+    :func:`mha_reference` for ``sliding_window``, ``window_kind``,
+    ``logit_softcap`` and ``sinks`` ([H] fp32).
+
+    ``kv_slot`` (int32 [1]): K/V carry the whole serving pool and the one
+    sequence (B == 1, head-major) attends to pool row ``kv_slot[0]``, which
+    the kernel reads on the device.
+
+    On CUDA tensors this launches the Hopper kernel (bf16 q/k/v, int32
+    ``q_offset``/``kv_len``, D of 64, 96, 128 or 256, any strides with unit
+    stride along D) and raises on anything it does not take; on CPU tensors
+    it computes :func:`mha_reference`. ``flash_attention.launches`` counts
+    kernel launches by phase ("prefill" for T > 1, "decode" for T == 1,
+    "+window" appended under a window).
+    """
+    check_options(q, sliding_window, window_kind, logit_softcap, sinks,
+                  kv_slot, kv_head_major)
+    if q.device.type == "cpu":
+        if kv_slot is not None:
+            k, v = slot_row(k, kv_slot), slot_row(v, kv_slot)
+        if kv_head_major:
+            k, v = k.transpose(1, 2), v.transpose(1, 2)
+        return mha_reference(q, k, v, q_offset, kv_len, sm_scale=sm_scale,
+                             sliding_window=sliding_window,
+                             window_kind=window_kind,
+                             logit_softcap=logit_softcap, sinks=sinks)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    B, T, H, D = q.shape
+    out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+    a, Hkv, S = fill_args(q, k, v, out, q_offset, kv_len, kv_head_major,
+                          sm_scale, sliding_window, window_kind,
+                          logit_softcap, sinks, kv_slot)
+    _check_cuda_args(q, k, v, q_offset, kv_len, B, Hkv, S,
+                     pool_rows=kv_slot is not None)
+    launch(flash_attention,
+           load_entry("flash_attention", "lmc_flash_attention_bf16"), a, q,
+           Hkv, sliding_window)
     return out
 
 
 flash_attention.launches = Counter()
+
+
+def flash_attention_dma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        q_offset: torch.Tensor, kv_len: torch.Tensor, *,
+                        sm_scale: Optional[float] = None) -> torch.Tensor:
+    """:func:`flash_attention` (head-major ``k/v [B, H_kv, S, D]``, causal,
+    windowless) with K/V streamed through a ring of asynchronous copies:
+    the counterpart of the JAX package's ``flash_attention_dma``, for large
+    prefills. Same results as :func:`flash_attention` on the same inputs.
+
+    On CUDA tensors this launches its own Hopper kernel
+    (``csrc/flash_stream_attention.cu``; bf16, D of 64, 96 or 128) and
+    raises on anything it does not take; on CPU tensors it computes
+    :func:`mha_reference`. No serving path calls it (none does in the JAX
+    package). ``flash_attention_dma.launches`` counts launches by phase."""
+    if q.device.type == "cpu":
+        return mha_reference(q, k.transpose(1, 2), v.transpose(1, 2),
+                             q_offset, kv_len, sm_scale=sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    B, T, H, D = q.shape
+    out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+    a, Hkv, S = fill_args(q, k, v, out, q_offset, kv_len, True, sm_scale)
+    _check_cuda_args(q, k, v, q_offset, kv_len, B, Hkv, S,
+                     head_dims=(64, 96, 128))
+    launch(flash_attention_dma,
+           load_entry("flash_stream_attention",
+                      "lmc_flash_stream_attention_bf16"), a, q, Hkv)
+    return out
+
+
+flash_attention_dma.launches = Counter()

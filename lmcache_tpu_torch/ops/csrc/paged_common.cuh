@@ -62,13 +62,13 @@ __device__ __forceinline__ void store_zero(bf16* dst) {
   for (int i = 0; i < N; i += 8) *reinterpret_cast<uint4*>(dst + i) = z;
 }
 
-// 16 bytes of a pool row into the bf16 tile; int8 converts exactly
-__device__ __forceinline__ void load_convert(bf16* dst, const bf16* src) {
-  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+// 16 bytes of a K/V row, already in registers, into the bf16 tile; the last
+// argument only names the row's type. int8 converts exactly.
+__device__ __forceinline__ void store_converted(bf16* dst, uint4 raw, bf16) {
+  *reinterpret_cast<uint4*>(dst) = raw;
 }
 
-__device__ __forceinline__ void load_convert(bf16* dst, const i8* src) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
+__device__ __forceinline__ void store_converted(bf16* dst, uint4 raw, i8) {
   const i8* c = reinterpret_cast<const i8*>(&raw);
   __align__(16) bf16 tmp[16];
 #pragma unroll
@@ -77,6 +77,12 @@ __device__ __forceinline__ void load_convert(bf16* dst, const i8* src) {
   }
   *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(tmp);
   *reinterpret_cast<uint4*>(dst + 8) = *reinterpret_cast<const uint4*>(tmp + 8);
+}
+
+// 16 bytes of a pool row into the bf16 tile
+template <typename KV>
+__device__ __forceinline__ void load_convert(bf16* dst, const KV* src) {
+  store_converted(dst, *reinterpret_cast<const uint4*>(src), KV());
 }
 
 // the same, without waiting for the data where the type allows it: bf16 rows

@@ -6,6 +6,11 @@ Port of ``lmcache_tpu/serving/engine.py::ServingEngine`` (the dense path):
   own slots of it. The model writes K/V into the pool **in place** (the JAX
   engine donates and replaces it), and prefill runs directly on the slot's
   view of the pool, so there is no staged slot copy to write back;
+- ``kv_dtype="int8"`` keeps the pool at int8 with one fp32 scale per (layer,
+  K/V, slot, token), half the bytes: the model quantizes what it writes,
+  attention dequantizes inside its kernel, an injected cache chunk is
+  quantized on the way in and a stored slot is dequantized to the model
+  dtype on the way out;
 - decode is one batched step over every slot each iteration; idle and
   still-prefilling rows park their write at position ``S`` (the pool's one
   spare position), so prefill and decode interleave without corrupting KV;
@@ -23,9 +28,9 @@ Greedy decoding gives the JAX engine's tokens. Sampled decoding draws from a
 from the engine's own generator): reproducible within the port, not equal
 to ``jax.random``'s draws.
 
-Not ported yet (ROADMAP, module item 7): ``kv_dtype="int8"``,
-``decode_block > 1``, ``spec_lookahead``, ``mesh``, CacheBlend
-``context_chunks`` requests and ``logprobs``; each raises ``ValueError``.
+Not ported yet (ROADMAP, module item 7): ``decode_block > 1``,
+``spec_lookahead``, ``mesh``, CacheBlend ``context_chunks`` requests and
+``logprobs``; each raises ``ValueError``.
 """
 
 import time
@@ -106,9 +111,6 @@ def _sample_tokens(logits, temps, generators, topks, topps, *,
 
 class ServingEngine:
 
-    # whether this engine has an int8 KV residence (the paged engine does)
-    _int8_ported = False
-
     def __init__(
         self,
         cfg: llama.LlamaConfig,
@@ -130,9 +132,7 @@ class ServingEngine:
         spec_lookahead: int = 0,
         mesh=None,
     ):
-        for name, unported in (("kv_dtype='int8'", kv_dtype == "int8"
-                                and not self._int8_ported),
-                               ("decode_block > 1", decode_block > 1),
+        for name, unported in (("decode_block > 1", decode_block > 1),
                                ("spec_lookahead", bool(spec_lookahead)),
                                ("mesh", mesh is not None)):
             if unported:
@@ -156,6 +156,8 @@ class ServingEngine:
         # decode step writes every row)
         self._write_horizon = max(decode_block, spec_lookahead + 1)
         self.kv_pool = self._alloc_pool()
+        self._forward = (llama.forward_quantized if kv_dtype == "int8"
+                         else llama.forward)
         self.free_slots = list(range(self.B))
         self.waiting: List[Request] = []
         self.prefilling: List[Request] = []
@@ -180,14 +182,23 @@ class ServingEngine:
         llama.check_supported(cfg)
 
     def _alloc_pool(self):
-        """Allocate the engine's KV residence (dense slot pool), with
+        """Allocate the engine's KV residence (dense slot pool, a tensor or
+        for ``kv_dtype="int8"`` the ``{"sym", "scale"}`` dict), with
         ``S + _write_horizon`` positions per slot: idle / still-prefilling
         rows park their decode write at position S. Overridden by
         PagedServingEngine to build the page arena instead, which keeps the
         full ``[L, 2, B, H_kv, S_max, D]`` pool out of paged startup."""
-        return llama.new_kv_cache(self.cfg, self.B,
-                                  self.S + self._write_horizon,
-                                  device=self.device)
+        new = (llama.new_quantized_kv_cache if self.kv_dtype == "int8"
+               else llama.new_kv_cache)
+        return new(self.cfg, self.B, self.S + self._write_horizon,
+                   device=self.device)
+
+    def _slot_view(self, slot: int):
+        """One slot of the pool as a batch-1 pool (views, no copy)."""
+        if self.kv_dtype == "int8":
+            return {name: t[:, :, slot:slot + 1]
+                    for name, t in self.kv_pool.items()}
+        return self.kv_pool[:, :, slot:slot + 1]
 
     # -- public API ---------------------------------------------------------
 
@@ -326,12 +337,11 @@ class ServingEngine:
         """Run one prefill segment ``[pos, pos + len(seg))`` of exactly
         its length on the request's slot of the pool (written in place).
         Returns the logits [V] of the segment's last token."""
-        slot = req.slot
         tokens = torch.as_tensor(seg, dtype=torch.long,
                                  device=self.device)[None]
         start = torch.tensor([pos], dtype=torch.int32, device=self.device)
-        logits, _ = llama.forward(self.params, self.cfg, tokens, start,
-                                  self.kv_pool[:, :, slot:slot + 1],
+        logits, _ = self._forward(self.params, self.cfg, tokens, start,
+                                  self._slot_view(req.slot),
                                   last_logit_only=True)
         return logits[0, -1]
 
@@ -355,8 +365,19 @@ class ServingEngine:
 
     def _read_slot(self, slot: int, n: int) -> torch.Tensor:
         """KV blob [L, 2, n, H, D] (wire fmt) of one slot: a VIEW of the
-        pool, which the storage tier copies before ``put`` returns."""
-        return llama.cache_to_blob(self.kv_pool, slot, n)
+        pool, which the storage tier copies before ``put`` returns. An int8
+        pool is dequantized to the model dtype (a new tensor)."""
+        if self.kv_dtype != "int8":
+            return llama.cache_to_blob(self.kv_pool, slot, n)
+        return llama.quantized_cache_to_blob(
+            self.kv_pool, slot, n, llama.torch_dtype(self.cfg))
+
+    def _inject(self, blob: torch.Tensor, slot: int, pos: int) -> None:
+        """Write a wire blob [L, 2, t, H, D] into ``slot`` at token offset
+        ``pos``, in place; an int8 pool quantizes it on the way in."""
+        into = (llama.blob_into_quantized_cache if self.kv_dtype == "int8"
+                else llama.blob_into_cache)
+        into(self.kv_pool, blob, slot, pos)
 
     def _stream_inject(self, req: Request, tokens: np.ndarray) -> int:
         """Retrieve the cached prefix of ``tokens`` as a stream of chunks
@@ -375,7 +396,7 @@ class ServingEngine:
                     break
                 if take < n:
                     blob = kv.slice_blob_tokens(blob, "vllm", 0, take)
-                llama.blob_into_cache(self.kv_pool, blob, req.slot, pos)
+                self._inject(blob, req.slot, pos)
                 cached = pos + take
                 if take < n:
                     break
@@ -398,7 +419,7 @@ class ServingEngine:
             temps[r.slot] = r.sampling.temperature
             topks[r.slot] = r.sampling.top_k
             topps[r.slot] = r.sampling.top_p
-        logits, _ = llama.forward(self.params, self.cfg,
+        logits, _ = self._forward(self.params, self.cfg,
                                   torch.as_tensor(last, device=self.device),
                                   torch.as_tensor(start, device=self.device),
                                   self.kv_pool)

@@ -42,7 +42,8 @@ from lmcache_tpu_torch.models.paged import (PageAllocator, forward_paged,
                                             forward_paged_quantized,
                                             new_paged_kv_pool,
                                             new_quantized_paged_pool,
-                                            pages_needed, quantize_tokens)
+                                            pages_needed)
+from lmcache_tpu_torch.ops.quantized_attention import quantize_tokens
 from lmcache_tpu_torch.serving.engine import (ServingEngine, _sample_tokens,
                                               _sampling_mode)
 from lmcache_tpu_torch.serving.request import Request, RequestState
@@ -51,8 +52,6 @@ logger = init_logger(__name__)
 
 
 class PagedServingEngine(ServingEngine):
-
-    _int8_ported = True
 
     def __init__(
         self,

@@ -49,7 +49,7 @@ def _check(gen, B, T, H, Hkv, D, S, q_off, kv_len, **kw):
                                atol=ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 96, 128, 256])
 @pytest.mark.parametrize("G", [1, 8])
 @pytest.mark.parametrize("case", [
     (2, 37, 300, [0, 100], [37, 137]),  # ragged T edge, prefix
@@ -100,6 +100,209 @@ def test_kernel_refuses_float32(gen):
     one = torch.ones(1, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="bfloat16"):
         ops.flash_attention(q, k, k, one, one, kv_head_major=True)
+
+
+# ------------------------------- the dense kernels' options, rows 2 and 3 ---
+
+from lmcache_tpu_torch.ops import quantized_attention as qa  # noqa: E402
+
+# (B, T, S, q_offset, kv_len): where an off-by-one of the window hides
+OPTION_CASES = {
+    "decode": (2, 1, 768, [700, 40], [701, 41]),
+    "prefix": (2, 16, 768, [100, 380], [116, 396]),
+    "prefill_from_0": (2, 128, 768, [0, 250], [128, 378]),
+    "short_kv_len": (2, 16, 256, [40, 10], [50, 12]),
+}
+OPTIONS = {
+    "window16": dict(sliding_window=16),
+    "window100": dict(sliding_window=100),
+    "window128": dict(sliding_window=128),
+    "window300": dict(sliding_window=300),
+    "window4": dict(sliding_window=4),
+    "chunk64": dict(sliding_window=64, window_kind="chunked"),
+    "chunk100": dict(sliding_window=100, window_kind="chunked"),
+    "softcap": dict(sm_scale=0.21, logit_softcap=30.0),
+    "softcap_window": dict(sm_scale=0.21, logit_softcap=30.0,
+                           sliding_window=100),
+    "sinks": dict(sinks=True),
+    "all": dict(sinks=True, logit_softcap=20.0, sliding_window=64,
+                window_kind="chunked"),
+}
+
+
+def _dense_inputs(gen, B, T, H, Hkv, D, S, quant):
+    dev = "cuda"
+    q = torch.randn((B, T, H, D), generator=gen, device=dev).bfloat16()
+    if not quant:
+        kv = torch.randn((2, B, Hkv, S, D), generator=gen,
+                         device=dev).bfloat16()
+        return q, (kv[0], kv[1])
+    sym = torch.randint(-127, 128, (2, B, Hkv, S, D), generator=gen,
+                        device=dev, dtype=torch.int32).to(torch.int8)
+    scale = torch.rand((2, B, S), generator=gen, device=dev) * 0.02 + 0.02
+    return q, (sym[0], sym[1], scale[0], scale[1])
+
+
+def _dense_check(gen, quant, B, T, G, D, S, q_off, kv_len, **kw):
+    """One launch of flash_attention (or, ``quant``, of
+    quantized_flash_attention) against its plain version with
+    ``zero_dead_rows`` (the kernels give 0 for a row that sees no key)."""
+    Hkv = 2
+    q, kv = _dense_inputs(gen, B, T, G * Hkv, Hkv, D, S, quant)
+    if kw.get("sinks") is True:
+        kw["sinks"] = torch.randn(G * Hkv, generator=gen, device="cuda") * 3
+    qo = torch.tensor(q_off, dtype=torch.int32, device="cuda")
+    kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    entry = qa.quantized_flash_attention if quant else ops.flash_attention
+    plain = qa.quantized_attention_reference if quant else ops.mha_reference
+    phase = ("decode" if T == 1 else "prefill") + (
+        "+window" if kw.get("sliding_window") else "")
+    before = entry.launches[phase]
+    out = entry(q, *kv, qo, kl, kv_head_major=True, **kw)
+    ref = plain(q, *(t.transpose(1, 2) if t.dim() == 4 else t for t in kv),
+                qo, kl, zero_dead_rows=True, **kw)
+    torch.cuda.synchronize()
+    assert entry.launches[phase] == before + 1
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=ATOL,
+                               rtol=2.0**-7)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("case", sorted(OPTION_CASES))
+@pytest.mark.parametrize("opt", sorted(OPTIONS))
+def test_dense_kernel_options_match_plain(gen, opt, case, quant):
+    B, T, S, q_off, kv_len = OPTION_CASES[case]
+    _dense_check(gen, quant, B, T, 2, 64, S, q_off, kv_len,
+                 **dict(OPTIONS[opt]))
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("D", [64, 96, 128, 256])
+@pytest.mark.parametrize("G", [1, 4, 8])
+def test_dense_kernel_head_dims_and_groups(gen, D, G, quant):
+    """Every head dim and group size, windowed and not, prefill with a
+    ragged last block and decode; a block of 64 rows spans 64 / G tokens,
+    so G = 4 and 8 straddle a chunk boundary inside one block."""
+    for kw in (dict(), dict(sliding_window=48),
+               dict(sliding_window=24, window_kind="chunked")):
+        _dense_check(gen, quant, 2, 37, G, D, 300, [0, 100], [37, 137], **kw)
+        _dense_check(gen, quant, 3, 1, G, D, 257, [256, 5, 0], [257, 6, 1],
+                     **kw)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_dense_kernel_empty_sequence_gives_zero(gen, quant):
+    for kw in (dict(), dict(sinks=True), dict(sliding_window=8)):
+        _dense_check(gen, quant, 2, 70, 2, 128, 128, [0, 0], [0, 70], **kw)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("W", [None, 48])
+def test_kv_slot_reads_the_pool_row_on_the_device(gen, quant, W):
+    """K/V (and scales) carry a pool of four rows; the one sequence attends
+    to row ``kv_slot[0]``."""
+    q, kv = _dense_inputs(gen, 4, 16, 8, 2, 64, 256, quant)
+    q = q[:1]
+    qo = torch.tensor([100], dtype=torch.int32, device="cuda")
+    kl = torch.tensor([116], dtype=torch.int32, device="cuda")
+    entry = qa.quantized_flash_attention if quant else ops.flash_attention
+    plain = qa.quantized_attention_reference if quant else ops.mha_reference
+    for slot in (0, 2, 3):
+        out = entry(q, *kv, qo, kl, kv_head_major=True, sliding_window=W,
+                    kv_slot=torch.tensor([slot], dtype=torch.int32,
+                                         device="cuda"))
+        row = [t[slot:slot + 1] for t in kv]
+        ref = plain(q, *(t.transpose(1, 2) if t.dim() == 4 else t
+                         for t in row), qo, kl, sliding_window=W)
+        torch.testing.assert_close(out.float(), ref.float(), atol=ATOL,
+                                   rtol=2.0**-7)
+
+
+def test_quantized_kernel_on_a_slot_view_and_token_major(gen):
+    """Symbols and scales read through the strides of one slot of a serving
+    pool ([L, 2, B, H_kv, S, D] and [L, 2, B, S]), and token-major
+    symbols."""
+    sym = torch.randint(-127, 128, (2, 3, 4, 96, 64), generator=gen,
+                        device="cuda", dtype=torch.int32).to(torch.int8)
+    scale = torch.rand((2, 3, 96), generator=gen, device="cuda") * 0.03 + 0.01
+    q = torch.randn((1, 5, 16, 64), generator=gen, device="cuda").bfloat16()
+    qo = torch.tensor([40], dtype=torch.int32, device="cuda")
+    kl = torch.tensor([45], dtype=torch.int32, device="cuda")
+    args = (sym[0, 1:2], sym[1, 1:2], scale[0, 1:2], scale[1, 1:2])
+    out = qa.quantized_flash_attention(q, *args, qo, kl, kv_head_major=True)
+    ref = qa.quantized_attention_reference(
+        q, args[0].transpose(1, 2), args[1].transpose(1, 2), args[2],
+        args[3], qo, kl)
+    torch.testing.assert_close(out.float(), ref.float(), atol=ATOL,
+                               rtol=2.0**-7)
+    tm = (args[0].transpose(1, 2).contiguous(),
+          args[1].transpose(1, 2).contiguous())
+    out_tm = qa.quantized_flash_attention(q, *tm, args[2], args[3], qo, kl)
+    torch.testing.assert_close(out_tm, out, atol=0, rtol=0)
+
+
+def test_quantized_kernel_equals_bf16_kernel_on_dequantized_kv(gen):
+    """With scales that are powers of two the dequantized K/V are exact in
+    bf16, so the int8 kernel and the bf16 kernel see the same numbers; they
+    differ only in where the scales multiply."""
+    q, (ks, vs, _, _) = _dense_inputs(gen, 2, 33, 8, 2, 128, 200, True)
+    ksc = torch.full((2, 200), 2.0**-5, device="cuda")
+    vsc = torch.full((2, 200), 2.0**-6, device="cuda")
+    qo = torch.tensor([100, 0], dtype=torch.int32, device="cuda")
+    kl = torch.tensor([133, 33], dtype=torch.int32, device="cuda")
+    out = qa.quantized_flash_attention(q, ks, vs, ksc, vsc, qo, kl,
+                                       kv_head_major=True)
+    k = (ks.float() * 2.0**-5).bfloat16()
+    v = (vs.float() * 2.0**-6).bfloat16()
+    ref = ops.flash_attention(q, k, v, qo, kl, kv_head_major=True)
+    torch.testing.assert_close(out.float(), ref.float(), atol=ATOL,
+                               rtol=2.0**-7)
+
+
+@pytest.mark.parametrize("D", [64, 96, 128])
+@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("case", [
+    (2, 300, 512, [100, 0], [400, 300]),  # over a prefix, and from 0
+    (1, 700, 700, [0], [700]),  # more tiles than ring stages, ragged end
+    (2, 37, 300, [0, 100], [20, 137]),  # kv_len below the causal limit
+    (3, 1, 257, [256, 5, 0], [257, 6, 1]),  # decode
+    (2, 70, 128, [0, 0], [0, 70]),  # sequence 0 sees no key
+], ids=["prefix", "long", "short_kv", "decode", "empty_seq"])
+def test_streamed_kernel_matches_plain_and_flash_attention(gen, case, G, D):
+    B, T, S, q_off, kv_len = case
+    q, (k, v) = _dense_inputs(gen, B, T, 2 * G, 2, D, S, False)
+    qo = torch.tensor(q_off, dtype=torch.int32, device="cuda")
+    kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    phase = "decode" if T == 1 else "prefill"
+    before = ops.flash_attention_dma.launches[phase]
+    out = ops.flash_attention_dma(q, k, v, qo, kl)
+    torch.cuda.synchronize()
+    assert ops.flash_attention_dma.launches[phase] == before + 1
+    ref = ops.mha_reference(q, k.transpose(1, 2), v.transpose(1, 2), qo, kl,
+                            zero_dead_rows=True)
+    torch.testing.assert_close(out.float(), ref.float(), atol=ATOL,
+                               rtol=2.0**-7)
+    # the same steps on the same tiles as flash_attention: equal outputs
+    same = ops.flash_attention(q, k, v, qo, kl, kv_head_major=True)
+    torch.testing.assert_close(out, same, atol=0, rtol=0)
+
+
+def test_dense_kernels_refuse_what_they_do_not_take(gen):
+    q, (k, v) = _dense_inputs(gen, 1, 4, 4, 2, 256, 32, False)
+    one = torch.ones(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="head dim 256"):
+        ops.flash_attention_dma(q, k, v, one, one)
+    ops.flash_attention(q, k, v, one, one, kv_head_major=True)
+    with pytest.raises(ValueError, match="int8"):
+        scale = torch.ones((1, 32), device="cuda")
+        qa.quantized_flash_attention(q, k, v, scale, scale, one, one,
+                                     kv_head_major=True)
+    with pytest.raises(ValueError, match="sinks"):
+        ops.flash_attention(q, k, v, one, one, kv_head_major=True,
+                            sinks=torch.zeros(4))  # on the CPU
+    with pytest.raises(ValueError, match="kv_slot"):
+        ops.flash_attention(q, k, v, one, one, kv_slot=one)
 
 
 # ------------------------------------------------- paged attention kernels ---

@@ -26,6 +26,9 @@ def test_import_leaves_jax_and_lmcache_tpu_out():
             "lmcache_tpu_torch.models, lmcache_tpu_torch.ops, "
             "lmcache_tpu_torch.models.paged, "
             "lmcache_tpu_torch.ops.paged_attention, "
+            "lmcache_tpu_torch.ops.quantized_attention, "
+            "lmcache_tpu_torch.ops.attention, "
+            "lmcache_tpu_torch.serving.engine, "
             "lmcache_tpu_torch.serving.paged_engine; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'lmcache_tpu' "
@@ -70,6 +73,13 @@ def _entry_points():
             np.zeros((1, 2, 4, 2, 16, 64), np.float32)),
         "init_params": lambda: llama.init_params(cfg),
         "new_kv_cache": lambda: llama.new_kv_cache(cfg, 1, 16),
+        "new_quantized_kv_cache": lambda: llama.new_quantized_kv_cache(
+            cfg, 1, 16),
+        "quantized_pool_from_jax": lambda: llama.quantized_pool_from_jax(
+            {"sym": np.zeros((1, 2, 1, 2, 16, 64), np.int8),
+             "scale": np.ones((1, 2, 1, 16), np.float32)}),
+        "int8_serving_engine": lambda: ServingEngine(cfg, {},
+                                                     kv_dtype="int8"),
         "cuda_tier": lambda: LMCLocalBackend(),
         "serving_engine": lambda: ServingEngine(cfg, {}),
         "default_config_tier": lambda: LMCLocalBackend(
@@ -81,7 +91,10 @@ def _entry_points():
                                   "serving_engine", "default_config_tier",
                                   "paged_pool", "quantized_paged_pool",
                                   "paged_serving_engine",
-                                  "paged_pool_from_jax"])
+                                  "paged_pool_from_jax",
+                                  "new_quantized_kv_cache",
+                                  "quantized_pool_from_jax",
+                                  "int8_serving_engine"])
 def test_entry_point_without_cuda_raises(name):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
@@ -95,7 +108,12 @@ def test_entry_points_run_on_cpu_when_asked():
     params = llama.init_params(cfg, device="cpu")
     assert params["layers"]["wq"].device.type == "cpu"
     assert llama.new_kv_cache(cfg, 1, 16, device="cpu").device.type == "cpu"
-    from lmcache_tpu_torch.serving import PagedServingEngine
+    pool = llama.new_quantized_kv_cache(cfg, 1, 16, device="cpu")
+    assert pool["sym"].device.type == "cpu" and pool["sym"].shape[4] == 16
+    from lmcache_tpu_torch.serving import PagedServingEngine, ServingEngine
+    dense = ServingEngine(cfg, params, max_batch=1, max_seq=32,
+                          kv_dtype="int8", device="cpu")
+    assert dense.kv_pool["scale"].device.type == "cpu"
     for kv_dtype in ("native", "int8"):
         eng = PagedServingEngine(cfg, params, num_pages=4, page_size=16,
                                  max_seq=32, kv_dtype=kv_dtype, device="cpu")

@@ -155,25 +155,35 @@ def test_rotary_variants_match_jax():
 
 
 @pytest.mark.parametrize("trait", [dict(n_experts=4), dict(qk_norm=True),
-                                   dict(sliding_window=16),
+                                   dict(qk_l2_norm=True),
                                    dict(post_norms=True),
-                                   dict(attn_sinks=True)])
+                                   dict(rope_local_theta=10000.0)])
 def test_unported_traits_raise(trait):
-    """The dense forward refuses each trait. A sliding window is run by the
-    paged forwards only, so its parameters can be made (the tree is the
-    same) and it is the dense ``forward`` that raises."""
+    """Every forward, and ``init_params``, refuses each trait still to be
+    ported. The attention patterns are no longer among them: a window, a
+    per-layer pattern, chunks, the softcap and sinks run on the dense
+    forwards (``tests/test_torch_quantized_model.py``)."""
     cfg = tl.LlamaConfig.tiny(n_layers=1, **trait)
+    for paged in (False, True):
+        with pytest.raises(NotImplementedError, match="module item 6"):
+            tl.check_supported(cfg, paged=paged)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.check_supported(cfg)
-    if "sliding_window" not in trait:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tl.init_params(cfg, device="cpu")
-        return
-    params = tl.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="module items 5 and 6"):
-        tl.forward(params, cfg, torch.zeros((1, 2), dtype=torch.long),
-                   torch.zeros(1, dtype=torch.int32),
+        tl.init_params(cfg, device="cpu")
+    params = tl.init_params(tl.LlamaConfig.tiny(n_layers=1), device="cpu")
+    tok = torch.zeros((1, 2), dtype=torch.long)
+    zero = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tl.forward(params, cfg, tok, zero,
                    tl.new_kv_cache(cfg, 1, 8, device="cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tl.forward_quantized(
+            params, cfg, tok, zero,
+            tl.new_quantized_kv_cache(cfg, 1, 8, device="cpu"))
+    for ok in (dict(sliding_window=16), dict(attn_sinks=True),
+               dict(attn_logit_softcap=30.0),
+               dict(sliding_window=16, local_attention_kind="chunked",
+                    sliding_window_pattern=2)):
+        tl.check_supported(tl.LlamaConfig.tiny(n_layers=1, **ok))
 
 
 @pytest.mark.parametrize("trait", [

@@ -373,8 +373,9 @@ def test_default_device_raises_without_cuda(sides):
 
 def test_phi3_geometry_runs_on_the_paged_engine_only(sides):
     """A D 96 model with a sliding window: the paged engine serves it (the
-    window bites: 40 + 8 tokens against a window of 24), the dense engine
-    refuses it, and the JAX paged engine gives the same tokens."""
+    window bites: 40 + 8 tokens against a window of 24), the JAX paged
+    engine gives the same tokens, and so does the dense engine, which runs
+    the window too."""
     jcfg = jl.LlamaConfig.tiny(n_layers=2, dim=384, sliding_window=24)
     jparams = jl.init_params(jax.random.PRNGKey(9), jcfg)
     tcfg = tl.LlamaConfig(**dataclasses.asdict(jcfg))
@@ -390,5 +391,8 @@ def test_phi3_geometry_runs_on_the_paged_engine_only(sides):
             tcfg, tparams, device="cpu", kv_dtype=kv_dtype,
             **kw).generate(prompts, tserving.SamplingParams(max_new_tokens=8))
         assert _tokens(tout) == _tokens(jout)
-    with pytest.raises(NotImplementedError, match="module items 5 and 6"):
-        tserving.ServingEngine(tcfg, tparams, device="cpu")
+        dense = tserving.ServingEngine(
+            tcfg, tparams, device="cpu", kv_dtype=kv_dtype, max_batch=2,
+            max_seq=128).generate(
+                prompts, tserving.SamplingParams(max_new_tokens=8))
+        assert _tokens(dense) == _tokens(tout)
