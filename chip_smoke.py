@@ -12,8 +12,8 @@ Phases, in order; any failure exits non-zero:
    and with each option: sliding and chunked window, softcap, sinks,
    ``kv_slot``, at the public shapes of Mistral, Phi-3, Gemma-2, GPT-OSS and
    Llama-4), ``flash_attention_dma``, ``quantized_flash_attention`` (plain
-   and with the same options) and the four paged-attention kernels (bf16
-   and int8 arenas);
+   and with the same options), the four paged-attention kernels (bf16
+   and int8 arenas) and the two range coders (tolerance 0);
 3. the dense main path at full width, tinyllama-1.1B with random weights
    from a seeded generator: full prefill of CTX + SUFFIX = 16384 tokens,
    store of the CTX prefix into the "cuda" cache tier, retrieve (15872
@@ -56,14 +56,30 @@ Phases, in order; any failure exits non-zero:
    prefill once more with the model's attention bound to
    ``flash_attention_dma`` here, logits held to ``flash_attention``'s
    (``phase_streamed_prefill``);
-7. the launch counts of phases 3 to 6e, read per phase with every count set
+9. remote CacheGen reuse through the port's cache server (a subprocess):
+   instance A stores phase 3's 15872-token prefix with the CacheGen serde
+   (quantize, CDF, one range-encoder launch a half, row 12); every
+   container must equal the host C++ coder's, the card's quantizer and CDF
+   the CPU's. A fresh pipelined instance B under a ``ServingEngine`` serves
+   the 16384-token prompt: groups of 16 still-coded chunks, one
+   range-decoder launch a group (row 11), dequantize, inject, suffix
+   prefill; every group's symbols must equal the host C++ decode, the slot
+   the KV of ``retrieve()`` with the host decoder. TTFT remote (best of 3
+   and median, each request a new suffix) beside phase 3's TTFT full, the
+   stage split of bench.py:470-526, a ``torch.profiler`` window of one
+   request, and a ``PagedServingEngine`` wave over the same server whose
+   pages must equal the dense slot (``phase_remote``); 9b: codec throughput
+   at bench.py's reference geometry (``phase_codec_throughput``);
+7. the launch counts of phases 3 to 9, read per phase with every count set
    to 0 just before it (prefill and decode, each > 0 where the phase runs
-   them; "+window" marks launches under a window);
+   them; "+window" marks launches under a window; the coders count
+   "store" and "retrieve" launches);
 8. the yardstick: each kernel's time at phase 2's shapes beside its bound,
    its plain version and a PyTorch library time (SDPA; for a paged arena
    the gather of the live pages into dense K/V, then SDPA; for int8 K/V the
    dequantization to bf16, then SDPA; none where softcap or sinks leave no
-   single call).
+   single call). No PyTorch call computes a range coder: the coders' rows
+   carry the host C++ coder's time at the same shape instead.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without printing a result
@@ -80,13 +96,19 @@ import torch
 
 from lmcache_tpu_torch import (LMCacheEngine, LMCacheEngineConfig,
                                LMCacheEngineMetadata)
-from lmcache_tpu_torch import ops
+from lmcache_tpu_torch import kv, ops
+from lmcache_tpu_torch.chunks import prefix_chunk_hashes
+from lmcache_tpu_torch.codec import CacheGenConfig, range_coder
 from lmcache_tpu_torch.models import llama
 from lmcache_tpu_torch.ops import _build
 from lmcache_tpu_torch.ops import paged_attention as pa
+from lmcache_tpu_torch.ops import quant
 from lmcache_tpu_torch.ops import quantized_attention as qa
+from lmcache_tpu_torch.ops import range_decode as rd
+from lmcache_tpu_torch.ops import range_encode as re_
 from lmcache_tpu_torch.serving import (PagedServingEngine, Request,
                                        SamplingParams, ServingEngine)
+from lmcache_tpu_torch.storage.serde import cachegen_serde as cgs
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 FLOP/s
 PEAK_BYTES_S = 3.35e12
@@ -145,6 +167,12 @@ KERNELS = {
         pa.quantized_paged_attention_dma,
         "lmcache_tpu_torch/ops/csrc/paged_stream_attention.cu",
         "lmcache_tpu/ops/paged_attention.py:885"),
+    "range_encode": (
+        re_.encode_streams_raw, "lmcache_tpu_torch/ops/csrc/range_encode.cu",
+        "lmcache_tpu/ops/range_encode.py:176"),
+    "range_decode": (
+        rd.decode_streams, "lmcache_tpu_torch/ops/csrc/range_decode.cu",
+        "lmcache_tpu/ops/range_decode.py:222"),
 }
 
 
@@ -329,6 +357,9 @@ def phase_kernels():
             worst[case["kernel"]],
             hold_against_plain(case["kernel"], case["name"], out, ref))
         del args, out, ref
+    for case in coder_cases():
+        worst[case[1]] = max(worst[case[1]], hold_coder_against_plain(case,
+                                                                      gen))
     return worst
 
 
@@ -661,6 +692,168 @@ def paged_bound(case):
     if t_flops >= t_bytes:
         return t_flops * 1e3, "operations"
     return t_bytes * 1e3, "bytes"
+
+
+# ----------------------------------- rows 11 and 12: the range coders ---
+
+REMOTE_CHUNK = 256  # chunk size of the remote path, as bench.py's
+STORE_CHUNKS = CTX // REMOTE_CHUNK  # 62
+GROUP_CHUNKS = ServingEngine.inject_group_chunks  # 16
+TINY_CG = CacheGenConfig.from_model_name("tinyllama-1.1b", 22)
+# Integer operations the coders need, counted from the kernels' source
+# (ops/csrc/range_{de,en}code.cu); only the 32-bit division is taken as the
+# sequence nvcc 12.8 emits for sm_90a (cuobjdump -sass): 15 integer
+# instructions. Loads and stores, shared-memory reloads of the CDF and the
+# division's I2F, MUFU.RCP and F2I are left out (the last three run on the
+# 16-lane conversion and special-function unit of an SM: 3 a symbol there
+# take an eighth of the decoder's integer time).
+# Decoder, a symbol: the range shift, code - low, max(range, 1), the
+# division (15), the clamp, the search (31 compares and 31 adds), cf / cfn
+# (lo + 1, its test and select, low += cf * range, cfn - cf, range *=),
+# the renormalization test that ends the loop (5), range == 0 and the
+# loop's count and test: 95. A renormalization round (one coded byte): its
+# test (4), pos < len and the select, pos++, code << 8 | byte, low <<= 8,
+# range <<= 8: 11.
+# Encoder, a symbol: cf and cfn (x < 32 and its select; x + 1, its test
+# and select), the range shift, low += cf * range, cfn - cf, range *=, the
+# test that ends the loop (4) and the loop's count and test: 15. A round:
+# its test (3), pos >= stride, low >> 24, pos++, low <<= 8, range <<= 8: 8;
+# each of the 4 flushed bytes of a stream: 4.
+# A stream's rounds are its coded bytes less the 4 of the flush.
+DEC_OPS_SYMBOL, DEC_OPS_ROUND = 95, 11
+ENC_OPS_SYMBOL, ENC_OPS_ROUND, ENC_OPS_FLUSH_BYTE = 15, 8, 4
+INT32_LANES = 132 * 64  # H100 SXM: 64 INT32 lanes on each of 132 SMs
+PLAIN_STREAMS = 16384  # the plain coders' Python loop is timed at this S
+
+
+def coder_cases():
+    """(name, kernel, bins of each (chunk, half, layer) plane): the launches
+    the remote path gives the coders at tinyllama (22 layers, 4 x 64 = 256
+    channels, chunks of 256 tokens, one stream per channel): one half of
+    the 62-chunk store (349184 streams), one retrieve group of 16 chunks
+    with both halves (180224 streams)."""
+    key, value = list(TINY_CG.key_bins), list(TINY_CG.value_bins)
+    return [
+        ("tinyllama store, one half of 62 chunks", "range_encode",
+         key * STORE_CHUNKS),
+        ("tinyllama retrieve group, 16 chunks x K and V", "range_decode",
+         (key + value) * GROUP_CHUNKS),
+    ]
+
+
+def coder_inputs(case, gen):
+    """Symbols of random-normal bf16 KV, quantized with the case's bins and
+    laid out as the serializer's streams (uint8 [planes * 256, 256]), and
+    their CDFs."""
+    bins = torch.tensor(case[2], dtype=torch.int32, device="cuda")
+    x = torch.randn((len(case[2]), REMOTE_CHUNK, 256), generator=gen,
+                    device="cuda").bfloat16()
+    sym, _ = quant.quantize(x, bins)
+    streams = sym.transpose(1, 2).reshape(-1, REMOTE_CHUNK)
+    return streams, quant.stream_cdf(streams)
+
+
+def hold_coder_against_plain(case, gen):
+    """Launch the case's kernel at its shape and hold it against its plain
+    version on the same inputs: tolerance 0 (the lengths and coded bytes
+    of every stream, or every symbol). Returns the max abs error (0)."""
+    name, kernel, _ = case
+    streams, cdf = coder_inputs(case, gen)
+    out, lens = re_.encode_streams_raw(streams, cdf)
+    payload = re_.compact(out, lens)
+    if kernel == "range_encode":
+        ref_out, ref_lens = re_.encode_streams_reference(streams, cdf)
+        ref = re_.compact(ref_out, ref_lens)
+        same = torch.equal(lens, ref_lens) and torch.equal(payload, ref)
+        err = (lens - ref_lens).abs().max().item()
+        if same:
+            err = max(err, (payload.int() - ref.int()).abs().max().item())
+        what = f"{int(lens.sum())} coded bytes of {streams.numel()} symbols"
+    else:
+        offsets = torch.cat([torch.zeros(1, dtype=torch.int64, device="cuda"),
+                             lens.long().cumsum(0)])
+        sym = rd.decode_streams(payload, offsets, cdf, REMOTE_CHUNK)
+        ref = rd.decode_streams_reference(payload, offsets, cdf,
+                                          REMOTE_CHUNK)
+        same = torch.equal(sym, ref) and torch.equal(sym, streams)
+        err = (sym.int() - ref.int()).abs().max().item()
+        what = f"{sym.numel()} symbols from {payload.numel()} coded bytes"
+    torch.cuda.synchronize()
+    log(f"  {kernel} | {name}: {streams.shape[0]} streams, {what}, max_abs_err "
+        f"{err} (tolerance 0: equal) {'ok' if same else 'FAILED'}")
+    if not same:
+        raise SystemExit(f"{kernel} disagrees with its plain version at "
+                         f"{name}")
+    return err
+
+
+def sm_clock_hz():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def coder_yardstick(gen, clock_hz):
+    """{kernel: rows}: each coder at its path shape against its bound, its
+    plain version (at PLAIN_STREAMS streams of the same data) and, as no
+    PyTorch call computes a range coder, the host C++ coder at the same
+    shape (host time, OpenMP threads)."""
+    rows = {}
+    for case in coder_cases():
+        name, kernel, _ = case
+        streams, cdf = coder_inputs(case, gen)
+        S, T = streams.shape
+        out, lens = re_.encode_streams_raw(streams, cdf)
+        coded = int(lens.sum())
+        sym_h, cdf_h = streams.cpu().numpy(), quant.cdf_to_numpy(cdf)
+        sub = (streams[:PLAIN_STREAMS], cdf[:PLAIN_STREAMS])
+        if kernel == "range_encode":
+            ms = cuda_ms(lambda: re_.encode_streams_raw(streams, cdf),
+                         iters=10)
+            plain_ms = cuda_ms(lambda: re_.encode_streams_reference(*sub),
+                               iters=1, warmup=1)
+            host = wall_best(lambda: range_coder.encode_streams(sym_h, cdf_h),
+                             n=1)
+            ops = (ENC_OPS_SYMBOL * S * T + ENC_OPS_ROUND * (coded - 4 * S)
+                   + ENC_OPS_FLUSH_BYTE * 4 * S)
+            nbytes = S * T + S * 66 + coded + 4 * S
+        else:
+            payload = re_.compact(out, lens)
+            offsets = torch.cat([torch.zeros(1, dtype=torch.int64,
+                                             device="cuda"),
+                                 lens.long().cumsum(0)])
+            ms = cuda_ms(lambda: rd.decode_streams(payload, offsets, cdf, T),
+                         iters=10)
+            n_sub = int(offsets[PLAIN_STREAMS])
+            plain_ms = cuda_ms(lambda: rd.decode_streams_reference(
+                payload[:n_sub], offsets[:PLAIN_STREAMS + 1], sub[1], T),
+                iters=1, warmup=1)
+            pay_h, lens_h = payload.cpu().numpy(), lens.cpu().numpy()
+            host = wall_best(lambda: range_coder.decode_streams(
+                pay_h, lens_h, T, cdf_h), n=1)
+            ops = DEC_OPS_SYMBOL * S * T + DEC_OPS_ROUND * (coded - 4 * S)
+            nbytes = coded + S * 66 + 8 * (S + 1) + S * T
+        t_ops, t_bytes = ops / (INT32_LANES * clock_hz), nbytes / PEAK_BYTES_S
+        bound_ms, bound_by = ((t_ops * 1e3, "operations") if t_ops >= t_bytes
+                              else (t_bytes * 1e3, "bytes"))
+        row = {"shape": name, "streams": S, "symbols": S * T,
+               "coded_bytes": coded, "ms": ms, "plain_ms": plain_ms,
+               "plain_streams": PLAIN_STREAMS, "library_ms": None,
+               "host_coder_ms": host,
+               "host_threads": range_coder.num_threads(),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_operations": ops, "bound_bytes": nbytes}
+        log(f"  {kernel} | {name}: kernel {ms:.4f} ms, bound {bound_ms:.4f} "
+            f"ms ({bound_by}: {ops / 1e9:.3f} G integer operations at "
+            f"{clock_hz / 1e6:.0f} MHz, {nbytes / 1e6:.1f} MB), plain "
+            f"{plain_ms:.1f} ms at {PLAIN_STREAMS} streams, host C++ coder "
+            f"{host:.1f} ms ({row['host_threads']} threads; no PyTorch call "
+            f"computes a range coder)")
+        rows[kernel] = [row]
+        del streams, cdf, out, lens
+    return rows
 
 
 # ---------------------------------------------------------------- phase 3 ---
@@ -1411,6 +1604,428 @@ def phase_streamed_prefill(cfg, params):
         "ttft_stream_ms": t_stream, "ttft_flash_ms": t_flash}
 
 
+# ---------------------------------------------------------------- phase 9 ---
+
+REMOTE_MODEL = "tinyllama-1.1b-remote"  # the tinyllama CacheGen schedule
+
+
+def start_cache_server():
+    """The port's cache server in a subprocess on a free port; fails the
+    phase if it does not answer within 15 s."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    proc = subprocess.Popen([sys.executable, "-m", "lmcache_tpu_torch.server",
+                             "localhost", str(port), "cpu"])
+    deadline = time.time() + 15
+    while True:
+        try:
+            socket.create_connection(("localhost", port), timeout=0.5).close()
+            return proc, f"lm://localhost:{port}"
+        except OSError:
+            if time.time() > deadline or proc.poll() is not None:
+                proc.kill()
+                proc.wait(timeout=10)
+                raise SystemExit("the cache server did not answer in 15 s")
+            time.sleep(0.05)
+
+
+def remote_tier(url, cfg, **kw):
+    return LMCacheEngine(
+        LMCacheEngineConfig(local_device=None, remote_url=url,
+                            remote_serde="cachegen", chunk_size=REMOTE_CHUNK,
+                            **kw),
+        LMCacheEngineMetadata(model_name=REMOTE_MODEL, world_size=1,
+                              worker_id=0, fmt="vllm", dtype=cfg.dtype))
+
+
+def remote_store(url, cfg, tokens_np, prefix):
+    """Instance A stores the CTX prefix (row 12, one launch a half); every
+    container must equal the host C++ coder's; the card's quantization and
+    CDF must equal the CPU's."""
+    a = remote_tier(url, cfg)
+    serializer = a.engine_.serializer
+    encode, encode_ms = serializer.to_bytes_batch, []
+
+    def timed_encode(blobs):
+        t0 = time.perf_counter()
+        out = encode(blobs)
+        encode_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    serializer.to_bytes_batch = timed_encode
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = a.store(tokens_np[:CTX], prefix, blocking=True)
+    store_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launch_counts()
+    keys = [a._make_key(h, "vllm")
+            for h in prefix_chunk_hashes(tokens_np[:CTX], REMOTE_CHUNK)]
+    wire = [a.engine_.connection.get(k.to_string()) for k in keys]
+    a.close()
+    host = cgs.CacheGenSerializer(
+        LMCacheEngineConfig(local_device=None, remote_url="lm://localhost:1",
+                            cachegen_device_encode="off"),
+        LMCacheEngineMetadata(model_name=REMOTE_MODEL, world_size=1,
+                              worker_id=0, fmt="vllm", dtype=cfg.dtype))
+    ref = host.to_bytes_batch(kv.chunk_blob(prefix, "vllm", REMOTE_CHUNK))
+    equal = sum(w == r for w, r in zip(wire, ref))
+    wire_bytes = sum(len(w) for w in wire)
+    # what crossed from the card: every container's maxes, CDF tables,
+    # lengths and coded bytes (its header was written on the host)
+    d2h = sum(c.maxes.nbytes + c.cdf.nbytes + c.lens.nbytes + len(c.payload)
+              for c in map(cgs._parse_container, wire))
+    raw = prefix.numel() * prefix.element_size()
+    log(f"  store: {n} chunks in {store_ms:.2f} ms, of which the encode "
+        f"(to_bytes_batch: quantize, CDF, row 12, compaction, copies to the "
+        f"host) {encode_ms[0]:.2f} ms and {n} PUTs the rest; launches "
+        f"{launches}; wire "
+        f"{wire_bytes / 1e6:.3f} MB for {raw / 1e6:.1f} MB of bf16 KV, "
+        f"compression {raw / wire_bytes:.3f}x; device -> host "
+        f"{d2h / 1e6:.3f} MB (coded bytes, lengths, CDF tables, maxes)")
+    log(f"  containers equal to the host C++ coder's: {equal} of {len(wire)}")
+    if n != STORE_CHUNKS or equal != STORE_CHUNKS:
+        raise SystemExit("remote store: a container differs from the host "
+                         "coder's")
+    # the card's quantizer and CDF against the CPU's, on 8 chunks
+    sub = torch.stack(kv.chunk_blob(prefix, "vllm", REMOTE_CHUNK)[:8])
+    n, L, _, T, H, D = sub.shape
+    cg = CacheGenConfig.from_model_name(REMOTE_MODEL, L)
+    for hi, bins in enumerate((cg.key_bins, cg.value_bins)):
+        x = sub[:, :, hi].reshape(n * L, T, H * D)
+        b = torch.tensor(bins, dtype=torch.int32).repeat(n)
+        sym, maxes = quant.quantize(x, b.cuda())
+        sym_c, maxes_c = quant.quantize(x.cpu(), b)
+        same = (torch.equal(sym.cpu(), sym_c)
+                and torch.equal(maxes.cpu(), maxes_c)
+                and torch.equal(quant.compute_cdf(sym).cpu(),
+                                quant.compute_cdf(sym_c)))
+        log(f"  {'KV'[hi]} half of 8 chunks: symbols, maxes and CDF tables "
+            f"on the card equal the CPU's: {same}")
+        if not same:
+            raise SystemExit("the card's CDF differs from the CPU's")
+    return launches, {"store_ms": store_ms, "encode_ms": encode_ms[0],
+                      "wire_bytes": wire_bytes,
+                      "raw_bytes": raw, "compression": raw / wire_bytes,
+                      "device_to_host_bytes": d2h}
+
+
+def remote_reuse_gate(url, cfg, params, tokens_np, full_logits):
+    """Instance B (pipelined) serves the CTX + SUFFIX prompt: grouped
+    inject (row 11, one launch a group), then the suffix prefill. Gates:
+    the cached prefix; every group's symbols equal the host C++ decode of
+    its containers; the slot equals retrieve() with the host decoder
+    injected into a second slot. Returns the engine (its slot is read by
+    the paged wave)."""
+    b = remote_tier(url, cfg, pipelined_backend=True)
+    eng = ServingEngine(cfg, params, max_batch=2, max_seq=CTX + SUFFIX + 8,
+                        cache_engine=b)
+    kept, groups = {}, []
+    finish, decode = eng._finish_prefill, rd.decode_streams
+
+    def finish_and_keep(req, logits):
+        kept[req.request_id] = logits.float().clone()
+        finish(req, logits)
+
+    def decode_and_keep(payload, offsets, cdf, n):
+        out = decode(payload, offsets, cdf, n)
+        groups.append((payload, offsets, cdf, n, out))
+        return out
+
+    eng._finish_prefill = finish_and_keep
+    rd.decode_streams = decode_and_keep
+    try:
+        [req] = eng.generate([tokens_np], SamplingParams(max_new_tokens=1))
+    finally:
+        rd.decode_streams = decode
+    b.engine_.flush()
+    group_sizes = [g[1].numel() - 1 for g in groups]
+    same_symbols = []
+    for payload, offsets, cdf, n, out in groups:
+        lens = np.diff(offsets.cpu().numpy())
+        ref = range_coder.decode_streams(payload.cpu().numpy(), lens, n,
+                                         quant.cdf_to_numpy(cdf))
+        same_symbols.append(bool(np.array_equal(out.cpu().numpy(), ref)))
+    off = remote_tier(url, cfg, cachegen_device_decode="off")
+    blob, mask = off.retrieve(tokens_np[:CTX], return_tuple=False)
+    off.close()
+    other = 1 - req.slot
+    eng._inject(blob, other, 0)
+    same_kv = torch.equal(eng.kv_pool[:, :, req.slot, :, :CTX],
+                          eng.kv_pool[:, :, other, :, :CTX])
+    logits = kept[req.request_id]
+    rel = ((logits - full_logits).norm() / full_logits.norm()).item()
+    log(f"  reuse: cached_prefix_len {req.cached_prefix_len}; decode groups "
+        f"of {group_sizes} streams; symbols equal the host C++ decode "
+        f"{same_symbols}; slot KV equals retrieve() with the host decoder "
+        f"injected into slot {other}: {same_kv}")
+    log(f"  first-token logits against the full prefill's (CacheGen is "
+        f"lossy, random-init KV its worst case; reported): rel_l2 {rel:.4e}, "
+        f"top-1 {int(logits.argmax())} vs {int(full_logits.argmax())}")
+    if not (req.cached_prefix_len >= CTX - 1
+            and len(groups) == -(-STORE_CHUNKS // GROUP_CHUNKS)
+            and all(same_symbols) and same_kv and int(mask.sum()) == CTX
+            and bool(torch.isfinite(logits).all())):
+        raise SystemExit("remote reuse: a gate failed")
+    return eng, {"cached_prefix_len": req.cached_prefix_len,
+                 "reuse_rel_l2": rel,
+                 "same_top1": int(logits.argmax()) == int(
+                     full_logits.argmax())}
+
+
+def remote_stage_split(url, cfg, params, tokens, tokens_np):
+    """bench.py:470-526's stages, one measured pass each, over the 62
+    containers in the engine's groups of 16: mexist, fetch, parse, then for
+    every group the host concat + upload, the row-11 decode, the host C++
+    decode of the same group, dequantize + inject; then the suffix
+    prefill over the injected slot."""
+    ce = remote_tier(url, cfg)
+    backend = ce.engine_
+    keys = [ce._make_key(h, "vllm")
+            for h in prefix_chunk_hashes(tokens_np[:CTX], REMOTE_CHUNK)]
+    st = {}
+    t0 = time.perf_counter()
+    assert all(backend.batched_contains(keys))
+    st["mexist_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    raw = [backend.connection.get(k.to_string()) for k in keys]
+    st["fetch_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    hcs = [backend.deserializer.from_bytes_host(b) for b in raw]
+    st["parse_ms"] = (time.perf_counter() - t0) * 1e3
+    ce.close()
+    eng = ServingEngine(cfg, params, max_batch=1, max_seq=CTX + SUFFIX + 8)
+    for k in ("upload_ms", "decode_ms", "host_decode_ms", "dequant_inject_ms"):
+        st[k] = 0.0
+    up_bytes = 0
+    for g0 in range(0, STORE_CHUNKS, GROUP_CHUNKS):
+        group = hcs[g0:g0 + GROUP_CHUNKS]
+        c0 = group[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lens = np.concatenate([c.lens.reshape(-1) for c in group])
+        cdf = np.concatenate([c.cdf.reshape(-1, 33) for c in group])
+        maxes = np.stack([c.maxes for c in group])
+        payload = np.concatenate([np.frombuffer(c.payload, np.uint8)
+                                  for c in group])
+        offsets = np.zeros(len(lens) + 1, np.int64)
+        np.cumsum(lens, out=offsets[1:])
+        d_pay = torch.from_numpy(payload).cuda()
+        d_offs = torch.from_numpy(offsets).cuda()
+        d_cdf = torch.from_numpy(cdf.view(np.int16)).cuda()
+        d_max = torch.from_numpy(maxes).cuda()
+        half = torch.from_numpy(np.stack([
+            c0.key_bins.astype(np.int32) // 2 - 1,
+            c0.value_bins.astype(np.int32) // 2 - 1]).astype(
+                np.float32)).cuda()
+        torch.cuda.synchronize()
+        st["upload_ms"] += (time.perf_counter() - t0) * 1e3
+        up_bytes += payload.nbytes + cdf.nbytes + offsets.nbytes + maxes.nbytes
+        t0 = time.perf_counter()
+        sym = rd.decode_streams(d_pay, d_offs, d_cdf, c0.g * c0.T)
+        torch.cuda.synchronize()
+        st["decode_ms"] += (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        range_coder.decode_streams(payload, lens, c0.g * c0.T, cdf)
+        st["host_decode_ms"] += (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        blob = cgs.symbols_to_blob(
+            sym, d_max, half, nchunks=len(group), L=c0.L, H=c0.H, D=c0.D,
+            T=c0.T, g=c0.g, N=c0.N, fmt="vllm", dtype=c0.dtype, tok_start=0,
+            tok_stop=len(group) * c0.T)
+        eng._inject(blob, 0, g0 * REMOTE_CHUNK)
+        torch.cuda.synchronize()
+        st["dequant_inject_ms"] += (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    llama.forward(params, cfg, tokens[:, CTX:],
+                  torch.full((1,), CTX, dtype=torch.int32, device="cuda"),
+                  eng._slot_view(0), last_logit_only=True)
+    torch.cuda.synchronize()
+    st["suffix_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    log("  stages (one pass each, ms; groups of 16 summed): " + ", ".join(
+        f"{k[:-3]} {v:.2f}" for k, v in st.items())
+        + f"; host -> device {up_bytes / 1e6:.3f} MB")
+    st["host_to_device_bytes"] = up_bytes
+    return st
+
+
+def phase_remote(cfg, params, ttft_full_ms):
+    """Phase 9: reuse across engine instances through the cache server.
+    Returns (launch counts by sub-phase, the phase's numbers)."""
+    log(f"== phase 9: remote CacheGen reuse, tinyllama-1.1B, CTX {CTX} + "
+        f"SUFFIX {SUFFIX}, chunks of {REMOTE_CHUNK}, through the port's cache "
+        f"server")
+    S = CTX + SUFFIX
+    tokens_np = np.random.default_rng(0).integers(0, cfg.vocab_size, S,
+                                                  dtype=np.int32)
+    tokens = torch.as_tensor(tokens_np, device="cuda").long()[None]
+    logits, cache = llama.forward(
+        params, cfg, tokens, torch.zeros(1, dtype=torch.int32, device="cuda"),
+        llama.new_kv_cache(cfg, 1, S), last_logit_only=True)
+    full_logits = logits[0, -1].float()
+    prefix = llama.cache_to_blob(cache, 0, CTX)
+    launches, out = {}, {}
+    proc, url = start_cache_server()
+    try:
+        launches["remote store"], out["store"] = remote_store(
+            url, cfg, tokens_np, prefix)
+        del cache, prefix
+        dense, out["gate"] = remote_reuse_gate(url, cfg, params, tokens_np,
+                                               full_logits)
+
+        # timed: one engine as a user runs it (max_batch 1), each request a
+        # new 512-token question on the stored document
+        b = remote_tier(url, cfg, pipelined_backend=True)
+        eng = ServingEngine(cfg, params, max_batch=1, max_seq=S + 8,
+                            cache_engine=b)
+        rng = np.random.default_rng(9)
+        sp = SamplingParams(max_new_tokens=1)
+
+        def question():
+            return np.concatenate([tokens_np[:CTX], rng.integers(
+                0, cfg.vocab_size, SUFFIX, dtype=np.int32)])
+
+        def serve():
+            [r] = eng.generate([question()], sp)
+            torch.cuda.synchronize()
+            b.engine_.flush()  # the store-back of the new suffix
+            if r.cached_prefix_len != CTX:
+                raise SystemExit(f"remote reuse: {r.cached_prefix_len} "
+                                 f"cached, not {CTX}")
+            return r.ttft_s * 1e3
+
+        serve()  # warm-up
+        reset_launch_counts()
+        ttft = sorted(serve() for _ in range(3))
+        launches["remote reuse"] = read_launch_counts()
+        log(f"  TTFT remote {ttft[0]:.2f} ms best of 3, median {ttft[1]:.2f} "
+            f"ms (each request a new suffix); TTFT full {ttft_full_ms:.2f} ms "
+            f"(phase 3): ratio {ttft_full_ms / ttft[0]:.3f}x; launches of the "
+            f"three requests {launches['remote reuse']}")
+        out["ttft_remote_ms"], out["ttft_remote_median_ms"] = ttft[0], ttft[1]
+        out["ttft_full_ms"] = ttft_full_ms
+        out["profile"] = profile_window(
+            "remote reuse request (fetch, grouped decode + inject, suffix)",
+            lambda: eng.generate([question()], sp))
+        b.engine_.flush()
+        b.close()
+        del eng
+        out["stages"] = remote_stage_split(url, cfg, params, tokens,
+                                           tokens_np)
+
+        # the paged engine over the same server (page 64, chunk 256)
+        tier = remote_tier(url, cfg, pipelined_backend=True)
+        peng = paged_engine(cfg, params, max_batch=1, max_seq=S + 8,
+                            num_pages=S // PAGE + 8, cache_engine=tier)
+        written = []
+        inject = peng._inject_pages
+
+        def inject_and_keep(blob, pages):
+            written.extend(pages)
+            inject(blob, pages)
+
+        peng._inject_pages = inject_and_keep
+        reset_launch_counts()
+        [r], _, n_pages = paged_wave(peng, "paged wave over the remote tier",
+                                     [tokens_np], 1)
+        launches["remote paged"] = read_launch_counts()
+        tier.close()
+        pages = peng._read_pages(written)[:, :, :CTX]
+        same = torch.equal(pages, llama.cache_to_blob(dense.kv_pool, 0, CTX))
+        log(f"  paged: {n_pages} pages injected in groups; the first {CTX} "
+            f"tokens of the pages equal the dense slot's KV: {same}; "
+            f"launches {launches['remote paged']}")
+        if not (same and r.cached_prefix_len >= CTX):
+            raise SystemExit("remote paged wave: the pages differ from the "
+                             "dense slot")
+        dense.cache_engine.close()
+        del dense, peng
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=10)
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+# the reference geometry of bench.py:636-641: layers, KV heads, head dim,
+# chunks of 256 tokens
+CODEC_GEOMETRY = (32, 8, 128, 8)
+
+
+def phase_codec_throughput():
+    """Rows 12 and 11 alone, the host C++ coder both ways and the serde end
+    to end at the reference geometry of bench.py:636-641 (32 layers x 8 KV
+    heads x 128, bf16, 8 chunks of 256 tokens, the longchat-7b-16k
+    schedule: 524288 streams of 256 symbols), each as GB/s of the bf16 KV
+    it codes."""
+    L, H, D, n = CODEC_GEOMETRY
+    log(f"== phase 9b: codec throughput, {L} L x {H} H x {D} D bf16, {n} "
+        f"chunks of 256 tokens (lmsys/longchat-7b-16k schedule)")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    blobs = [torch.randn((L, 2, 256, H, D), generator=gen,
+                         device="cuda").bfloat16() for _ in range(n)]
+    raw = sum(b.numel() * 2 for b in blobs)
+    cg = CacheGenConfig.from_model_name("lmsys/longchat-7b-16k", L)
+    stacked = torch.stack(blobs)
+    halves = []
+    for hi, bins in enumerate((cg.key_bins, cg.value_bins)):
+        sym, _ = quant.quantize(
+            stacked[:, :, hi].reshape(n * L, 256, H * D),
+            torch.tensor(bins, dtype=torch.int32, device="cuda").repeat(n))
+        halves.append(sym.transpose(1, 2).reshape(-1, 256))
+    streams = torch.cat(halves)
+    cdf = quant.stream_cdf(streams)
+    del stacked, halves
+    enc_ms = cuda_ms(lambda: re_.encode_streams_raw(streams, cdf), iters=5)
+    out, lens = re_.encode_streams_raw(streams, cdf)
+    payload = re_.compact(out, lens)
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int64, device="cuda"),
+                         lens.long().cumsum(0)])
+    dec_ms = cuda_ms(lambda: rd.decode_streams(payload, offsets, cdf, 256),
+                     iters=5)
+    sym_h, cdf_h = streams.cpu().numpy(), quant.cdf_to_numpy(cdf)
+    pay_h, lens_h = payload.cpu().numpy(), lens.cpu().numpy()
+    host_enc = wall_best(lambda: range_coder.encode_streams(sym_h, cdf_h),
+                         n=1)
+    host_dec = wall_best(lambda: range_coder.decode_streams(
+        pay_h, lens_h, 256, cdf_h), n=1)
+    ref_pay, ref_lens = range_coder.encode_streams(sym_h, cdf_h)
+    same = (np.array_equal(ref_lens, lens_h) and ref_pay == pay_h.tobytes()
+            and torch.equal(rd.decode_streams(payload, offsets, cdf, 256),
+                            streams))
+    meta = LMCacheEngineMetadata(model_name="lmsys/longchat-7b-16k",
+                                 world_size=1, worker_id=0, fmt="vllm",
+                                 dtype="bfloat16")
+    config = LMCacheEngineConfig(local_device=None,
+                                 remote_url="lm://localhost:1",
+                                 remote_serde="cachegen")
+    ser = cgs.CacheGenSerializer(config, meta)
+    de = cgs.CacheGenDeserializer(config, meta)
+    bss = ser.to_bytes_batch(blobs)
+    ser_ms = wall_best(lambda: ser.to_bytes_batch(blobs), n=2)
+    de_ms = wall_best(lambda: cgs.finish_host_chunks(
+        [de.from_bytes_host(b) for b in bss]), n=2)
+    rates = {"row 12 alone": enc_ms, "row 11 alone": dec_ms,
+             "host C++ encode": host_enc, "host C++ decode": host_dec,
+             "serde to_bytes_batch": ser_ms,
+             "serde parse + finish_host_chunks": de_ms}
+    log(f"  {streams.shape[0]} streams of 256 symbols, {raw / 1e6:.1f} MB of "
+        f"bf16 KV, {int(lens.sum()) / 1e6:.3f} MB coded; kernels equal the "
+        f"host coder: {same}")
+    for k, ms in rates.items():
+        log(f"  {k}: {ms:.3f} ms, {raw / ms / 1e6:.2f} GB/s of bf16 KV")
+    if not same:
+        raise SystemExit("codec throughput: the kernels differ from the host "
+                         "coder")
+    return {k: {"ms": ms, "gb_s": raw / ms / 1e6} for k, ms in rates.items()}
+
+
 # ---------------------------------------------------------------- phase 8 ---
 
 def cuda_ms_cold(fn, iters):
@@ -1524,6 +2139,7 @@ def phase_yardstick():
             f"gather {gather_ms:.4f} ms + SDPA {sdpa_ms:.4f} ms")
         rows[case["kernel"]].append(row)
         del args
+    rows.update(coder_yardstick(gen, sm_clock_hz()))
     return rows
 
 
@@ -1607,7 +2223,11 @@ def main():
     launches.update(int8_launches)
     stream_launches, stream_ttft = phase_streamed_prefill(cfg, params)
     launches.update(stream_launches)
+    remote_launches, remote = phase_remote(cfg, params, ttft["ttft_full_ms"])
+    launches.update(remote_launches)
     del params, dense_logits
+    torch.cuda.empty_cache()
+    remote["codec_throughput"] = phase_codec_throughput()
     torch.cuda.empty_cache()
     launches.update(phase_paged_phi3())
     mistral_launches, mistral_profiles = phase_mistral()
@@ -1635,11 +2255,19 @@ def main():
                            ("prefill+window", "decode+window")),
         "mistral int8": ("quantized_flash_attention",
                          ("prefill+window", "decode+window")),
+        "remote store": ("range_encode", ("store",)),
+        "remote reuse": [("range_decode", ("retrieve",)),
+                         ("range_encode", ("store",)),
+                         ("flash_attention", ("prefill",))],
+        "remote paged": [("range_decode", ("retrieve",)),
+                         ("paged_attention_dma", ("prefill",))],
     }
-    for phase, (kernel, kinds) in expected.items():
-        for kind in kinds:
-            if launches[phase].get(kernel, {}).get(kind, 0) <= 0:
-                raise SystemExit(f"{kernel}: no {kind} launch in {phase}")
+    for phase, wanted in expected.items():
+        for kernel, kinds in (wanted if isinstance(wanted, list)
+                              else [wanted]):
+            for kind in kinds:
+                if launches[phase].get(kernel, {}).get(kind, 0) <= 0:
+                    raise SystemExit(f"{kernel}: no {kind} launch in {phase}")
 
     rows = phase_yardstick()
     kernels = []
@@ -1659,7 +2287,7 @@ def main():
             "shapes": rows[name],
         })
     record = {"kernels": kernels, "ttft": ttft, "ttft_int8": int8_bench,
-              "ttft_streamed": stream_ttft,
+              "ttft_streamed": stream_ttft, "remote": remote,
               "paged_decode_profiles": decode_profiles,
               "dense_decode_profiles": dense_decode_profiles,
               "mistral_profiles": mistral_profiles, "card": card}

@@ -5,17 +5,30 @@ immutable engine config (how to cache) separate from the engine metadata
 (identity of the deployment, baked into every cache key).
 
 ``local_device`` is ``"cuda"`` (KV chunks held in GPU memory as torch
-tensors) or ``"cpu"`` (host DRAM). The disk tier and the remote tier are
-not ported yet: a disk path or a ``remote_url`` raises
-``NotImplementedError`` (ROADMAP, module item 8: disk, remote and hybrid
-tiers).
+tensors), ``"cpu"`` (host DRAM) or None. ``remote_url`` names a cache server
+(``lm://host:port``; :mod:`lmcache_tpu_torch.server`), written through the
+serde ``remote_serde`` (``"raw"`` or ``"cachegen"``). One of the two tiers
+is configured: the disk tier (a path as ``local_device``) and the hybrid
+tier (both) are not ported yet and raise ``NotImplementedError`` (ROADMAP,
+module item 8).
+
+CacheGen's range coding runs where ``cachegen_device_encode`` (store) and
+``cachegen_device_decode`` (retrieve) say: ``"auto"`` runs the Hopper
+kernels for data on the card and their plain versions for CPU tensors,
+``"off"`` runs the host C++ coder. ``"on"`` is an alias of ``"auto"``, kept
+so that the JAX package's config files load unchanged.
+
+``remote_device`` selects the platform of the remote tier as
+``local_device`` does for the local one: CacheGen chunks fetched by
+``LMCacheEngine.retrieve`` are decoded there (``"cpu"`` runs the codec on
+the host, as the CPU tests do). The serving engines pass their own device
+and do not read it.
 """
 
 from dataclasses import dataclass
 from typing import Optional
 
-_NOT_PORTED = ("not ported yet (ROADMAP, module item 8: disk, remote and "
-               "hybrid tiers)")
+CODER_MODES = ("auto", "on", "off")
 
 
 @dataclass(frozen=True)
@@ -41,19 +54,35 @@ class LMCacheEngineMetadata:
 @dataclass(frozen=True)
 class LMCacheEngineConfig:
     chunk_size: int = 256
-    local_device: str = "cuda"  # "cuda" | "cpu"
-    remote_url: Optional[str] = None
+    local_device: Optional[str] = "cuda"  # "cuda" | "cpu" | None
+    remote_url: Optional[str] = None  # "lm://host:port"
+    remote_serde: Optional[str] = "raw"  # "raw" | "cachegen"
+    pipelined_backend: bool = False
     save_decode_cache: bool = False
     # Max bytes held by the in-memory local tier before LRU eviction
     # (None = unbounded, matching reference behavior).
     local_capacity_bytes: Optional[int] = None
+    cachegen_device_decode: str = "auto"  # "auto" | "off" ("on" = "auto")
+    cachegen_device_encode: str = "auto"  # "auto" | "off" ("on" = "auto")
+    remote_device: str = "cuda"  # "cuda" | "cpu"
 
     def __post_init__(self):
-        if self.remote_url is not None:
-            raise NotImplementedError(f"remote_url: {_NOT_PORTED}")
-        if self.local_device not in ("cuda", "cpu"):
+        if self.local_device not in ("cuda", "cpu", None):
             raise NotImplementedError(
-                f"local_device {self.local_device!r}: {_NOT_PORTED}")
+                f"local_device {self.local_device!r}: the disk tier is not "
+                f"ported yet (ROADMAP, module item 8)")
+        if self.local_device is not None and self.remote_url is not None:
+            raise NotImplementedError(
+                "local_device with remote_url: the hybrid tier is not "
+                "ported yet (ROADMAP, module item 8)")
+        if self.local_device is None and self.remote_url is None:
+            raise ValueError("need one of local_device and remote_url")
+        for name in ("cachegen_device_decode", "cachegen_device_encode"):
+            if getattr(self, name) not in CODER_MODES:
+                raise ValueError(f"{name} must be one of {CODER_MODES}: "
+                                 f"{getattr(self, name)!r}")
+        if self.remote_device not in ("cuda", "cpu"):
+            raise ValueError(f"Invalid remote_device: {self.remote_device}")
 
     @staticmethod
     def from_defaults(**kwargs) -> "LMCacheEngineConfig":
@@ -67,10 +96,15 @@ class LMCacheEngineConfig:
             raw = yaml.safe_load(fin) or {}
         return LMCacheEngineConfig(
             chunk_size=raw.get("chunk_size", 256),
-            local_device=raw.get("local_device", "cuda"),
+            local_device=raw.get("local_device", None),
             remote_url=raw.get("remote_url", None),
+            remote_serde=raw.get("remote_serde", "raw"),
+            pipelined_backend=raw.get("pipelined_backend", False),
             save_decode_cache=raw.get("save_decode_cache", False),
             local_capacity_bytes=raw.get("local_capacity_bytes", None),
+            cachegen_device_decode=raw.get("cachegen_device_decode", "auto"),
+            cachegen_device_encode=raw.get("cachegen_device_encode", "auto"),
+            remote_device=raw.get("remote_device", "cuda"),
         )
 
 

@@ -12,6 +12,12 @@ lmcache/cache_engine.py:98-161):
 These helpers work on numpy arrays and torch tensors (CPU or CUDA) alike,
 without moving data between devices. Slices are views: a tier that keeps a
 chunk copies it (storage/local_backend.py).
+
+They also take host chunks (``CacheGenHostChunk``, an undecoded container
+from the remote tier) through a small protocol: ``num_tokens``, a lazy
+``slice_tokens``, ``to_blob`` (see :func:`ensure_blob`) and the
+``finish_concat`` hook of :func:`concat_blobs`, which decodes a whole run of
+chunks in one batch.
 """
 
 from typing import List, Sequence, Tuple, Union
@@ -40,6 +46,9 @@ def token_axis(fmt: str) -> int:
 
 
 def num_tokens_in_blob(blob: Array, fmt: str) -> int:
+    n = getattr(blob, "num_tokens", None)  # host-chunk protocol
+    if n is not None:
+        return n
     return blob.shape[token_axis(fmt)]
 
 
@@ -59,10 +68,20 @@ def blob_to_tuple(blob: Array) -> KVTuples:
 def slice_blob_tokens(blob: Array, fmt: str, start: int,
                       end: int = None) -> Array:
     """Slice the blob along the token axis: ``blob[..., start:end, ...]``."""
+    if hasattr(blob, "slice_tokens"):  # host-chunk protocol (lazy)
+        return blob.slice_tokens(start, end)
     axis = token_axis(fmt)
     idx = [slice(None)] * blob.ndim
     idx[axis] = slice(start, end)
     return blob[tuple(idx)]
+
+
+def ensure_blob(blob: Array, fmt: str = "vllm") -> Array:
+    """Materialize a host chunk (an undecoded container) into a KV blob
+    tensor; arrays and tensors pass through unchanged."""
+    if hasattr(blob, "to_blob"):
+        return blob.to_blob()
+    return blob
 
 
 def chunk_blob(blob: Array, fmt: str, chunk_size: int,
@@ -80,6 +99,9 @@ def chunk_blob(blob: Array, fmt: str, chunk_size: int,
 
 
 def concat_blobs(blobs: Sequence[Array], fmt: str) -> Array:
+    if hasattr(blobs[0], "finish_concat"):
+        # host-chunk protocol: one batched decode for the whole run
+        return type(blobs[0]).finish_concat(list(blobs), fmt)
     if _xp(blobs[0]) is np:
         return np.concatenate(list(blobs), axis=token_axis(fmt))
     return torch.cat(list(blobs), dim=token_axis(fmt))

@@ -21,7 +21,12 @@ Port of ``lmcache_tpu/serving/engine.py::ServingEngine`` (the dense path):
   LMCacheEngine into the slot and only the suffix is prefilled; on
   completion the prompt KV is stored back without blocking. The storage
   tier copies the slot's KV on the caller's stream before ``put`` returns,
-  so a slot can be reused at once.
+  so a slot can be reused at once;
+- chunks that reach the engine off its device (CacheGen host chunks from
+  the remote tier, still range-coded, or host tensors) are injected in
+  groups of ``inject_group_chunks``: one upload, one range-decoder launch
+  and one dequantization per group, the decode of group k+1 issued before
+  group k is injected. Chunks already on the engine's device inject at once.
 
 Greedy decoding gives the JAX engine's tokens. Sampled decoding draws from a
 ``torch.Generator`` per request (seeded from ``SamplingParams.seed``, else
@@ -45,6 +50,7 @@ from lmcache_tpu_torch.logging_utils import init_logger
 from lmcache_tpu_torch.models import llama
 from lmcache_tpu_torch.serving.request import (Request, RequestState,
                                                SamplingParams)
+from lmcache_tpu_torch.storage.serde.cachegen_serde import finish_host_chunks
 from lmcache_tpu_torch.utils import resolve_device
 
 logger = init_logger(__name__)
@@ -379,30 +385,98 @@ class ServingEngine:
                 else llama.blob_into_cache)
         into(self.kv_pool, blob, slot, pos)
 
-    def _stream_inject(self, req: Request, tokens: np.ndarray) -> int:
-        """Retrieve the cached prefix of ``tokens`` as a stream of chunks
-        and copy each into the request's slot as it arrives. At least the
-        last token is left to prefill (its logits give the first new
-        token). Returns the number of cached tokens injected."""
-        if self.cache_engine is None:
-            return 0
-        limit = len(tokens) - 1
-        cached = 0
-        stream = self.cache_engine.retrieve_stream(tokens)
+    # chunks per grouped upload + decode + inject in _stream_inject: large
+    # enough to amortize the per-group launches, small enough that the first
+    # inject does not wait for the whole prefix
+    inject_group_chunks = 16
+
+    def _group_key(self, blob):
+        """Chunks that may share one batched inject: host chunks of one
+        geometry, or host tensors of one shape (the trailing short chunk
+        starts its own group)."""
+        if hasattr(blob, "to_blob"):
+            return ("host", blob.T, blob.g, blob.N, blob.L, blob.H, blob.D)
+        if isinstance(blob, torch.Tensor):
+            return ("tensor", tuple(blob.shape), blob.dtype)
+        raise ValueError(f"the cache tier handed back a "
+                         f"{type(blob).__name__}: neither a tensor nor a "
+                         f"host chunk")
+
+    def _finish_group(self, group) -> torch.Tensor:
+        """A token-consecutive group of pending chunks as ONE blob on the
+        engine's device: host chunks in one range-decode + dequantize
+        batch, host tensors in one upload."""
+        if hasattr(group[0], "to_blob"):
+            return finish_host_chunks(group, device=self.device)
+        blob = group[0] if len(group) == 1 else torch.cat(group, dim=2)
+        return blob.to(self.device)
+
+    def _grouped_stream(self, stream, limit: int, align: int, inject_at):
+        """Walk a ``retrieve_stream`` and inject what it yields: chunks on
+        the engine's device at once, others in groups of
+        ``inject_group_chunks`` (:meth:`_finish_group`). The decode of group
+        k+1 is issued before group k is injected, so the device's queue
+        holds decode(k) decode(k+1) inject(k) decode(k+2) inject(k+1) ...
+        This fixes the order of issue only: the upload of each group is
+        synchronous from pageable host memory, so the host does not run
+        ahead of the card while it uploads. Each chunk is
+        cut to ``limit`` tokens and to a multiple of ``align``. Returns the
+        position just past the last injected token (None if none)."""
+        pending, pending_pos, pending_key = [], 0, None
+        staged = None  # finished but not yet injected (blob, pos)
+        cached = None
+
+        def flush():
+            nonlocal pending, pending_key, staged
+            if not pending:
+                return
+            blob = self._finish_group(pending)
+            if staged is not None:
+                inject_at(*staged)
+            staged = (blob, pending_pos)
+            pending, pending_key = [], None
+
         try:
             for blob, pos, n in stream:
-                take = min(n, limit - pos)
+                take = min(n, limit - pos) // align * align
                 if take <= 0:
                     break
                 if take < n:
                     blob = kv.slice_blob_tokens(blob, "vllm", 0, take)
-                self._inject(blob, req.slot, pos)
+                if (isinstance(blob, torch.Tensor)
+                        and blob.device == self.device):
+                    flush()
+                    inject_at(blob, pos)
+                else:
+                    key = self._group_key(blob)
+                    if pending and key != pending_key:
+                        flush()
+                    if not pending:
+                        pending_pos, pending_key = pos, key
+                    pending.append(blob)
+                    if len(pending) >= self.inject_group_chunks:
+                        flush()
                 cached = pos + take
                 if take < n:
                     break
         finally:
             stream.close()
+        flush()
+        if staged is not None:
+            inject_at(*staged)
         return cached
+
+    def _stream_inject(self, req: Request, tokens: np.ndarray) -> int:
+        """Retrieve the cached prefix of ``tokens`` as a stream of chunks
+        and inject it into the request's slot (:meth:`_grouped_stream`). At
+        least the last token is left to prefill (its logits give the first
+        new token). Returns the number of cached tokens injected."""
+        if self.cache_engine is None:
+            return 0
+        cached = self._grouped_stream(
+            self.cache_engine.retrieve_stream(tokens), len(tokens) - 1, 1,
+            lambda blob, pos: self._inject(blob, req.slot, pos))
+        return cached or 0
 
     def _decode_all(self) -> None:
         """One batched decode step for every slot (idle rows parked)."""

@@ -19,13 +19,13 @@ is bounded by the tokens actually resident:
   (``kv_dtype="int8"``, half the bytes), written **in place**.
 
 Page size divides the cache-engine chunk_size, so a retrieved cache chunk is
-written as whole pages with one scatter.
+written as whole pages with one scatter; chunks off the engine's device
+(CacheGen host chunks from the remote tier) are decoded and scattered in
+groups, as in the dense engine.
 
 Not ported yet, each raises ``ValueError``: ``decode_block > 1``,
 ``spec_lookahead``, CacheBlend ``context_chunks`` requests and ``logprobs``
-(ROADMAP, module item 7), ``mesh`` (module item 16), and the CacheGen
-host-chunk groups of ``_stream_inject`` (module item 7: a tier that hands
-back anything but a tensor chunk raises).
+(ROADMAP, module item 7) and ``mesh`` (module item 16).
 """
 
 from typing import Dict, List, Optional
@@ -33,7 +33,6 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from lmcache_tpu_torch import kv
 from lmcache_tpu_torch.cache_engine import LMCacheEngine
 from lmcache_tpu_torch.chunks import prefix_chunk_hashes
 from lmcache_tpu_torch.logging_utils import init_logger
@@ -341,48 +340,32 @@ class PagedServingEngine(ServingEngine):
     # -- internals ----------------------------------------------------------
 
     def _stream_inject(self, req: Request, tokens: np.ndarray) -> int:
-        """Streamed cache retrieval onto whole pages: each chunk is
-        scattered into its pages as it arrives. page_size divides
-        chunk_size, so every streamed chunk starts page-aligned; a trailing
-        partial page is dropped (prefill recomputes it). Tokens on shared
-        resident pages are skipped in the tier stream. Returns the number
-        of cached tokens injected."""
+        """Streamed cache retrieval onto whole pages, in groups as the dense
+        engine's (:meth:`ServingEngine._grouped_stream`). page_size divides
+        chunk_size, so every streamed chunk starts page-aligned and only
+        the final, clipped chunk can end off a page: its partial page is
+        dropped (prefill recomputes it), and it ends its group. Tokens on
+        shared resident pages are skipped in the tier stream. Returns the
+        number of cached tokens injected."""
         shared_tok = self._req_shared.get(req.request_id, 0)
         if self.cache_engine is None:
             return shared_tok
         pages = self._req_pages[req.request_id]
-        limit = len(tokens) - 1  # always recompute >= 1 token
-        cached = shared_tok
         mask = None
         if shared_tok:
             # the shared-prefix pages already hold live KV
             mask = np.ones(len(tokens), bool)
             mask[:shared_tok] = False
-        stream = self.cache_engine.retrieve_stream(tokens, mask=mask)
-        try:
-            for blob, pos, n in stream:
-                if not isinstance(blob, torch.Tensor):
-                    raise ValueError(
-                        "host-chunk (CacheGen) groups in _stream_inject are "
-                        "not ported yet (ROADMAP, module item 7)")
-                take = min(n, limit - pos)
-                if take <= 0:
-                    break
-                aligned = (take // self.page_size) * self.page_size
-                if aligned <= 0:
-                    break
-                if aligned < n:
-                    blob = kv.slice_blob_tokens(blob, "vllm", 0, aligned)
-                first_page = pos // self.page_size
-                n_pages = aligned // self.page_size
-                self._inject_pages(blob,
-                                   pages[first_page:first_page + n_pages])
-                cached = pos + aligned
-                if aligned < n:
-                    break
-        finally:
-            stream.close()
-        return cached
+
+        def scatter(blob, pos):
+            first = pos // self.page_size
+            n_pages = blob.shape[2] // self.page_size
+            self._inject_pages(blob, pages[first:first + n_pages])
+
+        cached = self._grouped_stream(
+            self.cache_engine.retrieve_stream(tokens, mask=mask),
+            len(tokens) - 1, self.page_size, scatter)
+        return shared_tok if cached is None else cached
 
     def _decode_all(self) -> None:
         """One batched decode step over every slot through the page

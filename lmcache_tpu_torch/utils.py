@@ -6,6 +6,7 @@ functions are annotated with ``torch.profiler.record_function`` ranges.
 """
 
 import functools
+import time
 from dataclasses import dataclass
 from typing import Any, Callable, Union
 
@@ -76,6 +77,22 @@ def _lmcache_trace_annotate(func: Callable) -> Callable:
             return func(*args, **kwargs)
 
     return wrapper
+
+
+class Timer:
+    """Tiny context timer used by debug wrappers and metrics."""
+
+    def __enter__(self):
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.elapsed = time.perf_counter() - self.start
+        return False
+
+    @property
+    def ms(self) -> float:
+        return self.elapsed * 1e3
 
 
 def nbytes_of(obj: Any) -> int:

@@ -428,3 +428,128 @@ def test_paged_kernels_refuse_what_they_do_not_take(gen):
     with pytest.raises(ValueError, match="head dim 96"):
         pa.paged_attention_dma(qb, pb, pb, table, one, one)
     pa.paged_attention(qb, pb, pb, table, one, one)
+
+
+# ------------------------------------------------------------------------
+# kernel rows 11 and 12: the range decoder and encoder
+
+import numpy as np  # noqa: E402
+
+from lmcache_tpu_torch.codec import range_coder  # noqa: E402
+from lmcache_tpu_torch.ops import quant  # noqa: E402
+from lmcache_tpu_torch.ops import range_decode as rd  # noqa: E402
+from lmcache_tpu_torch.ops import range_encode as re_  # noqa: E402
+
+SYMBOL_KINDS = ("uniform", "skewed", "binary", "extreme", "gauss")
+
+
+def _symbols(kind, S, T, seed):
+    """The five symbol distributions of the JAX package's coder tests."""
+    rng = np.random.default_rng(seed)
+    if kind == "uniform":
+        return rng.integers(0, 31, (S, T)).astype(np.uint8)
+    if kind == "skewed":
+        return np.minimum(rng.geometric(0.5, (S, T)) - 1, 30).astype(np.uint8)
+    if kind == "binary":
+        return ((rng.random((S, T)) < 0.01) * 30).astype(np.uint8)
+    if kind == "extreme":
+        sym = np.zeros((S, T), np.uint8)
+        sym[:, ::97] = 30
+        return sym
+    return np.clip(np.round(rng.normal(15, 2, (S, T))), 0,
+                   30).astype(np.uint8)
+
+
+def _coder_case(kind, S, T, seed=0):
+    """(symbols, CDF) on the card, the CDF from the port's quant module."""
+    sym = torch.from_numpy(_symbols(kind, S, T, seed)).cuda()
+    return sym, quant.stream_cdf(sym)
+
+
+@pytest.mark.parametrize("S, T", [(96, 256), (1000, 255), (257, 1024)],
+                         ids=["96x256", "1000x255", "257x1024"])
+@pytest.mark.parametrize("kind", SYMBOL_KINDS)
+def test_range_kernels_match_plain_and_host_coder(gen, kind, S, T):
+    if not range_coder.codec_available():
+        pytest.skip("needs g++ for the host coder")
+    sym, cdf = _coder_case(kind, S, T)
+    cdf_h = quant.cdf_to_numpy(cdf)
+    payload, lens = range_coder.encode_streams(sym.cpu().numpy(), cdf_h)
+    # row 12: byte-identical with the host coder and the plain version
+    before = re_.encode_streams_raw.launches["store"]
+    got, got_lens = re_.encode_streams(sym, cdf)
+    assert re_.encode_streams_raw.launches["store"] == before + 1
+    assert np.array_equal(got_lens, lens) and got.tobytes() == payload
+    out, raw_lens = re_.encode_streams_raw(sym, cdf)
+    ref_out, ref_lens = re_.encode_streams_reference(sym.cpu(), cdf.cpu())
+    assert torch.equal(raw_lens.cpu(), ref_lens)
+    assert torch.equal(re_.compact(out, raw_lens).cpu(),
+                       re_.compact(ref_out, ref_lens))
+    # row 11: symbol-exact with the host coder and the plain version
+    offs = torch.from_numpy(np.concatenate([[0], np.cumsum(lens)])).cuda()
+    pay = torch.from_numpy(np.frombuffer(payload, np.uint8).copy()).cuda()
+    before = rd.decode_streams.launches["retrieve"]
+    dec = rd.decode_streams(pay, offs, cdf, T)
+    torch.cuda.synchronize()
+    assert rd.decode_streams.launches["retrieve"] == before + 1
+    assert torch.equal(dec, sym)
+    assert np.array_equal(
+        dec.cpu().numpy(),
+        range_coder.decode_streams(payload, lens, T, cdf_h))
+    if S * T <= 96 * 256:
+        assert torch.equal(rd.decode_streams_reference(
+            pay.cpu(), offs.cpu(), cdf.cpu(), T), sym.cpu())
+
+
+def test_range_kernels_at_a_bench_sized_launch(gen):
+    """One decode group of the bench shape (16 chunks x 2 halves x 22
+    layers x 256 channels = 180224 streams of 256 symbols) through both
+    kernels, held against the host coder."""
+    if not range_coder.codec_available():
+        pytest.skip("needs g++ for the host coder")
+    S, T = 16 * 2 * 22 * 256, 256
+    x = torch.randn((S // 256, T, 256), generator=gen, device="cuda")
+    bins = torch.full((S // 256,), 16, dtype=torch.int32, device="cuda")
+    bins[:64] = 32
+    sym, _ = quant.quantize(x, bins)
+    streams = sym.transpose(1, 2).reshape(S, T).contiguous()
+    cdf = quant.stream_cdf(streams)
+    payload, lens = re_.encode_streams(streams, cdf)
+    ref_payload, ref_lens = range_coder.encode_streams(
+        streams.cpu().numpy(), quant.cdf_to_numpy(cdf))
+    assert np.array_equal(lens, ref_lens) and payload.tobytes() == ref_payload
+    offs = torch.from_numpy(np.concatenate([[0], np.cumsum(lens)])).cuda()
+    dec = rd.decode_streams(torch.from_numpy(payload).cuda(), offs, cdf, T)
+    assert torch.equal(dec, streams)
+
+
+def test_range_kernels_refuse_what_they_do_not_take(gen):
+    sym, cdf = _coder_case("gauss", 8, 16)
+    with pytest.raises(ValueError, match="cdf"):
+        re_.encode_streams_raw(sym, cdf[:, :17].contiguous())
+    with pytest.raises(ValueError, match="cdf"):
+        re_.encode_streams_raw(sym, cdf.to(torch.int32))
+    offs = torch.zeros(9, dtype=torch.int64, device="cuda")
+    pay = torch.zeros(1, dtype=torch.uint8, device="cuda")
+    with pytest.raises(ValueError, match="offsets"):
+        rd.decode_streams(pay, offs.to(torch.int32), cdf, 16)
+    with pytest.raises(ValueError, match="offsets"):
+        rd.decode_streams(pay, offs[:8], cdf, 16)
+
+
+def test_range_decoder_ends_a_collapsed_stream_like_its_plain_version(gen):
+    """A CDF that is not monotone decodes a zero-width bin and collapses the
+    range, where the host coder never returns: kernel and plain version
+    end the stream with zeros."""
+    T = 64
+    cdf = torch.tensor([0, 60000, 50, 50] + list(range(60001, 60030)),
+                       dtype=torch.int32).to(torch.int16)[None].cuda()
+    payload = torch.tensor([0x10, 0x20, 0x30, 0x40, 0x50],
+                           dtype=torch.uint8).cuda()
+    offsets = torch.tensor([0, 5], dtype=torch.int64).cuda()
+    out = rd.decode_streams(payload, offsets, cdf, T)
+    ref = rd.decode_streams_reference(payload.cpu(), offsets.cpu(),
+                                      cdf.cpu(), T)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), ref)
+    assert ref[0, 0] == 2 and not ref[0, 1:].any()

@@ -29,7 +29,16 @@ def test_import_leaves_jax_and_lmcache_tpu_out():
             "lmcache_tpu_torch.ops.quantized_attention, "
             "lmcache_tpu_torch.ops.attention, "
             "lmcache_tpu_torch.serving.engine, "
-            "lmcache_tpu_torch.serving.paged_engine; "
+            "lmcache_tpu_torch.serving.paged_engine, "
+            "lmcache_tpu_torch.codec, lmcache_tpu_torch.codec.range_coder, "
+            "lmcache_tpu_torch.ops.quant, lmcache_tpu_torch.ops.range_decode, "
+            "lmcache_tpu_torch.ops.range_encode, "
+            "lmcache_tpu_torch.storage.serde.cachegen_serde, "
+            "lmcache_tpu_torch.storage.serde.raw_serde, "
+            "lmcache_tpu_torch.storage.connector, "
+            "lmcache_tpu_torch.storage.remote_backend, "
+            "lmcache_tpu_torch.protocol, lmcache_tpu_torch.server, "
+            "lmcache_tpu_torch.server.storage; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'lmcache_tpu' "
             "or m.startswith('lmcache_tpu.')]; print(bad)")
@@ -55,6 +64,51 @@ def test_no_jax_or_lmcache_tpu_import(path):
             root = name.split(".")[0]
             assert root not in ("jax", "jaxlib", "lmcache_tpu"), (
                 f"{path}:{node.lineno} imports {name}")
+
+
+# a subprocess in which importing jax or lmcache_tpu raises, running the
+# port's cache server
+_REFUSING_SERVER = """
+import runpy, sys
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "lmcache_tpu"):
+            raise ImportError("refused: " + name)
+sys.meta_path.insert(0, Refuse())
+sys.argv = ["server", "localhost", sys.argv[1], "cpu"]
+runpy.run_module("lmcache_tpu_torch.server", run_name="__main__",
+                 alter_sys=True)
+"""
+
+
+def test_server_runs_with_jax_and_lmcache_tpu_refused():
+    import socket
+    import time
+
+    from lmcache_tpu_torch.storage.connector.lm_connector import (
+        LMCServerConnector)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    proc = subprocess.Popen([sys.executable, "-c", _REFUSING_SERVER,
+                             str(port)], cwd=ROOT, stderr=subprocess.PIPE)
+    try:
+        deadline = time.time() + 60
+        while True:
+            assert proc.poll() is None, proc.stderr.read().decode()
+            try:
+                client = LMCServerConnector("localhost", port, timeout=5)
+                break
+            except OSError:
+                assert time.time() < deadline, "server did not start"
+                time.sleep(0.1)
+        assert client.ping()
+        client.set("k", b"v" * 10)
+        assert client.get("k") == b"v" * 10
+        client.close()
+    finally:
+        proc.terminate()
+        proc.wait(timeout=10)
 
 
 def _entry_points():
@@ -84,7 +138,20 @@ def _entry_points():
         "serving_engine": lambda: ServingEngine(cfg, {}),
         "default_config_tier": lambda: LMCLocalBackend(
             LMCacheEngineConfig().local_device),
+        "cachegen_remote_decoder": lambda: _cachegen_deserializer(),
     }
+
+
+def _cachegen_deserializer():
+    """The remote tier's CacheGen decoder with the default remote_device."""
+    from lmcache_tpu_torch import LMCacheEngineConfig, LMCacheEngineMetadata
+    from lmcache_tpu_torch.storage.serde.cachegen_serde import (
+        CacheGenDeserializer)
+    return CacheGenDeserializer(
+        LMCacheEngineConfig(local_device=None, remote_url="lm://localhost:1",
+                            remote_serde="cachegen"),
+        LMCacheEngineMetadata(model_name="m", world_size=1, worker_id=0,
+                              fmt="vllm"))
 
 
 @pytest.mark.parametrize("name", ["init_params", "new_kv_cache", "cuda_tier",
@@ -94,7 +161,8 @@ def _entry_points():
                                   "paged_pool_from_jax",
                                   "new_quantized_kv_cache",
                                   "quantized_pool_from_jax",
-                                  "int8_serving_engine"])
+                                  "int8_serving_engine",
+                                  "cachegen_remote_decoder"])
 def test_entry_point_without_cuda_raises(name):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")

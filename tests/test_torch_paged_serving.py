@@ -342,7 +342,7 @@ def test_unported_requests_and_chunks_raise(sides):
         eng.add_request(t.Request(np.arange(4, dtype=np.int32),
                                   t.Sampling(logprobs=2)))
 
-    class HostChunkTier:  # hands back something that is not a tensor
+    class HostChunkTier:  # hands back neither a tensor nor a host chunk
         chunk_size = CHUNK
 
         def retrieve_stream(self, tokens, mask=None):
@@ -351,7 +351,7 @@ def test_unported_requests_and_chunks_raise(sides):
     eng.cache_engine = HostChunkTier()
     eng.add_request(t.Request(np.arange(40, dtype=np.int32),
                               t.Sampling(max_new_tokens=4)))
-    with pytest.raises(ValueError, match="not ported yet.*item 7"):
+    with pytest.raises(ValueError, match="neither a tensor nor a host chunk"):
         eng.run()
 
 
