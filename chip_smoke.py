@@ -13,7 +13,10 @@ Phases, in order; any failure exits non-zero:
    ``kv_slot``, at the public shapes of Mistral, Phi-3, Gemma-2, GPT-OSS and
    Llama-4), ``flash_attention_dma``, ``quantized_flash_attention`` (plain
    and with the same options), the four paged-attention kernels (bf16
-   and int8 arenas) and the two range coders (tolerance 0);
+   and int8 arenas), the two range coders (tolerance 0) and the six MLA
+   latent-attention entry points (dense, paged one page per step, paged
+   streamed; bf16 and int8 latents) at DeepSeek-V2-Lite's shapes and at
+   128 heads, V2/V3's;
 3. the dense main path at full width, tinyllama-1.1B with random weights
    from a seeded generator: full prefill of CTX + SUFFIX = 16384 tokens,
    store of the CTX prefix into the "cuda" cache tier, retrieve (15872
@@ -70,16 +73,38 @@ Phases, in order; any failure exits non-zero:
    request, and a ``PagedServingEngine`` wave over the same server whose
    pages must equal the dense slot (``phase_remote``); 9b: codec throughput
    at bench.py's reference geometry (``phase_codec_throughput``);
-7. the launch counts of phases 3 to 9, read per phase with every count set
-   to 0 just before it (prefill and decode, each > 0 where the phase runs
-   them; "+window" marks launches under a window; the coders count
+10. MLA, DeepSeek-V2-Lite at full width and depth (27 layers, 16 heads,
+   latent 576, 64 routed + 2 shared experts; random bf16 weights from a
+   seeded generator, 31.4 GB; ``phase_mla``): 10a the bench shape through
+   ``mla.forward`` (full prefill, store of the CTX prefix's latent blobs
+   into the "cuda" tier, retrieve, inject, suffix prefill; reuse logits
+   held to the full prefill's; TTFT full and reuse, a profiler window
+   each); 10b phase 4's four waves on ``MLAServingEngine`` over the native
+   and the int8 latent pool, and a profiled decode step; 10c phase 5's
+   waves on ``MLAPagedServingEngine`` (page 64), bf16 then int8 arena, the
+   injected pages equal to the dense pool's slots; 10d kernel row 9, which
+   no serving path calls: the last prefill segment again with the paged
+   forward's attention bound to it, logits held to row 10's; 10e the latent
+   prefix through the cache server with CacheGen (N = 1 containers equal to
+   the host C++ coder's, a fresh pipelined engine's decoded symbols equal
+   to the host decode; logits and wire bytes reported). Where phase 10
+   compares tokens computed in other shapes, phase 6d's near-tie top-1
+   rule applies and the logits are held within ``REL_L2_REUSE``, or within
+   ``REL_L2_MOE`` for a request in which the two computations picked other
+   experts for some (layer, token), which then also holds ``REL_L2_REUSE``
+   when run again with the reference's routing forced;
+7. the launch counts of phases 3 to 10, read per phase with every count
+   set to 0 just before it (prefill and decode, each > 0 where the phase
+   runs them; "+window" marks launches under a window; the coders count
    "store" and "retrieve" launches);
 8. the yardstick: each kernel's time at phase 2's shapes beside its bound,
    its plain version and a PyTorch library time (SDPA; for a paged arena
    the gather of the live pages into dense K/V, then SDPA; for int8 K/V the
    dequantization to bf16, then SDPA; none where softcap or sinks leave no
-   single call). No PyTorch call computes a range coder: the coders' rows
-   carry the host C++ coder's time at the same shape instead.
+   single call; for the latent kernels SDPA with the latents expanded over
+   the heads as K and their first rank columns as V, the SDPA backends that
+   take those shapes named). No PyTorch call computes a range coder: the
+   coders' rows carry the host C++ coder's time at the same shape instead.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without printing a result
@@ -99,15 +124,18 @@ from lmcache_tpu_torch import (LMCacheEngine, LMCacheEngineConfig,
 from lmcache_tpu_torch import kv, ops
 from lmcache_tpu_torch.chunks import prefix_chunk_hashes
 from lmcache_tpu_torch.codec import CacheGenConfig, range_coder
-from lmcache_tpu_torch.models import llama
+from lmcache_tpu_torch.models import llama, mla
 from lmcache_tpu_torch.ops import _build
+from lmcache_tpu_torch.ops import latent_attention as la
 from lmcache_tpu_torch.ops import paged_attention as pa
+from lmcache_tpu_torch.ops import paged_latent_attention as pla
 from lmcache_tpu_torch.ops import quant
 from lmcache_tpu_torch.ops import quantized_attention as qa
 from lmcache_tpu_torch.ops import range_decode as rd
 from lmcache_tpu_torch.ops import range_encode as re_
-from lmcache_tpu_torch.serving import (PagedServingEngine, Request,
-                                       SamplingParams, ServingEngine)
+from lmcache_tpu_torch.serving import (MLAPagedServingEngine,
+                                       MLAServingEngine, PagedServingEngine,
+                                       Request, SamplingParams, ServingEngine)
 from lmcache_tpu_torch.storage.serde import cachegen_serde as cgs
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 FLOP/s
@@ -135,6 +163,13 @@ TOP1_MARGIN = 2 * REL_L2_REUSE
 # V carry one symmetric int8 rounding per token (half a step of absmax / 127
 # over the token's heads and channels), through every layer
 REL_L2_INT8 = 1e-1
+# DeepSeek-V2-Lite's tokens computed in other shapes (a decode step against a
+# prefill segment): bf16 rounding through 26 MoE layers can move a token's
+# top-6 of 64 experts off a near tie, which swaps a whole expert's output
+# for that token. Only a request in which such a flip was counted
+# (``Routing``) is held to this, and its computation run again with the
+# reference's routing forced must then hold REL_L2_REUSE
+REL_L2_MOE = 1e-1
 
 CTX, SUFFIX = 15872, 512
 PAGE = 64  # page size of both paged paths
@@ -173,6 +208,30 @@ KERNELS = {
     "range_decode": (
         rd.decode_streams, "lmcache_tpu_torch/ops/csrc/range_decode.cu",
         "lmcache_tpu/ops/range_decode.py:222"),
+    "latent_flash_attention": (
+        la.latent_flash_attention,
+        "lmcache_tpu_torch/ops/csrc/latent_attention.cu",
+        "lmcache_tpu/ops/latent_attention.py:62"),
+    "quantized_latent_flash_attention": (
+        la.quantized_latent_flash_attention,
+        "lmcache_tpu_torch/ops/csrc/latent_attention.cu",
+        "lmcache_tpu/ops/latent_attention.py:62"),
+    "paged_latent_attention": (
+        pla.paged_latent_attention,
+        "lmcache_tpu_torch/ops/csrc/paged_latent_attention.cu",
+        "lmcache_tpu/ops/paged_latent_attention.py:54"),
+    "quantized_paged_latent_attention": (
+        pla.quantized_paged_latent_attention,
+        "lmcache_tpu_torch/ops/csrc/paged_latent_attention.cu",
+        "lmcache_tpu/ops/paged_latent_attention.py:54"),
+    "paged_latent_attention_dma": (
+        pla.paged_latent_attention_dma,
+        "lmcache_tpu_torch/ops/csrc/paged_latent_attention.cu",
+        "lmcache_tpu/ops/paged_latent_attention.py:270"),
+    "quantized_paged_latent_attention_dma": (
+        pla.quantized_paged_latent_attention_dma,
+        "lmcache_tpu_torch/ops/csrc/paged_latent_attention.cu",
+        "lmcache_tpu/ops/paged_latent_attention.py:270"),
 }
 
 
@@ -360,6 +419,15 @@ def phase_kernels():
     for case in coder_cases():
         worst[case[1]] = max(worst[case[1]], hold_coder_against_plain(case,
                                                                       gen))
+    for case in latent_cases():
+        args, kw = make_latent_inputs(case, gen)
+        out = KERNELS[case["kernel"]][0](*args, **kw)
+        ref = latent_plain(case, args, kw)
+        torch.cuda.synchronize()
+        worst[case["kernel"]] = max(
+            worst[case["kernel"]],
+            hold_against_plain(case["kernel"], case["name"], out, ref))
+        del args, out, ref
     return worst
 
 
@@ -856,6 +924,212 @@ def coder_yardstick(gen, clock_hz):
     return rows
 
 
+# ------------------------------- rows 8, 9 and 10: MLA latent attention ---
+
+MLA_CFG = mla.MLAConfig.deepseek_v2_lite()  # H 16, latent 576 = 512 + 64
+MLA_HEADS_V3 = mla.MLAConfig.deepseek_v3().n_heads  # 128, the same latent
+MLA_SERVE_SEQ = 2048 + 64  # phases 10b and 10c: max_seq of the engines
+NP_MLA = -(-(MLA_SERVE_SEQ + 1) // PAGE)
+MLA_C, MLA_CP = MLA_CFG.latent_dim, mla.latent_pad_dim(MLA_CFG)
+MLA_R = MLA_CFG.kv_lora_rank
+
+
+def latent_cases():
+    """The shapes phase 10 gives kernel rows 8-10 at DeepSeek-V2-Lite (H 16,
+    C 576, rank 512), for the bf16 and the int8 latents, and decode with
+    H 128, the geometry of DeepSeek-V2 and V3 (whose weights do not fit one
+    card). Keys: kernel, B, T, H, q_off, kv_len; S (dense rows) or NP (page
+    slots; ``idle`` rows point every slot at the null page 0, as the
+    engine's parked decode rows do). The first case of a kernel is the one
+    its path gives it first."""
+    S16 = CTX + SUFFIX
+    parked = [2064, 2060, 2070, MLA_SERVE_SEQ]
+    ragged = [16383, 9000, 3000, 0]
+    dense = [
+        ("v2-lite suffix prefill", dict(B=1, T=SUFFIX, S=S16, q_off=[CTX])),
+        ("v2-lite full prefill 16k", dict(B=1, T=S16, S=S16, q_off=[0])),
+        ("v2-lite serving decode, 1 row parked",
+         dict(B=4, T=1, S=MLA_SERVE_SEQ + 1, q_off=parked)),
+        ("v2-lite decode 16k", dict(B=4, T=1, S=S16 + 1, q_off=ragged)),
+        ("v2/v3 heads (H 128) decode 16k",
+         dict(B=4, T=1, S=S16 + 1, q_off=ragged, H=MLA_HEADS_V3)),
+    ]
+    paged = [
+        ("v2-lite serving prefill segment, page 64",
+         dict(B=1, T=512, NP=NP_MLA, q_off=[1536])),
+        ("v2-lite serving decode, page 64, 1 row parked",
+         dict(B=4, T=1, NP=NP_MLA, q_off=parked, idle=[3])),
+        ("v2-lite decode 16k, fragmented pages",
+         dict(B=4, T=1, NP=257, q_off=ragged)),
+        ("v2/v3 heads (H 128) decode 16k, fragmented pages",
+         dict(B=4, T=1, NP=257, q_off=ragged, H=MLA_HEADS_V3)),
+    ]
+    cases = []
+    for quant in (False, True):
+        pre = "quantized_" if quant else ""
+        for name, shape in dense:
+            cases.append(dict(dict(H=MLA_CFG.n_heads, idle=[]), **shape,
+                              name=name, quant=quant, paged=False,
+                              kernel=pre + "latent_flash_attention"))
+        # row 10 on every paged shape; row 9 where phase 10d gives it work
+        for name, shape in paged:
+            for kernel in ("paged_latent_attention_dma",
+                           "paged_latent_attention"):
+                if kernel == "paged_latent_attention" and "16k" in name:
+                    continue
+                cases.append(dict(dict(H=MLA_CFG.n_heads, idle=[]), **shape,
+                                  name=name, quant=quant, paged=True,
+                                  kernel=pre + kernel))
+    for case in cases:
+        case["kv_len"] = [o + case["T"] for o in case["q_off"]]
+    return cases
+
+
+def make_latent_inputs(case, gen):
+    """(positional args, kwargs) of the case's entry point: dense latents
+    [B, S, C] as a layer of the pool, or a lane-padded arena [P, page, Cp]
+    (zero pad) with a fragmented page table; int8 latents with scales of
+    unit-size tokens."""
+    dev = "cuda"
+    B, T, H = case["B"], case["T"], case["H"]
+    q = torch.randn((B, T, H, MLA_C), generator=gen, device=dev).bfloat16()
+    if case["paged"]:
+        P = B * case["NP"] + 1
+        shape = (P, PAGE, MLA_CP)
+    else:
+        shape = (B, case["S"], MLA_C)
+    if case["quant"]:
+        rows = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int32).to(torch.int8)
+        # unit-size latents: absmax / 127 is about 0.03
+        lat = (rows, torch.rand(shape[:2], generator=gen, device=dev) * 0.02
+               + 0.02)
+    else:
+        lat = (torch.randn(shape, generator=gen, device=dev).bfloat16(),)
+    if case["paged"]:
+        lat[0][..., MLA_C:] = 0  # the lane pad, as the model writes it
+    qo = torch.tensor(case["q_off"], dtype=torch.int32, device=dev)
+    kl = torch.tensor(case["kv_len"], dtype=torch.int32, device=dev)
+    kw = dict(rank=MLA_R, scale=MLA_CFG.sm_scale)
+    if not case["paged"]:
+        return (q, *lat, qo, kl), kw
+    ids = torch.randperm(P - 1, generator=gen, device=dev) + 1
+    table = ids.reshape(B, case["NP"]).to(torch.int32)
+    for b in case["idle"]:
+        table[b] = 0
+    return (q, *lat, table.contiguous(), qo, kl), kw
+
+
+def latent_plain(case, args, kw, rows=1024):
+    """The case's plain version over at most ``rows`` query tokens per call,
+    so that the score matrix of a 16k-token prefill fits in memory."""
+    if case["paged"]:
+        plain = (pla.quantized_paged_latent_attention_reference
+                 if case["quant"] else pla.paged_latent_attention_reference)
+    else:
+        plain = (la.quantized_latent_attention_reference if case["quant"]
+                 else la.latent_attention_reference)
+    q, rest, (qo, kl) = args[0], args[1:-2], args[-2:]
+    return torch.cat([
+        plain(q[:, t:t + rows], *rest, qo + t, kl, zero_dead_rows=True, **kw)
+        for t in range(0, q.shape[1], rows)], dim=1)
+
+
+def latent_bound(case, args):
+    """Least time (ms) for the work these inputs need: 2 * H * (C + rank)
+    operations per live (query token, key) pair (scores over the C columns,
+    context over the rank); bytes are q and out once and every latent row
+    that a query sees once (C columns; int8: one byte each and the fp32
+    scale), rows shared through the page table counted once, plus the live
+    page-table entries."""
+    B, T, H = case["B"], case["T"], case["H"]
+    pairs = 0
+    rows = set()
+    table = args[-3].cpu().numpy() if case["paged"] else None
+    for b, (q_off, kv_len) in enumerate(zip(case["q_off"], case["kv_len"])):
+        hi = np.minimum(q_off + np.arange(T), kv_len - 1)
+        pairs += int(np.maximum(hi + 1, 0).sum())
+        n = int(min(q_off + T, kv_len))
+        if case["paged"]:
+            rows.update((int(table[b, k // PAGE]), k % PAGE)
+                        for k in range(n))
+        else:
+            rows.update((b, k) for k in range(n))
+    flops = 2.0 * H * (MLA_C + MLA_R) * pairs
+    per_row = MLA_C + 4 if case["quant"] else 2 * MLA_C
+    nbytes = (2 * B * T * H * (MLA_C + MLA_R) + len(rows) * per_row)
+    if case["paged"]:
+        nbytes += 4 * sum(-(-kl // PAGE) for kl in case["kv_len"])
+    t_flops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
+    if t_flops >= t_bytes:
+        return t_flops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
+
+
+def sdpa_backends(call):
+    """The SDPA backends that take ``call``'s shapes, in PyTorch's order."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    took = []
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                call()
+            took.append(backend.name)
+        except RuntimeError:
+            pass
+    torch.cuda.synchronize()
+    return took
+
+
+def latent_library(case, args, kw, iters):
+    """The library route for the same function: SDPA with K = the latent
+    rows expanded over the H heads (a view) and V = their first rank
+    columns, under the same mask; the paged rows are gathered into dense
+    rows first and int8 rows dequantized to bf16, and that pass is timed
+    too. Returns (gather or dequantize ms or None, SDPA ms, the SDPA
+    backends that take these shapes)."""
+    q, qo, kl = args[0], args[-2], args[-1]
+    B, T, H = case["B"], case["T"], case["H"]
+    if case["paged"]:
+        n_live = -(-max(case["kv_len"]) // PAGE)
+        ids = args[-3][:, :n_live].long()
+
+        def dense():
+            x = args[1][ids][..., :MLA_C]  # [B, n, page, C]
+            if case["quant"]:
+                x = (x.float() * args[2][ids][..., None]).bfloat16()
+            return x.reshape(B, n_live * PAGE, MLA_C)
+    elif case["quant"]:
+        def dense():
+            return (args[1].float() * args[2][..., None]).bfloat16()
+    else:
+        def dense():
+            return args[1]
+    pre_ms = (cuda_ms(dense, iters=min(iters, 20))
+              if case["paged"] or case["quant"] else None)
+    lat = dense()
+    S = lat.shape[1]
+    k = lat[:, None].expand(B, H, S, MLA_C)
+    v = lat[:, None, :, :MLA_R].expand(B, H, S, MLA_R)
+    qh = q.transpose(1, 2).contiguous()
+    if T == S and case["q_off"] == [0] * B:
+        mask_kw = {"is_causal": True}
+    else:
+        kpos = torch.arange(S, device="cuda")[None, None]
+        qpos = (qo[:, None] + torch.arange(T, device="cuda")[None])[:, :,
+                                                                    None]
+        mask_kw = {"attn_mask": ((kpos <= qpos)
+                                 & (kpos < kl[:, None, None]))[:, None]}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def call():
+        return sdpa(qh, k, v, scale=kw["scale"], **mask_kw)
+
+    backends = sdpa_backends(call)
+    return pre_ms, cuda_ms(call, iters=iters), backends
+
+
 # ---------------------------------------------------------------- phase 3 ---
 
 def phase_main_path(cfg, params):
@@ -971,26 +1245,208 @@ def _top1_margin(got, want):
 
 
 def _logits_agree(name, got, want, tol=REL_L2_REUSE, same_top1=True,
-                  near_tie=False):
+                  near_tie=False, flips=None):
     """Relative L2 within ``tol`` and (unless ``same_top1`` is off) the
     same top-1, per request. With ``near_tie`` the top-1 may instead be a
-    token that ``want`` itself puts within ``TOP1_MARGIN`` of its best."""
+    token that ``want`` itself puts within ``TOP1_MARGIN`` of its best.
+    ``flips`` gives, per request, the (MoE layer, token) top-k sets in which
+    the two computations differ and those compared (:class:`Routing`): a
+    request whose routing flipped is held to ``REL_L2_MOE``, every other to
+    ``tol``; the distance
+    between two requests' reference logits, what a wrong request would
+    give, is printed beside them."""
     rel = [((g - w).norm() / w.norm()).item() for g, w in zip(got, want)]
     same_top = [int(g.argmax()) == int(w.argmax()) for g, w in zip(got, want)]
     margin = [_top1_margin(g, w) for g, w in zip(got, want)]
     top_ok = (not same_top1 or all(same_top)
               or (near_tie and max(margin) <= TOP1_MARGIN))
-    ok = top_ok and max(rel) <= tol
+    tols = [max(tol, REL_L2_MOE) if flips and f[0] else tol
+            for f in (flips or [(0, 0)] * len(rel))]
+    ok = top_ok and all(r <= t for r, t in zip(rel, tols))
     note = "" if same_top1 else " (reported)"
     if near_tie:
         note = (f" margin {[f'{m:.3e}' for m in margin]} of the reference's "
                 f"rms (at most {TOP1_MARGIN})")
+    if flips is not None:
+        note += f" routing flips {flips} (differing, compared)"
+        if len(want) > 1:
+            other = min(((a - b).norm() / b.norm()).item()
+                         for i, a in enumerate(want)
+                         for j, b in enumerate(want) if i != j)
+            note += f" (another request's logits: rel_l2 {other:.3e})"
     log(f"  {name}: logits rel_l2 {[f'{r:.3e}' for r in rel]} same top-1 "
-        f"{same_top}{note} (tolerance {tol}) {'ok' if ok else 'FAILED'}")
+        f"{same_top}{note} (tolerance {tols if flips else tol}) "
+        f"{'ok' if ok else 'FAILED'}")
     return ok
 
 
-def phase_serving(cfg, params, kv_dtype="native"):
+class Routing:
+    """The routed experts that DeepSeek-V2-Lite's MoE layers pick for each
+    token a watched engine computes (phase 10). While it is entered,
+    ``mla._gate`` is wrapped. ``watch(eng)`` makes each forward of ``eng``
+    that runs inside :func:`_recording` store, per live row, the sorted
+    top-k expert ids of every MoE layer ``[n_moe, k]`` under a key of the
+    token's whole prefix, so two computations of one token (a row of a
+    512-token segment and a 1-token prefill, or a decode step) meet under
+    one key; a later computation of a key replaces the earlier one. Tokens
+    injected from a cache tier leave the record: their latents were computed
+    elsewhere. At each completed prefill the request keeps a copy of the
+    record as it stands (``routing_seen``, in the order of its first token
+    and its resumes): the computations its logits saw. A record given as
+    ``force`` replays the reference's choice for every token it holds: the
+    gate's weights are taken at the forced experts, as ``mla._gate`` takes
+    them."""
+
+    def __init__(self):
+        self.rows = None  # (req, position) or None per row of the forward
+        self.picks = []  # the forward's top-k ids, one tensor per MoE layer
+        self.force = None  # [n_moe, rows, k] forced ids, -1 where free
+        self.swapped = 0  # (layer, token) sets replaced under force
+        self.wave1 = {}  # the dense engine's (wave 1 record, requests)
+
+    def __enter__(self):
+        self.gate = mla._gate
+        mla._gate = self._gate
+        return self
+
+    def __exit__(self, *exc):
+        mla._gate = self.gate
+
+    def _gate(self, h, lp, cfg):
+        topi, topw = self.gate(h, lp, cfg)
+        if self.rows is None:
+            return topi, topw
+        if self.force is not None:
+            want = self.force[len(self.picks)]
+            swap = (want[:, 0] >= 0) & (topi.sort(dim=-1).values
+                                        != want).any(dim=-1)
+            n = int(swap.sum())
+            if n:
+                logits = h.float() @ lp["router"].float()
+                scores = (torch.sigmoid(logits) if cfg.arch == "v3"
+                          else torch.softmax(logits, dim=-1))
+                w = torch.gather(scores, -1, want.clamp(min=0))
+                if cfg.norm_topk_prob:
+                    w = w / (w.sum(dim=-1, keepdim=True) + 1e-20)
+                topi = torch.where(swap[:, None], want, topi)
+                topw = torch.where(swap[:, None],
+                                   w * cfg.routed_scaling_factor, topw)
+                self.swapped += n
+        self.picks.append(topi)
+        return topi, topw
+
+    @staticmethod
+    def keys(req):
+        """Keys of the tokens of ``req``'s sequence so far, each a hash
+        chained over the prefix that ends at it."""
+        keys = req.__dict__.setdefault("routing_keys", [])
+        if len(keys) < req.total_len:
+            prev = keys[-1] if keys else 0
+            for t in req.all_tokens[len(keys):].tolist():
+                prev = hash((prev, t))
+                keys.append(prev)
+        return keys
+
+    def watch(self, eng):
+        eng.routing, eng.routing_force = None, None
+        segment, decode_all = eng._prefill_segment, eng._decode_all
+        forward, stream_inject = eng._forward, eng._stream_inject
+        finish = eng._finish_prefill
+        rows_of = {}
+
+        def finish_and_copy(req, logits):
+            if eng.routing is not None:
+                req.__dict__.setdefault("routing_seen", []).append(
+                    dict(eng.routing))
+            return finish(req, logits)
+
+        def prefill_segment(req, pos, seg):
+            rows_of["rows"] = lambda: [(req, pos + t) for t in range(len(seg))]
+            try:
+                return segment(req, pos, seg)
+            finally:
+                rows_of.clear()
+
+        def decode():
+            # the rows are read at the forward: growth may preempt first
+            def rows():
+                by_slot = {r.slot: r for r in eng.running}
+                return [(by_slot[b], by_slot[b].total_len - 1)
+                        if b in by_slot else None for b in range(eng.B)]
+            rows_of["rows"] = rows
+            try:
+                return decode_all()
+            finally:
+                rows_of.clear()
+
+        def recording_forward(*args, **kwargs):
+            if eng.routing is None or "rows" not in rows_of:
+                return forward(*args, **kwargs)
+            rows = rows_of["rows"]()
+            keys = [None if r is None else self.keys(r[0])[r[1]]
+                    for r in rows]
+            if eng.routing_force is not None:
+                ref = eng.routing_force
+                k = next(iter(ref.values())).shape
+                force = np.full((k[0], len(rows), k[1]), -1, np.int64)
+                for i, key in enumerate(keys):
+                    if key in ref:
+                        force[:, i] = ref[key]
+                self.force = torch.as_tensor(force, device="cuda")
+            self.rows, self.picks = rows, []
+            try:
+                out = forward(*args, **kwargs)
+            finally:
+                self.rows, self.force = None, None
+            picks = torch.stack(self.picks).sort(dim=-1).values.cpu().numpy()
+            for i, key in enumerate(keys):
+                if key is not None:
+                    eng.routing[key] = picks[:, i]
+            return out
+
+        def inject_and_forget(req, tokens):
+            n = stream_inject(req, tokens)
+            if eng.routing is not None:
+                for key in self.keys(req)[:n]:
+                    eng.routing.pop(key, None)
+            return n
+
+        eng._prefill_segment = prefill_segment
+        eng._decode_all = decode
+        eng._forward = recording_forward
+        eng._stream_inject = inject_and_forget
+        eng._finish_prefill = finish_and_copy
+        return eng
+
+    def flips(self, got, want, req, upto):
+        """(The (MoE layer, token) top-k sets in which records ``got`` and
+        ``want`` differ, those compared) over the tokens ``[0, upto]`` of
+        ``req``'s sequence that both computed."""
+        n = seen = 0
+        for key in self.keys(req)[:upto + 1]:
+            a, b = got.get(key), want.get(key)
+            if a is not None and b is not None:
+                n += int((a != b).any(axis=-1).sum())
+                seen += a.shape[0]
+        return n, seen
+
+
+def _recording(eng, fn, force=None):
+    """``fn()`` with ``eng``'s expert choices recorded when it is watched
+    (:meth:`Routing.watch`), routed as the record ``force`` where given.
+    Returns (fn's result, the record, or None)."""
+    if not hasattr(eng, "routing"):
+        return fn(), None
+    eng.routing, eng.routing_force = {}, force
+    try:
+        return fn(), eng.routing
+    finally:
+        eng.routing, eng.routing_force = None, None
+
+
+def phase_serving(cfg, params, kv_dtype="native", engine_cls=ServingEngine,
+                  model="tinyllama-1.1b", max_new=32, label=None,
+                  near_tie=False, routing=None):
     """Greedy requests, 32 new tokens each, served in 512-token prefill
     segments by an engine with a "cuda" cache tier, over the native pool or
     (``kv_dtype="int8"``, path C) the int8 pool.
@@ -1013,10 +1469,18 @@ def phase_serving(cfg, params, kv_dtype="native"):
     is quantized again. K and V are bf16, so a token's scale and symbols
     survive that round trip unchanged (``phase_int8_bench`` holds it to
     that), and the int8 pool is held to the same comparisons as the native
-    one. Returns (the repeated prompts, wave 1's first-token logits).
+    one. ``engine_cls``, ``model`` and ``label`` serve another model family
+    (phase 10b); ``near_tie`` admits phase 6d's top-1 rule. With a
+    :class:`Routing` (an MoE model) the engines' expert choices are
+    recorded: a wave-4 request whose routing differs from wave 3's in some
+    (layer, token) is held to ``REL_L2_MOE``, and wave 4 then runs again
+    with wave 3's routing forced, which must hold ``REL_L2_REUSE``; wave 1's
+    record and requests are kept in ``routing.wave1[kv_dtype]``. Returns
+    (the repeated
+    prompts, wave 1's first-token logits).
     """
-    log(f"== phase {'4' if kv_dtype == 'native' else '6c'}: ServingEngine, "
-        f"four waves, {kv_dtype} pool")
+    log(label or f"== phase {'4' if kv_dtype == 'native' else '6c'}: "
+        f"ServingEngine, four waves, {kv_dtype} pool")
     V = cfg.vocab_size
     rng = np.random.default_rng(1)
     prefix = rng.integers(0, V, 1536)
@@ -1025,17 +1489,19 @@ def phase_serving(cfg, params, kv_dtype="native"):
               rng.integers(0, V, 2049)]
     fresh = [np.concatenate([prefix, rng.integers(0, V, 512)])
              for _ in range(2)]
-    sp = SamplingParams(max_new_tokens=32)
+    sp = SamplingParams(max_new_tokens=max_new)
     engine = LMCacheEngine(
         LMCacheEngineConfig(local_device="cuda"),
-        LMCacheEngineMetadata(model_name="tinyllama-1.1b", world_size=1,
+        LMCacheEngineMetadata(model_name=model, world_size=1,
                               worker_id=0, fmt="vllm", dtype=cfg.dtype))
 
     def serving_engine(cache_engine):
         # one 512-token segment per request per step
-        eng = ServingEngine(cfg, params, max_batch=4, max_seq=2048 + 64,
-                            cache_engine=cache_engine, prefill_chunk=512,
-                            prefill_token_budget=3 * 512, kv_dtype=kv_dtype)
+        eng = engine_cls(cfg, params, max_batch=4, max_seq=2048 + 64,
+                         cache_engine=cache_engine, prefill_chunk=512,
+                         prefill_token_budget=3 * 512, kv_dtype=kv_dtype)
+        if routing is not None:
+            routing.watch(eng)
         # keep each request's first-token logits (the end of its prefill)
         eng.first_logits = {}
         finish = eng._finish_prefill
@@ -1046,9 +1512,10 @@ def phase_serving(cfg, params, kv_dtype="native"):
         eng._finish_prefill = finish_and_keep
         return eng
 
-    def wave(eng, name, prompts):
+    def wave(eng, name, prompts, force=None):
         t0 = time.perf_counter()
-        reqs = eng.generate(prompts, sp)
+        reqs, record = _recording(eng, lambda: eng.generate(prompts, sp),
+                                  force)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         if eng.cache_engine is not None:
@@ -1059,16 +1526,28 @@ def phase_serving(cfg, params, kv_dtype="native"):
         log(f"  {name}: TTFT ms {[round(r.ttft_s * 1e3, 2) for r in reqs]} "
             f"cached_prefix_len {[r.cached_prefix_len for r in reqs]} "
             f"decode {n_dec / (last - first):.1f} tok/s, wall {wall:.2f} s")
-        return reqs, [eng.first_logits[r.request_id] for r in reqs]
+        return reqs, [eng.first_logits[r.request_id] for r in reqs], record
 
     eng = serving_engine(engine)
-    w1, l1 = wave(eng, "wave 1", repeat)
-    w2, l2 = wave(eng, "wave 2", repeat)
-    w3, l3 = wave(eng, "wave 3", fresh)
-    w4, l4 = wave(eng, "wave 4", fresh)
+    w1, l1, rec1 = wave(eng, "wave 1", repeat)
+    w2, l2, _ = wave(eng, "wave 2", repeat)
+    w3, l3, rec3 = wave(eng, "wave 3", fresh)
+    w4, l4, _ = wave(eng, "wave 4", fresh)
+    flips = forced = None
+    if routing is not None:
+        routing.wave1[kv_dtype] = rec1, w1
+        flips = [routing.flips(r.routing_seen[0], r3.routing_seen[0], r,
+                               len(p) - 1)
+                 for r, r3, p in zip(w4, w3, fresh)]
+        if any(f for f, _ in flips):
+            routing.swapped = 0
+            _, forced, _ = wave(eng, "wave 4 again, routed as wave 3", fresh,
+                                force=rec3)
+            log(f"  wave 4 again: {routing.swapped} (layer, token) top-k "
+                f"sets replaced by wave 3's")
     engine.close()
-    ref, l_ref = wave(serving_engine(None), "wave 3 without a cache tier",
-                      fresh)
+    ref, l_ref, _ = wave(serving_engine(None), "wave 3 without a cache tier",
+                         fresh)
 
     failed = []
     d12 = _first_diverging(w1, w2)
@@ -1087,7 +1566,11 @@ def phase_serving(cfg, params, kv_dtype="native"):
     log(f"  wave 4: first differing token vs wave 3 "
         f"{_first_diverging(w4, w3)} (reported, not compared)")
     if not (all(r.cached_prefix_len == len(p) - 1 for r, p in zip(w4, fresh))
-            and _logits_agree("wave 4 vs wave 3", l4, l3)):
+            and _logits_agree("wave 4 vs wave 3", l4, l3, near_tie=near_tie,
+                              flips=flips)
+            and (forced is None or _logits_agree(
+                "wave 4 routed as wave 3 vs wave 3", forced, l3,
+                near_tie=near_tie))):
         failed.append("wave 4 missed the cache or its logits disagree")
     if failed:
         raise SystemExit("; ".join(failed))
@@ -1106,17 +1589,21 @@ def _tier(name, cfg):
                               fmt="vllm", dtype=cfg.dtype))
 
 
-def paged_engine(cfg, params, **kw):
+def paged_engine(cfg, params, engine_cls=PagedServingEngine, routing=None,
+                 **kw):
     """A PagedServingEngine (page 64, 512-token prefill segments) that keeps
     what the checks read: ``prefill_logits[request_id]``, one ``(tokens
     sampled before, logits)`` per completed prefill (the first token; then
-    one per resume after a preemption), ``injected_pages``, the pages
-    written by ``_inject_pages``, and ``decode_logits``, the logits of every
-    batched decode step once ``keep_decode_logits`` is set."""
-    eng = PagedServingEngine(cfg, params, page_size=PAGE, prefill_chunk=512,
-                             **kw)
+    one per resume after a preemption), ``injected_pages``, the number of
+    pages written by ``_inject_pages``, ``injected``, its (blob, pages)
+    calls, and ``decode_logits``, the logits of every batched decode step
+    once ``keep_decode_logits`` is set. A :class:`Routing` watches it."""
+    eng = engine_cls(cfg, params, page_size=PAGE, prefill_chunk=512, **kw)
+    if routing is not None:
+        routing.watch(eng)
     eng.prefill_logits = {}
     eng.injected_pages = 0
+    eng.injected = []
     eng.keep_decode_logits = False
     eng.decode_logits = []
     finish, inject, forward = (eng._finish_prefill, eng._inject_pages,
@@ -1129,6 +1616,7 @@ def paged_engine(cfg, params, **kw):
 
     def inject_and_count(blob, pages):
         eng.injected_pages += len(pages)
+        eng.injected.append((blob, list(pages)))
         inject(blob, pages)
 
     def forward_and_keep(params, cfg, tokens, *args, **kwargs):
@@ -1143,12 +1631,16 @@ def paged_engine(cfg, params, **kw):
     return eng
 
 
-def paged_wave(eng, name, prompts, max_new):
-    """Serve ``prompts`` greedily. Returns (requests, first-token logits,
-    pages injected from the cache tier)."""
+def paged_wave(eng, name, prompts, max_new, force=None):
+    """Serve ``prompts`` greedily (routed as the record ``force`` where
+    given). Returns (requests, first-token logits, pages injected from the
+    cache tier, the engine's routing record or None)."""
     injected = eng.injected_pages
     t0 = time.perf_counter()
-    reqs = eng.generate(prompts, SamplingParams(max_new_tokens=max_new))
+    reqs, record = _recording(
+        eng, lambda: eng.generate(prompts,
+                                  SamplingParams(max_new_tokens=max_new)),
+        force)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if eng.cache_engine is not None:
@@ -1166,7 +1658,7 @@ def paged_wave(eng, name, prompts, max_new):
             raise SystemExit(f"{name}: request {r.request_id} ended with "
                              f"{len(r.output_tokens)} of {max_new} tokens")
     first_logits = [eng.prefill_logits[r.request_id][0][1] for r in reqs]
-    return reqs, first_logits, injected
+    return reqs, first_logits, injected, record
 
 
 def profile_decode_step(eng, prompts, arena):
@@ -1186,27 +1678,74 @@ def profile_decode_step(eng, prompts, arena):
     return prof
 
 
-def paged_tinyllama_waves(cfg, params, prompts, dense_logits, kv_dtype):
-    """The four waves over one arena dtype. Returns (wave 1's first-token
-    logits, the decode step's profile)."""
+def paged_tinyllama_waves(cfg, params, prompts, dense_logits, kv_dtype,
+                          engine_cls=PagedServingEngine,
+                          model="tinyllama-1.1b", max_new=32, long_new=96,
+                          after_wave3=None, near_tie=False, routing=None):
+    """The four waves over one arena dtype (``engine_cls`` and ``model``
+    serve another family: phase 10c; ``after_wave3(engine)`` adds a check
+    of wave 3's engine; ``near_tie`` admits phase 6d's top-1 rule). With a
+    :class:`Routing` (an MoE model, phase 10b's dense wave-1 record in
+    ``routing.wave1``) the bf16 arena's engines record their expert
+    choices: where two computations of other shapes or kernels are compared,
+    a request whose routing differs in some (layer, token) is held to
+    ``REL_L2_MOE``, and the computation then runs again, on a fresh engine,
+    with the reference's routing forced, which must hold ``REL_L2_REUSE``.
+    Returns (wave 1's first-token logits, the decode step's profile)."""
     native = kv_dtype == "native"
     arena = "bf16" if native else "int8"
     log(f"  -- {arena} arena")
-    tier = _tier(f"tinyllama-1.1b-paged-{arena}", cfg)
+    tier = _tier(f"{model}-paged-{arena}", cfg)
+    routing = routing if native else None
     kw = dict(max_batch=4, max_seq=PAGED_MAX_SEQ, cache_engine=tier,
-              prefill_token_budget=3 * 512, kv_dtype=kv_dtype)
+              prefill_token_budget=3 * 512, kv_dtype=kv_dtype,
+              engine_cls=engine_cls, routing=routing)
     n = len(prompts)
     hit = (len(prompts[0]) - 1) // PAGE * PAGE  # whole pages, last token out
     # an int8 arena re-quantizes what comes back from the tier
     tol = REL_L2_REUSE if native else REL_L2_INT8
     failed = []
 
+    def flips(reqs, refs):
+        """Routing flips per request pair up to the first token, from what
+        each one's first-token logits saw, or None without a Routing."""
+        if routing is None:
+            return None
+        return [routing.flips(r.routing_seen[0], s.routing_seen[0], r,
+                              r.num_prompt_tokens - 1)
+                for r, s in zip(reqs, refs)]
+
+    def replayed(name, want_record, num_pages=256, new=max_new, **over):
+        """A fresh engine's wave routed as ``want_record``."""
+        routing.swapped = 0
+        again = paged_engine(cfg, params, num_pages=num_pages,
+                             **dict(kw, **over))
+        reqs, logits, _, _ = paged_wave(again, name, prompts, new,
+                                        force=want_record)
+        log(f"  {name}: {routing.swapped} (layer, token) top-k sets "
+            f"replaced by the reference's")
+        return again, reqs, logits
+
     eng = paged_engine(cfg, params, num_pages=256, **kw)
-    w1, l1, _ = paged_wave(eng, "wave 1 (fresh prompts)", prompts, 32)
-    if native and not _logits_agree("wave 1 vs the dense engine's wave 1",
-                                    l1, dense_logits):
-        failed.append("wave 1 disagrees with the dense engine")
-    w2, _, inj2 = paged_wave(eng, "wave 2 (resident pages)", prompts, 32)
+    w1, l1, _, rec1 = paged_wave(eng, "wave 1 (fresh prompts)", prompts,
+                                 max_new)
+    if native:
+        dense_rec, dense_reqs = (routing.wave1["native"] if routing
+                                 else (None, None))
+        f1 = flips(w1, dense_reqs)
+        ok = _logits_agree("wave 1 vs the dense engine's wave 1", l1,
+                           dense_logits, near_tie=near_tie, flips=f1)
+        if ok and f1 and any(f for f, _ in f1):
+            # the dense engine computed every token: no tier to replay
+            _, _, again = replayed("wave 1 again, routed as the dense engine",
+                                   dense_rec, cache_engine=None)
+            ok = _logits_agree("wave 1 routed as the dense engine vs the "
+                               "dense engine", again, dense_logits,
+                               near_tie=near_tie)
+        if not ok:
+            failed.append("wave 1 disagrees with the dense engine")
+    w2, _, inj2, _ = paged_wave(eng, "wave 2 (resident pages)", prompts,
+                                max_new)
     d12 = _first_diverging(w1, w2)
     log(f"  wave 2: first differing token vs wave 1 {d12}")
     if not (all(r.cached_prefix_len == hit for r in w2) and inj2 == 0
@@ -1217,55 +1756,94 @@ def paged_tinyllama_waves(cfg, params, prompts, dense_logits, kv_dtype):
 
     # a fresh engine on the same tier: nothing resident
     eng = paged_engine(cfg, params, num_pages=256, **kw)
-    w3, l3, inj3 = paged_wave(eng, "wave 3 (retrieve + inject)", prompts, 32)
+    w3, l3, inj3, _ = paged_wave(eng, "wave 3 (retrieve + inject)",
+                                 prompts, max_new)
     d13 = _first_diverging(w1, w3)
     log(f"  wave 3: first differing token vs wave 1 {d13}"
         f"{'' if native else ' (reported: the arena re-quantizes)'}")
-    if not (all(r.cached_prefix_len == hit for r in w3)
-            and inj3 == n * hit // PAGE
-            and (d13 == [None] * n or not native)
-            and _logits_agree("wave 3 vs wave 1", l3, l1, tol, native)):
+    f3 = flips(w3, w1)
+    ok = (all(r.cached_prefix_len == hit for r in w3)
+          and inj3 == n * hit // PAGE
+          and (d13 == [None] * n or not native)
+          and _logits_agree("wave 3 vs wave 1", l3, l1, tol, native,
+                            flips=f3))
+    if after_wave3 is not None and not after_wave3(eng):
+        failed.append("wave 3's injected pages differ from a dense slot's")
+    if ok and f3 and any(f for f, _ in f3):
+        _, _, again = replayed("wave 3 again, routed as wave 1", rec1)
+        ok = _logits_agree("wave 3 routed as wave 1 vs wave 1", again, l1)
+    if not ok:
         failed.append("wave 3 missed the tier or disagrees with wave 1")
 
-    # wave 4: the same prompts with 96 new tokens, so that decode crosses a
-    # page boundary; first on a roomy arena, then on one that cannot hold
-    # three requests of 34 pages. Both engines are fresh, so both restore
-    # the prompts from the tier.
+    # wave 4: the same prompts with long_new new tokens, so that decode
+    # crosses a page boundary; first on a roomy arena, then on one that
+    # cannot hold three requests of 34 pages. Both engines are fresh, so
+    # both restore the prompts from the tier.
     eng = paged_engine(cfg, params, num_pages=256, **kw)
     eng.keep_decode_logits = True
-    ref, l_ref, _ = paged_wave(eng, "wave 4 reference (roomy arena)", prompts,
-                               96)
+    ref, l_ref, _, rec_ref = paged_wave(
+        eng, "wave 4 reference (roomy arena)", prompts, long_new)
     tight = paged_engine(cfg, params, num_pages=TIGHT_PAGES, **kw)
-    w4, l4, _ = paged_wave(tight, f"wave 4 (arena of {TIGHT_PAGES - 1} "
-                           f"pages)", prompts, 96)
-    tier.close()
+    w4, l4, _, _ = paged_wave(tight, f"wave 4 (arena of {TIGHT_PAGES - 1} "
+                              f"pages)", prompts, long_new)
     d4 = _first_diverging(w4, ref)
     log(f"  wave 4: first differing token vs the roomy arena {d4} "
         f"(reported)")
     if sum(r.num_preemptions for r in w4) == 0:
         failed.append("wave 4 preempted nothing")
     if not _logits_agree("wave 4 vs the roomy arena, first token", l4, l_ref,
-                         tol, native):
+                         tol, native,
+                         flips=flips(w4, ref)):
         failed.append("wave 4's first-token logits disagree")
-    if len(eng.decode_logits) != 95:
+    if len(eng.decode_logits) != long_new - 1:
         failed.append(f"the roomy arena decoded in {len(eng.decode_logits)} "
-                      f"steps, not 95")
-    for r, r_ref in zip(w4, ref):
-        # each resume prefilled over the restored KV and sampled token k:
-        # hold its logits against the decode step that sampled token k on
-        # the roomy arena
-        for k, logits in tight.prefill_logits[r.request_id][1:]:
-            same_past = r.output_tokens[:k] == r_ref.output_tokens[:k]
-            log(f"  wave 4: request {r.request_id} resumed at token {k} "
-                f"with {r.cached_prefix_len} cached tokens; tokens before "
-                f"the resume equal the roomy arena's: {same_past}")
-            if not (same_past and r.cached_prefix_len >= hit
-                    and _logits_agree(
-                        f"wave 4 resume at token {k} vs the roomy arena",
-                        [logits], [eng.decode_logits[k - 1][r_ref.slot]],
-                        tol, native)):
-                failed.append(f"request {r.request_id} did not resume "
-                              f"where it was preempted")
+                      f"steps, not {long_new - 1}")
+
+    def resumes(engine, reqs):
+        """Each resume prefilled over the restored KV and sampled token k:
+        (request, k, its logits, the roomy arena's decode step that sampled
+        token k, the index of the resume), where the tokens before k equal
+        the roomy arena's."""
+        out = []
+        for r, r_ref in zip(reqs, ref):
+            for i, (k, logits) in enumerate(
+                    engine.prefill_logits[r.request_id][1:], 1):
+                same_past = r.output_tokens[:k] == r_ref.output_tokens[:k]
+                log(f"  request {r.request_id} resumed at token {k} with "
+                    f"{r.cached_prefix_len} cached tokens; tokens before the "
+                    f"resume equal the roomy arena's: {same_past}")
+                if not (same_past and r.cached_prefix_len >= hit):
+                    failed.append(f"request {r.request_id} did not resume "
+                                  f"where it was preempted")
+                    continue
+                out.append((r, k, logits,
+                            eng.decode_logits[k - 1][r_ref.slot], i))
+        return out
+
+    back = resumes(tight, w4)
+    f4 = (None if routing is None else
+          [routing.flips(r.routing_seen[i], rec_ref, r,
+                         r.num_prompt_tokens + k - 1)
+           for r, k, _, _, i in back])
+    ok = bool(back) and _logits_agree(
+        f"wave 4 resumes at tokens {[k for _, k, *_ in back]} vs the roomy "
+        f"arena", [g for _, _, g, _, _ in back], [w for *_, w, _ in back],
+        tol,
+        native, near_tie=near_tie and native, flips=f4)
+    if ok and f4 and any(f for f, _ in f4):
+        again, reqs, _ = replayed("wave 4 again (arena of "
+                                  f"{TIGHT_PAGES - 1} pages), routed as the "
+                                  f"roomy arena", rec_ref,
+                                  num_pages=TIGHT_PAGES, new=long_new)
+        forced = resumes(again, reqs)
+        ok = bool(forced) and _logits_agree(
+            "wave 4 resumes routed as the roomy arena vs the roomy arena",
+            [g for _, _, g, _, _ in forced], [w for *_, w, _ in forced],
+            near_tie=near_tie)
+    tier.close()
+    if not ok:
+        failed.append("a preempted request's resume disagrees with the roomy "
+                      "arena")
     if failed:
         raise SystemExit(f"{arena} arena: " + "; ".join(failed))
     return l1, profile
@@ -1326,8 +1904,8 @@ def phase_paged_phi3():
             return logits
 
         eng._prefill_segment = segment_and_plain
-        reqs, first[arena], _ = paged_wave(eng, "two prompts, 16 new tokens",
-                                           prompts, 16)
+        reqs, first[arena], _, _ = paged_wave(
+            eng, "two prompts, 16 new tokens", prompts, 16)
         launches[f"paged phi3 {arena}"] = read_launch_counts()
         finite = all(bool(torch.isfinite(l).all()) for l in first[arena])
         if not (finite and _logits_agree(
@@ -1425,12 +2003,13 @@ def phase_int8_bench(cfg, params):
             "reuse_rel_l2": rel, "profile": profile}
 
 
-def profile_dense_decode_step(cfg, params, prompts, kv_dtype):
+def profile_dense_decode_step(cfg, params, prompts, kv_dtype,
+                              engine_cls=ServingEngine):
     """Bring three prompts to decode on a four-slot dense engine, then time
     and profile one batched decode step (the fourth row parked)."""
-    eng = ServingEngine(cfg, params, max_batch=4, max_seq=2048 + 64,
-                        prefill_chunk=512, prefill_token_budget=3 * 512,
-                        kv_dtype=kv_dtype)
+    eng = engine_cls(cfg, params, max_batch=4, max_seq=2048 + 64,
+                     prefill_chunk=512, prefill_token_budget=3 * 512,
+                     kv_dtype=kv_dtype)
     for p in prompts:
         eng.add_request(Request(p, SamplingParams(max_new_tokens=16)))
     while eng.waiting or eng.prefilling:
@@ -1928,8 +2507,8 @@ def phase_remote(cfg, params, ttft_full_ms):
 
         peng._inject_pages = inject_and_keep
         reset_launch_counts()
-        [r], _, n_pages = paged_wave(peng, "paged wave over the remote tier",
-                                     [tokens_np], 1)
+        [r], _, n_pages, _ = paged_wave(
+            peng, "paged wave over the remote tier", [tokens_np], 1)
         launches["remote paged"] = read_launch_counts()
         tier.close()
         pages = peng._read_pages(written)[:, :, :CTX]
@@ -2024,6 +2603,334 @@ def phase_codec_throughput():
         raise SystemExit("codec throughput: the kernels differ from the host "
                          "coder")
     return {k: {"ms": ms, "gb_s": raw / ms / 1e6} for k, ms in rates.items()}
+
+
+# --------------------------------------------------------------- phase 10 ---
+
+MLA_MODEL = "deepseek-v2-lite"
+
+
+def _mla_tier(name):
+    return LMCacheEngine(
+        LMCacheEngineConfig(local_device="cuda"),
+        LMCacheEngineMetadata(model_name=name, world_size=1, worker_id=0,
+                              fmt="vllm", dtype=MLA_CFG.dtype))
+
+
+def mla_bench(cfg, params, reps):
+    """10a: the bench shape through ``mla.forward``: full prefill of CTX +
+    SUFFIX tokens, store of the CTX prefix's latents into the "cuda" tier,
+    retrieve, inject, suffix prefill. Returns (the phase's numbers, the
+    prompt, the full prefill's last logits, the stored prefix blob)."""
+    log(f"  -- 10a: prefill -> store -> retrieve -> inject -> suffix "
+        f"prefill, CTX {CTX} + SUFFIX {SUFFIX}")
+    S = CTX + SUFFIX
+    tokens_np = np.random.default_rng(10).integers(0, cfg.vocab_size, S,
+                                                   dtype=np.int32)
+    tokens = torch.as_tensor(tokens_np, device="cuda").long()[None]
+    engine = _mla_tier(MLA_MODEL)
+    zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+    def prefill_full():
+        logits, cache = mla.forward(params, cfg, tokens, zero,
+                                    mla.new_latent_cache(cfg, 1, S),
+                                    last_logit_only=True)
+        return logits[0, -1], cache
+
+    def prefill_reuse():
+        blob, mask = engine.retrieve(tokens_np, return_tuple=False)
+        if int(mask.sum()) != CTX:
+            raise SystemExit(f"expected {CTX} hits, got {int(mask.sum())}")
+        cache = mla.blob_into_cache(mla.new_latent_cache(cfg, 1, S), blob)
+        logits, _ = mla.forward(
+            params, cfg, tokens[:, CTX:],
+            torch.full((1,), CTX, dtype=torch.int32, device="cuda"), cache,
+            last_logit_only=True)
+        return logits[0, -1]
+
+    full_logits, cache = prefill_full()
+    prefix = mla.cache_to_blob(cache, 0, CTX).clone()
+    n_chunks = engine.store(tokens_np[:CTX], prefix)
+    del cache
+    reuse_logits = prefill_reuse()
+    torch.cuda.synchronize()
+    log(f"  stored {n_chunks} chunks of latent blobs "
+        f"{list(prefix.shape)} ({prefix.numel() * 2 / 1e6:.1f} MB)")
+    # random MoE weights may leave the logits near-flat: phase 6d's rule
+    got, want = reuse_logits.float(), full_logits.float()
+    rel = ((got - want).norm() / want.norm()).item()
+    rule = ("same top-1" if int(got.argmax()) == int(want.argmax())
+            else "near tie")
+    if not (bool(torch.isfinite(got).all()) and _logits_agree(
+            f"reuse vs full prefill ({rule})", [got], [want],
+            near_tie=True)):
+        raise SystemExit("mla: reuse logits disagree with the full prefill")
+    t_full = wall_best(lambda: prefill_full(), n=reps)
+    t_reuse = wall_best(prefill_reuse, n=reps)
+    log(f"  TTFT full {t_full:.2f} ms, TTFT reuse {t_reuse:.2f} ms, ratio "
+        f"{t_full / t_reuse:.2f}x (best of {reps} after a warm-up)")
+    profile = [profile_window("mla full prefill", lambda: prefill_full()),
+               profile_window("mla reuse request", prefill_reuse)]
+    engine.close()
+    return ({"ttft_full_ms": t_full, "ttft_reuse_ms": t_reuse,
+             "speedup": t_full / t_reuse, "reuse_rel_l2": rel,
+             "reuse_rule": rule, "profile": profile},
+            tokens_np, full_logits.float(), prefix)
+
+
+def mla_dense_slot(cfg, blob, native):
+    """What the dense engine's inject puts into a slot, read back as a
+    wire blob."""
+    n = blob.shape[2]
+    if native:
+        cache = mla.blob_into_cache(mla.new_latent_cache(cfg, 1, n), blob)
+        return mla.cache_to_blob(cache, 0, n)
+    cache = mla.blob_into_quantized_cache(
+        mla.new_quantized_latent_cache(cfg, 1, n), blob)
+    return mla.quantized_cache_to_blob(cache, 0, n, mla.torch_dtype(cfg))
+
+
+def mla_row9(cfg, params, prompt, kv_dtype):
+    """10d: kernel row 9 has no serving path (as in the JAX package): the
+    last prefill segment of a paged request runs again, on a copy of the
+    arena, with the paged forward's attention bound to the one-page-per-step
+    kernel; its logits are held to row 10's."""
+    quant = kv_dtype == "int8"
+    eng = MLAPagedServingEngine(cfg, params, page_size=PAGE, max_batch=1,
+                                max_seq=MLA_SERVE_SEQ, num_pages=NP_MLA + 2,
+                                prefill_chunk=512, kv_dtype=kv_dtype)
+    kept = {}
+    segment = eng._prefill_segment
+
+    def segment_and_row9(req, pos, seg):
+        logits = segment(req, pos, seg)
+        if pos + len(seg) == len(req.all_tokens):
+            pool = eng.kv_pool
+            pool = ({k: v.clone() for k, v in pool.items()} if quant
+                    else pool.clone())
+            through_row_10 = (mla.paged_latent_attention_dma,
+                              mla.quantized_paged_latent_attention_dma)
+            mla.paged_latent_attention_dma = pla.paged_latent_attention
+            mla.quantized_paged_latent_attention_dma = (
+                pla.quantized_paged_latent_attention)
+            try:
+                out, _ = mla.forward_paged(
+                    eng.params, cfg,
+                    torch.as_tensor(seg, dtype=torch.long,
+                                    device="cuda")[None],
+                    torch.tensor([pos], dtype=torch.int32, device="cuda"),
+                    pool, eng._tables(eng.page_tables[req.slot:req.slot + 1]),
+                    last_logit_only=True)
+            finally:
+                (mla.paged_latent_attention_dma,
+                 mla.quantized_paged_latent_attention_dma) = through_row_10
+            kept["row 9"] = out[0, -1].float()
+            kept["row 10"] = logits.float()
+        return logits
+
+    eng._prefill_segment = segment_and_row9
+    eng.generate([prompt], SamplingParams(max_new_tokens=1))
+    return _logits_agree(f"{kv_dtype} arena, last prefill segment through "
+                         f"row 9 vs row 10", [kept["row 9"]],
+                         [kept["row 10"]], near_tie=True)
+
+
+def mla_remote(cfg, params, tokens_np, prefix, full_logits, kv_wire_bytes):
+    """10e: the latent prefix through the cache server with the CacheGen
+    serde (single-stream N = 1 containers, ``CacheGenConfig.for_latent``):
+    a store by instance A, every container equal to the host C++ coder's;
+    a fresh pipelined ``MLAServingEngine`` serves the prompt from it, every
+    decoded group's symbols equal to the host decode. The first-token
+    logits against the full prefill's (CacheGen is lossy) and the wire
+    bytes against phase 9's K/V are reported."""
+    log("  -- 10e: latent CacheGen through the cache server")
+    name = f"{MLA_MODEL}-remote"
+
+    def tier(**kw):
+        return LMCacheEngine(
+            LMCacheEngineConfig(local_device=None, remote_url=url,
+                                remote_serde="cachegen",
+                                chunk_size=REMOTE_CHUNK, **kw),
+            LMCacheEngineMetadata(model_name=name, world_size=1, worker_id=0,
+                                  fmt="vllm", dtype=cfg.dtype))
+
+    proc, url = start_cache_server()
+    try:
+        a = tier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = a.store(tokens_np[:CTX], prefix, blocking=True)
+        store_ms = (time.perf_counter() - t0) * 1e3
+        keys = [a._make_key(h, "vllm")
+                for h in prefix_chunk_hashes(tokens_np[:CTX], REMOTE_CHUNK)]
+        wire = [a.engine_.connection.get(k.to_string()) for k in keys]
+        a.close()
+        host = cgs.CacheGenSerializer(
+            LMCacheEngineConfig(local_device=None,
+                                remote_url="lm://localhost:1",
+                                cachegen_device_encode="off"),
+            LMCacheEngineMetadata(model_name=name, world_size=1,
+                                  worker_id=0, fmt="vllm", dtype=cfg.dtype))
+        ref = host.to_bytes_batch(kv.chunk_blob(prefix, "vllm",
+                                                REMOTE_CHUNK))
+        equal = sum(w == r for w, r in zip(wire, ref))
+        wire_bytes = sum(len(w) for w in wire)
+        raw = prefix.numel() * prefix.element_size()
+
+        b = tier(pipelined_backend=True)
+        eng = MLAServingEngine(cfg, params, max_batch=1,
+                               max_seq=CTX + SUFFIX + 8, cache_engine=b)
+        kept, groups = {}, []
+        finish, decode = eng._finish_prefill, rd.decode_streams
+
+        def finish_and_keep(req, logits):
+            kept[req.request_id] = logits.float().clone()
+            finish(req, logits)
+
+        def decode_and_keep(payload, offsets, cdf, n_sym):
+            out = decode(payload, offsets, cdf, n_sym)
+            groups.append((payload, offsets, cdf, n_sym, out))
+            return out
+
+        eng._finish_prefill = finish_and_keep
+        rd.decode_streams = decode_and_keep
+        try:
+            t0 = time.perf_counter()
+            [req] = eng.generate([tokens_np], SamplingParams(max_new_tokens=1))
+            torch.cuda.synchronize()
+            serve_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            rd.decode_streams = decode
+        b.engine_.flush()
+        b.close()
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=10)
+    same_symbols = []
+    for payload, offsets, cdf, n_sym, out in groups:
+        lens = np.diff(offsets.cpu().numpy())
+        host_sym = range_coder.decode_streams(payload.cpu().numpy(), lens,
+                                              n_sym, quant.cdf_to_numpy(cdf))
+        same_symbols.append(bool(np.array_equal(out.cpu().numpy(),
+                                                host_sym)))
+    logits = kept[req.request_id]
+    rel = ((logits - full_logits).norm() / full_logits.norm()).item()
+    log(f"  store: {n} chunks in {store_ms:.2f} ms; wire {wire_bytes / 1e6:.3f}"
+        f" MB for {raw / 1e6:.1f} MB of bf16 latents, compression "
+        f"{raw / wire_bytes:.3f}x (phase 9's tinyllama K/V of the same "
+        f"{CTX} tokens: {kv_wire_bytes / 1e6:.3f} MB); containers equal to "
+        f"the host C++ coder's: {equal} of {len(wire)}")
+    log(f"  served by a fresh pipelined engine in {serve_ms:.2f} ms: "
+        f"cached_prefix_len {req.cached_prefix_len}; decode groups of "
+        f"{[g[1].numel() - 1 for g in groups]} streams; symbols equal the "
+        f"host C++ decode {same_symbols}")
+    log(f"  first-token logits against the full prefill's (lossy; "
+        f"reported): rel_l2 {rel:.4e}, top-1 {int(logits.argmax())} vs "
+        f"{int(full_logits.argmax())}")
+    if not (n == STORE_CHUNKS and equal == STORE_CHUNKS and groups
+            and all(same_symbols) and req.cached_prefix_len >= CTX - 1
+            and bool(torch.isfinite(logits).all())):
+        raise SystemExit("mla remote: a gate failed")
+    return {"store_ms": store_ms, "wire_bytes": wire_bytes, "raw_bytes": raw,
+            "compression": raw / wire_bytes, "kv_wire_bytes": kv_wire_bytes,
+            "serve_ms": serve_ms, "cached_prefix_len": req.cached_prefix_len,
+            "reuse_rel_l2": rel,
+            "same_top1": int(logits.argmax()) == int(full_logits.argmax())}
+
+
+def phase_mla(kv_wire_bytes, reps=2):
+    """Phase 10: DeepSeek-V2-Lite at full width and depth with random bf16
+    weights. Returns (launch counts by sub-phase, the phase's numbers)."""
+    cfg = MLA_CFG
+    log(f"== phase 10: DeepSeek-V2-Lite ({cfg.n_layers} layers, "
+        f"{cfg.n_heads} heads, latent {cfg.latent_dim} = "
+        f"{cfg.kv_lora_rank} + {cfg.qk_rope_head_dim}, "
+        f"{cfg.n_routed_experts} + {cfg.n_shared_experts} experts, top "
+        f"{cfg.n_experts_per_tok}), random weights, full width and depth")
+    t0 = time.perf_counter()
+    params = mla.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for block in (
+        [params] + [params[k] for k in ("dense_layers", "moe_layers")])
+        for t in block.values() if isinstance(t, torch.Tensor))
+    log(f"  weights {n_bytes / 1e9:.2f} GB drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches, out = {}, {"weights_bytes": n_bytes}
+    reset_launch_counts()
+    out["bench"], tokens_np, full_logits, prefix = mla_bench(cfg, params,
+                                                             reps)
+    launches["mla bench"] = read_launch_counts()
+
+    first = {}
+    routing = Routing()
+    for kv_dtype in ("native", "int8"):
+        reset_launch_counts()
+        with routing:
+            prompts, first[kv_dtype] = phase_serving(
+                cfg, params, kv_dtype, engine_cls=MLAServingEngine,
+                model=MLA_MODEL, max_new=8, near_tie=True, routing=routing,
+                label=f"  -- 10b: MLAServingEngine, four waves, {kv_dtype} "
+                      f"pool")
+        launches[f"mla serving {kv_dtype}"] = read_launch_counts()
+        torch.cuda.empty_cache()
+    if not _logits_agree("int8 pool vs native pool, wave 1", first["int8"],
+                         first["native"], REL_L2_INT8, same_top1=False):
+        raise SystemExit("mla: the int8 pool's logits left the native "
+                         "pool's")
+    out["dense_decode_profile"] = profile_dense_decode_step(
+        cfg, params, prompts, "native", engine_cls=MLAServingEngine)
+
+    log("  -- 10c: MLAPagedServingEngine (page 64), four waves per arena")
+    paged_first, out["paged_decode_profiles"] = {}, []
+    for kv_dtype, arena in (("native", "bf16"), ("int8", "int8")):
+        native = kv_dtype == "native"
+
+        def injected_equal_dense(eng, native=native):
+            same = [torch.equal(eng._read_pages(pages),
+                                mla_dense_slot(cfg, blob, native))
+                    for blob, pages in eng.injected]
+            log(f"  wave 3: {len(same)} injected chunks; the pages read back "
+                f"equal the dense pool's slot of the same chunk: "
+                f"{all(same)}")
+            return bool(same) and all(same)
+
+        reset_launch_counts()
+        with routing:
+            paged_first[arena], profile = paged_tinyllama_waves(
+                cfg, params, prompts, first["native"], kv_dtype,
+                engine_cls=MLAPagedServingEngine, model=MLA_MODEL, max_new=8,
+                long_new=66, after_wave3=injected_equal_dense, near_tie=True,
+                routing=routing)
+        launches[f"mla paged {arena}"] = read_launch_counts()
+        out["paged_decode_profiles"].append(profile)
+        torch.cuda.empty_cache()
+    if not _logits_agree("int8 arena vs bf16 arena, wave 1",
+                         paged_first["int8"], paged_first["bf16"],
+                         REL_L2_INT8, same_top1=False):
+        raise SystemExit("mla: the int8 arena's logits left the bf16 "
+                         "arena's")
+
+    log("  -- 10d: kernel row 9 (one page per step) on the paged forward")
+    reset_launch_counts()
+    # 2000 tokens: the last segment is a prefill of 464 rows a head
+    ok = all([mla_row9(cfg, params, prompts[0][:2000], kv_dtype)
+              for kv_dtype in ("native", "int8")])
+    launches["mla row 9"] = read_launch_counts()
+    if not ok:
+        raise SystemExit("mla: row 9's logits disagree with row 10's")
+
+    reset_launch_counts()
+    out["remote"] = mla_remote(cfg, params, tokens_np, prefix, full_logits,
+                               kv_wire_bytes)
+    launches["mla remote"] = read_launch_counts()
+    del params, prefix
+    torch.cuda.empty_cache()
+    return launches, out
 
 
 # ---------------------------------------------------------------- phase 8 ---
@@ -2140,6 +3047,31 @@ def phase_yardstick():
         rows[case["kernel"]].append(row)
         del args
     rows.update(coder_yardstick(gen, sm_clock_hz()))
+
+    for case in latent_cases():
+        args, kw = make_latent_inputs(case, gen)
+        entry = KERNELS[case["kernel"]][0]
+        decode = case["T"] == 1
+        iters = 200 if decode else (5 if case["T"] > 4096 else 20)
+        ms = cuda_ms(lambda: entry(*args, **kw), iters=iters)
+        plain_ms = cuda_ms(lambda: latent_plain(case, args, kw), iters=3,
+                           warmup=1)
+        pre_ms, sdpa_ms, backends = latent_library(case, args, kw, iters)
+        bound_ms, bound_by = latent_bound(case, args)
+        row = {"shape": case["name"], "ms": ms, "plain_ms": plain_ms,
+               "library_ms": (pre_ms or 0.0) + sdpa_ms,
+               "library_prepare_ms": pre_ms, "library_sdpa_ms": sdpa_ms,
+               "sdpa_backends": backends, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        prep = ("gather" if case["paged"] else "dequantize")
+        lib = (f"{prep} {pre_ms:.4f} ms + " if pre_ms is not None else "") + (
+            f"SDPA {sdpa_ms:.4f} ms (backends that take it: "
+            f"{', '.join(backends)})")
+        log(f"  {case['kernel']} | {case['name']}: kernel {ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
+            f"library {lib}")
+        rows[case["kernel"]].append(row)
+        del args
     return rows
 
 
@@ -2232,6 +3164,9 @@ def main():
     launches.update(phase_paged_phi3())
     mistral_launches, mistral_profiles = phase_mistral()
     launches.update(mistral_launches)
+    torch.cuda.empty_cache()
+    mla_launches, mla_out = phase_mla(remote["store"]["wire_bytes"])
+    launches.update(mla_launches)
     reset_launch_counts()
 
     log("== phase 7: launch counts")
@@ -2261,6 +3196,20 @@ def main():
                          ("flash_attention", ("prefill",))],
         "remote paged": [("range_decode", ("retrieve",)),
                          ("paged_attention_dma", ("prefill",))],
+        "mla bench": ("latent_flash_attention", ("prefill",)),
+        "mla serving native": ("latent_flash_attention",
+                               ("prefill", "decode")),
+        "mla serving int8": ("quantized_latent_flash_attention",
+                             ("prefill", "decode")),
+        "mla paged bf16": ("paged_latent_attention_dma",
+                           ("prefill", "decode")),
+        "mla paged int8": ("quantized_paged_latent_attention_dma",
+                           ("prefill", "decode")),
+        "mla row 9": [("paged_latent_attention", ("prefill",)),
+                      ("quantized_paged_latent_attention", ("prefill",))],
+        "mla remote": [("range_encode", ("store",)),
+                       ("range_decode", ("retrieve",)),
+                       ("latent_flash_attention", ("prefill",))],
     }
     for phase, wanted in expected.items():
         for kernel, kinds in (wanted if isinstance(wanted, list)
@@ -2290,7 +3239,8 @@ def main():
               "ttft_streamed": stream_ttft, "remote": remote,
               "paged_decode_profiles": decode_profiles,
               "dense_decode_profiles": dense_decode_profiles,
-              "mistral_profiles": mistral_profiles, "card": card}
+              "mistral_profiles": mistral_profiles, "mla": mla_out,
+              "card": card}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

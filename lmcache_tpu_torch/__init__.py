@@ -7,7 +7,10 @@ whose range coders are hand-written Hopper kernels), a dense llama-family
 model whose attention is a hand-written Hopper flash-attention kernel, and
 two continuous-batching serving engines: ``ServingEngine`` over dense slots
 and ``PagedServingEngine`` over a shared bf16 or int8 page arena, read by
-four hand-written Hopper paged-attention kernels. Module names mirror
+four hand-written Hopper paged-attention kernels. MLA models (DeepSeek-V2/V3,
+``models/mla.py``) keep a latent cache instead, served by
+``MLAServingEngine`` and ``MLAPagedServingEngine`` through hand-written
+Hopper latent-attention kernels (dense and paged, bf16 and int8). Module names mirror
 ``lmcache_tpu``; this package imports neither JAX nor ``lmcache_tpu``. Entry
 points run on ``"cuda"`` unless the caller passes ``device="cpu"``, and raise
 when CUDA is absent otherwise.

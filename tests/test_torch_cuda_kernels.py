@@ -553,3 +553,190 @@ def test_range_decoder_ends_a_collapsed_stream_like_its_plain_version(gen):
     torch.cuda.synchronize()
     assert torch.equal(out.cpu(), ref)
     assert ref[0, 0] == 2 and not ref[0, 1:].any()
+
+
+# ------------------------------------------------------------------------
+# kernel rows 8, 9 and 10: MLA latent attention, dense and paged
+
+from lmcache_tpu_torch.ops import latent_attention as la  # noqa: E402
+from lmcache_tpu_torch.ops import paged_latent_attention as pla  # noqa: E402
+
+# (H, C, rank, Cp): the tiny test geometry and DeepSeek-V2-Lite's; V2/V3
+# share V2-Lite's latent with H = 128
+LATENT_GEOMETRY = {"tiny": (4, 80, 64, 128), "v2_lite": (16, 576, 512, 640),
+                   "v3_heads": (128, 576, 512, 640)}
+LATENT_SCALE = 0.0722  # 1 / sqrt(192), DeepSeek's qk head dim
+
+
+def _latent_rows(gen, shape, quant):
+    """Latent rows of unit size in bf16, or int8 symbols with fp32 scales
+    of such rows."""
+    if quant:
+        sym = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                            dtype=torch.int32).to(torch.int8)
+        scale = torch.rand(shape[:-1], generator=gen, device="cuda") * 0.02 \
+            + 0.01
+        return sym, scale
+    return torch.randn(shape, generator=gen, device="cuda").bfloat16(), None
+
+
+def _assert_latent_close(out, ref, kl):
+    """bf16 output against the fp32 plain version (P rounded to bf16 before
+    the value product in the kernel only); a sequence that sees no key gives
+    0 from both."""
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    assert torch.isfinite(out.float()).all()
+    assert (out[kl == 0] == 0).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=ATOL,
+                               rtol=2.0**-7)
+
+
+LATENT_CASES = {
+    # (B, T, S, q_offset, kv_len)
+    "prefill_over_prefix": (2, 37, 300, [100, 0], [137, 37]),
+    "decode_ragged": (3, 1, 257, [256, 5, 0], [257, 6, 1]),
+    "empty_seq": (2, 20, 64, [0, 10], [0, 30]),
+}
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("case", sorted(LATENT_CASES))
+@pytest.mark.parametrize("geom", sorted(LATENT_GEOMETRY))
+def test_latent_kernel_matches_plain(gen, geom, case, quant):
+    H, C, rank, _ = LATENT_GEOMETRY[geom]
+    B, T, S, q_off, kv_len = LATENT_CASES[case]
+    if geom == "v3_heads":
+        T = 1  # H = 128 is held at decode, where the path gives it
+    q = torch.randn((B, T, H, C), generator=gen, device="cuda").bfloat16()
+    rows, scale = _latent_rows(gen, (B, S, C), quant)
+    qo = torch.tensor(q_off, dtype=torch.int32, device="cuda")
+    kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    entry = (la.quantized_latent_flash_attention if quant
+             else la.latent_flash_attention)
+    phase = "decode" if T == 1 else "prefill"
+    before = entry.launches[phase]
+    kw = dict(rank=rank, scale=LATENT_SCALE)
+    if quant:
+        out = entry(q, rows, scale, qo, kl, **kw)
+        ref = la.quantized_latent_attention_reference(
+            q, rows, scale, qo, kl, zero_dead_rows=True, **kw)
+    else:
+        out = entry(q, rows, qo, kl, **kw)
+        ref = la.latent_attention_reference(q, rows, qo, kl,
+                                            zero_dead_rows=True, **kw)
+    assert entry.launches[phase] == before + 1
+    assert out.shape == (B, T, H, rank)
+    _assert_latent_close(out, ref, kl)
+
+
+def test_latent_kernel_on_a_slot_view_of_the_pool(gen):
+    """A layer's slot of a [L, B, S, C] pool is read in place."""
+    pool = torch.randn((3, 4, 200, 80), generator=gen,
+                       device="cuda").bfloat16()
+    view = pool[1, 2:3]
+    q = torch.randn((1, 9, 4, 80), generator=gen, device="cuda").bfloat16()
+    qo = torch.tensor([150], dtype=torch.int32, device="cuda")
+    kl = torch.tensor([159], dtype=torch.int32, device="cuda")
+    out = la.latent_flash_attention(q, view, qo, kl, rank=64, scale=0.1)
+    ref = la.latent_attention_reference(q, view.contiguous(), qo, kl,
+                                        rank=64, scale=0.1)
+    _assert_latent_close(out, ref, kl)
+
+
+PAGED_LATENT = {
+    "grid_bf16": (pla.paged_latent_attention, False),
+    "grid_int8": (pla.quantized_paged_latent_attention, True),
+    "stream_bf16": (pla.paged_latent_attention_dma, False),
+    "stream_int8": (pla.quantized_paged_latent_attention_dma, True),
+}
+PAGED_LATENT_CASES = {
+    # (B, T, page, q_offset, kv_len)
+    "decode_ragged": (4, 1, 64, [2100, 63, 0, 700], [2101, 64, 1, 701]),
+    "prefill_over_prefix": (2, 70, 16, [100, 0], [170, 70]),
+    "prefill_segment": (1, 512, 64, [1536], [2048]),
+    "empty_seq": (2, 5, 16, [0, 20], [0, 25]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PAGED_LATENT_CASES))
+@pytest.mark.parametrize("geom", ["tiny", "v2_lite"])
+@pytest.mark.parametrize("kind", sorted(PAGED_LATENT))
+def test_paged_latent_kernel_matches_plain(gen, kind, geom, case):
+    """A layer's slice of a lane-padded arena [L, P, page, Cp], a fragmented
+    table whose dead trailing slots hold ids outside the pool, queries of
+    the logical width C."""
+    entry, quant = PAGED_LATENT[kind]
+    H, C, rank, Cp = LATENT_GEOMETRY[geom]
+    B, T, page, q_off, kv_len = PAGED_LATENT_CASES[case]
+    NP = -(-max(kv_len) // page) + 2
+    P = B * NP + 3
+    q = torch.randn((B, T, H, C), generator=gen, device="cuda").bfloat16()
+    arena, scales = _latent_rows(gen, (2, P, page, Cp), quant)
+    arena[..., C:] = 0  # the lane pad, as the model writes it
+    ids = torch.randperm(P - 1, generator=gen, device="cuda")[:B * NP] + 1
+    table = ids.reshape(B, NP).to(torch.int32)
+    for b, n in enumerate(kv_len):
+        table[b, -(-n // page):] = -7 if b % 2 else 1 << 20
+    table = table.contiguous()
+    qo = torch.tensor(q_off, dtype=torch.int32, device="cuda")
+    kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    kw = dict(rank=rank, scale=LATENT_SCALE)
+    phase = "decode" if T == 1 else "prefill"
+    before = entry.launches[phase]
+    live = table.clamp(0, P - 1)  # the plain version gathers every slot
+    if quant:
+        out = entry(q, arena[1], scales[1], table, qo, kl, **kw)
+        ref = pla.quantized_paged_latent_attention_reference(
+            q, arena[1], scales[1], live, qo, kl, zero_dead_rows=True, **kw)
+    else:
+        out = entry(q, arena[1], table, qo, kl, **kw)
+        ref = pla.paged_latent_attention_reference(
+            q, arena[1], live, qo, kl, zero_dead_rows=True, **kw)
+    assert entry.launches[phase] == before + 1
+    _assert_latent_close(out, ref, kl)
+
+
+@pytest.mark.parametrize("kind", sorted(PAGED_LATENT))
+def test_paged_latent_kernel_takes_a_padded_query(gen, kind):
+    """The JAX forward zero-pads the query to the arena's width: the same
+    result as the query at the logical width."""
+    entry, quant = PAGED_LATENT[kind]
+    q = torch.randn((2, 3, 4, 80), generator=gen, device="cuda").bfloat16()
+    arena, scales = _latent_rows(gen, (9, 16, 128), quant)
+    arena[..., 80:] = 0
+    table = torch.tensor([[3, 1, 5, 0], [2, 4, 6, 8]], dtype=torch.int32,
+                         device="cuda")
+    qo = torch.tensor([30, 50], dtype=torch.int32, device="cuda")
+    kl = qo + 3
+    args = (arena, scales) if quant else (arena,)
+    kw = dict(rank=64, scale=0.1)
+    out = entry(q, *args, table, qo, kl, **kw)
+    padded = entry(torch.nn.functional.pad(q, (0, 48)), *args, table, qo, kl,
+                   **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(padded.float(), out.float(), atol=ATOL,
+                               rtol=2.0**-7)
+
+
+def test_latent_kernels_refuse_what_they_do_not_take(gen):
+    q = torch.zeros((1, 1, 4, 80), device="cuda")
+    lat = torch.zeros((1, 16, 80), device="cuda")
+    one = torch.ones(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="bfloat16"):
+        la.latent_flash_attention(q, lat, one, one, rank=64, scale=0.1)
+    qb, lb = q.bfloat16(), lat.bfloat16()
+    with pytest.raises(ValueError, match="multiples of 16"):
+        la.latent_flash_attention(qb, lb, one, one, rank=60, scale=0.1)
+    with pytest.raises(ValueError, match="int8"):
+        la.quantized_latent_flash_attention(qb, lb, torch.ones(
+            (1, 16), device="cuda"), one, one, rank=64, scale=0.1)
+    pool = torch.zeros((4, 24, 128), device="cuda").bfloat16()
+    table = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="page size 24"):
+        pla.paged_latent_attention(qb, pool, table, one, one, rank=64,
+                                   scale=0.1)
+    # the streaming kernel takes any page size
+    pla.paged_latent_attention_dma(qb, pool, table, one, one, rank=64,
+                                   scale=0.1)
+    torch.cuda.synchronize()

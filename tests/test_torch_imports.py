@@ -38,7 +38,12 @@ def test_import_leaves_jax_and_lmcache_tpu_out():
             "lmcache_tpu_torch.storage.connector, "
             "lmcache_tpu_torch.storage.remote_backend, "
             "lmcache_tpu_torch.protocol, lmcache_tpu_torch.server, "
-            "lmcache_tpu_torch.server.storage; "
+            "lmcache_tpu_torch.server.storage, "
+            "lmcache_tpu_torch.models.mla, "
+            "lmcache_tpu_torch.ops.latent_attention, "
+            "lmcache_tpu_torch.ops.paged_latent_attention, "
+            "lmcache_tpu_torch.serving.mla_engine, "
+            "lmcache_tpu_torch.serving.mla_paged_engine; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'lmcache_tpu' "
             "or m.startswith('lmcache_tpu.')]; print(bad)")
@@ -113,11 +118,26 @@ def test_server_runs_with_jax_and_lmcache_tpu_refused():
 
 def _entry_points():
     from lmcache_tpu_torch import LMCacheEngineConfig
-    from lmcache_tpu_torch.models import llama, paged
-    from lmcache_tpu_torch.serving import PagedServingEngine, ServingEngine
+    from lmcache_tpu_torch.models import llama, mla, paged
+    from lmcache_tpu_torch.serving import (MLAPagedServingEngine,
+                                           MLAServingEngine,
+                                           PagedServingEngine, ServingEngine)
     from lmcache_tpu_torch.storage.local_backend import LMCLocalBackend
     cfg = llama.LlamaConfig.tiny(n_layers=1)
+    mcfg = mla.MLAConfig.tiny(n_layers=1)
     return {
+        "mla_init_params": lambda: mla.init_params(mcfg),
+        "latent_cache": lambda: mla.new_latent_cache(mcfg, 1, 16),
+        "quantized_latent_cache": lambda: mla.new_quantized_latent_cache(
+            mcfg, 1, 16),
+        "paged_latent_pool": lambda: mla.new_paged_latent_pool(mcfg, 4, 16),
+        "quantized_paged_latent_pool":
+            lambda: mla.new_quantized_paged_latent_pool(mcfg, 4, 16),
+        "latent_pool_from_jax": lambda: mla.latent_pool_from_jax(
+            np.zeros((1, 1, 16, 80), np.float32)),
+        "mla_serving_engine": lambda: MLAServingEngine(mcfg, {}, max_seq=16),
+        "mla_paged_serving_engine": lambda: MLAPagedServingEngine(
+            mcfg, {}, max_seq=16, num_pages=4),
         "paged_pool": lambda: paged.new_paged_kv_pool(cfg, 4, 16),
         "quantized_paged_pool": lambda: paged.new_quantized_paged_pool(
             cfg, 4, 16),
@@ -162,7 +182,14 @@ def _cachegen_deserializer():
                                   "new_quantized_kv_cache",
                                   "quantized_pool_from_jax",
                                   "int8_serving_engine",
-                                  "cachegen_remote_decoder"])
+                                  "cachegen_remote_decoder",
+                                  "mla_init_params", "latent_cache",
+                                  "quantized_latent_cache",
+                                  "paged_latent_pool",
+                                  "quantized_paged_latent_pool",
+                                  "latent_pool_from_jax",
+                                  "mla_serving_engine",
+                                  "mla_paged_serving_engine"])
 def test_entry_point_without_cuda_raises(name):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
@@ -187,3 +214,19 @@ def test_entry_points_run_on_cpu_when_asked():
                                  max_seq=32, kv_dtype=kv_dtype, device="cpu")
         pool = eng.kv_pool["sym"] if kv_dtype == "int8" else eng.kv_pool
         assert pool.device.type == "cpu" and pool.shape[2] == 4
+    from lmcache_tpu_torch.models import mla
+    from lmcache_tpu_torch.serving import (MLAPagedServingEngine,
+                                           MLAServingEngine)
+    mcfg = mla.MLAConfig.tiny(n_layers=1)
+    mparams = mla.init_params(mcfg, device="cpu")
+    assert mparams["dense_layers"]["wq"].device.type == "cpu"
+    for kv_dtype in ("native", "int8"):
+        eng = MLAServingEngine(mcfg, mparams, max_batch=1, max_seq=16,
+                               kv_dtype=kv_dtype, device="cpu")
+        pool = eng.kv_pool["sym"] if kv_dtype == "int8" else eng.kv_pool
+        assert pool.device.type == "cpu" and pool.shape == (1, 1, 17, 80)
+        eng = MLAPagedServingEngine(mcfg, mparams, num_pages=4, page_size=16,
+                                    max_seq=32, kv_dtype=kv_dtype,
+                                    device="cpu")
+        pool = eng.kv_pool["sym"] if kv_dtype == "int8" else eng.kv_pool
+        assert pool.device.type == "cpu" and pool.shape == (1, 4, 16, 128)
