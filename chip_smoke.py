@@ -93,7 +93,25 @@ Phases, in order; any failure exits non-zero:
    ``REL_L2_MOE`` for a request in which the two computations picked other
    experts for some (layer, token), which then also holds ``REL_L2_REUSE``
    when run again with the reference's routing forced;
-7. the launch counts of phases 3 to 10, read per phase with every count
+11. kernel row 13, the prefill ablation variants, through the port's
+   ablation tool (``lmcache_tpu_torch.tools.bench_prefill_mfu``) at the JAX
+   tool's geometry, Llama-3-8B's attention (H_kv 8, G 4, D 128, S 8192,
+   logical blocks 256 x 1024): the six variants (``full``, ``mxu_only``,
+   ``no_mask``, ``pair``, ``pair_no_mask``, ``pipelined``) run once as the
+   path, each held against its plain version and, where it computes row 1's
+   function, against row 1; each timed beside its bound, its plain version,
+   row 1 and SDPA (``phase_ablation``; run right after phase 2);
+12. CacheBlend on a RAG-shaped prompt (8 documents of 1024 tokens and a
+   128-token question, T 8320; ``phase_blend``): 12a tinyllama-1.1B after
+   phase 9, 12b DeepSeek-V2-Lite at the end of phase 10 on its weights. The
+   chunks are stored through the blender (rows 1 / 8); a blend at ratio 1.0
+   must hold the full prefill's logits (V2-Lite: phase 10's routing rule),
+   ratio 0.15 must lie closer to them than ratio 0, a second blend must miss
+   nothing, and one ``context_chunks`` request through each engine (dense
+   native and int8, paged; MLA dense and paged) must start with the
+   blender's token; TTFT of the blend request against a full prefill of the
+   same T and a profiler window of one blend admission;
+7. the launch counts of phases 3 to 12, read per phase with every count
    set to 0 just before it (prefill and decode, each > 0 where the phase
    runs them; "+window" marks launches under a window; the coders count
    "store" and "retrieve" launches);
@@ -121,7 +139,7 @@ import torch
 
 from lmcache_tpu_torch import (LMCacheEngine, LMCacheEngineConfig,
                                LMCacheEngineMetadata)
-from lmcache_tpu_torch import kv, ops
+from lmcache_tpu_torch import blend, blend_mla, kv, ops
 from lmcache_tpu_torch.chunks import prefix_chunk_hashes
 from lmcache_tpu_torch.codec import CacheGenConfig, range_coder
 from lmcache_tpu_torch.models import llama, mla
@@ -129,6 +147,7 @@ from lmcache_tpu_torch.ops import _build
 from lmcache_tpu_torch.ops import latent_attention as la
 from lmcache_tpu_torch.ops import paged_attention as pa
 from lmcache_tpu_torch.ops import paged_latent_attention as pla
+from lmcache_tpu_torch.ops import prefill_variants as pv
 from lmcache_tpu_torch.ops import quant
 from lmcache_tpu_torch.ops import quantized_attention as qa
 from lmcache_tpu_torch.ops import range_decode as rd
@@ -137,6 +156,7 @@ from lmcache_tpu_torch.serving import (MLAPagedServingEngine,
                                        MLAServingEngine, PagedServingEngine,
                                        Request, SamplingParams, ServingEngine)
 from lmcache_tpu_torch.storage.serde import cachegen_serde as cgs
+from lmcache_tpu_torch.tools import bench_prefill_mfu as bench_mfu
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 FLOP/s
 PEAK_BYTES_S = 3.35e12
@@ -232,6 +252,14 @@ KERNELS = {
         pla.quantized_paged_latent_attention_dma,
         "lmcache_tpu_torch/ops/csrc/paged_latent_attention.cu",
         "lmcache_tpu/ops/paged_latent_attention.py:270"),
+    "variant_attention": (
+        pv.variant_attention,
+        "lmcache_tpu_torch/ops/csrc/prefill_variants.cu",
+        "tools/bench_prefill_mfu.py:89"),
+    "pipelined_attention": (
+        pv.pipelined_attention,
+        "lmcache_tpu_torch/ops/csrc/prefill_variants.cu",
+        "tools/bench_prefill_mfu.py:153"),
 }
 
 
@@ -2928,8 +2956,291 @@ def phase_mla(kv_wire_bytes, reps=2):
     out["remote"] = mla_remote(cfg, params, tokens_np, prefix, full_logits,
                                kv_wire_bytes)
     launches["mla remote"] = read_launch_counts()
-    del params, prefix
+    del prefix
     torch.cuda.empty_cache()
+    blend_launches, out["blend"] = phase_blend(
+        cfg, params, True, routing=routing,
+        engines=[(MLAServingEngine, {}),
+                 (MLAPagedServingEngine, {"page_size": PAGE,
+                                          "num_pages": NP_BLEND})])
+    launches.update(blend_launches)
+    del params
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+# ------------------------------------ phase 11: row 13, the ablation tool ---
+
+def phase_ablation():
+    """Kernel row 13 at the JAX tool's geometry (Llama-3-8B's attention, B
+    1, H_kv 8, G 4, D 128, S 8192, bq 256, bk 1024), through the port's
+    ablation tool: its six variants run once with every count at 0 (the
+    path); each output is held against its plain version (row 1's bf16 gate;
+    ``mxu_only``'s unnormalized sums, values above 64 here, by relative L2
+    alone), the variants of row 1's function also against row 1; then each
+    variant is timed beside its bound, its plain version and one library
+    call (SDPA with the flash backend for row 1's function, SDPA over the
+    live blocks' mask for ``no_mask``, none for ``mxu_only``). Returns
+    (launch counts, {kernel: rows}, {kernel: worst max abs error}, the
+    phase's numbers)."""
+    geo = bench_mfu.geometry(False)
+    bq, bk, G, S = geo["bq"], geo["bk"], geo["G"], geo["S"]
+    log(f"== phase 11: row 13, the prefill ablation variants (B {geo['B']}, "
+        f"H_kv {geo['Hkv']}, G {G}, D {geo['D']}, S {S}, bq {bq}, bk {bk})")
+    x = bench_mfu.make_inputs(geo, bq, "cuda")
+    qo, kl = x["q_offset"].tolist(), x["kv_len"].tolist()
+    reset_launch_counts()
+    outs = {v[0]: bench_mfu.call(v, x, bq, bk) for v in bench_mfu.VARIANTS}
+    torch.cuda.synchronize()
+    launches = {"row 13 ablation": read_launch_counts()}
+    ref1 = bench_mfu.row1(x).transpose(1, 2)  # [B, H, S, D]
+    worst = {"variant_attention": 0.0, "pipelined_attention": 0.0}
+    rows = {"variant_attention": [], "pipelined_attention": []}
+    t_row1 = cuda_ms(lambda: bench_mfu.row1(x), iters=5)
+    t_sdpa = cuda_ms(bench_mfu.sdpa_flash(x, G), iters=5)
+    log(f"  row 1 flash_attention {t_row1:.4f} ms, SDPA (flash backend, K/V "
+        f"expanded over the heads) {t_sdpa:.4f} ms")
+    for variant in bench_mfu.VARIANTS:
+        name, mode = variant[0], variant[1]
+        kernel = ("pipelined_attention" if variant[3]
+                  else "variant_attention")
+        out, want = outs[name], bench_mfu.plain(variant, x, bq, bk)
+        torch.cuda.synchronize()
+        if mode == "mxu_only":
+            diff = out.float() - want.float()
+            rel = (diff.norm() / want.float().norm()).item()
+            max_abs = diff.abs().max().item()
+            ok = bool(torch.isfinite(out.float()).all()) and (
+                rel <= REL_L2_KERNEL)
+            log(f"  {kernel} | {name}: out {tuple(out.shape)} max_abs_err "
+                f"{max_abs:.3e} rel_l2 {rel:.3e} (unnormalized sums: "
+                f"tolerance rel_l2 <= {REL_L2_KERNEL}) "
+                f"{'ok' if ok else 'FAILED'}")
+            if not ok:
+                raise SystemExit(f"{kernel} {name} disagrees with its plain "
+                                 f"version")
+        else:
+            max_abs = hold_against_plain(kernel, name, out, want)
+        worst[kernel] = max(worst[kernel], max_abs)
+        row1_err = None
+        if name in bench_mfu.ROW1_FUNCTION:
+            row1_err = hold_against_plain(kernel, f"{name} vs row 1",
+                                          out[:, :, :S], ref1)
+        del want
+        flops, nbytes = bench_mfu.work(variant, geo, qo, kl, bq, bk)
+        bound_ms, bound_by = bench_mfu.bound_ms(flops, nbytes)
+        ms = cuda_ms(lambda: bench_mfu.call(variant, x, bq, bk), iters=5)
+        plain_ms = cuda_ms(lambda: bench_mfu.plain(variant, x, bq, bk),
+                           iters=1, warmup=1)
+        library_ms, library = None, "none (no single call)"
+        if name in bench_mfu.ROW1_FUNCTION:
+            library_ms, library = t_sdpa, "SDPA flash"
+        elif mode == "no_mask":
+            library_ms = ablation_sdpa_live_blocks(x, G, bq, bk)
+            library = "SDPA over the live blocks' mask"
+        row = {"shape": name, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": library_ms, "flops": flops,
+               "tflops": flops / ms / 1e9,
+               "peak_share": flops / (ms * 1e-3) / PEAK_BF16_FLOPS,
+               "row1_ms": t_row1, "sdpa_ms": t_sdpa,
+               "max_abs_err_row1": row1_err}
+        rows[kernel].append(row)
+        log(f"  {kernel} | {name}: kernel {ms:.4f} ms "
+            f"({row['tflops']:.1f} TFLOP/s, {100 * row['peak_share']:.2f} % "
+            f"of peak), bound {bound_ms:.4f} ms ({bound_by}), plain "
+            f"{plain_ms:.4f} ms, library {library}"
+            + (f" {library_ms:.4f} ms" if library_ms is not None else ""))
+    del outs, x
+    torch.cuda.empty_cache()
+    return launches, rows, worst, {"row1_ms": t_row1, "sdpa_ms": t_sdpa}
+
+
+def ablation_sdpa_live_blocks(x, G, bq, bk):
+    """One SDPA call computing ``no_mask``: softmax attention over every
+    key of the live blocks, as a boolean mask [Tp, S] (K/V expanded over
+    the heads outside the timed call)."""
+    q = x["qh"]
+    k = x["k"].repeat_interleave(G, dim=1)
+    v = x["v"].repeat_interleave(G, dim=1)
+    Tp, S = q.shape[2], k.shape[2]
+    qpos_max = (torch.arange(Tp, device="cuda") // bq + 1) * bq - 1
+    kb = torch.arange(S, device="cuda") // bk
+    mask = (kb[None, :] * bk <= qpos_max[:, None])[None, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask), iters=5)
+
+
+# ------------------------------------------------- phase 12: CacheBlend ---
+
+# RAG-shaped prompts: retrieved documents of 1024 tokens, then a question
+BLEND_DOCS, BLEND_DOC_LEN, BLEND_QUESTION = 8, 1024, 128
+BLEND_T = BLEND_DOCS * BLEND_DOC_LEN + BLEND_QUESTION  # 8320
+BLEND_RATIO = 0.15  # the engines' default recompute ratio
+BLEND_NEW = 4  # tokens each engine request decodes
+NP_BLEND = -(-(BLEND_T + 64 + 1) // PAGE) + 1  # the paged engines' arena
+
+
+def blend_chunks(vocab, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, n, dtype=np.int32)
+            for n in [BLEND_DOC_LEN] * BLEND_DOCS + [BLEND_QUESTION]]
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def phase_blend(cfg, params, mla_model, routing=None, engines=()):
+    """CacheBlend at full width and depth on a RAG-shaped prompt (8
+    retrieved documents of 1024 tokens, then a 128-token question; T 8320).
+
+    The chunks are stored through the blender (each a standalone prefill,
+    ``llama.forward`` / ``mla.forward``: rows 1 / 8), then blended from the
+    "cuda" tier. Gates: at ``recompute_ratio`` 1.0 the logits hold the full
+    prefill's of the concatenated prompt within ``REL_L2_REUSE`` with the
+    same top-1 (MLA: phase 10's rule, ``Routing`` counting the (layer, token)
+    expert sets the two computations pick differently; with flips the
+    request is held to ``REL_L2_MOE`` and its blend run again with the full
+    prefill's experts forced must hold ``REL_L2_REUSE``); at ratio 0.15 the
+    logits are closer to the full prefill's than naive reuse (ratio 0: only
+    the last token recomputed); a second blend has no misses; each engine
+    of ``engines`` (classes and their kwargs) admits a ``context_chunks``
+    request whose first token is the blender's, and decodes. Reported: TTFT
+    of the blend request in the first engine against a full prefill of the
+    same T, the tokens recomputed, a ``profile_window`` of one blend
+    admission. Returns (launch counts by engine, the phase's numbers)."""
+    name = "mla" if mla_model else "dense"
+    model = mla if mla_model else llama
+    log(f"== phase 12{'b' if mla_model else 'a'}: CacheBlend, "
+        f"{'DeepSeek-V2-Lite' if mla_model else 'tinyllama-1.1B'}, "
+        f"{BLEND_DOCS} documents of {BLEND_DOC_LEN} tokens + a "
+        f"{BLEND_QUESTION}-token question (T {BLEND_T}), ratio {BLEND_RATIO}")
+    chunks = blend_chunks(cfg.vocab_size, 12)
+    full = np.concatenate(chunks)
+    tier = LMCacheEngine(
+        LMCacheEngineConfig(local_device="cuda"),
+        LMCacheEngineMetadata(model_name=f"{name}-blend", world_size=1,
+                              worker_id=0, fmt="vllm", dtype=cfg.dtype))
+    cls = blend_mla.MLACacheBlender if mla_model else blend.CacheBlender
+    blender = cls(cfg, params, tier, recompute_ratio=BLEND_RATIO)
+    launches, out = {}, {"T": BLEND_T}
+
+    def prefill_full():
+        cache = (mla.new_latent_cache(cfg, 1, BLEND_T, device="cuda")
+                 if mla_model
+                 else llama.new_kv_cache(cfg, 1, BLEND_T, device="cuda"))
+        logits, _ = model.forward(
+            params, cfg, torch.as_tensor(full, device="cuda").long()[None],
+            torch.zeros(1, dtype=torch.int32, device="cuda"), cache,
+            last_logit_only=True)
+        return logits[0, -1].float()
+
+    def record(fn, force=None):
+        """fn() with the MoE layers' expert choices recorded (MLA)."""
+        if routing is None:
+            return fn(), None
+        with routing:
+            routing.rows, routing.picks, routing.force = [0], [], force
+            try:
+                res = fn()
+            finally:
+                routing.rows, routing.force = None, None
+            return res, torch.stack(routing.picks).sort(dim=-1).values
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    _, _, info = blender.blend(chunks)  # every chunk missing: stored
+    torch.cuda.synchronize()
+    out["store_and_blend_s"] = time.perf_counter() - t0
+    launches[f"{name} blend store"] = read_launch_counts()
+    logits, _, info2 = blender.blend(chunks)
+    log(f"  first blend: {info['misses']} misses, {info['num_chunks']} "
+        f"chunks stored and blended in {out['store_and_blend_s']:.2f} s; "
+        f"second blend: {info2['misses']} misses, "
+        f"{info2['recomputed_tokens']} of {info2['total_tokens']} tokens "
+        f"recomputed")
+    if not (info["misses"] == len(chunks) and info2["misses"] == 0):
+        raise SystemExit(f"{name} blend: the second blend missed the tier")
+    out["recomputed_tokens"] = info2["recomputed_tokens"]
+
+    full_logits, ref_picks = record(prefill_full)
+    blender.ratio = 1.0
+    (exact, _, _), picks = record(lambda: blender.blend(chunks))
+    flips = None
+    if routing is not None:
+        flips = [(int((picks != ref_picks).any(dim=-1).sum()),
+                  picks.shape[0] * picks.shape[1])]
+    ok = _logits_agree(f"{name} blend at ratio 1.0 vs full prefill",
+                       [exact.float()], [full_logits], near_tie=mla_model,
+                       flips=flips)
+    if flips and flips[0][0]:
+        (forced, _, _), _ = record(lambda: blender.blend(chunks),
+                                   force=ref_picks)
+        ok = ok and _logits_agree(
+            f"{name} blend at ratio 1.0 routed as the full prefill",
+            [forced.float()], [full_logits], near_tie=True)
+    blender.ratio = 0.0
+    naive, _, _ = blender.blend(chunks)
+    blender.ratio = BLEND_RATIO
+    out.update(exact_rel_l2=_rel(exact, full_logits),
+               blend_rel_l2=_rel(logits, full_logits),
+               naive_rel_l2=_rel(naive, full_logits), routing_flips=flips)
+    log(f"  logits vs full prefill, rel_l2: ratio {BLEND_RATIO} "
+        f"{out['blend_rel_l2']:.3e}, ratio 0 (naive reuse) "
+        f"{out['naive_rel_l2']:.3e} (must be larger)")
+    if not (ok and bool(torch.isfinite(logits).all())
+            and out["blend_rel_l2"] < out["naive_rel_l2"]):
+        raise SystemExit(f"{name} blend: the logits fail the gates")
+    want_tok = int(logits.argmax())
+    del exact, naive, full_logits
+
+    out["engines"] = []
+    for cls_, kw in engines:
+        label = f"{cls_.__name__} {kw.get('kv_dtype', 'native')}"
+        eng = cls_(cfg, params, max_batch=1, max_seq=BLEND_T + 64,
+                   cache_engine=tier, device="cuda", **kw)
+        reset_launch_counts()
+        req = Request(np.empty(0, np.int32),
+                      SamplingParams(max_new_tokens=BLEND_NEW),
+                      context_chunks=chunks)
+        eng.add_request(req)
+        eng.run()
+        torch.cuda.synchronize()
+        launches[f"{name} blend {label}"] = read_launch_counts()
+        log(f"  {label}: TTFT {req.ttft_s * 1e3:.2f} ms, "
+            f"{req.blended_tokens_recomputed} tokens recomputed, first token "
+            f"{req.output_tokens[0]} (blender {want_tok}), "
+            f"{len(req.output_tokens)} tokens")
+        if not (req.output_tokens[0] == want_tok
+                and len(req.output_tokens) == BLEND_NEW):
+            raise SystemExit(f"{label}: the blend request's first token is "
+                             f"not the blender's")
+        rec = {"engine": label, "ttft_ms": req.ttft_s * 1e3,
+               "recomputed": req.blended_tokens_recomputed}
+        if not out["engines"]:  # the first engine: TTFT and a profile
+
+            def admit(eng=eng):
+                r = Request(np.empty(0, np.int32),
+                            SamplingParams(max_new_tokens=1),
+                            context_chunks=chunks)
+                eng.add_request(r)
+                eng._admit_from_window()  # blend, inject, first token
+                eng.run()
+                return r
+
+            times = [admit().ttft_s * 1e3 for _ in range(3)]
+            rec["ttft_best_ms"] = min(times)
+            rec["ttft_full_ms"] = wall_best(prefill_full, n=3)
+            rec["profile"] = profile_window(f"{name} blend admission", admit)
+            log(f"  TTFT blend {rec['ttft_best_ms']:.2f} ms (best of 3) vs "
+                f"full prefill of {BLEND_T} tokens "
+                f"{rec['ttft_full_ms']:.2f} ms: "
+                f"{rec['ttft_full_ms'] / rec['ttft_best_ms']:.2f}x")
+        out["engines"].append(rec)
+        del eng
+        torch.cuda.empty_cache()
+    tier.close()
     return launches, out
 
 
@@ -3134,13 +3445,17 @@ def main():
                 log(f"  nvcc {name}: {line.strip()}")
 
     max_abs = phase_kernels()
+    launches = {}
+    ablation_launches, ablation_rows, ablation_worst, ablation = (
+        phase_ablation())
+    launches.update(ablation_launches)
+    max_abs.update(ablation_worst)
 
     cfg = llama.LlamaConfig.tinyllama_1_1b()
     params = llama.init_params(
         cfg, generator=torch.Generator(device="cuda").manual_seed(0))
 
     # every path is driven with the counts at 0 and read just after
-    launches = {}
     reset_launch_counts()
     ttft = phase_main_path(cfg, params)
     launches["main_path"] = read_launch_counts()
@@ -3157,7 +3472,15 @@ def main():
     launches.update(stream_launches)
     remote_launches, remote = phase_remote(cfg, params, ttft["ttft_full_ms"])
     launches.update(remote_launches)
-    del params, dense_logits
+    del dense_logits
+    torch.cuda.empty_cache()
+    blend_launches, blend_out = phase_blend(
+        cfg, params, False,
+        engines=[(ServingEngine, {}), (ServingEngine, {"kv_dtype": "int8"}),
+                 (PagedServingEngine, {"page_size": PAGE,
+                                       "num_pages": NP_BLEND})])
+    launches.update(blend_launches)
+    del params
     torch.cuda.empty_cache()
     remote["codec_throughput"] = phase_codec_throughput()
     torch.cuda.empty_cache()
@@ -3210,6 +3533,22 @@ def main():
         "mla remote": [("range_encode", ("store",)),
                        ("range_decode", ("retrieve",)),
                        ("latent_flash_attention", ("prefill",))],
+        "row 13 ablation": [("variant_attention",
+                             ("full", "mxu_only", "no_mask", "pair",
+                              "pair_no_mask")),
+                            ("pipelined_attention", ("pipelined",))],
+        "dense blend store": ("flash_attention", ("prefill",)),
+        "dense blend ServingEngine native": ("flash_attention",
+                                             ("decode",)),
+        "dense blend ServingEngine int8": ("quantized_flash_attention",
+                                           ("decode",)),
+        "dense blend PagedServingEngine native": ("paged_attention_dma",
+                                                  ("decode",)),
+        "mla blend store": ("latent_flash_attention", ("prefill",)),
+        "mla blend MLAServingEngine native": ("latent_flash_attention",
+                                              ("decode",)),
+        "mla blend MLAPagedServingEngine native": (
+            "paged_latent_attention_dma", ("decode",)),
     }
     for phase, wanted in expected.items():
         for kernel, kinds in (wanted if isinstance(wanted, list)
@@ -3219,6 +3558,7 @@ def main():
                     raise SystemExit(f"{kernel}: no {kind} launch in {phase}")
 
     rows = phase_yardstick()
+    rows.update(ablation_rows)
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():
         by_phase = {phase: counts[name] for phase, counts in launches.items()
@@ -3240,7 +3580,7 @@ def main():
               "paged_decode_profiles": decode_profiles,
               "dense_decode_profiles": dense_decode_profiles,
               "mistral_profiles": mistral_profiles, "mla": mla_out,
-              "card": card}
+              "ablation": ablation, "blend": blend_out, "card": card}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

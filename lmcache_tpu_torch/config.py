@@ -25,10 +25,13 @@ the host, as the CPU tests do). The serving engines pass their own device
 and do not read it.
 """
 
+import re
 from dataclasses import dataclass
 from typing import Optional
 
 CODER_MODES = ("auto", "on", "off")
+_URL_RE = re.compile(r"(.*)://(.*):(\d+)")
+_FILE_RE = re.compile(r"file://(.*)")
 
 
 @dataclass(frozen=True)
@@ -65,6 +68,9 @@ class LMCacheEngineConfig:
     cachegen_device_decode: str = "auto"  # "auto" | "off" ("on" = "auto")
     cachegen_device_encode: str = "auto"  # "auto" | "off" ("on" = "auto")
     remote_device: str = "cuda"  # "cuda" | "cpu"
+    # CacheBlend: fraction of tokens to recompute when blending non-prefix
+    # chunks (see lmcache_tpu_torch/blend.py)
+    blend_recompute_ratio: float = 0.15
 
     def __post_init__(self):
         if self.local_device not in ("cuda", "cpu", None):
@@ -89,15 +95,62 @@ class LMCacheEngineConfig:
         return LMCacheEngineConfig(**kwargs)
 
     @staticmethod
+    def from_legacy(
+        chunk_size: int = 256,
+        backend: str = "cuda",
+        remote_serde: Optional[str] = "raw",
+        pipelined_backend: bool = False,
+        save_decode_cache: bool = False,
+    ) -> "LMCacheEngineConfig":
+        """Single-string backend spec: device name, file:// path, or URL."""
+        local_device: Optional[str] = None
+        remote_url: Optional[str] = None
+        if backend in ("cpu", "cuda"):
+            local_device = backend
+        elif _FILE_RE.match(backend):
+            local_device = backend[len("file://"):]
+        elif _URL_RE.match(backend):
+            remote_url = backend
+        else:
+            raise ValueError(f"Invalid backend spec: {backend}")
+        return LMCacheEngineConfig(
+            chunk_size=chunk_size,
+            local_device=local_device,
+            remote_url=remote_url,
+            remote_serde=remote_serde,
+            pipelined_backend=pipelined_backend,
+            save_decode_cache=save_decode_cache,
+        )
+
+    @staticmethod
     def from_file(file_path: str) -> "LMCacheEngineConfig":
-        """Load the config from a YAML file (the reference's schema)."""
+        """Load the config from a YAML file (the reference's schema, and the
+        JAX package's files): ``"tpu"``, the JAX package's accelerator tier,
+        reads as ``"cuda"``; a ``file://`` path loses its prefix; a
+        ``remote_url`` must be ``proto://host:port``."""
         import yaml
         with open(file_path, "r") as fin:
             raw = yaml.safe_load(fin) or {}
+
+        local_device = raw.get("local_device", None)
+        if local_device is not None:
+            if local_device in ("cpu", "cuda", "tpu"):
+                if local_device == "tpu":
+                    local_device = "cuda"
+            elif _FILE_RE.match(local_device):
+                local_device = local_device[len("file://"):]
+            else:
+                raise ValueError(
+                    f"Invalid local storage device: {local_device}")
+
+        remote_url = raw.get("remote_url", None)
+        if remote_url is not None and not _URL_RE.match(remote_url):
+            raise ValueError(f"Invalid remote storage url: {remote_url}")
+
         return LMCacheEngineConfig(
             chunk_size=raw.get("chunk_size", 256),
-            local_device=raw.get("local_device", None),
-            remote_url=raw.get("remote_url", None),
+            local_device=local_device,
+            remote_url=remote_url,
             remote_serde=raw.get("remote_serde", "raw"),
             pipelined_backend=raw.get("pipelined_backend", False),
             save_decode_cache=raw.get("save_decode_cache", False),
@@ -105,6 +158,7 @@ class LMCacheEngineConfig:
             cachegen_device_decode=raw.get("cachegen_device_decode", "auto"),
             cachegen_device_encode=raw.get("cachegen_device_encode", "auto"),
             remote_device=raw.get("remote_device", "cuda"),
+            blend_recompute_ratio=raw.get("blend_recompute_ratio", 0.15),
         )
 
 

@@ -26,7 +26,14 @@ Port of ``lmcache_tpu/serving/engine.py::ServingEngine`` (the dense path):
   the remote tier, still range-coded, or host tensors) are injected in
   groups of ``inject_group_chunks``: one upload, one range-decoder launch
   and one dequantization per group, the decode of group k+1 issued before
-  group k is injected. Chunks already on the engine's device inject at once.
+  group k is injected. Chunks already on the engine's device inject at once;
+- CacheBlend: a request with ``context_chunks`` (independently cached text
+  chunks, such as retrieved documents and a question) is admitted by
+  :class:`lmcache_tpu_torch.blend.CacheBlender` instead of a prefill: the
+  chunks' KV is reused at any position, ``blend_recompute_ratio`` of the
+  tokens are recomputed, the healed KV is injected into the slot and
+  decoding starts at once. Healed KV is approximate, so it is never stored
+  back under the exact prefix hashes.
 
 Greedy decoding gives the JAX engine's tokens. Sampled decoding draws from a
 ``torch.Generator`` per request (seeded from ``SamplingParams.seed``, else
@@ -34,8 +41,7 @@ from the engine's own generator): reproducible within the port, not equal
 to ``jax.random``'s draws.
 
 Not ported yet (ROADMAP, module item 7): ``decode_block > 1``,
-``spec_lookahead``, ``mesh``, CacheBlend ``context_chunks`` requests and
-``logprobs``; each raises ``ValueError``.
+``spec_lookahead``, ``mesh`` and ``logprobs``; each raises ``ValueError``.
 """
 
 import time
@@ -137,6 +143,7 @@ class ServingEngine:
         max_admission_bypass: int = 64,
         spec_lookahead: int = 0,
         mesh=None,
+        blend_recompute_ratio: float = 0.15,
     ):
         for name, unported in (("decode_block > 1", decode_block > 1),
                                ("spec_lookahead", bool(spec_lookahead)),
@@ -182,6 +189,8 @@ class ServingEngine:
         self.admission_window = admission_window
         self.max_admission_bypass = max_admission_bypass
         self._head_bypasses = 0
+        self._blend_ratio = blend_recompute_ratio
+        self._blender = None
 
     def _check_config(self, cfg: llama.LlamaConfig) -> None:
         """Refuse a config this engine's forward does not run."""
@@ -206,11 +215,23 @@ class ServingEngine:
                     for name, t in self.kv_pool.items()}
         return self.kv_pool[:, :, slot:slot + 1]
 
+    def _get_blender(self):
+        if self._blender is None:
+            if self.cache_engine is None:
+                raise ValueError(
+                    "context_chunks requests need a cache_engine")
+            self._blender = self._new_blender()
+        return self._blender
+
+    def _new_blender(self):
+        """The blender of this engine's model family."""
+        from lmcache_tpu_torch.blend import CacheBlender
+        return CacheBlender(self.cfg, self.params, self.cache_engine,
+                            recompute_ratio=self._blend_ratio)
+
     # -- public API ---------------------------------------------------------
 
     def add_request(self, req: Request) -> Request:
-        if req.context_chunks is not None:
-            raise ValueError(f"context_chunks (CacheBlend) is {_NOT_PORTED}")
         if req.sampling.logprobs > 0:
             raise ValueError(f"logprobs is {_NOT_PORTED}")
         total = req.num_prompt_tokens + req.sampling.max_new_tokens
@@ -310,6 +331,9 @@ class ServingEngine:
         req.slot = self.free_slots.pop(0)
         req.state = RequestState.RUNNING
         self._on_slot_assigned(req)
+        if req.context_chunks is not None:
+            self._admit_blend(req)
+            return
         cached = self._stream_inject(req, req.all_tokens)
         req.cached_prefix_len = cached
         req.prefill_pos = cached
@@ -478,6 +502,25 @@ class ServingEngine:
             lambda blob, pos: self._inject(blob, req.slot, pos))
         return cached or 0
 
+    def _admit_blend(self, req: Request) -> None:
+        """Admit a chunked-context request through CacheBlend: reuse each
+        chunk's independently cached KV (any position), heal a selected
+        fraction, inject the result and start decoding: no full prefill."""
+        logits, kv_blob, info = self._get_blender().blend(req.context_chunks)
+        req.blended_tokens_recomputed = info["recomputed_tokens"]
+        req.cached_prefix_len = (info["total_tokens"]
+                                 - info["recomputed_tokens"])
+        self._inject_blend(req, kv_blob)
+        self._assign_slot_generator(req)
+        req.output_tokens.append(self._sample_row(logits, req))
+        req.ttft_s = time.perf_counter() - req.arrival_s
+        self.running.append(req)
+        self._maybe_finish(req)
+
+    def _inject_blend(self, req: Request, blob: torch.Tensor) -> None:
+        """Write a blended prompt's wire blob into the request's slot."""
+        self._inject(blob, req.slot, 0)
+
     def _decode_all(self) -> None:
         """One batched decode step for every slot (idle rows parked)."""
         last = np.zeros((self.B, 1), np.int64)
@@ -517,7 +560,9 @@ class ServingEngine:
     def _store_back(self, req: Request) -> None:
         """Store the finished request's KV into the cache tiers without
         blocking (reference lmcache_store_kv semantics)."""
-        if self.cache_engine is None:
+        if self.cache_engine is None or req.context_chunks is not None:
+            # healed blend KV is approximate: stored under the exact prefix
+            # hashes, later prompts would reuse it as exact
             return
         n = req.total_len if self.save_decode_cache else req.num_prompt_tokens
         # the pool holds KV for total_len - 1 tokens (the newest sampled

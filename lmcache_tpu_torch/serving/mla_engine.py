@@ -12,19 +12,23 @@ the pool in place), and converts slots to and from the latent wire blobs
 ``[L, 1, T, 1, r + p]`` (an int8 pool quantizes what it injects and
 dequantizes what it stores, so the wire stays the model-dtype latent).
 
-Inherited refusals: ``decode_block > 1``, ``spec_lookahead``, ``mesh``,
-``logprobs`` (ROADMAP, module item 7); CacheBlend ``context_chunks`` requests
-over MLA (``blend_mla.py``) raise naming module item 14.
+CacheBlend ``context_chunks`` requests are healed by
+:class:`lmcache_tpu_torch.blend_mla.MLACacheBlender` and injected as latent
+wire blobs. Inherited refusals: ``decode_block > 1``, ``spec_lookahead``,
+``mesh``, ``logprobs`` (ROADMAP, module item 7).
 """
 
 import torch
 
 from lmcache_tpu_torch.models import mla
 from lmcache_tpu_torch.serving.engine import ServingEngine
-from lmcache_tpu_torch.serving.request import Request
 
-_BLEND_NOT_PORTED = ("context_chunks (CacheBlend over MLA, blend_mla.py) is "
-                     "not ported yet (ROADMAP, module item 14)")
+
+def new_mla_blender(eng):
+    """The MLA blender of an MLA engine (dense or paged)."""
+    from lmcache_tpu_torch.blend_mla import MLACacheBlender
+    return MLACacheBlender(eng.cfg, eng.params, eng.cache_engine,
+                           recompute_ratio=eng._blend_ratio)
 
 
 class MLAServingEngine(ServingEngine):
@@ -49,10 +53,7 @@ class MLAServingEngine(ServingEngine):
                     for name, t in self.kv_pool.items()}
         return self.kv_pool[:, slot:slot + 1]
 
-    def add_request(self, req: Request) -> Request:
-        if req.context_chunks is not None:
-            raise ValueError(_BLEND_NOT_PORTED)
-        return super().add_request(req)
+    _new_blender = new_mla_blender
 
     def _read_slot(self, slot: int, n: int) -> torch.Tensor:
         """Latent wire blob [L, 1, n, 1, C] of one slot: a VIEW of the pool,

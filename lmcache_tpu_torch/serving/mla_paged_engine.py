@@ -13,9 +13,11 @@ page <-> wire-blob converters: wire blobs stay the model-dtype latent at the
 logical width ``[L, 1, T, 1, r + p]``, so the pad is added on inject
 (quantized there for an int8 arena) and stripped on read.
 
-Inherited refusals: ``decode_block > 1``, ``spec_lookahead``, ``logprobs``
-(ROADMAP, module item 7), ``mesh`` (item 16); CacheBlend ``context_chunks``
-requests over MLA raise naming item 14.
+CacheBlend ``context_chunks`` requests are healed by
+:class:`lmcache_tpu_torch.blend_mla.MLACacheBlender` and scattered onto
+whole pages as the dense-KV paged engine does. Inherited refusals:
+``decode_block > 1``, ``spec_lookahead``, ``logprobs`` (ROADMAP, module item
+7), ``mesh`` (item 16).
 """
 
 from typing import List
@@ -23,9 +25,8 @@ from typing import List
 import torch
 
 from lmcache_tpu_torch.models import mla
-from lmcache_tpu_torch.serving.mla_engine import _BLEND_NOT_PORTED
+from lmcache_tpu_torch.serving.mla_engine import new_mla_blender
 from lmcache_tpu_torch.serving.paged_engine import PagedServingEngine
-from lmcache_tpu_torch.serving.request import Request
 
 
 class MLAPagedServingEngine(PagedServingEngine):
@@ -43,10 +44,7 @@ class MLAPagedServingEngine(PagedServingEngine):
         return new(self.cfg, self.num_pages, self.page_size,
                    device=self.device)
 
-    def add_request(self, req: Request) -> Request:
-        if req.context_chunks is not None:
-            raise ValueError(_BLEND_NOT_PORTED)
-        return super().add_request(req)
+    _new_blender = new_mla_blender
 
     def _inject_pages(self, blob: torch.Tensor, pages: List[int]) -> None:
         """Write a latent wire blob [L, 1, n*page, 1, C] onto whole pages,

@@ -16,7 +16,11 @@ is bounded by the tokens actually resident:
   latest-admitted request is preempted into the cache tiers and resumes
   later from them;
 - the arena is bf16 (``kv_dtype="native"``) or int8 with per-token scales
-  (``kv_dtype="int8"``, half the bytes), written **in place**.
+  (``kv_dtype="int8"``, half the bytes), written **in place**;
+- a CacheBlend request (``context_chunks``) is healed by the blender and
+  its KV scattered onto fresh pages, padded to whole pages (the pad lies
+  past ``kv_len`` and is masked). Blend pages are never shared as an exact
+  prefix, stored back, or preempted: healed KV cannot be restored exactly.
 
 Page size divides the cache-engine chunk_size, so a retrieved cache chunk is
 written as whole pages with one scatter; chunks off the engine's device
@@ -24,8 +28,8 @@ written as whole pages with one scatter; chunks off the engine's device
 groups, as in the dense engine.
 
 Not ported yet, each raises ``ValueError``: ``decode_block > 1``,
-``spec_lookahead``, CacheBlend ``context_chunks`` requests and ``logprobs``
-(ROADMAP, module item 7) and ``mesh`` (module item 16).
+``spec_lookahead`` and ``logprobs`` (ROADMAP, module item 7) and ``mesh``
+(module item 16).
 """
 
 from typing import Dict, List, Optional
@@ -74,6 +78,7 @@ class PagedServingEngine(ServingEngine):
         prefill_token_budget: Optional[int] = None,
         admission_window: int = 8,
         max_admission_bypass: int = 64,
+        blend_recompute_ratio: float = 0.15,
     ):
         if mesh is not None:
             raise ValueError(
@@ -95,7 +100,8 @@ class PagedServingEngine(ServingEngine):
                          prefill_token_budget=prefill_token_budget,
                          admission_window=admission_window,
                          max_admission_bypass=max_admission_bypass,
-                         spec_lookahead=spec_lookahead)
+                         spec_lookahead=spec_lookahead,
+                         blend_recompute_ratio=blend_recompute_ratio)
         self._forward = (forward_paged_quantized
                          if kv_dtype == "int8" else forward_paged)
 
@@ -187,8 +193,10 @@ class PagedServingEngine(ServingEngine):
         """Longest run of already-resident pages whose rolling prefix hash
         matches this prompt. Capped so that at least one token is always
         recomputed (the prefill must yield next-token logits), which also
-        keeps a request's writes past its shared pages."""
-        if tokens is None or len(tokens) < 2:
+        keeps a request's writes past its shared pages. Blend requests
+        never match: their admission takes no shared pages."""
+        if (req.context_chunks is not None or tokens is None
+                or len(tokens) < 2):
             return []
         max_pages = (len(tokens) - 1) // self.page_size
         shared = []
@@ -277,8 +285,13 @@ class PagedServingEngine(ServingEngine):
 
     def _pick_victim(self, requester: Request) -> Optional[Request]:
         """Latest-admitted running request, possibly the requester itself
-        (the newest request yields so older ones finish)."""
-        return self.running[-1] if self.running else None
+        (the newest request yields so older ones finish). Blend requests
+        are never preempted: their healed KV cannot be stored and restored
+        exactly."""
+        for r in reversed(self.running):
+            if r.context_chunks is None:
+                return r
+        return None
 
     def _preempt(self, victim: Request) -> None:
         """Evict a running request: persist its computed KV (prompt +
@@ -367,6 +380,19 @@ class PagedServingEngine(ServingEngine):
             len(tokens) - 1, self.page_size, scatter)
         return shared_tok if cached is None else cached
 
+    def _inject_blend(self, req: Request, blob: torch.Tensor) -> None:
+        """Scatter a blended prompt's wire blob onto the request's first
+        pages, zero-padded to whole pages: the pad lies past ``kv_len``,
+        where attention masks it, and decode overwrites it token by
+        token."""
+        pages = self._req_pages[req.request_id]
+        T = blob.shape[2]
+        n_pages = pages_needed(T, self.page_size)
+        pad = n_pages * self.page_size - T
+        if pad:
+            blob = torch.nn.functional.pad(blob, (0, 0, 0, 0, 0, pad))
+        self._inject_pages(blob, pages[:n_pages])
+
     def _decode_all(self) -> None:
         """One batched decode step over every slot through the page
         tables; idle rows park at position S, whose page-table row is all
@@ -398,7 +424,7 @@ class PagedServingEngine(ServingEngine):
             self._maybe_finish(r)
 
     def _store_back(self, req: Request) -> None:
-        super()._store_back(req)
+        super()._store_back(req)  # skips blend requests
         self._release(req)
 
     def _on_prefill_complete(self, req: Request) -> None:
@@ -406,6 +432,8 @@ class PagedServingEngine(ServingEngine):
         resident-prefix index so later same-prefix requests share them
         (page i is immutable once positions [i*page, (i+1)*page) are
         prefilled: decode writes only past the prompt)."""
+        if req.context_chunks is not None:
+            return  # blend KV is approximate: never share it as exact
         tokens = req.all_tokens
         pages = self._req_pages[req.request_id]
         hashes = self._page_hashes(req, tokens)

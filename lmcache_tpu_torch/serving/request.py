@@ -47,8 +47,7 @@ class Request:
     spec_proposed: int = 0  # speculative tokens proposed (prompt-lookup)
     spec_accepted: int = 0  # speculative tokens accepted by verification
     # CacheBlend: the prompt as independently-cached text chunks (RAG
-    # docs + question). The port's engine refuses such requests until the
-    # CacheBlend slice; prompt_tokens may be empty and is derived from the
+    # docs + question); prompt_tokens may be empty and is derived from the
     # chunks.
     context_chunks: Optional[List[np.ndarray]] = None
     blended_tokens_recomputed: Optional[int] = None

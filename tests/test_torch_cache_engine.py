@@ -2,6 +2,8 @@
 and keys, and the same hit masks and KV from store/retrieve on the CPU
 tier."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -182,3 +184,78 @@ def test_config_from_file(tmp_path):
     cfg = tpkg.LMCacheEngineConfig.from_file(str(path))
     assert (cfg.chunk_size, cfg.local_device,
             cfg.local_capacity_bytes) == (128, "cpu", 4096)
+
+
+EXAMPLES = sorted((Path(__file__).resolve().parents[1] / "examples"
+                   / "storage_backends").glob("*.yaml"))
+# fields both packages' configs have (the port's local tier is "cuda")
+SHARED_FIELDS = ("chunk_size", "remote_url", "remote_serde",
+                 "pipelined_backend", "save_decode_cache",
+                 "local_capacity_bytes", "blend_recompute_ratio",
+                 "cachegen_device_decode", "cachegen_device_encode")
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.name)
+def test_example_configs_load_as_in_the_jax_package(path):
+    """Every example YAML: the tiers the port has load with the JAX
+    package's fields ("tpu" read as "cuda"); the disk tier (file://
+    stripped) and the hybrid tier raise the port's refusal, module item
+    8."""
+    want = jpkg.LMCacheEngineConfig.from_file(str(path))
+    jdev = want.local_device
+    if jdev is not None and jdev not in ("cpu", "tpu"):
+        assert f"file://{jdev}" in path.read_text()
+        with pytest.raises(NotImplementedError,
+                           match=f"local_device '{jdev}': the disk tier"):
+            tpkg.LMCacheEngineConfig.from_file(str(path))
+        return
+    if jdev is not None and want.remote_url is not None:
+        with pytest.raises(NotImplementedError, match="the hybrid tier"):
+            tpkg.LMCacheEngineConfig.from_file(str(path))
+        return
+    got = tpkg.LMCacheEngineConfig.from_file(str(path))
+    assert got.local_device == {"tpu": "cuda"}.get(jdev, jdev)
+    for name in SHARED_FIELDS:
+        assert getattr(got, name) == getattr(want, name), name
+
+
+def test_example_configs_reach_every_tier():
+    """The examples cover the tiers the test above tells apart."""
+    kinds = set()
+    for path in EXAMPLES:
+        c = jpkg.LMCacheEngineConfig.from_file(str(path))
+        kinds.add((c.local_device not in (None, "cpu", "tpu"),
+                   c.local_device is not None and c.remote_url is not None))
+    assert kinds == {(False, False), (True, False), (False, True)}
+
+
+@pytest.mark.parametrize("text,match", [
+    ("remote_url: localhost:65432\n", "Invalid remote storage url"),
+    ("local_device: nvme0\n", "Invalid local storage device"),
+])
+def test_config_file_refuses_what_jax_refuses(tmp_path, text, match):
+    path = tmp_path / "bad.yaml"
+    path.write_text(text)
+    for pkg in (jpkg, tpkg):
+        with pytest.raises(ValueError, match=match):
+            pkg.LMCacheEngineConfig.from_file(str(path))
+
+
+@pytest.mark.parametrize("backend,local,remote", [
+    ("cpu", "cpu", None),
+    ("lm://localhost:65432", None, "lm://localhost:65432"),
+])
+def test_from_legacy_matches_the_jax_package(backend, local, remote):
+    want = jpkg.LMCacheEngineConfig.from_legacy(chunk_size=64,
+                                                backend=backend)
+    got = tpkg.LMCacheEngineConfig.from_legacy(chunk_size=64,
+                                               backend=backend)
+    assert (got.local_device, got.remote_url) == (local, remote)
+    for name in SHARED_FIELDS:
+        assert getattr(got, name) == getattr(want, name), name
+    assert tpkg.LMCacheEngineConfig.from_legacy().local_device == "cuda"
+    with pytest.raises(NotImplementedError, match="'/tmp/kv': the disk"):
+        tpkg.LMCacheEngineConfig.from_legacy(backend="file:///tmp/kv")
+    for pkg in (jpkg, tpkg):
+        with pytest.raises(ValueError, match="Invalid backend spec"):
+            pkg.LMCacheEngineConfig.from_legacy(backend="nvme0")

@@ -740,3 +740,83 @@ def test_latent_kernels_refuse_what_they_do_not_take(gen):
     pla.paged_latent_attention_dma(qb, pool, table, one, one, rank=64,
                                    scale=0.1)
     torch.cuda.synchronize()
+
+
+# -------------------- row 13: the prefill ablation variants ---------------
+
+VARIANT_GEOMETRY = {  # (B, H_kv, G, D, S)
+    "tool_small": (1, 2, 2, 128, 512),  # the tool's --small
+    "d64_group8": (2, 2, 8, 64, 384),
+}
+# (name, q_offset, kv_len, bq, bk)
+VARIANT_SCENARIOS = {
+    "causal": ([0, 0], None, 128, 128),
+    "suffix": ([96, 32], [400, 300], 64, 128),
+    "wide_blocks": ([0, 17], [384, 380], 128, 192),
+}
+
+
+def _variant_inputs(gen, geom, scen):
+    from lmcache_tpu_torch.ops import prefill_variants as pv
+    B, Hkv, G, D, S = VARIANT_GEOMETRY[geom]
+    q_off, kv_len, bq, bk = VARIANT_SCENARIOS[scen]
+    q_off, kv_len = q_off[:B], (kv_len or [S] * B)[:B]
+    Tp = -(-S // bq) * bq
+    q = torch.randn((B, Hkv * G, Tp, D), generator=gen,
+                    device="cuda").bfloat16()
+    k = torch.randn((B, Hkv, S, D), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((B, Hkv, S, D), generator=gen, device="cuda").bfloat16()
+    qo = torch.tensor(q_off, dtype=torch.int32, device="cuda")
+    kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    return pv, (q, k, v, qo, kl), dict(bq=bq, bk=bk)
+
+
+@pytest.mark.parametrize("variant", ["full", "no_mask", "mxu_only", "pair",
+                                     "pair_no_mask", "pair_mxu_only",
+                                     "pipelined"])
+@pytest.mark.parametrize("scen", sorted(VARIANT_SCENARIOS))
+@pytest.mark.parametrize("geom", sorted(VARIANT_GEOMETRY))
+def test_prefill_variant_matches_plain(gen, geom, scen, variant):
+    """Each variant against its plain version: the bf16 gate of row 1 for
+    the softmax variants; mxu_only's unnormalized sums (values of order 10)
+    by relative L2 within 1e-2."""
+    pv, args, kw = _variant_inputs(gen, geom, scen)
+    S, bk = args[1].shape[2], kw["bk"]
+    mode = {"pair": "full", "pipelined": "full"}.get(
+        variant, variant.replace("pair_", ""))
+    pair = variant.startswith("pair")
+    if mode != "full" and S % bk:
+        with pytest.raises(ValueError, match="multiple of bk"):
+            pv.variant_attention(*args, mode=mode, pair=pair, **kw)
+        return
+    if pair and (-(-S // bk)) % 2:
+        with pytest.raises(ValueError, match="odd number of key blocks"):
+            pv.variant_attention(*args, mode=mode, pair=True, **kw)
+        return
+    entry = pv.pipelined_attention if variant == "pipelined" else (
+        lambda *a, **k: pv.variant_attention(*a, mode=mode, pair=pair, **k))
+    wrapper = (pv.pipelined_attention if variant == "pipelined"
+               else pv.variant_attention)
+    before = wrapper.launches[variant]
+    out = entry(*args, **kw)
+    ref = pv.variant_reference(*args, mode=mode, pair=pair, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches[variant] == before + 1
+    assert torch.isfinite(out.float()).all()
+    rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+    assert rel <= 1e-2
+    if mode != "mxu_only":
+        torch.testing.assert_close(out.float(), ref.float(), atol=ATOL,
+                                   rtol=2.0**-7)
+
+
+def test_prefill_variants_refuse_what_they_do_not_take(gen):
+    pv, (q, k, v, qo, kl), kw = _variant_inputs(gen, "tool_small", "causal")
+    with pytest.raises(ValueError, match="group size that divides"):
+        pv.variant_attention(q[:, :3], k[:, :1], v[:, :1], qo[:1], kl[:1],
+                             **kw)
+    with pytest.raises(ValueError, match="bfloat16"):
+        pv.variant_attention(q.float(), k, v, qo, kl, **kw)
+    with pytest.raises(ValueError, match="head dim"):
+        pv.pipelined_attention(q[..., :96], k[..., :96], v[..., :96], qo,
+                               kl, **kw)

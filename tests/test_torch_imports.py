@@ -43,7 +43,11 @@ def test_import_leaves_jax_and_lmcache_tpu_out():
             "lmcache_tpu_torch.ops.latent_attention, "
             "lmcache_tpu_torch.ops.paged_latent_attention, "
             "lmcache_tpu_torch.serving.mla_engine, "
-            "lmcache_tpu_torch.serving.mla_paged_engine; "
+            "lmcache_tpu_torch.serving.mla_paged_engine, "
+            "lmcache_tpu_torch.blend, lmcache_tpu_torch.blend_mla, "
+            "lmcache_tpu_torch.ops.prefill_variants, "
+            "lmcache_tpu_torch.tools, "
+            "lmcache_tpu_torch.tools.bench_prefill_mfu; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'lmcache_tpu' "
             "or m.startswith('lmcache_tpu.')]; print(bad)")
@@ -123,6 +127,7 @@ def _entry_points():
                                            MLAServingEngine,
                                            PagedServingEngine, ServingEngine)
     from lmcache_tpu_torch.storage.local_backend import LMCLocalBackend
+    from lmcache_tpu_torch.tools import bench_prefill_mfu
     cfg = llama.LlamaConfig.tiny(n_layers=1)
     mcfg = mla.MLAConfig.tiny(n_layers=1)
     return {
@@ -159,6 +164,7 @@ def _entry_points():
         "default_config_tier": lambda: LMCLocalBackend(
             LMCacheEngineConfig().local_device),
         "cachegen_remote_decoder": lambda: _cachegen_deserializer(),
+        "prefill_ablation_tool": lambda: bench_prefill_mfu.run(small=True),
     }
 
 
@@ -189,7 +195,8 @@ def _cachegen_deserializer():
                                   "quantized_paged_latent_pool",
                                   "latent_pool_from_jax",
                                   "mla_serving_engine",
-                                  "mla_paged_serving_engine"])
+                                  "mla_paged_serving_engine",
+                                  "prefill_ablation_tool"])
 def test_entry_point_without_cuda_raises(name):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")

@@ -146,9 +146,12 @@ def test_unsupported_modes_raise(sides):
     eng = tserving.MLAServingEngine(cfg, params, max_seq=64, device="cpu")
     req = tserving.Request(_prompt(cfg.vocab_size, 8, 0),
                            tserving.SamplingParams(max_new_tokens=2))
+    # CacheBlend over MLA is ported (tests/test_torch_blend_mla.py):
+    # without a cache tier a blend request is refused at admission
     req.context_chunks = [req.prompt_tokens]
-    with pytest.raises(ValueError, match="item 14"):
-        eng.add_request(req)
+    eng.add_request(req)
+    with pytest.raises(ValueError, match="need a cache_engine"):
+        eng.run()
     with pytest.raises(TypeError, match="MLAConfig"):
         tserving.MLAServingEngine(tpkg.models.LlamaConfig.tiny(), params,
                                   max_seq=64, device="cpu")

@@ -333,11 +333,16 @@ def test_unported_options_raise(sides, kw, item):
 
 def test_unported_requests_and_chunks_raise(sides):
     t = sides[1]
-    eng = t.paged(max_batch=1, max_seq=64, num_pages=8)
-    blend = t.Request(np.arange(4, dtype=np.int32), t.Sampling(),
+    # CacheBlend is ported (tests/test_torch_blend.py): without a cache
+    # tier a blend request is refused at admission, as in the JAX engine
+    blend = t.Request(np.arange(4, dtype=np.int32),
+                      t.Sampling(max_new_tokens=4),
                       context_chunks=[np.arange(4, dtype=np.int32)])
-    with pytest.raises(ValueError, match="not ported yet.*item 7"):
-        eng.add_request(blend)
+    no_tier = t.paged(max_batch=1, max_seq=64, num_pages=8)
+    no_tier.add_request(blend)
+    with pytest.raises(ValueError, match="need a cache_engine"):
+        no_tier.run()
+    eng = t.paged(max_batch=1, max_seq=64, num_pages=8)
     with pytest.raises(ValueError, match="not ported yet.*item 7"):
         eng.add_request(t.Request(np.arange(4, dtype=np.int32),
                                   t.Sampling(logprobs=2)))

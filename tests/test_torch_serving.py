@@ -13,6 +13,7 @@ jax = pytest.importorskip("jax")
 
 import lmcache_tpu as jpkg  # noqa: E402
 from lmcache_tpu.models import llama as jl  # noqa: E402
+from lmcache_tpu.serving import Request as JRequest  # noqa: E402
 from lmcache_tpu.serving import SamplingParams as JSampling  # noqa: E402
 from lmcache_tpu.serving import ServingEngine as JEngine  # noqa: E402
 import lmcache_tpu_torch as tpkg  # noqa: E402
@@ -168,12 +169,21 @@ def test_unported_options_raise(model, kw):
 
 
 def test_blend_request_raises(model):
-    _, _, tcfg, tparams = model
+    """CacheBlend is ported (tests/test_torch_blend.py); as in the JAX
+    engine, a blend request is refused at admission when the engine has no
+    cache tier to keep the chunks in."""
+    jcfg, jparams, tcfg, tparams = model
     eng = ServingEngine(tcfg, tparams, device="cpu", **ENGINE_KW)
     req = Request(np.arange(4, dtype=np.int32), SamplingParams(),
                   context_chunks=[np.arange(4, dtype=np.int32)])
-    with pytest.raises(ValueError, match="not ported yet"):
-        eng.add_request(req)
+    eng.add_request(req)
+    with pytest.raises(ValueError, match="need a cache_engine"):
+        eng.run()
+    jeng = _jax_engine(jcfg, jparams, max_batch=1, max_seq=128)
+    jeng.add_request(JRequest(np.arange(4, dtype=np.int32),
+                              context_chunks=[np.arange(4, dtype=np.int32)]))
+    with pytest.raises(ValueError, match="need a cache_engine"):
+        jeng.run()
 
 
 # ------------------------------------------------------- the int8 pool ---
