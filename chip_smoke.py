@@ -6,14 +6,19 @@
 Phases, in order; any failure exits non-zero:
 
 1. build every CUDA kernel of the package from its sources (one ``nvcc``
-   per source, all at once) and print the build time and nvcc's report;
+   per source, all at once) and print the build time and nvcc's report,
+   and the number of ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load)
+   instructions in the libraries of kernel rows 1 and 2 (``cuobjdump
+   -sass``), each of which must be above 0;
 2. hold each kernel against its plain PyTorch version on the card, in
    bf16, at the shapes the paths below give it: ``flash_attention`` (plain
    and with each option: sliding and chunked window, softcap, sinks,
    ``kv_slot``, at the public shapes of Mistral, Phi-3, Gemma-2, GPT-OSS and
-   Llama-4), ``flash_attention_dma``, ``quantized_flash_attention`` (plain
-   and with the same options), the four paged-attention kernels (bf16
-   and int8 arenas), the two range coders (tolerance 0) and the six MLA
+   Llama-4; its decode runs the key-split decode), the split decode's
+   ``combine_partials`` alone, ``flash_attention_dma``,
+   ``quantized_flash_attention`` (plain and with the same options), the
+   four paged-attention kernels (bf16 and int8 arenas), the two range
+   coders (tolerance 0) and the six MLA
    latent-attention entry points (dense, paged one page per step, paged
    streamed; bf16 and int8 latents) at DeepSeek-V2-Lite's shapes and at
    128 heads, V2/V3's;
@@ -122,7 +127,8 @@ Phases, in order; any failure exits non-zero:
    single call; for the latent kernels SDPA with the latents expanded over
    the heads as K and their first rank columns as V, the SDPA backends that
    take those shapes named). No PyTorch call computes a range coder: the
-   coders' rows carry the host C++ coder's time at the same shape instead.
+   coders' rows carry the host C++ coder's time at the same shape instead;
+   none computes the split decode's combine either.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without printing a result
@@ -130,6 +136,8 @@ when CUDA is unavailable or the package is missing.
 """
 
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -144,6 +152,7 @@ from lmcache_tpu_torch.chunks import prefix_chunk_hashes
 from lmcache_tpu_torch.codec import CacheGenConfig, range_coder
 from lmcache_tpu_torch.models import llama, mla
 from lmcache_tpu_torch.ops import _build
+from lmcache_tpu_torch.ops import attention as attn
 from lmcache_tpu_torch.ops import latent_attention as la
 from lmcache_tpu_torch.ops import paged_attention as pa
 from lmcache_tpu_torch.ops import paged_latent_attention as pla
@@ -198,6 +207,11 @@ PAGE = 64  # page size of both paged paths
 KERNELS = {
     "flash_attention": (
         ops.flash_attention, "lmcache_tpu_torch/ops/csrc/flash_attention.cu",
+        "lmcache_tpu/ops/attention.py:110"),
+    # the second kernel of row 1's key-split decode
+    "combine_partials": (
+        attn.combine_partials,
+        "lmcache_tpu_torch/ops/csrc/flash_attention.cu",
         "lmcache_tpu/ops/attention.py:110"),
     "flash_attention_dma": (
         ops.flash_attention_dma,
@@ -303,6 +317,25 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def kernel_ms(fn, iters):
+    """Mean device time in ms of the kernels ``fn`` launches, over ``iters``
+    calls under ``torch.profiler`` after a warm-up: without the gaps in
+    which the card waits for the host, which CUDA events around small
+    launches count too. None where the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.key.startswith("lmcache_tpu_torch::"))
+    return total / 1e3 / iters if total > 0 else None
+
+
 def wall_best(fn, n=3):
     """Best host time in ms of ``fn`` (ending in a synchronize) over ``n``
     runs after one warm-up run."""
@@ -315,6 +348,22 @@ def wall_best(fn, n=3):
         torch.cuda.synchronize()
         best = min(best, (time.perf_counter() - t0) * 1e3)
     return best
+
+
+def sass_counts(libs):
+    """The wgmma (``HGMMA``) and TMA load (``UTMALDG``) instructions in the
+    built libraries of rows 1 and 2; exits where either count is 0."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for name in ("flash_attention", "flash_stream_attention"):
+        sass = subprocess.run([tool, "-sass", str(libs[name])],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        counts = {op: len(re.findall(rf"\b{op}\b", sass))
+                  for op in ("HGMMA", "UTMALDG")}
+        log(f"  {name}: {counts['HGMMA']} HGMMA and {counts['UTMALDG']} "
+            f"UTMALDG instructions (cuobjdump -sass)")
+        if not all(counts.values()):
+            raise SystemExit(f"{name} was built without wgmma or TMA")
 
 
 # ---------------------------------------------------------------- phase 2 ---
@@ -360,6 +409,31 @@ def make_attention_inputs(case, gen):
     qo = torch.tensor(q_off, dtype=torch.int32, device=dev)
     kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
     return q, k, v, qo, kl
+
+
+def combine_cases():
+    """The decode cases of :func:`attention_cases`: the launches of at most
+    ``DECODE_ROWS`` rows, whose partials the combine kernel merges."""
+    return [case for case in attention_cases()
+            if case[2] * case[3] // case[4] <= attn.DECODE_ROWS]
+
+
+def make_combine_inputs(case, gen):
+    """The partials row 1's split decode gives the combine at ``case``
+    (from the plain split version, on the card)."""
+    q, k, v, qo, kl = make_attention_inputs(case, gen)
+    part_o, part_ml = attn.split_partials_reference(
+        q, k.transpose(1, 2), v.transpose(1, 2), qo, kl)
+    return part_o, part_ml, case[2], case[3] // case[4]
+
+
+def combine_bound(part_o, part_ml, T, G):
+    """Least time (ms) of the combine: (m, l) of every partial and O of
+    each live one (l > 0) read once, bf16 out written once."""
+    live = int((part_ml[..., 1] > 0).sum())
+    B, Hkv, _, _, D = part_o.shape
+    nbytes = part_ml.numel() * 4 + live * D * 4 + B * T * Hkv * G * D * 2
+    return nbytes / PEAK_BYTES_S * 1e3, "bytes"
 
 
 def plain_attention(q, k, v, qo, kl, rows=1024):
@@ -426,6 +500,15 @@ def phase_kernels():
             worst["flash_attention"],
             hold_against_plain("flash_attention", case[0], out, ref))
         del q, k, v, out, ref
+    for case in combine_cases():
+        part_o, part_ml, T, G = make_combine_inputs(case, gen)
+        out = attn.combine_partials(part_o, part_ml, T, G)
+        ref = attn.combine_partials_reference(part_o, part_ml, T, G)
+        torch.cuda.synchronize()
+        worst["combine_partials"] = max(
+            worst["combine_partials"],
+            hold_against_plain("combine_partials", case[0], out, ref))
+        del part_o, part_ml, out, ref
     for case in dense_cases():
         q, kv, qo, kl, kw = make_dense_inputs(case, gen)
         out = dense_call(case, q, kv, qo, kl, kw)
@@ -1273,10 +1356,15 @@ def _top1_margin(got, want):
 
 
 def _logits_agree(name, got, want, tol=REL_L2_REUSE, same_top1=True,
-                  near_tie=False, flips=None):
+                  near_tie=False, flips=None, ties=None):
     """Relative L2 within ``tol`` and (unless ``same_top1`` is off) the
     same top-1, per request. With ``near_tie`` the top-1 may instead be a
     token that ``want`` itself puts within ``TOP1_MARGIN`` of its best.
+    ``ties`` gives, per request, the logits of the plain-attention forward
+    (:func:`plain_first_logits`, rounded to bf16 by the LM head as the
+    engines' are): two first tokens whose bf16 logits it gives the same
+    value count as the same top-1. That is a band about one bf16 ulp wide,
+    not an exact tie in fp32.
     ``flips`` gives, per request, the (MoE layer, token) top-k sets in which
     the two computations differ and those compared (:class:`Routing`): a
     request whose routing flipped is held to ``REL_L2_MOE``, every other to
@@ -1285,6 +1373,14 @@ def _logits_agree(name, got, want, tol=REL_L2_REUSE, same_top1=True,
     give, is printed beside them."""
     rel = [((g - w).norm() / w.norm()).item() for g, w in zip(got, want)]
     same_top = [int(g.argmax()) == int(w.argmax()) for g, w in zip(got, want)]
+    tied = [False] * len(same_top)
+    if ties is not None:
+        # two first tokens that the plain reference ties after the LM
+        # head's bf16 rounding: argmax breaks the tie by the lower index,
+        # and which one wins rests on that rounding
+        tied = [not s and bool(r[g.argmax()] == r.max() == r[w.argmax()])
+                for s, g, w, r in zip(same_top, got, want, ties)]
+        same_top = [s or t for s, t in zip(same_top, tied)]
     margin = [_top1_margin(g, w) for g, w in zip(got, want)]
     top_ok = (not same_top1 or all(same_top)
               or (near_tie and max(margin) <= TOP1_MARGIN))
@@ -1295,6 +1391,9 @@ def _logits_agree(name, got, want, tol=REL_L2_REUSE, same_top1=True,
     if near_tie:
         note = (f" margin {[f'{m:.3e}' for m in margin]} of the reference's "
                 f"rms (at most {TOP1_MARGIN})")
+    if any(tied):
+        note += (f" (first tokens that differ but tie in the plain "
+                 f"forward's bf16-rounded logits: {tied})")
     if flips is not None:
         note += f" routing flips {flips} (differing, compared)"
         if len(want) > 1:
@@ -1659,6 +1758,24 @@ def paged_engine(cfg, params, engine_cls=PagedServingEngine, routing=None,
     return eng
 
 
+def plain_first_logits(cfg, params, prompts):
+    """The first-token logits of each prompt through the dense forward
+    with the plain attention (the kernels' plain version, fp32 inside),
+    one prompt a call. The LM head forms them in bf16 and then casts to
+    fp32, as in the engines, so they hold bf16 values: where two kernel
+    paths put different tokens first, this says whether the prompt's best
+    logits tie at that precision."""
+    zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+    out = []
+    for p in prompts:
+        toks = torch.as_tensor(np.asarray(p), device="cuda").long()[None]
+        logits, _ = llama.forward(params, cfg, toks, zero,
+                                  llama.new_kv_cache(cfg, 1, toks.shape[1]),
+                                  last_logit_only=True, use_kernel=False)
+        out.append(logits[0, -1].float())
+    return out
+
+
 def paged_wave(eng, name, prompts, max_new, force=None):
     """Serve ``prompts`` greedily (routed as the record ``force`` where
     given). Returns (requests, first-token logits, pages injected from the
@@ -1761,8 +1878,11 @@ def paged_tinyllama_waves(cfg, params, prompts, dense_logits, kv_dtype,
         dense_rec, dense_reqs = (routing.wave1["native"] if routing
                                  else (None, None))
         f1 = flips(w1, dense_reqs)
+        ties = (None if routing is not None
+                else plain_first_logits(cfg, params, prompts))
         ok = _logits_agree("wave 1 vs the dense engine's wave 1", l1,
-                           dense_logits, near_tie=near_tie, flips=f1)
+                           dense_logits, near_tie=near_tie, flips=f1,
+                           ties=ties)
         if ok and f1 and any(f for f, _ in f1):
             # the dense engine computed every token: no tier to replay
             _, _, again = replayed("wave 1 again, routed as the dense engine",
@@ -3297,11 +3417,36 @@ def phase_yardstick():
         row = {"shape": name, "ms": ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": bound_ms,
                "bound_by": bound_by}
+        extra = ""
+        if decode:
+            # the split decode's two kernels alone, and SDPA's
+            row["kernel_ms"] = kernel_ms(lambda: ops.flash_attention(
+                q, k, v, qo, kl, kv_head_major=True), iters=50)
+            row["library_kernel_ms"] = kernel_ms(
+                lambda: sdpa(qh, k, v, enable_gqa=True, **mask_kw), iters=50)
+            extra = (f" (device time of the kernels alone: "
+                     f"{row['kernel_ms']} ms, SDPA's "
+                     f"{row['library_kernel_ms']} ms)")
         log(f"  flash_attention | {name}: kernel {ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, SDPA "
-            f"{library_ms:.4f} ms")
+            f"{library_ms:.4f} ms{extra}")
         rows["flash_attention"].append(row)
         del q, k, v, qh, mask_kw
+
+    for case in combine_cases():
+        part_o, part_ml, T, G = make_combine_inputs(case, gen)
+        ms = cuda_ms(lambda: attn.combine_partials(part_o, part_ml, T, G),
+                     iters=200)
+        plain_ms = cuda_ms(lambda: attn.combine_partials_reference(
+            part_o, part_ml, T, G), iters=20)
+        bound_ms, bound_by = combine_bound(part_o, part_ml, T, G)
+        rows["combine_partials"].append({
+            "shape": case[0], "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by})
+        log(f"  combine_partials | {case[0]}: kernel {ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
+            f"library none (no single call)")
+        del part_o, part_ml
 
     for case in dense_cases():
         q, kv, qo, kl, kw = make_dense_inputs(case, gen)
@@ -3443,6 +3588,7 @@ def main():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  nvcc {name}: {line.strip()}")
+    sass_counts(libs)
 
     max_abs = phase_kernels()
     launches = {}
@@ -3497,7 +3643,8 @@ def main():
         log(f"  {phase}: {counts}")
     expected = {
         "main_path": ("flash_attention", ("prefill",)),
-        "serving": ("flash_attention", ("prefill", "decode")),
+        "serving": [("flash_attention", ("prefill", "decode")),
+                    ("combine_partials", ("decode",))],
         "paged tinyllama bf16": ("paged_attention_dma",
                                  ("prefill", "decode")),
         "paged tinyllama int8": ("quantized_paged_attention_dma",

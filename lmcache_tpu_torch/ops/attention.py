@@ -16,10 +16,16 @@ Layouts: ``q [B, T, H, D]``; ``k/v [B, S, H_kv, D]`` (token-major) or, with
 ``H = G * H_kv``. Query ``t`` of sequence ``b`` sees key positions
 ``kpos <= min(q_offset[b] + t, kv_len[b] - 1)``.
 
-:func:`flash_attention` runs the hand-written Hopper kernel
+:func:`flash_attention` runs the hand-written Hopper kernels
 (``csrc/flash_attention.cu``) on CUDA tensors and its plain version,
-:func:`mha_reference`, on CPU tensors; :func:`flash_attention_dma` is the
-windowless variant that streams K/V (``csrc/flash_stream_attention.cu``).
+:func:`mha_reference`, on CPU tensors: a launch of more than
+``DECODE_ROWS`` rows (T * G) runs the prefill body (``csrc/flash_sm90.cuh``:
+TMA, wgmma, S, P and O in registers); one of at most ``DECODE_ROWS`` rows,
+every decode step, runs the key-split decode: partials over splits of
+``SPLIT_KEYS`` keys, then :func:`combine_partials` (plain versions
+:func:`split_partials_reference` and :func:`combine_partials_reference`).
+:func:`flash_attention_dma` is the windowless variant with a deeper ring of
+K/V stages (``csrc/flash_stream_attention.cu``).
 """
 
 import ctypes
@@ -92,6 +98,146 @@ def mha_reference(q, k, v, q_offset, kv_len, sm_scale=None,
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, D).to(q.dtype)
 
 
+# the key-split decode: launches of at most DECODE_ROWS rows (T * G) split
+# the keys at absolute multiples of SPLIT_KEYS (csrc/flash_attention.cu)
+DECODE_ROWS = 16
+SPLIT_KEYS = 256
+
+
+def n_splits(S: int) -> int:
+    """Splits of the key-split decode over a K/V buffer of ``S`` keys: the
+    grid is sized from S alone (never from ``kv_len``, which lives on the
+    device), and at least one partial is written."""
+    return max(1, -(-S // SPLIT_KEYS))
+
+
+def split_ranges(S: int, lo: int, hi: int):
+    """The live splits of a row that sees keys ``[lo, hi]`` of a buffer of
+    ``S``: ``[(split, first key, last key)]``. Split points are absolute
+    multiples of ``SPLIT_KEYS``, so they depend on S and the row's own range
+    only, never on the batch or its other rows; every other split of the
+    grid gives the row an empty partial."""
+    hi = min(hi, S - 1)
+    if lo > hi:
+        return []
+    return [(s, max(lo, s * SPLIT_KEYS), min(hi, (s + 1) * SPLIT_KEYS - 1))
+            for s in range(lo // SPLIT_KEYS, hi // SPLIT_KEYS + 1)]
+
+
+def _rows_mask_scores(q, k, v, q_offset, kv_len, sm_scale, sliding_window,
+                      window_kind, logit_softcap):
+    """fp32 scores [B, H_kv, R, S] of the rows R = T * G (token-major, as
+    the kernels flatten them), their mask and V [B, H_kv, S, D]
+    (token-major ``k/v [B, S, H_kv, D]``)."""
+    B, T, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = sm_scale if sm_scale is not None else 1.0 / (D**0.5)
+    qr = q.reshape(B, T, Hkv, G, D).permute(0, 2, 1, 3, 4).reshape(
+        B, Hkv, T * G, D).float()
+    scores = torch.einsum("bhrd,bhsd->bhrs", qr,
+                          k.permute(0, 2, 1, 3).float()) * scale
+    if logit_softcap is not None:
+        scores = logit_softcap * torch.tanh(scores / logit_softcap)
+    dev = q.device
+    qpos = (q_offset.to(dev)[:, None]
+            + torch.arange(T, device=dev).repeat_interleave(G)[None])
+    qpos = qpos[:, None, :, None]  # [B, 1, R, 1]
+    kpos = torch.arange(S, device=dev)[None, None, None]
+    mask = (kpos <= qpos) & (kpos < kv_len.to(dev)[:, None, None, None])
+    if sliding_window is not None:
+        if window_kind == "chunked":
+            mask &= (kpos // sliding_window) == (qpos // sliding_window)
+        else:
+            mask &= kpos > qpos - sliding_window
+    return scores, mask.expand_as(scores), v.permute(0, 2, 1, 3).float()
+
+
+def split_partials_reference(q, k, v, q_offset, kv_len, sm_scale=None,
+                             sliding_window: Optional[int] = None,
+                             window_kind: str = "sliding",
+                             logit_softcap: Optional[float] = None):
+    """Plain version of the key-split decode's first kernel (token-major
+    ``k/v [B, S, H_kv, D]``): for every row (token, head-in-group) of each
+    (sequence, KV head) and every split of ``SPLIT_KEYS`` keys, the partial
+    ``(m, l, O)`` of the online softmax over the row's live keys in the
+    split, unnormalized, in fp32. Returns ``part_o [B, H_kv, n, R, D]`` and
+    ``part_ml [B, H_kv, n, R, 2]`` with ``n = n_splits(S)``; a split with no
+    live key gives ``m = -1e30, l = 0, O = 0``."""
+    B, T, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    scores, mask, vh = _rows_mask_scores(q, k, v, q_offset, kv_len, sm_scale,
+                                         sliding_window, window_kind,
+                                         logit_softcap)
+    n = n_splits(S)
+    pad = n * SPLIT_KEYS - S
+    R = scores.shape[2]
+    scores = torch.nn.functional.pad(scores, (0, pad)).reshape(
+        B, Hkv, R, n, SPLIT_KEYS)
+    mask = torch.nn.functional.pad(mask, (0, pad)).reshape(
+        B, Hkv, R, n, SPLIT_KEYS)
+    vh = torch.nn.functional.pad(vh, (0, 0, 0, pad)).reshape(
+        B, Hkv, n, SPLIT_KEYS, D)
+    masked = torch.where(mask, scores,
+                         torch.tensor(_NEG_INF, device=q.device))
+    m = masked.amax(dim=-1)  # [B, H_kv, R, n]
+    p = torch.where(mask, torch.exp(masked - m[..., None]),
+                    torch.zeros((), device=q.device))
+    part_o = torch.einsum("bhrnk,bhnkd->bhnrd", p, vh)
+    part_ml = torch.stack([m, p.sum(dim=-1)], dim=-1).permute(0, 1, 3, 2, 4)
+    return part_o.contiguous(), part_ml.contiguous()
+
+
+def combine_partials_reference(part_o, part_ml, T: int, G: int,
+                               sinks: Optional[torch.Tensor] = None):
+    """Plain version of the key-split decode's combine: the partials of each
+    row (``part_o [B, H_kv, n, R, D]``, ``part_ml [B, H_kv, n, R, 2]``,
+    R = T * G) merged over the splits, partials with ``l = 0`` skipped
+    (their O is never read), sinks ([H] fp32) joined to the normalization
+    once. Returns fp32 ``[B, T, H, D]``; a row with no live key gives 0."""
+    B, Hkv, n, R, D = part_o.shape
+    m_s, l_s = part_ml[..., 0].float(), part_ml[..., 1].float()
+    live = l_s > 0
+    neg = torch.tensor(_NEG_INF, device=part_o.device)
+    m = torch.where(live, m_s, neg).amax(dim=2)  # [B, H_kv, R]
+    w = torch.where(live, torch.exp(m_s - m[:, :, None]),
+                    torch.zeros((), device=part_o.device))
+    l = (w * l_s).sum(dim=2)
+    o = torch.where(live[..., None], w[..., None] * part_o.float(),
+                    torch.zeros((), device=part_o.device)).sum(dim=2)
+    if sinks is not None:
+        snk = sinks.to(device=part_o.device, dtype=torch.float32).reshape(
+            Hkv, G).repeat(1, T)[None]  # [1, H_kv, R]
+        m2 = torch.maximum(m, snk)
+        keep = torch.exp(m - m2)
+        inv = keep / (l * keep + torch.exp(snk - m2))
+    else:
+        inv = torch.where(l > 0, 1.0 / torch.where(l > 0, l, 1.0),
+                          torch.zeros((), device=part_o.device))
+    out = o * inv[..., None]  # [B, H_kv, R, D]
+    return out.reshape(B, Hkv, T, G, D).permute(0, 2, 1, 3, 4).reshape(
+        B, T, Hkv * G, D)
+
+
+def split_attention_reference(q, k, v, q_offset, kv_len, sm_scale=None,
+                              sliding_window: Optional[int] = None,
+                              window_kind: str = "sliding",
+                              logit_softcap: Optional[float] = None,
+                              sinks: Optional[torch.Tensor] = None):
+    """The plain split-then-combine of the key-split decode (token-major
+    ``k/v``): :func:`split_partials_reference`, then
+    :func:`combine_partials_reference`; fp32 ``[B, T, H, D]``, 0 for a row
+    that sees no key. Equal to :func:`mha_reference` with
+    ``zero_dead_rows`` up to fp32 rounding."""
+    part_o, part_ml = split_partials_reference(
+        q, k, v, q_offset, kv_len, sm_scale=sm_scale,
+        sliding_window=sliding_window, window_kind=window_kind,
+        logit_softcap=logit_softcap)
+    H = q.shape[2]
+    return combine_partials_reference(part_o, part_ml, q.shape[1],
+                                      H // k.shape[2], sinks=sinks)
+
+
 class FlashArgs(ctypes.Structure):
     """The kernels' argument block (``csrc/flash_common.cuh::FlashArgs``):
     device pointers, sizes, options and strides in elements."""
@@ -139,7 +285,8 @@ def _check_cuda_args(q, k, v, q_offset, kv_len, B, Hkv, S,
         if t.dtype != dt:
             raise ValueError(f"the CUDA kernel takes {name} as "
                              f"{str(dt).split('.')[-1]}; it is {t.dtype}")
-        # 16-byte vector loads along D
+        # 16-byte vector loads along D; TMA takes 16-byte aligned bases and
+        # strides that are multiples of 16 bytes
         vec = 16 // t.element_size()
         if t.stride(-1) != 1 or any(s % vec for s in t.stride()[:-1]):
             raise ValueError(f"{name} needs unit stride along D and the "
@@ -231,18 +378,98 @@ def fill_args(q, k, v, out, q_offset, kv_len, kv_head_major, sm_scale,
     return a, Hkv, S
 
 
-def launch(wrapper, fn, a, q, Hkv, sliding_window=None):
-    """Launch ``fn`` on q's current stream, raise if the launch is refused,
-    and add one to ``wrapper.launches`` under the phase ("prefill" for
+def count_launch(wrapper, T, sliding_window=None):
+    """Add one to ``wrapper.launches`` under the phase ("prefill" for
     T > 1, "decode" for T == 1, "+window" appended under a window)."""
-    B, T, H, D = q.shape
-    err = fn(ctypes.byref(a), B, H, Hkv, D,
-             torch.cuda.current_stream(q.device).cuda_stream)
+    phase = "decode" if T == 1 else "prefill"
+    wrapper.launches[phase + ("+window" if sliding_window else "")] += 1
+
+
+def check_error(wrapper, err):
     if err:
         raise RuntimeError(f"{wrapper.__name__} kernel launch failed: "
                            f"cudaError {err}")
-    phase = "decode" if T == 1 else "prefill"
-    wrapper.launches[phase + ("+window" if sliding_window else "")] += 1
+
+
+def launch(wrapper, fn, a, q, Hkv, sliding_window=None):
+    """Launch ``fn`` on q's current stream, raise if the launch is refused,
+    and count it (:func:`count_launch`)."""
+    B, T, H, D = q.shape
+    check_error(wrapper, fn(ctypes.byref(a), B, H, Hkv, D,
+                            torch.cuda.current_stream(q.device).cuda_stream))
+    count_launch(wrapper, T, sliding_window)
+
+
+def _split_entries():
+    """(split kernel, combine kernel) entry points of
+    ``csrc/flash_attention.cu``, built at first use."""
+    fns = _entry_points.get("split")
+    if fns is None:
+        lib = _build.load("flash_attention")
+        if lib.lmc_flash_split_keys() != SPLIT_KEYS:
+            raise RuntimeError("csrc/flash_attention.cu splits the keys "
+                               "otherwise than SPLIT_KEYS")
+        split = lib.lmc_flash_decode_split_bf16
+        split.argtypes = ([ctypes.POINTER(FlashArgs)] + [ctypes.c_int] * 4
+                          + [ctypes.c_void_p] * 2 + [ctypes.c_int,
+                                                     ctypes.c_void_p])
+        split.restype = ctypes.c_int
+        combine = lib.lmc_flash_combine_partials
+        combine.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                            + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+        combine.restype = ctypes.c_int
+        fns = _entry_points["split"] = (split, combine)
+    return fns
+
+
+def combine_partials(part_o: torch.Tensor, part_ml: torch.Tensor, T: int,
+                     G: int, *, sinks: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """The key-split decode's combine (see
+    :func:`combine_partials_reference` for the shapes): bf16
+    ``[B, T, H, D]``. On CUDA tensors this launches the combine kernel of
+    ``csrc/flash_attention.cu`` (fp32 contiguous partials, sinks fp32 [H])
+    and raises on anything it does not take; on CPU tensors it computes
+    :func:`combine_partials_reference`. ``combine_partials.launches`` counts
+    launches by phase, as :func:`flash_attention`'s."""
+    B, Hkv, n, R, D = part_o.shape
+    if R != T * G or tuple(part_ml.shape) != (B, Hkv, n, R, 2):
+        raise ValueError(f"partials {tuple(part_o.shape)} and "
+                         f"{tuple(part_ml.shape)} do not hold T {T} x G {G} "
+                         f"rows")
+    if part_o.device.type == "cpu":
+        return combine_partials_reference(part_o, part_ml, T, G,
+                                          sinks=sinks).to(torch.bfloat16)
+    for name, t in (("part_o", part_o), ("part_ml", part_ml)):
+        if (t.device != part_o.device or t.dtype != torch.float32
+                or not t.is_contiguous()):
+            raise ValueError(f"the CUDA kernel takes {name} as contiguous "
+                             f"float32 on {part_o.device}")
+    if sinks is not None and (
+            sinks.device != part_o.device or sinks.dtype != torch.float32
+            or tuple(sinks.shape) != (Hkv * G,) or not sinks.is_contiguous()):
+        raise ValueError(f"the CUDA kernel takes sinks as contiguous float32 "
+                         f"[{Hkv * G}] on {part_o.device}")
+    out = torch.empty((B, T, Hkv * G, D), dtype=torch.bfloat16,
+                      device=part_o.device)
+    _combine(part_o, part_ml, T, G, sinks, out)
+    return out
+
+
+def _combine(part_o, part_ml, T, G, sinks, out):
+    """Launch the combine kernel on arguments already checked, and count
+    it under :func:`combine_partials`."""
+    B, Hkv, n, _, D = part_o.shape
+    _, combine = _split_entries()
+    check_error(combine_partials, combine(
+        part_o.data_ptr(), part_ml.data_ptr(),
+        sinks.data_ptr() if sinks is not None else None, out.data_ptr(), B,
+        T, G, Hkv, D, n, out.stride(0), out.stride(1), out.stride(2),
+        torch.cuda.current_stream(part_o.device).cuda_stream))
+    count_launch(combine_partials, T)
+
+
+combine_partials.launches = Counter()
 
 
 def slot_row(t, kv_slot):
@@ -268,12 +495,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sequence (B == 1, head-major) attends to pool row ``kv_slot[0]``, which
     the kernel reads on the device.
 
-    On CUDA tensors this launches the Hopper kernel (bf16 q/k/v, int32
-    ``q_offset``/``kv_len``, D of 64, 96, 128 or 256, any strides with unit
-    stride along D) and raises on anything it does not take; on CPU tensors
-    it computes :func:`mha_reference`. ``flash_attention.launches`` counts
-    kernel launches by phase ("prefill" for T > 1, "decode" for T == 1,
-    "+window" appended under a window).
+    On CUDA tensors this launches the Hopper kernels (bf16 q/k/v, int32
+    ``q_offset``/``kv_len``, D of 64, 96, 128 or 256, base pointers
+    16-byte aligned and strides multiples of 8 elements with unit stride
+    along D, as TMA takes them) and raises on anything they do not take:
+    the prefill body above ``DECODE_ROWS`` rows (T * G), else the key-split
+    decode and :func:`combine_partials`. On CPU tensors it computes
+    :func:`mha_reference`. ``flash_attention.launches`` counts launches by
+    phase ("prefill" for T > 1, "decode" for T == 1, "+window" appended
+    under a window); a split decode counts once.
     """
     check_options(q, sliding_window, window_kind, logit_softcap, sinks,
                   kv_slot, kv_head_major)
@@ -295,9 +525,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           logit_softcap, sinks, kv_slot)
     _check_cuda_args(q, k, v, q_offset, kv_len, B, Hkv, S,
                      pool_rows=kv_slot is not None)
-    launch(flash_attention,
-           load_entry("flash_attention", "lmc_flash_attention_bf16"), a, q,
-           Hkv, sliding_window)
+    G = H // Hkv
+    if T * G > DECODE_ROWS:
+        launch(flash_attention,
+               load_entry("flash_attention", "lmc_flash_attention_bf16"), a,
+               q, Hkv, sliding_window)
+        return out
+    split, _ = _split_entries()
+    n = n_splits(S)
+    # one scratch allocation: the partials' O, then their (m, l)
+    rows = B * Hkv * n * T * G
+    scratch = torch.empty(rows * (D + 2), dtype=torch.float32,
+                          device=q.device)
+    part_o = scratch[:rows * D].view(B, Hkv, n, T * G, D)
+    part_ml = scratch[rows * D:].view(B, Hkv, n, T * G, 2)
+    check_error(flash_attention, split(
+        ctypes.byref(a), B, H, Hkv, D, part_o.data_ptr(), part_ml.data_ptr(),
+        n, torch.cuda.current_stream(q.device).cuda_stream))
+    _combine(part_o, part_ml, T, G, sinks, out)
+    count_launch(flash_attention, T, sliding_window)
     return out
 
 

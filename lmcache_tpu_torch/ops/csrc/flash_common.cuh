@@ -1,20 +1,11 @@
-// Shared pieces of the dense attention kernels (flash_attention.cu,
-// quantized_flash_attention.cu, flash_stream_attention.cu): the argument
-// block, the shared-memory layout, the block's key range under the causal
-// limit and the window, the tile loaders for bf16 and int8 K/V, the score
-// product, the online-softmax update with every option (per-key scales,
-// softcap, sliding and chunked windows), the PV product and the final
-// normalization with attention sinks.
-//
-// Contract of all three kernels: q [B, T, H, D] bf16 attends to K/V rows
-// [B, H_kv, S, D] (any strides with unit stride along D, so a slot view of
-// the serving pool is read in place) under
-//     kpos <= min(q_offset[b] + t, kv_len[b] - 1)
-// and, with a window W, kpos > qpos - W ("sliding") or
-// kpos / W == qpos / W ("chunked"). Online softmax in fp32, P rounded to
-// bf16 before the PV product (as the TPU kernels do), 0 for a row that sees
-// no key. With kv_slot the K/V (and scale) row is kv_slot[0], read on the
-// device, whatever b is.
+// The WMMA body of the int8 dense kernel (quantized_flash_attention.cu) and
+// of the prefill ablation variants (prefill_variants.cu): the shared-memory
+// layout, the block's key range under the causal limit and the window, the
+// tile loaders for bf16 and int8 K/V, the score product, the online-softmax
+// update with every option (per-key scales, softcap, sliding and chunked
+// windows), the PV product and the final normalization with attention
+// sinks. The contract and the argument block are flash_args.cuh's; the bf16
+// kernels of rows 1 and 2 run the Hopper body of flash_sm90.cuh instead.
 //
 // Layout of one block: BM = 64 query rows = consecutive (token,
 // head-in-group) pairs of one (batch, KV head), flattened token-major, so any
@@ -26,7 +17,7 @@
 
 #pragma once
 
-#include "paged_common.cuh"
+#include "flash_args.cuh"
 
 namespace lmc {
 
@@ -34,28 +25,6 @@ constexpr int BM = 64;  // query rows per block
 constexpr int BN = 64;  // keys per K/V tile
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
-
-// Filled by the Python wrapper (a ctypes.Structure with the same fields in
-// the same order); strides in elements.
-struct FlashArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* out;
-  const float* k_scale;  // int8 K/V only: one fp32 per (sequence, token)
-  const float* v_scale;
-  const int* q_offset;
-  const int* kv_len;
-  const float* sinks;  // [H] fp32 attention-sink logits, or null
-  const int* kv_slot;  // [1] pool row that every query attends to, or null
-  int T, G, S;
-  int window;    // window or chunk size in tokens; <= 0: none
-  int chunked;   // 0: sliding window, 1: block-diagonal chunks
-  float softcap;  // scores -> cap * tanh(s / cap) before the mask; <= 0: none
-  float scale;
-  long long qb, qt, qh, kb, kh, ks, vb, vh, vs, ob, ot, oh;
-  long long ksb, kss, vsb, vss;  // scale strides [B, S]
-};
 
 // Shared memory in bytes. Row pitches are padded (multiples of 8 bf16 / 4
 // fp32 as WMMA requires) to spread the rows over the banks; every array and
@@ -96,15 +65,8 @@ __device__ __forceinline__ FlashBlock flash_block(const FlashArgs& a) {
   const int t_first = r.f0 / a.G;
   const int t_last = min((r.f0 + BM - 1) / a.G, a.T - 1);
   r.kend = max(0, min(r.qoff + t_last + 1, r.klen));
-  // the oldest key that the block's first token sees; later tokens see no
-  // older one under either window kind
-  int kmin = 0;
-  if (a.window > 0) {
-    const int qmin = r.qoff + t_first;
-    kmin = a.chunked ? qmin / a.window * a.window
-                     : max(qmin - a.window + 1, 0);
-  }
-  r.kbeg = kmin / BN * BN;
+  // the oldest key that the block's first token sees
+  r.kbeg = window_start(a, r.qoff + t_first) / BN * BN;
   return r;
 }
 
@@ -127,10 +89,7 @@ __device__ __forceinline__ FlashRow flash_row(const FlashArgs& a,
   w.f = r.f0 + w.row;
   const int qpos = r.qoff + w.f / a.G;
   w.qlim = w.f < r.rows ? min(qpos, r.klen - 1) : -1;
-  w.wlo = -0x40000000;
-  if (a.window > 0) {
-    w.wlo = a.chunked ? qpos / a.window * a.window - 1 : qpos - a.window;
-  }
+  w.wlo = window_floor(a, qpos);
   w.m = NEG_INF;
   w.l = 0.f;
   return w;
@@ -158,9 +117,8 @@ __device__ __forceinline__ void flash_load_q(bf16* Qs, const FlashArgs& a,
 
 // One K and one V tile: keys [k0, k0 + BN) of the two bases (row strides
 // ks, vs) into bf16 tiles, zero at and past kend. K and V loads of a thread
-// start together. ASYNC: bf16 rows go by cp.async (the caller commits
-// and waits); int8 rows pass through registers (exact in bf16) either way.
-template <int D, typename KV, bool ASYNC>
+// start together; int8 rows convert exactly to bf16.
+template <int D, typename KV>
 __device__ __forceinline__ void flash_load_tiles(bf16* Ks, bf16* Vs,
                                                  const KV* kbase,
                                                  const KV* vbase,
@@ -176,15 +134,10 @@ __device__ __forceinline__ void flash_load_tiles(bf16* Ks, bf16* Vs,
     if (k0 + row < kend) {
       const KV* ksrc = kbase + (k0 + row) * ks + c;
       const KV* vsrc = vbase + (k0 + row) * vs + c;
-      if (ASYNC) {
-        load_async(kd, ksrc);
-        load_async(vd, vsrc);
-      } else {
-        const uint4 kraw = *reinterpret_cast<const uint4*>(ksrc);
-        const uint4 vraw = *reinterpret_cast<const uint4*>(vsrc);
-        store_converted(kd, kraw, KV());
-        store_converted(vd, vraw, KV());
-      }
+      const uint4 kraw = *reinterpret_cast<const uint4*>(ksrc);
+      const uint4 vraw = *reinterpret_cast<const uint4*>(vsrc);
+      store_converted(kd, kraw, KV());
+      store_converted(vd, vraw, KV());
     } else {
       store_zero<VEC>(kd);
       store_zero<VEC>(vd);
@@ -324,8 +277,7 @@ __device__ __forceinline__ void flash_write(const float* Os,
   }
 }
 
-// The body shared by flash_attention.cu (KV = bf16) and
-// quantized_flash_attention.cu (KV = int8): one
+// The body of quantized_flash_attention.cu (KV = int8): one
 // K/V tile pair in shared memory, loaded synchronously, from the tile that
 // holds the window's first key to the causal limit. SOFTCAP: the launch has a
 // score softcap (a variant of its own, so that the others carry no tanh).
@@ -357,8 +309,7 @@ __device__ __forceinline__ void flash_body(const FlashArgs& a) {
 
   for (int k0 = r.kbeg; k0 < r.kend; k0 += BN) {
     __syncthreads();  // the previous tile is no longer read
-    flash_load_tiles<D, KV, false>(Ks, Vs, kbase, vbase, a.ks, a.vs, k0,
-                                   r.kend);
+    flash_load_tiles<D, KV>(Ks, Vs, kbase, vbase, a.ks, a.vs, k0, r.kend);
     if (QUANT) flash_load_scales(ksc, vsc, a, r, k0);
     __syncthreads();
     if (!warp_live) continue;  // warp-uniform; block barriers stay matched
@@ -369,9 +320,8 @@ __device__ __forceinline__ void flash_body(const FlashArgs& a) {
   flash_write<D>(Os, a, r, w);
 }
 
-// flash_fwd<D, bf16, .> is the kernel of flash_attention.cu,
-// flash_fwd<D, int8, .> (qflash_fwd in the sources' comments) that of
-// quantized_flash_attention.cu.
+// flash_fwd<D, int8, .> (qflash_fwd in the sources' comments) is the kernel
+// of quantized_flash_attention.cu.
 template <int D, typename KV, bool SOFTCAP>
 __global__ void __launch_bounds__(THREADS) flash_fwd(const FlashArgs a) {
   flash_body<D, KV, SOFTCAP>(a);
@@ -391,14 +341,9 @@ cudaError_t flash_launch(const FlashArgs& a, int B, int Hkv,
   return cudaGetLastError();
 }
 
-// sizes no launch can take (the wrapper refuses them first)
-inline bool flash_bad_sizes(const FlashArgs* a, int B, int H, int Hkv) {
-  return a == nullptr || Hkv <= 0 || H <= 0 || H % Hkv != 0 ||
-         a->G != H / Hkv || B < 0 || a->T < 0 || a->S < 0;
-}
-
-// What the C entry points of both kernels do: check, pick the variant by
-// head dim and softcap, launch on `stream`. Returns a cudaError_t.
+// What the C entry point of quantized_flash_attention.cu does: check, pick
+// the variant by head dim and softcap, launch on `stream`. Returns a
+// cudaError_t.
 template <typename KV>
 int flash_entry(const FlashArgs* a, int B, int H, int Hkv, int D,
                 void* stream) {

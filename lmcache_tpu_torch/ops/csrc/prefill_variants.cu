@@ -26,7 +26,7 @@
 //             from the other (V lags K by one tile), and a drain step
 //             flushes the last tile.
 //
-// The physical tiles are row 1's (flash_common.cuh): a block of BM = 64
+// The physical tiles are the WMMA body's (flash_common.cuh): BM = 64
 // (token, head-in-group) rows of one KV head, flattened token-major (the
 // group size divides 64, so a block lies in one logical query block), key
 // tiles of BN = 64, 4 warps, WMMA bf16 16x16x16 with fp32 accumulation, the
@@ -196,11 +196,11 @@ __global__ void __launch_bounds__(THREADS)
   for (int k0 = 0; k0 < vr.kend; k0 += PAIR ? 2 * BN : BN) {
     const bool two = PAIR && k0 + BN < vr.kend;
     __syncthreads();  // the previous tiles are no longer read
-    flash_load_tiles<D, bf16, false>(K0, V0, kbase, vbase, a.ks, a.vs, k0,
-                                     vr.kend);
+    flash_load_tiles<D, bf16>(K0, V0, kbase, vbase, a.ks, a.vs, k0,
+                              vr.kend);
     if (two) {
-      flash_load_tiles<D, bf16, false>(K1, V1, kbase, vbase, a.ks, a.vs,
-                                       k0 + BN, vr.kend);
+      flash_load_tiles<D, bf16>(K1, V1, kbase, vbase, a.ks, a.vs,
+                                k0 + BN, vr.kend);
     }
     __syncthreads();
     if (!warp_live) continue;  // warp-uniform; block barriers stay matched

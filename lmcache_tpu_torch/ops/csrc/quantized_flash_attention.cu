@@ -14,7 +14,7 @@
 // the K scale multiplies score columns in fp32 before softcap and mask, the
 // row sum is taken before the V scale multiplies the probability columns,
 // and P goes to bf16 after that multiply. Every option of flash_attention.cu
-// (window, chunks, softcap, sinks, kv_slot) runs through the same code in
+// (window, chunks, softcap, sinks, kv_slot) runs through the WMMA body of
 // flash_common.cuh.
 //
 // Bound on an H100: as flash_attention.cu, with half the K/V bytes plus 8

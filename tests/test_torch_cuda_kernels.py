@@ -201,22 +201,25 @@ def test_dense_kernel_empty_sequence_gives_zero(gen, quant):
 @pytest.mark.parametrize("W", [None, 48])
 def test_kv_slot_reads_the_pool_row_on_the_device(gen, quant, W):
     """K/V (and scales) carry a pool of four rows; the one sequence attends
-    to row ``kv_slot[0]``."""
-    q, kv = _dense_inputs(gen, 4, 16, 8, 2, 64, 256, quant)
-    q = q[:1]
-    qo = torch.tensor([100], dtype=torch.int32, device="cuda")
-    kl = torch.tensor([116], dtype=torch.int32, device="cuda")
+    to row ``kv_slot[0]``: a 16-token prefill segment, and a decode step
+    over three key splits whose window crosses a split edge (the bf16
+    pool's key-split decode)."""
     entry = qa.quantized_flash_attention if quant else ops.flash_attention
     plain = qa.quantized_attention_reference if quant else ops.mha_reference
-    for slot in (0, 2, 3):
-        out = entry(q, *kv, qo, kl, kv_head_major=True, sliding_window=W,
-                    kv_slot=torch.tensor([slot], dtype=torch.int32,
-                                         device="cuda"))
-        row = [t[slot:slot + 1] for t in kv]
-        ref = plain(q, *(t.transpose(1, 2) if t.dim() == 4 else t
-                         for t in row), qo, kl, sliding_window=W)
-        torch.testing.assert_close(out.float(), ref.float(), atol=ATOL,
-                                   rtol=2.0**-7)
+    for T, S, q_off in ((16, 256, 100), (1, 768, 530)):
+        q, kv = _dense_inputs(gen, 4, T, 8, 2, 64, S, quant)
+        q = q[:1]
+        qo = torch.tensor([q_off], dtype=torch.int32, device="cuda")
+        kl = torch.tensor([q_off + T], dtype=torch.int32, device="cuda")
+        for slot in (0, 2, 3):
+            out = entry(q, *kv, qo, kl, kv_head_major=True, sliding_window=W,
+                        kv_slot=torch.tensor([slot], dtype=torch.int32,
+                                             device="cuda"))
+            row = [t[slot:slot + 1] for t in kv]
+            ref = plain(q, *(t.transpose(1, 2) if t.dim() == 4 else t
+                             for t in row), qo, kl, sliding_window=W)
+            torch.testing.assert_close(out.float(), ref.float(), atol=ATOL,
+                                       rtol=2.0**-7)
 
 
 def test_quantized_kernel_on_a_slot_view_and_token_major(gen):
@@ -283,9 +286,12 @@ def test_streamed_kernel_matches_plain_and_flash_attention(gen, case, G, D):
                             zero_dead_rows=True)
     torch.testing.assert_close(out.float(), ref.float(), atol=ATOL,
                                rtol=2.0**-7)
-    # the same steps on the same tiles as flash_attention: equal outputs
-    same = ops.flash_attention(q, k, v, qo, kl, kv_head_major=True)
-    torch.testing.assert_close(out, same, atol=0, rtol=0)
+    # the same body on the same tiles as flash_attention's prefill: equal
+    # outputs (a launch of at most 16 rows takes flash_attention's split
+    # decode instead, held above to the plain version)
+    if T * 2 * G > ops.attention.DECODE_ROWS:
+        same = ops.flash_attention(q, k, v, qo, kl, kv_head_major=True)
+        torch.testing.assert_close(out, same, atol=0, rtol=0)
 
 
 def test_dense_kernels_refuse_what_they_do_not_take(gen):
@@ -303,6 +309,177 @@ def test_dense_kernels_refuse_what_they_do_not_take(gen):
                             sinks=torch.zeros(4))  # on the CPU
     with pytest.raises(ValueError, match="kv_slot"):
         ops.flash_attention(q, k, v, one, one, kv_slot=one)
+
+
+# ------------------- rows 1 and 2 on Hopper: the split decode and the body ---
+
+from lmcache_tpu_torch.ops import attention as attn  # noqa: E402
+
+
+def _split_case(gen, B, T, G, D, S, q_off, kv_len, nan_tail=False, **kw):
+    """flash_attention (and, for a windowless prefill, flash_attention_dma)
+    at T * G rows against mha_reference with zero_dead_rows, on K/V whose
+    rows at and past kv_len are NaN where ``nan_tail``: the plain version
+    sees those rows as zeros, and the kernels must give the same finite
+    numbers. Returns flash_attention's output."""
+    Hkv = 2
+    q, (k, v) = _dense_inputs(gen, B, T, G * Hkv, Hkv, D, S, False)
+    if kw.get("sinks") is True:
+        kw["sinks"] = torch.randn(G * Hkv, generator=gen, device="cuda") * 3
+    qo = torch.tensor(q_off, dtype=torch.int32, device="cuda")
+    kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    tail = (torch.arange(S, device="cuda")[None, :]
+            >= kl[:, None])[:, None, :, None]  # [B, 1, S, 1]
+    kc, vc = k.masked_fill(tail, 0), v.masked_fill(tail, 0)
+    if nan_tail:
+        k, v = k.masked_fill(tail, float("nan")), v.masked_fill(tail,
+                                                                float("nan"))
+    decode = T * G <= attn.DECODE_ROWS
+    phase = ("decode" if T == 1 else "prefill") + (
+        "+window" if kw.get("sliding_window") else "")
+    before = ops.flash_attention.launches[phase]
+    combined = attn.combine_partials.launches["decode" if T == 1
+                                              else "prefill"]
+    out = ops.flash_attention(q, k, v, qo, kl, kv_head_major=True, **kw)
+    ref = ops.mha_reference(q, kc.transpose(1, 2), vc.transpose(1, 2), qo,
+                            kl, zero_dead_rows=True, **kw)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches[phase] == before + 1
+    assert attn.combine_partials.launches[
+        "decode" if T == 1 else "prefill"] == combined + int(decode)
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=ATOL,
+                               rtol=2.0**-7)
+    if not kw and D != 256:
+        streamed = ops.flash_attention_dma(q, k, v, qo, kl)
+        assert torch.isfinite(streamed.float()).all()
+        torch.testing.assert_close(streamed.float(), ref.float(), atol=ATOL,
+                                   rtol=2.0**-7)
+    return out
+
+
+@pytest.mark.parametrize("kv_len", [0, 1, attn.SPLIT_KEYS,
+                                    attn.SPLIT_KEYS + 1, 16384],
+                         ids=["empty", "one_key", "one_split",
+                              "one_past_a_split", "16k"])
+@pytest.mark.parametrize("G", [1, 8])
+def test_split_decode_edges(gen, kv_len, G):
+    """Decode rows at the split edges: no key, one key, exactly one split,
+    one key past a split, 16k keys; the pool is longer than the row."""
+    _split_case(gen, 2, 1, G, 64, 16385, [max(kv_len - 1, 0), 700],
+                [kv_len, 701])
+
+
+@pytest.mark.parametrize("D", [64, 96, 128, 256])
+def test_split_decode_rows_up_to_16(gen, D):
+    """T * G = 16 rows (two tokens of a group of 8) and G = 5 (three
+    tokens) take the split decode over several splits."""
+    _split_case(gen, 2, 2, 8, D, 1300, [1100, 40], [1102, 42])
+    _split_case(gen, 2, 3, 5, D, 1300, [1200, 513], [1203, 516])
+
+
+@pytest.mark.parametrize("opt", [
+    dict(sliding_window=600),  # a window across split edges
+    dict(sliding_window=100),  # inside one split
+    dict(sliding_window=attn.SPLIT_KEYS,
+         window_kind="chunked"),  # chunks = splits
+    dict(sliding_window=300, window_kind="chunked"),  # chunks across edges
+    dict(sinks=True),
+    dict(sinks=True, sliding_window=700, logit_softcap=20.0),
+], ids=["window600", "window100", "chunk_is_split", "chunk300", "sinks",
+        "sinks_window_softcap"])
+def test_split_decode_windows_chunks_and_sinks(gen, opt):
+    _split_case(gen, 3, 1, 4, 128, 2100, [1100, 1024, 1535],
+                [1101, 1025, 1536], **dict(opt))
+
+
+@pytest.mark.parametrize("rows", ["decode", "prefill"])
+@pytest.mark.parametrize("D", [64, 96, 128, 256])
+def test_nan_tails_past_kv_len_contribute_nothing(gen, D, rows):
+    """K and V rows past kv_len hold NaN (TMA loads whole boxes, and
+    0 * NaN is NaN): the outputs stay finite and equal the plain
+    version's on zeroed tails."""
+    if rows == "decode":
+        _split_case(gen, 2, 1, 8, D, 1100, [600, 1000], [601, 1001],
+                    nan_tail=True)
+    else:
+        _split_case(gen, 2, 150, 4, D, 1100, [500, 0], [650, 70],
+                    nan_tail=True)
+        _split_case(gen, 2, 40, 4, D, 1100, [500, 0], [540, 40],
+                    nan_tail=True, sinks=True, sliding_window=64)
+
+
+@pytest.mark.parametrize("T", [1, 300], ids=["decode", "prefill"])
+def test_two_launches_give_the_same_bits(gen, T):
+    q, (k, v) = _dense_inputs(gen, 2, T, 16, 2, 64, 2048, False)
+    qo = torch.tensor([2040 - T, 1000], dtype=torch.int32, device="cuda")
+    kl = qo + T
+    first = ops.flash_attention(q, k, v, qo, kl, kv_head_major=True)
+    again = ops.flash_attention(q, k, v, qo, kl, kv_head_major=True)
+    assert torch.equal(first, again)
+    if T > 1:
+        assert torch.equal(ops.flash_attention_dma(q, k, v, qo, kl),
+                           ops.flash_attention_dma(q, k, v, qo, kl))
+
+
+def test_decode_row_does_not_depend_on_its_batch(gen):
+    """One decode row gives the same bits alone and among three others of
+    other lengths (the serving waves and their greedy-token gates rely on
+    it)."""
+    q, (k, v) = _dense_inputs(gen, 4, 1, 32, 4, 64, 4097, False)
+    qo = torch.tensor([3000, 4096, 17, 1500], dtype=torch.int32,
+                      device="cuda")
+    together = ops.flash_attention(q, k, v, qo, qo + 1, kv_head_major=True)
+    for i in range(4):
+        alone = ops.flash_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                    qo[i:i + 1], qo[i:i + 1] + 1,
+                                    kv_head_major=True)
+        assert torch.equal(alone, together[i:i + 1])
+
+
+@pytest.mark.parametrize("sinks", [False, True])
+def test_combine_kernel_matches_its_plain_version(gen, sinks):
+    """The combine alone: partials of 3 sequences x 2 KV heads x 5 splits
+    x 8 rows, some empty (l = 0, m = -1e30, O = NaN, never read) and one
+    row with every partial empty."""
+    B, Hkv, n, T, G, D = 3, 2, 5, 2, 4, 64
+    R = T * G
+    part_o = torch.randn((B, Hkv, n, R, D), generator=gen, device="cuda")
+    m = torch.randn((B, Hkv, n, R), generator=gen, device="cuda") * 4
+    l = torch.rand((B, Hkv, n, R), generator=gen, device="cuda") * 50 + 1
+    empty = torch.rand((B, Hkv, n, R), generator=gen, device="cuda") < 0.3
+    empty[1, 0, :, 3] = True
+    m = m.masked_fill(empty, -1e30)
+    l = l.masked_fill(empty, 0.0)
+    part_o = part_o.masked_fill(empty[..., None], float("nan"))
+    part_ml = torch.stack([m, l], dim=-1).contiguous()
+    snk = (torch.randn(Hkv * G, generator=gen, device="cuda") * 3
+           if sinks else None)
+    before = attn.combine_partials.launches["prefill"]
+    out = attn.combine_partials(part_o, part_ml, T, G, sinks=snk)
+    ref = attn.combine_partials_reference(part_o, part_ml, T, G, sinks=snk)
+    torch.cuda.synchronize()
+    assert attn.combine_partials.launches["prefill"] == before + 1
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref, atol=ATOL, rtol=2.0**-7)
+    assert (out.reshape(B, T, Hkv, G, D)[1, 0, 0, 3] == 0).all()
+
+
+def test_flash_kernels_refuse_what_tma_cannot_take(gen):
+    """No fallback: a K/V base off 16 bytes or a stride that is no multiple
+    of 8 elements raises, for the body and the split decode."""
+    q, (k, v) = _dense_inputs(gen, 1, 40, 8, 2, 64, 256, False)
+    one = torch.tensor([40], dtype=torch.int32, device="cuda")
+    wide = torch.randn((1, 2, 256, 72), generator=gen,
+                       device="cuda").bfloat16()
+    for qq in (q, q[:, :1]):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            ops.flash_attention(qq, k, wide[..., 4:68], one, one,
+                                kv_head_major=True)
+        odd = torch.randn((1, 2, 256, 68), generator=gen,
+                          device="cuda").bfloat16()[..., :64]
+        with pytest.raises(ValueError, match="multiple of 8"):
+            ops.flash_attention(qq, k, odd, one, one, kv_head_major=True)
 
 
 # ------------------------------------------------- paged attention kernels ---
