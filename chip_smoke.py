@@ -6,10 +6,11 @@
 Phases, in order; any failure exits non-zero:
 
 1. build every CUDA kernel of the package from its sources (one ``nvcc``
-   per source, all at once) and print the build time and nvcc's report,
-   and the number of ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load)
-   instructions in the libraries of kernel rows 1 and 2 (``cuobjdump
-   -sass``), each of which must be above 0;
+   per source, all at once) and print the build time and nvcc's report
+   (registers and spills of every kernel), and the number of ``HGMMA``
+   (wgmma) and ``UTMALDG`` (TMA load) instructions in the libraries of the
+   Hopper bodies, kernel rows 1, 2, 3 and 8 (``cuobjdump -sass``), each of
+   which must be above 0;
 2. hold each kernel against its plain PyTorch version on the card, in
    bf16, at the shapes the paths below give it: ``flash_attention`` (plain
    and with each option: sliding and chunked window, softcap, sinks,
@@ -126,9 +127,10 @@ Phases, in order; any failure exits non-zero:
    dequantization to bf16, then SDPA; none where softcap or sinks leave no
    single call; for the latent kernels SDPA with the latents expanded over
    the heads as K and their first rank columns as V, the SDPA backends that
-   take those shapes named). No PyTorch call computes a range coder: the
-   coders' rows carry the host C++ coder's time at the same shape instead;
-   none computes the split decode's combine either.
+   take those shapes named); at decode also the device time of the dense
+   kernels alone (``torch.profiler``). No PyTorch call computes a range
+   coder: the coders' rows carry the host C++ coder's time at the same
+   shape instead; none computes the split decode's combine either.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without printing a result
@@ -199,6 +201,13 @@ REL_L2_INT8 = 1e-1
 # (``Routing``) is held to this, and its computation run again with the
 # reference's routing forced must then hold REL_L2_REUSE
 REL_L2_MOE = 1e-1
+# two engines' first tokens that differ count as one top-1 (phase 5) only
+# where the fp32 witness puts their logits at most one bf16 step apart at
+# their magnitude: the engines round their logits to bf16 (to nearest,
+# ties to even), which can map two values up to a step apart onto one
+# value, and argmax then takes the lower index; two logits further apart
+# keep their order through the rounding
+TIE_STEPS = 1.0
 
 CTX, SUFFIX = 15872, 512
 PAGE = 64  # page size of both paged paths
@@ -352,9 +361,11 @@ def wall_best(fn, n=3):
 
 def sass_counts(libs):
     """The wgmma (``HGMMA``) and TMA load (``UTMALDG``) instructions in the
-    built libraries of rows 1 and 2; exits where either count is 0."""
+    built libraries of rows 1, 2, 3 and 8, the Hopper bodies; exits where
+    either count is 0."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for name in ("flash_attention", "flash_stream_attention"):
+    for name in ("flash_attention", "flash_stream_attention",
+                 "quantized_flash_attention", "latent_attention"):
         sass = subprocess.run([tool, "-sass", str(libs[name])],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
@@ -1355,16 +1366,23 @@ def _top1_margin(got, want):
             / want.square().mean().sqrt()).item()
 
 
+def _bf16_step(x):
+    """The spacing of bf16 values at the magnitude of ``x`` (fp32): 8
+    significand bits, so 2 ** (floor(log2 |x|) - 7)."""
+    mag = x.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
 def _logits_agree(name, got, want, tol=REL_L2_REUSE, same_top1=True,
                   near_tie=False, flips=None, ties=None):
     """Relative L2 within ``tol`` and (unless ``same_top1`` is off) the
     same top-1, per request. With ``near_tie`` the top-1 may instead be a
     token that ``want`` itself puts within ``TOP1_MARGIN`` of its best.
-    ``ties`` gives, per request, the logits of the plain-attention forward
-    (:func:`plain_first_logits`, rounded to bf16 by the LM head as the
-    engines' are): two first tokens whose bf16 logits it gives the same
-    value count as the same top-1. That is a band about one bf16 ulp wide,
-    not an exact tie in fp32.
+    ``ties`` gives, per request, the fp32 logits of the plain-attention
+    forward with its LM head in fp32 (:func:`plain_first_logits`): two
+    first tokens that differ count as the same top-1 only where their fp32
+    logits there lie within ``TIE_STEPS`` bf16 steps at their magnitude
+    (:func:`_bf16_step` of the larger); each such gap is printed.
     ``flips`` gives, per request, the (MoE layer, token) top-k sets in which
     the two computations differ and those compared (:class:`Routing`): a
     request whose routing flipped is held to ``REL_L2_MOE``, every other to
@@ -1374,12 +1392,16 @@ def _logits_agree(name, got, want, tol=REL_L2_REUSE, same_top1=True,
     rel = [((g - w).norm() / w.norm()).item() for g, w in zip(got, want)]
     same_top = [int(g.argmax()) == int(w.argmax()) for g, w in zip(got, want)]
     tied = [False] * len(same_top)
+    gaps = []
     if ties is not None:
-        # two first tokens that the plain reference ties after the LM
-        # head's bf16 rounding: argmax breaks the tie by the lower index,
-        # and which one wins rests on that rounding
-        tied = [not s and bool(r[g.argmax()] == r.max() == r[w.argmax()])
-                for s, g, w, r in zip(same_top, got, want, ties)]
+        for i, (s, g, w, r) in enumerate(zip(same_top, got, want, ties)):
+            if s:
+                continue
+            a, b = r[int(g.argmax())], r[int(w.argmax())]
+            steps = ((a - b).abs() / _bf16_step(torch.maximum(a.abs(),
+                                                             b.abs()))).item()
+            gaps.append((i, (a - b).item(), steps))
+            tied[i] = steps <= TIE_STEPS
         same_top = [s or t for s, t in zip(same_top, tied)]
     margin = [_top1_margin(g, w) for g, w in zip(got, want)]
     top_ok = (not same_top1 or all(same_top)
@@ -1391,9 +1413,11 @@ def _logits_agree(name, got, want, tol=REL_L2_REUSE, same_top1=True,
     if near_tie:
         note = (f" margin {[f'{m:.3e}' for m in margin]} of the reference's "
                 f"rms (at most {TOP1_MARGIN})")
-    if any(tied):
-        note += (f" (first tokens that differ but tie in the plain "
-                 f"forward's bf16-rounded logits: {tied})")
+    for i, gap, steps in gaps:
+        verdict = "a tie" if steps <= TIE_STEPS else "not a tie"
+        note += (f" (request {i}: first tokens differ; the fp32 witness "
+                 f"puts them {gap:.6e} apart, {steps:.4f} bf16 steps, at "
+                 f"most {TIE_STEPS}: {verdict})")
     if flips is not None:
         note += f" routing flips {flips} (differing, compared)"
         if len(want) > 1:
@@ -1761,18 +1785,37 @@ def paged_engine(cfg, params, engine_cls=PagedServingEngine, routing=None,
 def plain_first_logits(cfg, params, prompts):
     """The first-token logits of each prompt through the dense forward
     with the plain attention (the kernels' plain version, fp32 inside),
-    one prompt a call. The LM head forms them in bf16 and then casts to
-    fp32, as in the engines, so they hold bf16 values: where two kernel
-    paths put different tokens first, this says whether the prompt's best
-    logits tie at that precision."""
+    one prompt a call, with the LM head in fp32: the final norm's fp32
+    output times the fp32 head weights (the engines round the norm's output
+    and the logits to bf16). Where two kernel paths put different tokens
+    first, this says how far apart the two tokens' logits lie in fp32."""
+
+    def lm_logits_fp32(x, params, cfg):
+        x32 = x.float()
+        h = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True)
+                              + cfg.norm_eps)
+        w = params["final_norm"].float()
+        h = h * (1.0 + w) if cfg.norm_one_offset else h * w
+        logits = h @ params["lm_head"].float()
+        if cfg.final_logit_softcap is not None:
+            c = cfg.final_logit_softcap
+            logits = c * torch.tanh(logits / c)
+        return logits
+
     zero = torch.zeros(1, dtype=torch.int32, device="cuda")
     out = []
-    for p in prompts:
-        toks = torch.as_tensor(np.asarray(p), device="cuda").long()[None]
-        logits, _ = llama.forward(params, cfg, toks, zero,
-                                  llama.new_kv_cache(cfg, 1, toks.shape[1]),
-                                  last_logit_only=True, use_kernel=False)
-        out.append(logits[0, -1].float())
+    bf16_head = llama._lm_logits
+    llama._lm_logits = lm_logits_fp32  # forward's LM head, for this witness
+    try:
+        for p in prompts:
+            toks = torch.as_tensor(np.asarray(p), device="cuda").long()[None]
+            logits, _ = llama.forward(
+                params, cfg, toks, zero,
+                llama.new_kv_cache(cfg, 1, toks.shape[1]),
+                last_logit_only=True, use_kernel=False)
+            out.append(logits[0, -1])
+    finally:
+        llama._lm_logits = bf16_head
     return out
 
 
@@ -3470,12 +3513,19 @@ def phase_yardstick():
                 iters=iters)
             row["ms_again"] = cuda_ms(
                 lambda: dense_call(case, q, kv, qo, kl, kw), iters=iters)
+        if case["T"] == 1:
+            # the split decode's two kernels alone, without the gaps in
+            # which the card waits for the host
+            row["kernel_ms"] = kernel_ms(
+                lambda: dense_call(case, q, kv, qo, kl, kw), iters=50)
         lib = ("none" if sdpa_ms is None else
                (f"dequantize {deq_ms:.4f} ms + " if deq_ms is not None
                 else "") + f"SDPA {sdpa_ms:.4f} ms")
         extra = (f", flash_attention {row['flash_attention_ms']:.4f} ms, "
                  f"again {row['ms_again']:.4f} ms"
                  if "ms_again" in row else "")
+        if "kernel_ms" in row:
+            extra += f" (device time of the kernels alone {row['kernel_ms']})"
         log(f"  {case['kernel']} | {case['name']}: kernel {ms:.4f} ms"
             f"{extra}, bound {bound_ms:.4f} ms ({bound_by}), plain "
             f"{plain_ms:.4f} ms, library {lib}")
@@ -3519,12 +3569,17 @@ def phase_yardstick():
                "library_prepare_ms": pre_ms, "library_sdpa_ms": sdpa_ms,
                "sdpa_backends": backends, "bound_ms": bound_ms,
                "bound_by": bound_by}
+        if decode and not case["paged"]:
+            row["kernel_ms"] = kernel_ms(lambda: entry(*args, **kw),
+                                         iters=50)
         prep = ("gather" if case["paged"] else "dequantize")
         lib = (f"{prep} {pre_ms:.4f} ms + " if pre_ms is not None else "") + (
             f"SDPA {sdpa_ms:.4f} ms (backends that take it: "
             f"{', '.join(backends)})")
-        log(f"  {case['kernel']} | {case['name']}: kernel {ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
+        dev = (f" (device time {row['kernel_ms']})" if "kernel_ms" in row
+               else "")
+        log(f"  {case['kernel']} | {case['name']}: kernel {ms:.4f} ms{dev}, "
+            f"bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
             f"library {lib}")
         rows[case["kernel"]].append(row)
         del args
@@ -3653,13 +3708,15 @@ def main():
         "paged phi3 int8": ("quantized_paged_attention",
                             ("prefill", "decode")),
         "int8 dense bench": ("quantized_flash_attention", ("prefill",)),
-        "int8 dense serving": ("quantized_flash_attention",
-                               ("prefill", "decode")),
+        "int8 dense serving": [("quantized_flash_attention",
+                                ("prefill", "decode")),
+                               ("combine_partials", ("decode",))],
         "streamed prefill": ("flash_attention_dma", ("prefill",)),
         "mistral native": ("flash_attention",
                            ("prefill+window", "decode+window")),
-        "mistral int8": ("quantized_flash_attention",
-                         ("prefill+window", "decode+window")),
+        "mistral int8": [("quantized_flash_attention",
+                          ("prefill+window", "decode+window")),
+                         ("combine_partials", ("decode",))],
         "remote store": ("range_encode", ("store",)),
         "remote reuse": [("range_decode", ("retrieve",)),
                          ("range_encode", ("store",)),

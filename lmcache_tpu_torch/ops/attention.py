@@ -400,26 +400,37 @@ def launch(wrapper, fn, a, q, Hkv, sliding_window=None):
     count_launch(wrapper, T, sliding_window)
 
 
-def _split_entries():
-    """(split kernel, combine kernel) entry points of
-    ``csrc/flash_attention.cu``, built at first use."""
-    fns = _entry_points.get("split")
-    if fns is None:
-        lib = _build.load("flash_attention")
+def split_entry(source: str, symbol: str):
+    """The key-split decode's first kernel ``symbol`` of ``csrc/<source>.cu``
+    (built at first use), taking ``(FlashArgs*, B, H, H_kv, D, part_o,
+    part_ml, nsplit, stream)``; raises where the source splits the keys
+    otherwise than ``SPLIT_KEYS``."""
+    fn = _entry_points.get(symbol)
+    if fn is None:
+        lib = _build.load(source)
         if lib.lmc_flash_split_keys() != SPLIT_KEYS:
-            raise RuntimeError("csrc/flash_attention.cu splits the keys "
-                               "otherwise than SPLIT_KEYS")
-        split = lib.lmc_flash_decode_split_bf16
-        split.argtypes = ([ctypes.POINTER(FlashArgs)] + [ctypes.c_int] * 4
-                          + [ctypes.c_void_p] * 2 + [ctypes.c_int,
-                                                     ctypes.c_void_p])
-        split.restype = ctypes.c_int
-        combine = lib.lmc_flash_combine_partials
-        combine.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                            + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
-        combine.restype = ctypes.c_int
-        fns = _entry_points["split"] = (split, combine)
-    return fns
+            raise RuntimeError(f"csrc/{source}.cu splits the keys otherwise "
+                               f"than SPLIT_KEYS")
+        fn = getattr(lib, symbol)
+        fn.argtypes = ([ctypes.POINTER(FlashArgs)] + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int,
+                                                  ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _entry_points[symbol] = fn
+    return fn
+
+
+def _combine_entry():
+    """The combine kernel of ``csrc/flash_attention.cu``, built at first
+    use."""
+    fn = _entry_points.get("combine")
+    if fn is None:
+        fn = _build.load("flash_attention").lmc_flash_combine_partials
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                       + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _entry_points["combine"] = fn
+    return fn
 
 
 def combine_partials(part_o: torch.Tensor, part_ml: torch.Tensor, T: int,
@@ -460,8 +471,7 @@ def _combine(part_o, part_ml, T, G, sinks, out):
     """Launch the combine kernel on arguments already checked, and count
     it under :func:`combine_partials`."""
     B, Hkv, n, _, D = part_o.shape
-    _, combine = _split_entries()
-    check_error(combine_partials, combine(
+    check_error(combine_partials, _combine_entry()(
         part_o.data_ptr(), part_ml.data_ptr(),
         sinks.data_ptr() if sinks is not None else None, out.data_ptr(), B,
         T, G, Hkv, D, n, out.stride(0), out.stride(1), out.stride(2),
@@ -470,6 +480,29 @@ def _combine(part_o, part_ml, T, G, sinks, out):
 
 
 combine_partials.launches = Counter()
+
+
+def split_decode(wrapper, split, a, q, Hkv, S, sinks, out,
+                 sliding_window=None):
+    """The key-split decode of a launch of at most ``DECODE_ROWS`` rows
+    (arguments checked and ``a`` filled): ``split`` (a :func:`split_entry`)
+    writes the partials into one fp32 scratch allocation, then
+    :func:`combine_partials`' kernel writes ``out``; counted once under
+    ``wrapper`` (and once under ``combine_partials``)."""
+    B, T, H, D = q.shape
+    G = H // Hkv
+    n = n_splits(S)
+    # one scratch allocation: the partials' O, then their (m, l)
+    rows = B * Hkv * n * T * G
+    scratch = torch.empty(rows * (D + 2), dtype=torch.float32,
+                          device=q.device)
+    part_o = scratch[:rows * D].view(B, Hkv, n, T * G, D)
+    part_ml = scratch[rows * D:].view(B, Hkv, n, T * G, 2)
+    check_error(wrapper, split(
+        ctypes.byref(a), B, H, Hkv, D, part_o.data_ptr(), part_ml.data_ptr(),
+        n, torch.cuda.current_stream(q.device).cuda_stream))
+    _combine(part_o, part_ml, T, G, sinks, out)
+    count_launch(wrapper, T, sliding_window)
 
 
 def slot_row(t, kv_slot):
@@ -531,19 +564,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                load_entry("flash_attention", "lmc_flash_attention_bf16"), a,
                q, Hkv, sliding_window)
         return out
-    split, _ = _split_entries()
-    n = n_splits(S)
-    # one scratch allocation: the partials' O, then their (m, l)
-    rows = B * Hkv * n * T * G
-    scratch = torch.empty(rows * (D + 2), dtype=torch.float32,
-                          device=q.device)
-    part_o = scratch[:rows * D].view(B, Hkv, n, T * G, D)
-    part_ml = scratch[rows * D:].view(B, Hkv, n, T * G, 2)
-    check_error(flash_attention, split(
-        ctypes.byref(a), B, H, Hkv, D, part_o.data_ptr(), part_ml.data_ptr(),
-        n, torch.cuda.current_stream(q.device).cuda_stream))
-    _combine(part_o, part_ml, T, G, sinks, out)
-    count_launch(flash_attention, T, sliding_window)
+    split_decode(flash_attention,
+                 split_entry("flash_attention", "lmc_flash_decode_split_bf16"),
+                 a, q, Hkv, S, sinks, out, sliding_window)
     return out
 
 

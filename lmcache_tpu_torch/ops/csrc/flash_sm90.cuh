@@ -1,6 +1,7 @@
 // The Hopper prefill body of the dense attention kernels
-// (flash_attention.cu, flash_stream_attention.cu): TMA, wgmma, and the
-// scores, probabilities and output accumulator kept in registers.
+// (flash_attention.cu, flash_stream_attention.cu over bf16 K/V,
+// quantized_flash_attention.cu over int8 K/V): TMA, wgmma, and the scores,
+// probabilities and output accumulator kept in registers.
 //
 // What the TPU kernels compute (lmcache_tpu/ops/attention.py::_flash_kernel
 // and ::_flash_dma_kernel): for each (sequence, KV head, block of query
@@ -8,6 +9,11 @@
 // scaled (softcapped, masked by the causal limit, kv_len and the window),
 // P = exp(S - m) rounded to bf16, O += P V, and at the end O / l with the
 // attention sinks joined to l. The contract is that of flash_args.cuh.
+// Over int8 K/V (lmcache_tpu/ops/quantized_attention.py::_qflash_kernel)
+// each key carries one fp32 scale a side: the K scale multiplies the score
+// column (times the score scale) before softcap and masks, the row sum is
+// taken from P, and the V scale then multiplies P's column before P is
+// rounded to bf16.
 //
 // Design, per block of ROWS = 128 query rows, (token, head-in-group) pairs
 // of one (sequence, KV head) flattened token-major (so every group size
@@ -38,6 +44,21 @@
 //   loaded. Masked scores are selects, so K's tail is harmless, but
 //   0 * NaN is NaN, so the consumers zero V's tail rows of the last tile in
 //   shared memory before its PV product.
+// - int8 K/V (KV = i8): wgmma has no bf16 x int8 form and Q stays bf16, so
+//   the producer's thread brings the int8 tiles by TMA (unswizzled boxes of
+//   D bytes by BN keys) into a staging ring of STAGES8 stages, and the
+//   producer warpgroup's three other warps, idle in the bf16 body, convert
+//   each tile exactly into the bf16 panels, in the swizzled layout the
+//   consumers' descriptors read, writing zeros at and past kend. They load
+//   the tile's BN K and V scales too (0 at and past kend) with plain loads:
+//   a row of scales need not meet TMA's 16-byte alignment. A staging stage
+//   is free once converted; a bf16 stage once both consumers are done.
+//   Shared memory holds Q, 2 bf16 stages with their scales and a staging
+//   ring of 4 stages, deep enough that the loads' latency hides behind
+//   the conversion (with 2, on an H100, the converting warps alone, no
+//   product run, took longer than row 1's whole prefill): tiles of 128 keys at D 64
+//   and 96 (167,040 and 224,352 bytes), 64 at D 128 (165,984) and 32 at
+//   D 256 (198,240).
 // - No float atomics and a fixed order of every sum: two launches on the
 //   same inputs give the same bits.
 // Tiles: BN = 128 keys at D 64, 96 and 128, 64 at D 256 (O alone takes 128
@@ -47,16 +68,17 @@
 //
 // Bound on an H100: a prefill of T tokens over S keys does
 // 4 * H * D * (live key pairs) operations on about 2 * (T*H*D + 2*S*H_kv*D)
-// bytes, far above the card's ~295 FLOP/byte ridge: bound by the
-// tensor-core operations, which wgmma is the one way to reach.
+// bytes (int8: half the K/V bytes, plus 8 a key of scales), far above the
+// card's ~295 FLOP/byte ridge: bound by the tensor-core operations, which
+// wgmma is the one way to reach; the int8 conversion runs beside them on
+// warps that would otherwise idle.
 
 #pragma once
-
-#include <cuda.h>  // CUtensorMap; the encoder is looked up at run time
 
 #include <utility>
 
 #include "flash_args.cuh"
+#include "sm90_ptx.cuh"
 
 namespace lmc {
 namespace sm90 {
@@ -65,12 +87,19 @@ constexpr int WG = 128;         // threads of a warpgroup
 constexpr int CONSUMERS = 2;    // consumer warpgroups of 64 rows each
 constexpr int ROWS = 64 * CONSUMERS;
 constexpr int THREADS = WG * (CONSUMERS + 1);
-constexpr int PRODUCER_REGS = 40;
-constexpr int CONSUMER_REGS = 232;
+// int8 K/V: the producer warpgroup's threads past its TMA warp convert,
+// with a few more registers than a bf16 producer needs
+constexpr int CONVERTERS = WG - 32;
+constexpr int CONVERT_VECTORS = 4;  // 16-byte vectors in flight a thread
 
-template <int D>
+template <int D, typename KV = bf16>
 struct Geometry {
-  static constexpr int BN = D == 256 ? 64 : 128;    // keys a tile
+  static constexpr bool QUANT = sizeof(KV) == 1;
+  // keys a tile: bf16 128 (64 at D 256, where O takes 128 registers a
+  // thread); int8 128 at D 64 and 96, else tiles of 16 KB, so that 4
+  // staging stages fit beside 2 bf16 stages at every D
+  static constexpr int BN = QUANT ? (D <= 96 ? 128 : 8192 / D)
+                                  : (D == 256 ? 64 : 128);
   static constexpr int PW = D % 64 == 0 ? 64 : 32;  // columns a panel
   static constexpr int SWB = 2 * PW;                // bytes a panel row
   static constexpr int PANELS = D / PW;
@@ -82,8 +111,25 @@ struct Geometry {
   static constexpr int TILE = BN * D * 2;           // one K or V tile
   static constexpr int STAGE = 2 * TILE;
   static constexpr int ALIGN = 1024;  // the swizzle pattern's period
+  // int8 only: a staging stage (K and V tiles as TMA lands them) and the K
+  // and V scales of a bf16 stage
+  static constexpr int TILE8 = QUANT ? BN * D : 0;
+  static constexpr int STAGE8 = 2 * TILE8;
+  static constexpr int SCALES = QUANT ? 2 * BN * 4 : 0;
+  static constexpr int fixed(int stages) {
+    return ALIGN + CONSUMERS * Q_WG + stages * (STAGE + SCALES + 16);
+  }
+  static constexpr int STAGES8 =
+      !QUANT ? 0
+             : (SMEM_LIMIT - fixed(2)) / (STAGE8 + 16) < 4
+                   ? (SMEM_LIMIT - fixed(2)) / (STAGE8 + 16)
+                   : 4;
+  // registers a thread (setmaxnreg): 128 * producer + 256 * consumer
+  // <= 65,536
+  static constexpr int PRODUCER_REGS = QUANT ? 56 : 40;
+  static constexpr int CONSUMER_REGS = QUANT ? 224 : 232;
   static constexpr int bytes(int stages) {
-    return ALIGN + CONSUMERS * Q_WG + stages * (STAGE + 16);
+    return fixed(stages) + STAGES8 * (STAGE8 + 16);
   }
   static constexpr int max_stages() {
     return (SMEM_LIMIT - ALIGN - CONSUMERS * Q_WG) / (STAGE + 16);
@@ -98,202 +144,7 @@ struct TmaOrder {
   int v[3];
 };
 
-// ------------------------------------------------------------- PTX ---
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// generic-proxy writes to shared memory, made visible to wgmma and TMA
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from moving accumulator reads and writes across the
-// asynchronous products
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// A wgmma shared-memory matrix descriptor: start address, leading and
-// stride byte offsets (16-byte units) and the swizzle layout (1: 128 B,
-// 2: 64 B). Every panel starts on the 1024-byte period of the pattern, so
-// the base offset stays 0; a step along K inside a swizzle atom moves the
-// start address only.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, int layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
-         (static_cast<uint64_t>(layout) << 62);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// D[64 x 128] (+)= A[64 x 16] B[16 x 128]: A and B K-major in shared
-// memory; accumulate = 0 overwrites D
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-    : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
-      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
-      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
-      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-    : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D[64 x 64] (+)= A[64 x 16] B[16 x 64]: A and B K-major in shared
-// memory; accumulate = 0 overwrites D
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}"
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-    : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-      "+f"(d[31])
-    : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D[64 x 64] += A[64 x 16] B[16 x 64]: A in registers, B MN-major
-// (transposed) in shared memory
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}"
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-    : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-      "+f"(d[31])
-    : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(1));
-}
-
-// D[64 x 32] += A[64 x 16] B[16 x 32]: A in registers, B MN-major
-// (transposed) in shared memory
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}"
-      ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-    : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-    : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(1));
-}
-
 // ------------------------------------------------------------ body ---
-
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // The online-softmax update of a thread's two rows over one tile of scores
 // in registers, in the log2 domain (scores times log2 e, so that each
@@ -301,22 +152,45 @@ __device__ __forceinline__ float ex2(float x) {
 // key k0 + (i >> 2) * 8 + 2 * (lane & 3) + (i & 1); a row's max and sum are
 // reduced over its quad of threads. MASK: the causal limit, kv_len and the
 // window are selects on the scores, and a key masked so far gives 0.
+// QUANT: ksc holds the tile's K scales (0 past kend), each multiplying its
+// score column with the score scale before softcap and mask.
 // Leaves P (fp32) in sc, the rescale factors of O in alpha.
-template <int BN, bool MASK, bool SOFTCAP>
+template <int BN, bool MASK, bool SOFTCAP, bool QUANT = false>
 __device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2],
                                              float (&m)[2], float (&l)[2],
                                              float (&alpha)[2],
                                              const FlashArgs& a, int k0,
                                              int lane, const int (&qlim)[2],
-                                             const int (&wlo)[2]) {
+                                             const int (&wlo)[2],
+                                             const float* ksc = nullptr) {
   const float scale2 = a.scale * LOG2E;
   const float cap2 = a.softcap * LOG2E;
+  if constexpr (QUANT) {
+    // a thread's keys come in pairs: (i >> 2) * 8 + 2 * (lane & 3) + (i & 1);
+    // the key's scale times the score scale (and log2 e without softcap)
+    const float kscale = SOFTCAP ? a.scale : scale2;
+#pragma unroll
+    for (int c = 0; c < BN / 8; ++c) {
+      const float2 ks =
+          *reinterpret_cast<const float2*>(ksc + c * 8 + 2 * (lane & 3));
+      const float k0s = ks.x * kscale, k1s = ks.y * kscale;
+      sc[4 * c] *= k0s;
+      sc[4 * c + 1] *= k1s;
+      sc[4 * c + 2] *= k0s;
+      sc[4 * c + 3] *= k1s;
+    }
+  }
   float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) {
     const int j = (i >> 1) & 1;
-    float x = SOFTCAP ? cap2 * tanhf(sc[i] * a.scale / a.softcap)
-                      : sc[i] * scale2;
+    float x;
+    if constexpr (QUANT) {
+      x = SOFTCAP ? cap2 * tanhf(sc[i] / a.softcap) : sc[i];
+    } else {
+      x = SOFTCAP ? cap2 * tanhf(sc[i] * a.scale / a.softcap)
+                  : sc[i] * scale2;
+    }
     if (MASK) {
       const int kpos = k0 + (i >> 2) * 8 + 2 * (lane & 3) + (i & 1);
       x = kpos <= qlim[j] && kpos > wlo[j] ? x : NEG_INF;
@@ -361,9 +235,9 @@ struct Block {
   int f0, rows, qoff, klen, kbeg, kend, tiles, nlive, bkv;
 };
 
-template <int D>
+template <int D, typename KV>
 __device__ __forceinline__ Block block_of(const FlashArgs& a) {
-  constexpr int BN = Geometry<D>::BN;
+  constexpr int BN = Geometry<D, KV>::BN;
   Block r;
   const int b = blockIdx.z;
   // the last rows have the most keys: schedule them first
@@ -414,39 +288,164 @@ __device__ __forceinline__ void tma_load_panel(const CUtensorMap* map,
   tma_load_4d(dst, map, bar, col, at(1), at(2), at(3));
 }
 
-template <int D, int STAGES, bool SOFTCAP>
+// int8 K/V: the converting warps of the producer warpgroup (ct < 96) turn
+// each staged int8 tile into the bf16 panels and scales of its ring stage,
+// zero at and past kend; the stage is signalled full once all three warps
+// are done, and the staging stage free. The next tile's scales are loaded
+// into registers while this tile is converted, so that their device-memory
+// latency does not hold up every tile.
+template <int D, int STAGES>
+__device__ __forceinline__ void convert_tiles(
+    const FlashArgs& a, const Block& blk, unsigned char* gbase, int kv_off,
+    int k8_off, int sc_off, uint32_t bar_full, uint32_t bar_empty,
+    uint32_t bar_full8, uint32_t bar_empty8, int ct) {
+  using Gm = Geometry<D, i8>;
+  constexpr int BN = Gm::BN, PW = Gm::PW, S8 = Gm::STAGES8;
+  constexpr int CHUNKS = BN * (D / 16);  // 16-byte vectors of a tile
+  constexpr int NSC = (BN + CONVERTERS - 1) / CONVERTERS;  // scales a thread
+  const float* ksb = a.k_scale + static_cast<long long>(blk.bkv) * a.ksb;
+  const float* vsb = a.v_scale + static_cast<long long>(blk.bkv) * a.vsb;
+  float next_k[NSC], next_v[NSC];  // tile g's scales, 0 at and past kend
+  auto fetch = [&](int g) {
+#pragma unroll
+    for (int j = 0; j < NSC; ++j) {
+      const int c = ct + j * CONVERTERS;
+      const long long k = blk.kbeg + g * BN + c;
+      const bool in = c < BN && k < blk.kend;
+      next_k[j] = in ? ksb[k * a.kss] : 0.f;
+      next_v[j] = in ? vsb[k * a.vss] : 0.f;
+    }
+  };
+  if (blk.tiles > 0) fetch(0);
+  for (int g = 0; g < blk.tiles; ++g) {
+    const int s = g % STAGES, s8 = g % S8;
+    const int k0 = blk.kbeg + g * BN;
+    const int live = blk.kend - k0;  // keys of the tile below kend
+    float cur_k[NSC], cur_v[NSC];
+#pragma unroll
+    for (int j = 0; j < NSC; ++j) {
+      cur_k[j] = next_k[j];
+      cur_v[j] = next_v[j];
+    }
+    if (g + 1 < blk.tiles) fetch(g + 1);
+    if (g >= STAGES) mbar_wait(bar_empty + 8 * s, ((g / STAGES) - 1) & 1);
+    mbar_wait(bar_full8 + 8 * s8, (g / S8) & 1);
+    const unsigned char* src = gbase + k8_off + s8 * Gm::STAGE8;
+    // CONVERT_VECTORS loads in flight, then their conversions and stores
+    // (rows at and past kend read as symbol 0, which converts to 0)
+    for (int i0 = ct; i0 < 2 * CHUNKS; i0 += CONVERT_VECTORS * CONVERTERS) {
+      uint4 raw[CONVERT_VECTORS];
+#pragma unroll
+      for (int u = 0; u < CONVERT_VECTORS; ++u) {
+        const int i = i0 + u * CONVERTERS;
+        const int row = (i % CHUNKS) / (D / 16);
+        raw[u] = make_uint4(0, 0, 0, 0);
+        if (i < 2 * CHUNKS && row < live) {
+          raw[u] = *reinterpret_cast<const uint4*>(
+              src + (i / CHUNKS) * Gm::TILE8 + row * D + (i % (D / 16)) * 16);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < CONVERT_VECTORS; ++u) {
+        const int i = i0 + u * CONVERTERS;
+        if (i >= 2 * CHUNKS) break;
+        const int row = (i % CHUNKS) / (D / 16);
+        const int c = (i % (D / 16)) * 16;
+        uint4 lo, hi;
+        i8x16_to_bf16(raw[u], lo, hi);
+        unsigned char* dst = gbase + kv_off + s * Gm::STAGE +
+                             (i / CHUNKS) * Gm::TILE + (c / PW) * Gm::T_PANEL;
+        const int off = row * Gm::SWB + (c % PW) * 2;
+        *reinterpret_cast<uint4*>(dst + swizzle<D>(off)) = lo;
+        *reinterpret_cast<uint4*>(dst + swizzle<D>(off + 16)) = hi;
+      }
+    }
+    float* sc = reinterpret_cast<float*>(gbase + sc_off + s * Gm::SCALES);
+#pragma unroll
+    for (int j = 0; j < NSC; ++j) {
+      const int c = ct + j * CONVERTERS;
+      if (c < BN) {
+        sc[c] = cur_k[j];
+        sc[BN + c] = cur_v[j];
+      }
+    }
+    fence_async_smem();  // the panels are read by wgmma (async proxy)
+    __syncwarp();
+    if (ct % 32 == 0) {
+      mbar_arrive(bar_empty8 + 8 * s8);
+      mbar_arrive(bar_full + 8 * s);
+    }
+  }
+}
+
+template <int D, int STAGES, bool SOFTCAP, typename KV = bf16>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_sm90_fwd(const FlashArgs a, __grid_constant__ const CUtensorMap kmap,
                    __grid_constant__ const CUtensorMap vmap,
                    const TmaOrder ord) {
-  using Gm = Geometry<D>;
+  using Gm = Geometry<D, KV>;
+  constexpr bool QUANT = Gm::QUANT;
   constexpr int BN = Gm::BN, PW = Gm::PW, PANELS = Gm::PANELS;
+  constexpr int S8 = Gm::STAGES8;
   extern __shared__ unsigned char smem_raw[];
   // 1024-aligned base: generic pointer and shared address
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + Gm::ALIGN - 1) & ~uint32_t(Gm::ALIGN - 1);
   unsigned char* gbase = smem_raw + (base - raw);
+  // Q, the bf16 ring, the int8 staging ring, the scales, the barriers
   constexpr int KV_OFF = CONSUMERS * Gm::Q_WG;
-  constexpr int BAR_OFF = KV_OFF + STAGES * Gm::STAGE;
+  constexpr int K8_OFF = KV_OFF + STAGES * Gm::STAGE;
+  constexpr int SC_OFF = K8_OFF + S8 * Gm::STAGE8;
+  constexpr int BAR_OFF = SC_OFF + STAGES * Gm::SCALES;
   auto k_stage = [&](int s) { return KV_OFF + s * Gm::STAGE; };
   auto v_stage = [&](int s) { return KV_OFF + s * Gm::STAGE + Gm::TILE; };
   auto full = [&](int s) { return base + BAR_OFF + 8 * s; };
   auto empty = [&](int s) { return base + BAR_OFF + 8 * (STAGES + s); };
+  auto full8 = [&](int s) { return base + BAR_OFF + 8 * (2 * STAGES + s); };
+  auto empty8 = [&](int s) {
+    return base + BAR_OFF + 8 * (2 * STAGES + S8 + s);
+  };
 
-  const Block blk = block_of<D>(a);
+  const Block blk = block_of<D, KV>(a);
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full(s), 1);
+      // full: the TMA's transaction (bf16) or the three converting warps
+      mbar_init(full(s), QUANT ? CONVERTERS / 32 : 1);
       mbar_init(empty(s), 4 * blk.nlive);  // lane 0 of each consumer warp
+    }
+    for (int s = 0; s < S8; ++s) {
+      mbar_init(full8(s), 1);
+      mbar_init(empty8(s), CONVERTERS / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (threadIdx.x >= CONSUMERS * WG) {
-    // ---- producer: one thread keeps the ring full
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
-    if (threadIdx.x == CONSUMERS * WG) {
+    // ---- producer: one thread keeps the ring full (int8: the staging
+    // ring, which the other three warps convert into the ring)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        Gm::PRODUCER_REGS));
+    const int pt = threadIdx.x - CONSUMERS * WG;
+    if constexpr (QUANT) {
+      if (pt == 0) {
+        for (int g = 0; g < blk.tiles; ++g) {
+          const int s8 = g % S8;
+          if (g >= S8) mbar_wait(empty8(s8), ((g / S8) - 1) & 1);
+          mbar_expect_tx(full8(s8), Gm::STAGE8);
+          const int k0 = blk.kbeg + g * BN;
+          tma_load_panel(&kmap, ord.k, base + K8_OFF + s8 * Gm::STAGE8,
+                         full8(s8), 0, k0, blockIdx.y, blk.bkv);
+          tma_load_panel(&vmap, ord.v,
+                         base + K8_OFF + s8 * Gm::STAGE8 + Gm::TILE8,
+                         full8(s8), 0, k0, blockIdx.y, blk.bkv);
+        }
+      } else if (pt >= 32) {
+        convert_tiles<D, STAGES>(a, blk, gbase, KV_OFF, K8_OFF, SC_OFF,
+                                 full(0), empty(0), full8(0), empty8(0),
+                                 pt - 32);
+      }
+    } else if (pt == 0) {
       for (int g = 0; g < blk.tiles; ++g) {
         const int s = g % STAGES;
         if (g >= STAGES) mbar_wait(empty(s), ((g / STAGES) - 1) & 1);
@@ -465,7 +464,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 
   // ---- consumers: 64 rows each
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      Gm::CONSUMER_REGS));
   const int w = threadIdx.x / WG;
   if (w >= blk.nlive) return;  // no live row
   const int tid = threadIdx.x % WG;
@@ -508,7 +508,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int s = g % STAGES;
     const int k0 = blk.kbeg + g * BN;
     mbar_wait(full(s), (g / STAGES) & 1);
-    if (k0 + BN > blk.kend) {
+    if (!QUANT && k0 + BN > blk.kend) {
       // the last tile: V rows at and past kend contribute exactly nothing
       constexpr int CHUNKS = PANELS * Gm::SWB / 16;
       const int first = blk.kend - k0;
@@ -539,8 +539,10 @@ __global__ void __launch_bounds__(THREADS, 1)
                       8 * Gm::SWB, Gm::LAYOUT);
         if constexpr (BN == 128) {
           wgmma_ss_n128(sc, da, db, kk > 0);
-        } else {
+        } else if constexpr (BN == 64) {
           wgmma_ss_n64(sc, da, db, kk > 0);
+        } else {
+          wgmma_ss_n32(sc, da, db, kk > 0);
         }
       }
       wgmma_commit();
@@ -550,12 +552,27 @@ __global__ void __launch_bounds__(THREADS, 1)
       // online softmax on the registers; the mask only where some live row
       // of this consumer has a dead key in the tile
       float alpha[2];
+      const float* ksc =
+          reinterpret_cast<const float*>(gbase + SC_OFF + s * Gm::SCALES);
       if (k0 + BN - 1 > wq_min || k0 <= wl_max) {
-        softmax_tile<BN, true, SOFTCAP>(sc, m, l, alpha, a, k0, lane, qlim,
-                                        wlo);
+        softmax_tile<BN, true, SOFTCAP, QUANT>(sc, m, l, alpha, a, k0, lane,
+                                               qlim, wlo, ksc);
       } else {
-        softmax_tile<BN, false, SOFTCAP>(sc, m, l, alpha, a, k0, lane, qlim,
-                                         wlo);
+        softmax_tile<BN, false, SOFTCAP, QUANT>(sc, m, l, alpha, a, k0, lane,
+                                                qlim, wlo, ksc);
+      }
+      if constexpr (QUANT) {
+        // the V scale multiplies P's columns after the row sum
+        const float* vsc = ksc + BN;
+#pragma unroll
+        for (int c = 0; c < BN / 8; ++c) {
+          const float2 vs =
+              *reinterpret_cast<const float2*>(vsc + c * 8 + 2 * (lane & 3));
+          sc[4 * c] *= vs.x;
+          sc[4 * c + 1] *= vs.y;
+          sc[4 * c + 2] *= vs.x;
+          sc[4 * c + 3] *= vs.y;
+        }
       }
 #pragma unroll
       for (int p = 0; p < PANELS; ++p) {
@@ -631,44 +648,17 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // ------------------------------------------------------------ host ---
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded (no
-// link against libcuda)
-inline EncodeTiled tensor_map_encoder() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) {
-      return nullptr;
-    }
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
 // K or V as a 4-d tensor map: D innermost, then the key, head and pool-row
 // dimensions in the order of their strides (elements), boxes of PW columns
-// by BN keys in the body's swizzle. pos[i] receives the coordinate that
+// by BN keys in the body's swizzle (int8: whole rows of D bytes by BN keys,
+// unswizzled, for the staging ring). pos[i] receives the coordinate that
 // carries index i (0 key, 1 head, 2 row). False where TMA cannot take the
 // tensor (the wrapper checks alignment and strides first).
-template <int D>
+template <int D, typename KV>
 bool encode_kv_map(CUtensorMap* map, int (&pos)[3], const void* base,
                    long long s_key, long long s_head, long long s_row, int S,
                    int Hkv, unsigned long long rows) {
-  using Gm = Geometry<D>;
+  using Gm = Geometry<D, KV>;
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return false;
   struct Dim {
@@ -685,19 +675,22 @@ bool encode_kv_map(CUtensorMap* map, int (&pos)[3], const void* base,
   }
   cuuint64_t dims[4] = {D, d[0].n, d[1].n, d[2].n};
   cuuint64_t strides[3];
-  cuuint32_t box[4] = {Gm::PW, 1, 1, 1};
+  cuuint32_t box[4] = {Gm::QUANT ? D : Gm::PW, 1, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   for (int i = 0; i < 3; ++i) {
     if (d[i].stride < 0) return false;
-    strides[i] = static_cast<cuuint64_t>(d[i].stride) * 2;
+    strides[i] = static_cast<cuuint64_t>(d[i].stride) * sizeof(KV);
     pos[d[i].index] = i + 1;
     if (d[i].index == 0) box[i + 1] = Gm::BN;
   }
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(base), dims, strides, box, unit,
+  return encode(map,
+                Gm::QUANT ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                4, const_cast<void*>(base), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE,
-                Gm::PW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                             : CU_TENSOR_MAP_SWIZZLE_64B,
+                Gm::QUANT       ? CU_TENSOR_MAP_SWIZZLE_NONE
+                : Gm::PW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                               : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -706,26 +699,26 @@ bool encode_kv_map(CUtensorMap* map, int (&pos)[3], const void* base,
 // pool's row count is not in the argument block: without kv_slot it is B;
 // with it the row is the caller's word, read on the device, and the map's
 // row dimension is left open.
-template <int D, int STAGES, bool SOFTCAP>
+template <int D, int STAGES, bool SOFTCAP, typename KV = bf16>
 cudaError_t launch(const FlashArgs& a, int B, int Hkv, cudaStream_t stream) {
-  constexpr int bytes = Geometry<D>::bytes(STAGES);
+  constexpr int bytes = Geometry<D, KV>::bytes(STAGES);
   static_assert(bytes <= SMEM_LIMIT, "the ring does not fit shared memory");
   static std::atomic<int> raised[64];
-  cudaError_t err =
-      raise_smem_limit(flash_sm90_fwd<D, STAGES, SOFTCAP>, bytes, raised);
+  cudaError_t err = raise_smem_limit(flash_sm90_fwd<D, STAGES, SOFTCAP, KV>,
+                                     bytes, raised);
   if (err != cudaSuccess) return err;
   const unsigned long long rows =
       a.kv_slot != nullptr ? (1ull << 31) : static_cast<unsigned long long>(B);
   CUtensorMap kmap, vmap;
   TmaOrder ord;
-  if (!encode_kv_map<D>(&kmap, ord.k, a.k, a.ks, a.kh, a.kb, a.S, Hkv,
-                        rows) ||
-      !encode_kv_map<D>(&vmap, ord.v, a.v, a.vs, a.vh, a.vb, a.S, Hkv,
-                        rows)) {
+  if (!encode_kv_map<D, KV>(&kmap, ord.k, a.k, a.ks, a.kh, a.kb, a.S, Hkv,
+                            rows) ||
+      !encode_kv_map<D, KV>(&vmap, ord.v, a.v, a.vs, a.vh, a.vb, a.S, Hkv,
+                            rows)) {
     return cudaErrorInvalidValue;
   }
   const dim3 grid((a.T * a.G + ROWS - 1) / ROWS, Hkv, B);
-  flash_sm90_fwd<D, STAGES, SOFTCAP>
+  flash_sm90_fwd<D, STAGES, SOFTCAP, KV>
       <<<grid, THREADS, bytes, stream>>>(a, kmap, vmap, ord);
   return cudaGetLastError();
 }

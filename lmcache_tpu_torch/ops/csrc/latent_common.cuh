@@ -1,5 +1,7 @@
-// Shared body of the MLA latent-attention kernels (latent_attention.cu,
-// paged_latent_attention.cu): absorbed multi-head latent attention, where
+// The body of the paged MLA latent-attention kernels
+// (paged_latent_attention.cu, rows 9 and 10) and the argument block of all
+// three (the dense kernel of latent_attention.cu, row 8, runs the Hopper
+// body of latent_sm90.cuh): absorbed multi-head latent attention, where
 // one cached latent row [c ; k_pe] of C columns is the key of every query
 // head and its first r columns (c) are the value.
 //
@@ -30,7 +32,7 @@
 // (warps take O's 16x16 tiles in turn). The key tile is read from device
 // memory once per block and serves both products.
 //
-// STAGES == 1: the tile is loaded, then computed (rows 8 and 9). STAGES ==
+// STAGES == 1: the tile is loaded, then computed (row 9). STAGES ==
 // 2: the next tile's cp.async loads are issued before this tile is computed
 // (row 10); int8 rows pass through registers to be converted either way.
 
@@ -75,7 +77,7 @@ __host__ __device__ inline int latent_smem_bytes(int BM, int C, int r, int tn,
          + stages * tn * 4;           // per-key scales (int8)
 }
 
-template <int BM, typename KV, int STAGES, bool PAGED>
+template <int BM, typename KV, int STAGES>
 __device__ __forceinline__ void latent_body(const LatentArgs& a) {
   using namespace nvcuda;
   constexpr bool QUANT = sizeof(KV) == 1;
@@ -108,18 +110,15 @@ __device__ __forceinline__ void latent_body(const LatentArgs& a) {
   const int num_g = (kend + TN - 1) / TN;
 
   const KV* rows = static_cast<const KV*>(a.kv);
-  const int* table = PAGED ? a.page_table + (long long)b * a.NP : nullptr;
+  const int* table = a.page_table + (long long)b * a.NP;
 
   // the element offset of key k's row, or -1 where it is not read: past the
-  // live keys, or (paged) a page id outside the pool
+  // live keys, or a page id outside the pool
   auto row_offset = [&](int k, long long kb, long long ks) -> long long {
     if (k >= kend) return -1;
-    if (PAGED) {
-      const int pid = table[k / a.page];
-      if (pid < 0 || pid >= a.P) return -1;
-      return pid * kb + (k % a.page) * ks;
-    }
-    return b * kb + k * ks;
+    const int pid = table[k / a.page];
+    if (pid < 0 || pid >= a.P) return -1;
+    return pid * kb + (k % a.page) * ks;
   };
 
   // tile g into buffer buf: zero where a row is not read
@@ -281,28 +280,28 @@ __device__ __forceinline__ void latent_body(const LatentArgs& a) {
   }
 }
 
-template <int BM, typename KV, int STAGES, bool PAGED>
+template <int BM, typename KV, int STAGES>
 __global__ void __launch_bounds__(LAT_THREADS)
 latent_fwd(const LatentArgs a) {
-  latent_body<BM, KV, STAGES, PAGED>(a);
+  latent_body<BM, KV, STAGES>(a);
 }
 
-template <int BM, typename KV, int STAGES, bool PAGED>
+template <int BM, typename KV, int STAGES>
 cudaError_t latent_launch(const LatentArgs& a, int B, cudaStream_t stream) {
   const int bytes = latent_smem_bytes(BM, a.C, a.r, a.tn, STAGES);
   if (bytes > SMEM_LIMIT) return cudaErrorInvalidValue;
   static std::atomic<int> raised[64];
   cudaError_t err =
-      raise_smem_limit(latent_fwd<BM, KV, STAGES, PAGED>, bytes, raised);
+      raise_smem_limit(latent_fwd<BM, KV, STAGES>, bytes, raised);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.H * a.T + BM - 1) / BM, B);
-  latent_fwd<BM, KV, STAGES, PAGED><<<grid, LAT_THREADS, bytes, stream>>>(a);
+  latent_fwd<BM, KV, STAGES><<<grid, LAT_THREADS, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
 // What every C entry point does: check the sizes, pick the row block, launch
 // on `stream`. Returns a cudaError_t.
-template <typename KV, int STAGES, bool PAGED>
+template <typename KV, int STAGES>
 int latent_entry(const LatentArgs* a, int B, int BM, void* stream) {
   if (a == nullptr || B < 0 || a->T < 0 || a->H <= 0 || a->C <= 0 ||
       a->C % 16 != 0 || a->r <= 0 || a->r % 16 != 0 || a->r > a->C ||
@@ -310,7 +309,7 @@ int latent_entry(const LatentArgs* a, int B, int BM, void* stream) {
     return cudaErrorInvalidValue;
   }
   if (sizeof(KV) == 1 && a->kv_scale == nullptr) return cudaErrorInvalidValue;
-  if (PAGED && (a->page_table == nullptr || a->NP <= 0 || a->P <= 0 ||
+  if ((a->page_table == nullptr || a->NP <= 0 || a->P <= 0 ||
                 a->page <= 0 || a->S != a->NP * a->page)) {
     return cudaErrorInvalidValue;
   }
@@ -318,9 +317,9 @@ int latent_entry(const LatentArgs* a, int B, int BM, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   switch (BM) {
     case 16:
-      return latent_launch<16, KV, STAGES, PAGED>(*a, B, s);
+      return latent_launch<16, KV, STAGES>(*a, B, s);
     case 32:
-      return latent_launch<32, KV, STAGES, PAGED>(*a, B, s);
+      return latent_launch<32, KV, STAGES>(*a, B, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -196,11 +196,10 @@ __global__ void __launch_bounds__(THREADS)
   for (int k0 = 0; k0 < vr.kend; k0 += PAIR ? 2 * BN : BN) {
     const bool two = PAIR && k0 + BN < vr.kend;
     __syncthreads();  // the previous tiles are no longer read
-    flash_load_tiles<D, bf16>(K0, V0, kbase, vbase, a.ks, a.vs, k0,
-                              vr.kend);
+    flash_load_tiles<D>(K0, V0, kbase, vbase, a.ks, a.vs, k0, vr.kend);
     if (two) {
-      flash_load_tiles<D, bf16>(K1, V1, kbase, vbase, a.ks, a.vs,
-                                k0 + BN, vr.kend);
+      flash_load_tiles<D>(K1, V1, kbase, vbase, a.ks, a.vs, k0 + BN,
+                          vr.kend);
     }
     __syncthreads();
     if (!warp_live) continue;  // warp-uniform; block barriers stay matched

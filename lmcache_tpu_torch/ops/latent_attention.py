@@ -17,12 +17,13 @@ kv_len[b] - 1)``. Out ``[B, T, H, rank]``: the latent-space context, to which
 the model applies ``w_kb_v``.
 
 :func:`latent_flash_attention` and :func:`quantized_latent_flash_attention`
-run the hand-written Hopper kernel (``csrc/latent_attention.cu``) on CUDA
-tensors and their plain versions on CPU tensors; each counts its kernel
-launches in ``.launches`` ("prefill" for T > 1, "decode" for T == 1). A row
-that sees no key gives 0 from both (the JAX ``*_reference`` functions average
-the values uniformly there, as :func:`latent_attention_reference` does unless
-``zero_dead_rows``).
+run the hand-written Hopper kernel (``csrc/latent_attention.cu``, the body
+of ``csrc/latent_sm90.cuh``: blocks of 64 (token, head) rows, TMA, wgmma)
+on CUDA tensors and their plain versions on CPU tensors; each counts its
+kernel launches in ``.launches`` ("prefill" for T > 1, "decode" for
+T == 1). A row that sees no key gives 0 from both (the JAX ``*_reference``
+functions average the values uniformly there, as
+:func:`latent_attention_reference` does unless ``zero_dead_rows``).
 """
 
 import ctypes
@@ -35,8 +36,9 @@ from lmcache_tpu_torch.ops import _build
 from lmcache_tpu_torch.ops.attention import _NEG_INF
 from lmcache_tpu_torch.ops.quantized_attention import quantize_tokens
 
-_SMEM_LIMIT = 232448  # bytes a block may use on sm_90 (227 KB)
-DENSE_TILE = 64  # keys per tile of the dense kernel
+# the widths the dense kernel takes: every preset's latent (576) and rank
+# (512), and any smaller multiples of 16
+MAX_WIDTH, MAX_RANK = 576, 512
 
 
 def latent_attention_reference(q_full, latents, q_offset, kv_len, *, rank,
@@ -107,36 +109,23 @@ _entry_points = {}
 
 def load_entry(source: str, symbol: str):
     """The C entry point ``symbol`` of ``csrc/<source>.cu`` (built at first
-    use): ``(LatentArgs*, B, BM, stream)``, or for ``*_smem_bytes``
+    use): the dense kernel's ``(LatentArgs*, B, stream)``, the paged
+    kernels' ``(LatentArgs*, B, BM, stream)``, or for ``*_smem_bytes``
     ``(BM, C, r, tn, stages)``."""
     fn = _entry_points.get(symbol)
     if fn is None:
         fn = getattr(_build.load(source), symbol)
         if symbol.endswith("smem_bytes"):
             fn.argtypes = [ctypes.c_int] * 5
+        elif source == "latent_attention":
+            fn.argtypes = [ctypes.POINTER(LatentArgs), ctypes.c_int,
+                           ctypes.c_void_p]
         else:
             fn.argtypes = [ctypes.POINTER(LatentArgs), ctypes.c_int,
                            ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _entry_points[symbol] = fn
     return fn
-
-
-def smem_bytes(BM: int, C: int, rank: int, tn: int, stages: int) -> int:
-    """Shared memory of one block of the latent kernels, in bytes."""
-    return load_entry("latent_attention", "lmc_latent_attention_smem_bytes")(
-        BM, C, rank, tn, stages)
-
-
-def row_block(H: int, T: int, C: int, rank: int, tn: int, stages: int) -> int:
-    """Rows of the (head, token) axis per block: 32 where there are more
-    than 16 and the block fits shared memory, else 16; raises where neither
-    fits."""
-    for BM in ((32, 16) if H * T > 16 else (16,)):
-        if smem_bytes(BM, C, rank, tn, stages) <= _SMEM_LIMIT:
-            return BM
-    raise ValueError(f"latent width {C} (rank {rank}) with tiles of {tn} keys "
-                     f"needs more than {_SMEM_LIMIT} bytes of shared memory")
 
 
 def check_cuda_args(q_full, rows, scales, q_offset, kv_len, rank, B):
@@ -198,12 +187,12 @@ def fill_args(q_full, rows, scales, out, q_offset, kv_len, scale, tn,
     return a
 
 
-def launch(wrapper, source, symbol, a, q_full, BM):
-    """Launch on q_full's current stream, raise if the launch is refused, and
-    add one to ``wrapper.launches`` ("prefill" for T > 1, "decode" for
-    T == 1)."""
+def launch(wrapper, source, symbol, a, q_full, *sizes):
+    """Launch on q_full's current stream (``sizes``: the paged kernels' row
+    block), raise if the launch is refused, and add one to
+    ``wrapper.launches`` ("prefill" for T > 1, "decode" for T == 1)."""
     err = load_entry(source, symbol)(
-        ctypes.byref(a), q_full.shape[0], BM,
+        ctypes.byref(a), q_full.shape[0], *sizes,
         torch.cuda.current_stream(q_full.device).cuda_stream)
     if err:
         raise RuntimeError(f"{wrapper.__name__} kernel launch failed: "
@@ -228,14 +217,16 @@ def _dense(wrapper, q_full, latents, lat_scale, q_offset, kv_len, rank,
     if latents.shape[0] != B or latents.shape[2] != C:
         raise ValueError(f"latents {tuple(latents.shape)} do not fit q_full "
                          f"{tuple(q_full.shape)}")
-    BM = row_block(H, T, C, rank, DENSE_TILE, 1)
+    if C > MAX_WIDTH or rank > MAX_RANK:
+        raise ValueError(f"latent width {C} and rank {rank}: the kernel "
+                         f"takes at most {MAX_WIDTH} and {MAX_RANK}")
     out = torch.empty((B, T, H, rank), dtype=q_full.dtype,
                       device=q_full.device)
     a = fill_args(q_full, latents, lat_scale, out, q_offset, kv_len, scale,
-                  DENSE_TILE, latents.shape[1])
+                  0, latents.shape[1])
     kind = "bf16" if lat_scale is None else "int8"
     launch(wrapper, "latent_attention", f"lmc_latent_attention_{kind}", a,
-           q_full, BM)
+           q_full)
     return out
 
 
@@ -243,10 +234,11 @@ def latent_flash_attention(q_full: torch.Tensor, latents: torch.Tensor,
                            q_offset: torch.Tensor, kv_len: torch.Tensor, *,
                            rank: int, scale: float) -> torch.Tensor:
     """Absorbed-MLA attention over the dense latent pool; see the module
-    docstring. On CUDA tensors this launches ``latent_fwd<BM, bf16>`` (bf16
-    q_full and latents, C and rank multiples of 16, any strides with unit
-    stride along C) and raises on anything it does not take; on CPU tensors
-    it computes :func:`latent_attention_reference` (fp32). Returns
+    docstring. On CUDA tensors this launches ``latent_sm90_fwd<bf16>`` (bf16
+    q_full and latents, C and rank multiples of 16 up to 576 and 512, a
+    16-byte aligned base and strides a multiple of 8 with unit stride along
+    C, as TMA takes them) and raises on anything it does not take; on CPU
+    tensors it computes :func:`latent_attention_reference` (fp32). Returns
     ``[B, T, H, rank]`` in q_full's dtype on the card."""
     return _dense(latent_flash_attention, q_full, latents, None, q_offset,
                   kv_len, rank, scale)
@@ -261,7 +253,8 @@ def quantized_latent_flash_attention(q_full: torch.Tensor,
     """:func:`latent_flash_attention` over an int8 latent pool (symbols
     ``[B, S, C]``, fp32 scales ``[B, S]``): the tile is converted to bf16
     (exact) and the per-token scale multiplies the score and probability
-    columns. On CUDA tensors: ``latent_fwd<BM, int8>``."""
+    columns. On CUDA tensors: ``latent_sm90_fwd<int8>`` (strides a multiple
+    of 16)."""
     return _dense(quantized_latent_flash_attention, q_full, lat_sym,
                   lat_scale, q_offset, kv_len, rank, scale)
 

@@ -8,10 +8,10 @@ single-read MQA formulation over rows gathered through the page table:
 
 - :func:`paged_latent_attention` / :func:`quantized_paged_latent_attention`:
   one page per step (``csrc/paged_latent_attention.cu``,
-  ``latent_fwd<BM, KV, 1, true>``);
+  ``latent_fwd<BM, KV, 1>``);
 - :func:`paged_latent_attention_dma` /
   :func:`quantized_paged_latent_attention_dma`: tiles of several page slots
-  with the next tile's loads in flight (``latent_fwd<BM, KV, 2, true>``). The
+  with the next tile's loads in flight (``latent_fwd<BM, KV, 2>``). The
   names are the JAX package's; on the GPU the "dma" is ``cp.async``.
 
 Shapes: ``q_full [B, T, H, C]``; ``latent_pool [P, page, Cp]`` (one layer of
@@ -39,6 +39,7 @@ from lmcache_tpu_torch.ops import latent_attention as _lat
 from lmcache_tpu_torch.ops.latent_attention import latent_attention_reference
 
 STREAM_TILE_MAX = 128  # most keys per tile of the streaming kernel
+_SMEM_LIMIT = 232448  # bytes a block may use on sm_90 (227 KB)
 
 
 def _gather(pool, page_table, C):
@@ -77,12 +78,30 @@ def quantized_paged_latent_attention_reference(q_full, sym_pool, scale_pool,
                                       zero_dead_rows=zero_dead_rows)
 
 
+def smem_bytes(BM: int, C: int, rank: int, tn: int, stages: int) -> int:
+    """Shared memory of one block of the paged latent kernels, in bytes."""
+    return _lat.load_entry("paged_latent_attention",
+                           "lmc_paged_latent_attention_smem_bytes")(
+        BM, C, rank, tn, stages)
+
+
+def row_block(H: int, T: int, C: int, rank: int, tn: int, stages: int) -> int:
+    """Rows of the (head, token) axis per block: 32 where there are more
+    than 16 and the block fits shared memory, else 16; raises where neither
+    fits."""
+    for BM in ((32, 16) if H * T > 16 else (16,)):
+        if smem_bytes(BM, C, rank, tn, stages) <= _SMEM_LIMIT:
+            return BM
+    raise ValueError(f"latent width {C} (rank {rank}) with tiles of {tn} keys "
+                     f"needs more than {_SMEM_LIMIT} bytes of shared memory")
+
+
 def stream_tile(BM: int, C: int, rank: int, page: int) -> int:
     """Keys per tile of the streaming kernel: the most (a multiple of 16, at
     most ``STREAM_TILE_MAX``) whose two buffers fit shared memory, cut to
     whole pages where a page is smaller (and a multiple of 16)."""
     for tn in range(STREAM_TILE_MAX, 0, -16):
-        if _lat.smem_bytes(BM, C, rank, tn, 2) <= _lat._SMEM_LIMIT:
+        if smem_bytes(BM, C, rank, tn, 2) <= _SMEM_LIMIT:
             return tn // page * page if tn >= page and page % 16 == 0 else tn
     raise ValueError(f"latent width {C} (rank {rank}) leaves no room for a "
                      f"double-buffered tile")
@@ -110,13 +129,13 @@ def _paged(wrapper, stream, q_full, pool, scales, page_table, q_offset,
     P, page = pool.shape[:2]
     NP = page_table.shape[1]
     if stream:
-        BM = _lat.row_block(H, T, C, rank, 16, 2)
+        BM = row_block(H, T, C, rank, 16, 2)
         tn = stream_tile(BM, C, rank, page)
     else:
         if page % 16:
             raise ValueError(f"page size {page} must be a multiple of 16")
         tn = page
-        BM = _lat.row_block(H, T, C, rank, tn, 1)
+        BM = row_block(H, T, C, rank, tn, 1)
     out = torch.empty((B, T, H, rank), dtype=q_full.dtype,
                       device=q_full.device)
     a = _lat.fill_args(q_full, pool, scales, out, q_offset, kv_len, scale,
@@ -133,8 +152,8 @@ def _paged(wrapper, stream, q_full, pool, scales, page_table, q_offset,
 def paged_latent_attention(q_full, latent_pool, page_table, q_offset, kv_len,
                            *, rank: int, scale: float) -> torch.Tensor:
     """Absorbed-MLA attention over a paged latent arena, one page per step;
-    see the module docstring. On CUDA tensors: ``latent_fwd<BM, bf16, 1,
-    true>`` (bf16, page a multiple of 16, at most what one block's shared
+    see the module docstring. On CUDA tensors: ``latent_fwd<BM, bf16,
+    1>`` (bf16, page a multiple of 16, at most what one block's shared
     memory holds: 128 at C = 576); on CPU tensors
     :func:`paged_latent_attention_reference`."""
     return _paged(paged_latent_attention, False, q_full, latent_pool, None,
@@ -146,7 +165,7 @@ def quantized_paged_latent_attention(q_full, sym_pool, scale_pool,
                                      rank: int, scale: float) -> torch.Tensor:
     """:func:`paged_latent_attention` over an int8 arena (symbols
     ``[P, page, Cp]``, fp32 scales ``[P, page]``). On CUDA tensors:
-    ``latent_fwd<BM, int8, 1, true>``."""
+    ``latent_fwd<BM, int8, 1>``."""
     return _paged(quantized_paged_latent_attention, False, q_full, sym_pool,
                   scale_pool, page_table, q_offset, kv_len, rank, scale)
 
@@ -156,7 +175,7 @@ def paged_latent_attention_dma(q_full, latent_pool, page_table, q_offset,
                                scale: float) -> torch.Tensor:
     """:func:`paged_latent_attention` with the live page slots streamed in
     tiles of up to 128 keys, the next tile in flight; same contract, any
-    page size. On CUDA tensors: ``latent_fwd<BM, bf16, 2, true>``."""
+    page size. On CUDA tensors: ``latent_fwd<BM, bf16, 2>``."""
     return _paged(paged_latent_attention_dma, True, q_full, latent_pool,
                   None, page_table, q_offset, kv_len, rank, scale)
 
@@ -166,7 +185,7 @@ def quantized_paged_latent_attention_dma(q_full, sym_pool, scale_pool,
                                          rank: int,
                                          scale: float) -> torch.Tensor:
     """:func:`quantized_paged_latent_attention` with streamed tiles. On CUDA
-    tensors: ``latent_fwd<BM, int8, 2, true>``."""
+    tensors: ``latent_fwd<BM, int8, 2>``."""
     return _paged(quantized_paged_latent_attention_dma, True, q_full,
                   sym_pool, scale_pool, page_table, q_offset, kv_len, rank,
                   scale)

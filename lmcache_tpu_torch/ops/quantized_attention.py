@@ -15,9 +15,13 @@ Layouts: ``q [B, T, H, D]``; ``k/v_sym`` int8 ``[B, S, H_kv, D]`` or, with
 symbols in [-127, 127]; ``k/v_scale`` fp32 ``[B, S]`` (absmax / 127 per
 token, shared by all heads).
 
-:func:`quantized_flash_attention` runs the hand-written Hopper kernel
+:func:`quantized_flash_attention` runs the hand-written Hopper kernels
 (``csrc/quantized_flash_attention.cu``) on CUDA tensors and its plain
-version, :func:`quantized_attention_reference`, on CPU tensors.
+version, :func:`quantized_attention_reference`, on CPU tensors: a launch of
+more than ``DECODE_ROWS`` rows (T * G) runs the prefill body
+(``csrc/flash_sm90.cuh`` over int8 K/V), one of at most ``DECODE_ROWS``
+rows, every decode step, the int8 key-split decode and the combine of
+``ops.attention`` (plain version :func:`quantized_split_attention_reference`).
 """
 
 from collections import Counter
@@ -76,6 +80,41 @@ def quantized_attention_reference(q, k_sym, v_sym, k_scale, v_scale,
                          window_kind=window_kind, sinks=sinks)
 
 
+def quantized_split_partials_reference(q, k_sym, v_sym, k_scale, v_scale,
+                                       q_offset, kv_len, sm_scale=None,
+                                       sliding_window=None,
+                                       window_kind="sliding",
+                                       logit_softcap=None):
+    """Plain version of the int8 key-split decode's first kernel
+    (token-major ``k/v_sym [B, S, H_kv, D]``): the partials of
+    :func:`~lmcache_tpu_torch.ops.attention.split_partials_reference` over
+    the K/V dequantized to fp32. Where the kernel multiplies a score by its
+    key's K scale and P by its key's V scale (after the row sum), this
+    multiplies the symbols first: the same function."""
+    return _attn.split_partials_reference(
+        q, dequantize_kv(k_sym, k_scale), dequantize_kv(v_sym, v_scale),
+        q_offset, kv_len, sm_scale=sm_scale, sliding_window=sliding_window,
+        window_kind=window_kind, logit_softcap=logit_softcap)
+
+
+def quantized_split_attention_reference(q, k_sym, v_sym, k_scale, v_scale,
+                                        q_offset, kv_len, sm_scale=None,
+                                        sliding_window=None,
+                                        window_kind="sliding",
+                                        logit_softcap=None, sinks=None):
+    """The plain split-then-combine of the int8 key-split decode:
+    :func:`quantized_split_partials_reference`, then
+    :func:`~lmcache_tpu_torch.ops.attention.combine_partials_reference`;
+    fp32 ``[B, T, H, D]``, 0 for a row that sees no key."""
+    part_o, part_ml = quantized_split_partials_reference(
+        q, k_sym, v_sym, k_scale, v_scale, q_offset, kv_len,
+        sm_scale=sm_scale, sliding_window=sliding_window,
+        window_kind=window_kind, logit_softcap=logit_softcap)
+    return _attn.combine_partials_reference(
+        part_o, part_ml, q.shape[1], q.shape[2] // k_sym.shape[2],
+        sinks=sinks)
+
+
 def quantized_flash_attention(
         q: torch.Tensor, k_sym: torch.Tensor, v_sym: torch.Tensor,
         k_scale: torch.Tensor, v_scale: torch.Tensor,
@@ -93,13 +132,15 @@ def quantized_flash_attention(
     :func:`quantize_kv_for_cache`. With ``kv_slot`` the symbols and the
     scales carry the whole pool.
 
-    On CUDA tensors this launches the Hopper kernel (bf16 q, int8 symbols
-    with strides a multiple of 16, fp32 scales with any strides, D of 64, 96,
-    128 or 256) and raises on anything it does not take; on CPU tensors it
-    computes :func:`quantized_attention_reference`.
-    ``quantized_flash_attention.launches`` counts kernel launches by phase
+    On CUDA tensors this launches the Hopper kernels (bf16 q, int8 symbols
+    with a 16-byte aligned base and strides a multiple of 16, fp32 scales
+    with any strides, D of 64, 96, 128 or 256) and raises on anything they
+    do not take: the prefill body above ``DECODE_ROWS`` rows (T * G), else
+    the int8 key-split decode and :func:`combine_partials`' kernel. On CPU
+    tensors it computes :func:`quantized_attention_reference`.
+    ``quantized_flash_attention.launches`` counts launches by phase
     ("prefill" for T > 1, "decode" for T == 1, "+window" appended under a
-    window)."""
+    window); a split decode counts once."""
     _attn.check_options(q, sliding_window, window_kind, logit_softcap, sinks,
                         kv_slot, kv_head_major)
     if q.device.type == "cpu":
@@ -125,10 +166,17 @@ def quantized_flash_attention(
     _attn._check_cuda_args(q, k_sym, v_sym, q_offset, kv_len, B, Hkv, S,
                            kv_dtype=torch.int8,
                            pool_rows=kv_slot is not None)
-    _attn.launch(quantized_flash_attention,
-                 _attn.load_entry("quantized_flash_attention",
-                                  "lmc_qflash_attention_int8"), a, q, Hkv,
-                 sliding_window)
+    if T * (H // Hkv) > _attn.DECODE_ROWS:
+        _attn.launch(quantized_flash_attention,
+                     _attn.load_entry("quantized_flash_attention",
+                                      "lmc_qflash_attention_int8"), a, q, Hkv,
+                     sliding_window)
+        return out
+    _attn.split_decode(
+        quantized_flash_attention,
+        _attn.split_entry("quantized_flash_attention",
+                          "lmc_qflash_decode_split_int8"),
+        a, q, Hkv, S, sinks, out, sliding_window)
     return out
 
 

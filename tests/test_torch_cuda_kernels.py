@@ -202,8 +202,8 @@ def test_dense_kernel_empty_sequence_gives_zero(gen, quant):
 def test_kv_slot_reads_the_pool_row_on_the_device(gen, quant, W):
     """K/V (and scales) carry a pool of four rows; the one sequence attends
     to row ``kv_slot[0]``: a 16-token prefill segment, and a decode step
-    over three key splits whose window crosses a split edge (the bf16
-    pool's key-split decode)."""
+    over three key splits whose window crosses a split edge (the key-split
+    decode of either pool)."""
     entry = qa.quantized_flash_attention if quant else ops.flash_attention
     plain = qa.quantized_attention_reference if quant else ops.mha_reference
     for T, S, q_off in ((16, 256, 100), (1, 768, 530)):
@@ -311,51 +311,60 @@ def test_dense_kernels_refuse_what_they_do_not_take(gen):
         ops.flash_attention(q, k, v, one, one, kv_slot=one)
 
 
-# ------------------- rows 1 and 2 on Hopper: the split decode and the body ---
+# ------------- rows 1-3 on Hopper: the split decodes and the Hopper body ---
 
 from lmcache_tpu_torch.ops import attention as attn  # noqa: E402
 
 
-def _split_case(gen, B, T, G, D, S, q_off, kv_len, nan_tail=False, **kw):
+def _split_case(gen, B, T, G, D, S, q_off, kv_len, nan_tail=False,
+                quant=False, **kw):
     """flash_attention (and, for a windowless prefill, flash_attention_dma)
-    at T * G rows against mha_reference with zero_dead_rows, on K/V whose
-    rows at and past kv_len are NaN where ``nan_tail``: the plain version
-    sees those rows as zeros, and the kernels must give the same finite
-    numbers. Returns flash_attention's output."""
+    or, ``quant``, quantized_flash_attention at T * G rows against its plain
+    version with zero_dead_rows, on K/V (int8: K/V scales) whose rows at and
+    past kv_len are NaN where ``nan_tail``: the plain version sees those
+    rows as zeros, and the kernels must give the same finite numbers.
+    Returns the kernel's output."""
     Hkv = 2
-    q, (k, v) = _dense_inputs(gen, B, T, G * Hkv, Hkv, D, S, False)
+    q, kv = _dense_inputs(gen, B, T, G * Hkv, Hkv, D, S, quant)
     if kw.get("sinks") is True:
         kw["sinks"] = torch.randn(G * Hkv, generator=gen, device="cuda") * 3
     qo = torch.tensor(q_off, dtype=torch.int32, device="cuda")
     kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
-    tail = (torch.arange(S, device="cuda")[None, :]
-            >= kl[:, None])[:, None, :, None]  # [B, 1, S, 1]
-    kc, vc = k.masked_fill(tail, 0), v.masked_fill(tail, 0)
+    past = torch.arange(S, device="cuda")[None, :] >= kl[:, None]  # [B, S]
+    # the tail of K/V [B, H_kv, S, D] or of the scales [B, S]
+    tails = [past[:, None, :, None] if t.dim() == 4 else past for t in kv]
+    clean = [t.masked_fill(m, 0) for t, m in zip(kv, tails)]
     if nan_tail:
-        k, v = k.masked_fill(tail, float("nan")), v.masked_fill(tail,
-                                                                float("nan"))
+        # int8 symbols have no NaN: their scales carry it
+        kv = [t.masked_fill(m, float("nan")) if t.is_floating_point() else t
+              for t, m in zip(kv, tails)]
+    entry = qa.quantized_flash_attention if quant else ops.flash_attention
+    plain = qa.quantized_attention_reference if quant else ops.mha_reference
     decode = T * G <= attn.DECODE_ROWS
     phase = ("decode" if T == 1 else "prefill") + (
         "+window" if kw.get("sliding_window") else "")
-    before = ops.flash_attention.launches[phase]
+    before = entry.launches[phase]
     combined = attn.combine_partials.launches["decode" if T == 1
                                               else "prefill"]
-    out = ops.flash_attention(q, k, v, qo, kl, kv_head_major=True, **kw)
-    ref = ops.mha_reference(q, kc.transpose(1, 2), vc.transpose(1, 2), qo,
-                            kl, zero_dead_rows=True, **kw)
+    out = entry(q, *kv, qo, kl, kv_head_major=True, **kw)
+    ref = plain(q, *(t.transpose(1, 2) if t.dim() == 4 else t
+                     for t in clean), qo, kl, zero_dead_rows=True, **kw)
     torch.cuda.synchronize()
-    assert ops.flash_attention.launches[phase] == before + 1
+    assert entry.launches[phase] == before + 1
     assert attn.combine_partials.launches[
         "decode" if T == 1 else "prefill"] == combined + int(decode)
     assert torch.isfinite(out.float()).all()
     torch.testing.assert_close(out.float(), ref.float(), atol=ATOL,
                                rtol=2.0**-7)
-    if not kw and D != 256:
-        streamed = ops.flash_attention_dma(q, k, v, qo, kl)
+    if not quant and not kw and D != 256:
+        streamed = ops.flash_attention_dma(q, *kv, qo, kl)
         assert torch.isfinite(streamed.float()).all()
         torch.testing.assert_close(streamed.float(), ref.float(), atol=ATOL,
                                    rtol=2.0**-7)
     return out
+
+
+QUANT = pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
 
 
 @pytest.mark.parametrize("kv_len", [0, 1, attn.SPLIT_KEYS,
@@ -363,19 +372,22 @@ def _split_case(gen, B, T, G, D, S, q_off, kv_len, nan_tail=False, **kw):
                          ids=["empty", "one_key", "one_split",
                               "one_past_a_split", "16k"])
 @pytest.mark.parametrize("G", [1, 8])
-def test_split_decode_edges(gen, kv_len, G):
+@QUANT
+def test_split_decode_edges(gen, kv_len, G, quant):
     """Decode rows at the split edges: no key, one key, exactly one split,
     one key past a split, 16k keys; the pool is longer than the row."""
     _split_case(gen, 2, 1, G, 64, 16385, [max(kv_len - 1, 0), 700],
-                [kv_len, 701])
+                [kv_len, 701], quant=quant)
 
 
 @pytest.mark.parametrize("D", [64, 96, 128, 256])
-def test_split_decode_rows_up_to_16(gen, D):
+@QUANT
+def test_split_decode_rows_up_to_16(gen, D, quant):
     """T * G = 16 rows (two tokens of a group of 8) and G = 5 (three
     tokens) take the split decode over several splits."""
-    _split_case(gen, 2, 2, 8, D, 1300, [1100, 40], [1102, 42])
-    _split_case(gen, 2, 3, 5, D, 1300, [1200, 513], [1203, 516])
+    _split_case(gen, 2, 2, 8, D, 1300, [1100, 40], [1102, 42], quant=quant)
+    _split_case(gen, 2, 3, 5, D, 1300, [1200, 513], [1203, 516],
+                quant=quant)
 
 
 @pytest.mark.parametrize("opt", [
@@ -388,52 +400,58 @@ def test_split_decode_rows_up_to_16(gen, D):
     dict(sinks=True, sliding_window=700, logit_softcap=20.0),
 ], ids=["window600", "window100", "chunk_is_split", "chunk300", "sinks",
         "sinks_window_softcap"])
-def test_split_decode_windows_chunks_and_sinks(gen, opt):
+@QUANT
+def test_split_decode_windows_chunks_and_sinks(gen, opt, quant):
     _split_case(gen, 3, 1, 4, 128, 2100, [1100, 1024, 1535],
-                [1101, 1025, 1536], **dict(opt))
+                [1101, 1025, 1536], quant=quant, **dict(opt))
 
 
 @pytest.mark.parametrize("rows", ["decode", "prefill"])
 @pytest.mark.parametrize("D", [64, 96, 128, 256])
-def test_nan_tails_past_kv_len_contribute_nothing(gen, D, rows):
-    """K and V rows past kv_len hold NaN (TMA loads whole boxes, and
-    0 * NaN is NaN): the outputs stay finite and equal the plain
-    version's on zeroed tails."""
+@QUANT
+def test_nan_tails_past_kv_len_contribute_nothing(gen, D, rows, quant):
+    """K and V rows (int8: their scales) past kv_len hold NaN (TMA loads
+    whole boxes, and 0 * NaN is NaN): the outputs stay finite and equal the
+    plain version's on zeroed tails."""
     if rows == "decode":
         _split_case(gen, 2, 1, 8, D, 1100, [600, 1000], [601, 1001],
-                    nan_tail=True)
+                    nan_tail=True, quant=quant)
     else:
         _split_case(gen, 2, 150, 4, D, 1100, [500, 0], [650, 70],
-                    nan_tail=True)
+                    nan_tail=True, quant=quant)
         _split_case(gen, 2, 40, 4, D, 1100, [500, 0], [540, 40],
-                    nan_tail=True, sinks=True, sliding_window=64)
+                    nan_tail=True, quant=quant, sinks=True,
+                    sliding_window=64)
 
 
 @pytest.mark.parametrize("T", [1, 300], ids=["decode", "prefill"])
-def test_two_launches_give_the_same_bits(gen, T):
-    q, (k, v) = _dense_inputs(gen, 2, T, 16, 2, 64, 2048, False)
+@QUANT
+def test_two_launches_give_the_same_bits(gen, T, quant):
+    q, kv = _dense_inputs(gen, 2, T, 16, 2, 64, 2048, quant)
     qo = torch.tensor([2040 - T, 1000], dtype=torch.int32, device="cuda")
     kl = qo + T
-    first = ops.flash_attention(q, k, v, qo, kl, kv_head_major=True)
-    again = ops.flash_attention(q, k, v, qo, kl, kv_head_major=True)
+    entry = qa.quantized_flash_attention if quant else ops.flash_attention
+    first = entry(q, *kv, qo, kl, kv_head_major=True)
+    again = entry(q, *kv, qo, kl, kv_head_major=True)
     assert torch.equal(first, again)
-    if T > 1:
-        assert torch.equal(ops.flash_attention_dma(q, k, v, qo, kl),
-                           ops.flash_attention_dma(q, k, v, qo, kl))
+    if T > 1 and not quant:
+        assert torch.equal(ops.flash_attention_dma(q, *kv, qo, kl),
+                           ops.flash_attention_dma(q, *kv, qo, kl))
 
 
-def test_decode_row_does_not_depend_on_its_batch(gen):
+@QUANT
+def test_decode_row_does_not_depend_on_its_batch(gen, quant):
     """One decode row gives the same bits alone and among three others of
     other lengths (the serving waves and their greedy-token gates rely on
     it)."""
-    q, (k, v) = _dense_inputs(gen, 4, 1, 32, 4, 64, 4097, False)
+    q, kv = _dense_inputs(gen, 4, 1, 32, 4, 64, 4097, quant)
     qo = torch.tensor([3000, 4096, 17, 1500], dtype=torch.int32,
                       device="cuda")
-    together = ops.flash_attention(q, k, v, qo, qo + 1, kv_head_major=True)
+    entry = qa.quantized_flash_attention if quant else ops.flash_attention
+    together = entry(q, *kv, qo, qo + 1, kv_head_major=True)
     for i in range(4):
-        alone = ops.flash_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1],
-                                    qo[i:i + 1], qo[i:i + 1] + 1,
-                                    kv_head_major=True)
+        alone = entry(q[i:i + 1], *(t[i:i + 1] for t in kv), qo[i:i + 1],
+                      qo[i:i + 1] + 1, kv_head_major=True)
         assert torch.equal(alone, together[i:i + 1])
 
 
@@ -821,6 +839,70 @@ def test_latent_kernel_on_a_slot_view_of_the_pool(gen):
     _assert_latent_close(out, ref, kl)
 
 
+def _latent_call(quant, q, rows, row_scale, qo, kl, **kw):
+    if quant:
+        return la.quantized_latent_flash_attention(q, rows, row_scale, qo,
+                                                   kl, **kw)
+    return la.latent_flash_attention(q, rows, qo, kl, **kw)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("H", [16, 128])
+def test_latent_nan_tails_past_kv_len_contribute_nothing(gen, H, quant):
+    """Latent rows (int8: their scales) at and past kv_len hold NaN (TMA
+    loads whole boxes, and 0 * NaN is NaN): the outputs stay finite and
+    equal the plain version's on zeroed tails, for a prefill over a prefix
+    (T * H rows no multiple of 64 at H 16) and a ragged decode."""
+    _, C, rank, _ = LATENT_GEOMETRY["v2_lite"]
+    kw = dict(rank=rank, scale=LATENT_SCALE)
+    for B, T, S, q_off in ((2, 37 if H == 16 else 3, 300, [100, 0]),
+                           (3, 1, 257, [200, 5, 0])):
+        q = torch.randn((B, T, H, C), generator=gen,
+                        device="cuda").bfloat16()
+        rows, scale = _latent_rows(gen, (B, S, C), quant)
+        qo = torch.tensor(q_off, dtype=torch.int32, device="cuda")
+        kl = qo + T
+        past = torch.arange(S, device="cuda")[None, :] >= kl[:, None]
+        if quant:
+            clean = (rows, scale.masked_fill(past, 0))
+            out = _latent_call(True, q, rows, scale.masked_fill(
+                past, float("nan")), qo, kl, **kw)
+            ref = la.quantized_latent_attention_reference(
+                q, *clean, qo, kl, zero_dead_rows=True, **kw)
+        else:
+            clean = rows.masked_fill(past[..., None], 0)
+            out = _latent_call(False, q, rows.masked_fill(
+                past[..., None], float("nan")), None, qo, kl, **kw)
+            ref = la.latent_attention_reference(q, clean, qo, kl,
+                                                zero_dead_rows=True, **kw)
+        _assert_latent_close(out, ref, kl)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_latent_launches_repeat_bits_and_a_decode_row_alone(gen, quant):
+    """Two launches give the same bits (a prefill over a prefix), and a
+    decode row gives the same bits alone and among three others of other
+    lengths."""
+    H, C, rank, _ = LATENT_GEOMETRY["v2_lite"]
+    kw = dict(rank=rank, scale=LATENT_SCALE)
+    q = torch.randn((2, 300, H, C), generator=gen, device="cuda").bfloat16()
+    rows, scale = _latent_rows(gen, (2, 2048, C), quant)
+    qo = torch.tensor([1700, 0], dtype=torch.int32, device="cuda")
+    first = _latent_call(quant, q, rows, scale, qo, qo + 300, **kw)
+    again = _latent_call(quant, q, rows, scale, qo, qo + 300, **kw)
+    assert torch.equal(first, again)
+    q = torch.randn((4, 1, H, C), generator=gen, device="cuda").bfloat16()
+    rows, scale = _latent_rows(gen, (4, 4097, C), quant)
+    qo = torch.tensor([3000, 4096, 17, 1500], dtype=torch.int32,
+                      device="cuda")
+    together = _latent_call(quant, q, rows, scale, qo, qo + 1, **kw)
+    for i in range(4):
+        alone = _latent_call(quant, q[i:i + 1], rows[i:i + 1],
+                             None if scale is None else scale[i:i + 1],
+                             qo[i:i + 1], qo[i:i + 1] + 1, **kw)
+        assert torch.equal(alone, together[i:i + 1])
+
+
 PAGED_LATENT = {
     "grid_bf16": (pla.paged_latent_attention, False),
     "grid_int8": (pla.quantized_paged_latent_attention, True),
@@ -908,6 +990,12 @@ def test_latent_kernels_refuse_what_they_do_not_take(gen):
     with pytest.raises(ValueError, match="int8"):
         la.quantized_latent_flash_attention(qb, lb, torch.ones(
             (1, 16), device="cuda"), one, one, rank=64, scale=0.1)
+    # the dense kernel takes every preset's widths, 576 and 512, at most
+    wide = torch.zeros((1, 1, 4, 592), device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="at most 576"):
+        la.latent_flash_attention(wide, torch.zeros(
+            (1, 16, 592), device="cuda").bfloat16(), one, one, rank=512,
+            scale=0.1)
     pool = torch.zeros((4, 24, 128), device="cuda").bfloat16()
     table = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="page size 24"):
