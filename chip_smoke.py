@@ -9,8 +9,8 @@ Phases, in order; any failure exits non-zero:
    per source, all at once) and print the build time and nvcc's report
    (registers and spills of every kernel), and the number of ``HGMMA``
    (wgmma) and ``UTMALDG`` (TMA load) instructions in the libraries of the
-   Hopper bodies, kernel rows 1, 2, 3 and 8 (``cuobjdump -sass``), each of
-   which must be above 0;
+   Hopper bodies, kernel rows 1, 2, 3, 8, 9 and 10 (``cuobjdump -sass``),
+   each of which must be above 0;
 2. hold each kernel against its plain PyTorch version on the card, in
    bf16, at the shapes the paths below give it: ``flash_attention`` (plain
    and with each option: sliding and chunked window, softcap, sinks,
@@ -22,7 +22,7 @@ Phases, in order; any failure exits non-zero:
    coders (tolerance 0) and the six MLA
    latent-attention entry points (dense, paged one page per step, paged
    streamed; bf16 and int8 latents) at DeepSeek-V2-Lite's shapes and at
-   128 heads, V2/V3's;
+   128 heads, V2/V3's, and the latent split decode's combine alone;
 3. the dense main path at full width, tinyllama-1.1B with random weights
    from a seeded generator: full prefill of CTX + SUFFIX = 16384 tokens,
    store of the CTX prefix into the "cuda" cache tier, retrieve (15872
@@ -88,7 +88,8 @@ Phases, in order; any failure exits non-zero:
    each); 10b phase 4's four waves on ``MLAServingEngine`` over the native
    and the int8 latent pool, and a profiled decode step; 10c phase 5's
    waves on ``MLAPagedServingEngine`` (page 64), bf16 then int8 arena, the
-   injected pages equal to the dense pool's slots; 10d kernel row 9, which
+   injected pages equal to the dense pool's slots, a profiled prefill step
+   of fresh prompts and a profiled decode step; 10d kernel row 9, which
    no serving path calls: the last prefill segment again with the paged
    forward's attention bound to it, logits held to row 10's; 10e the latent
    prefix through the cache server with CacheGen (N = 1 containers equal to
@@ -128,9 +129,9 @@ Phases, in order; any failure exits non-zero:
    single call; for the latent kernels SDPA with the latents expanded over
    the heads as K and their first rank columns as V, the SDPA backends that
    take those shapes named); at decode also the device time of the dense
-   kernels alone (``torch.profiler``). No PyTorch call computes a range
-   coder: the coders' rows carry the host C++ coder's time at the same
-   shape instead; none computes the split decode's combine either.
+   and latent kernels alone (``torch.profiler``). No PyTorch call computes
+   a range coder: the coders' rows carry the host C++ coder's time at the
+   same shape instead; none computes the split decodes' combines either.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without printing a result
@@ -275,6 +276,11 @@ KERNELS = {
         pla.quantized_paged_latent_attention_dma,
         "lmcache_tpu_torch/ops/csrc/paged_latent_attention.cu",
         "lmcache_tpu/ops/paged_latent_attention.py:270"),
+    # the second kernel of row 10's key-split decode
+    "latent_combine_partials": (
+        pla.combine_partials,
+        "lmcache_tpu_torch/ops/csrc/paged_latent_attention.cu",
+        "lmcache_tpu/ops/paged_latent_attention.py:270"),
     "variant_attention": (
         pv.variant_attention,
         "lmcache_tpu_torch/ops/csrc/prefill_variants.cu",
@@ -361,11 +367,12 @@ def wall_best(fn, n=3):
 
 def sass_counts(libs):
     """The wgmma (``HGMMA``) and TMA load (``UTMALDG``) instructions in the
-    built libraries of rows 1, 2, 3 and 8, the Hopper bodies; exits where
-    either count is 0."""
+    built libraries of rows 1, 2, 3, 8, 9 and 10, the Hopper bodies; exits
+    where either count is 0."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for name in ("flash_attention", "flash_stream_attention",
-                 "quantized_flash_attention", "latent_attention"):
+                 "quantized_flash_attention", "latent_attention",
+                 "paged_latent_attention"):
         sass = subprocess.run([tool, "-sass", str(libs[name])],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
@@ -550,6 +557,16 @@ def phase_kernels():
             worst[case["kernel"]],
             hold_against_plain(case["kernel"], case["name"], out, ref))
         del args, out, ref
+    for case in latent_combine_cases():
+        part_o, part_ml, T, H = make_latent_combine_inputs(case, gen)
+        out = pla.combine_partials(part_o, part_ml, T, H)
+        ref = pla.combine_partials_reference(part_o, part_ml, T, H)
+        torch.cuda.synchronize()
+        worst["latent_combine_partials"] = max(
+            worst["latent_combine_partials"],
+            hold_against_plain("latent_combine_partials", case["name"], out,
+                               ref))
+        del part_o, part_ml, out, ref
     return worst
 
 
@@ -1155,6 +1172,24 @@ def latent_plain(case, args, kw, rows=1024):
     return torch.cat([
         plain(q[:, t:t + rows], *rest, qo + t, kl, zero_dead_rows=True, **kw)
         for t in range(0, q.shape[1], rows)], dim=1)
+
+
+def latent_combine_cases():
+    """The cases of :func:`latent_cases` whose row-10 launch runs the key
+    split (bf16 latents: the combine reads fp32 partials either way)."""
+    return [case for case in latent_cases()
+            if case["kernel"] == "paged_latent_attention_dma"
+            and pla.takes_split(case["T"], case["H"])]
+
+
+def make_latent_combine_inputs(case, gen):
+    """The partials row 10's split decode gives the combine at ``case``
+    (from the plain split version, on the card)."""
+    args, kw = make_latent_inputs(case, gen)
+    q, pool, table, qo, kl = args
+    part_o, part_ml = pla.paged_latent_split_partials_reference(
+        q, pool, table, qo, kl, **kw)
+    return part_o, part_ml, case["T"], case["H"]
 
 
 def latent_bound(case, args):
@@ -1849,12 +1884,21 @@ def paged_wave(eng, name, prompts, max_new, force=None):
     return reqs, first_logits, injected, record
 
 
-def profile_decode_step(eng, prompts, arena):
+def profile_decode_step(eng, prompts, arena, prefill=False):
     """Bring the prompts to decode, then time and profile one batched
     decode step (3 of the 4 rows live, the fourth parked on the null
-    page)."""
+    page). With ``prefill`` the prompts' first tokens change, so that no
+    page is resident or cached, and the first engine step, a step of
+    512-token prefill segments, is profiled too (``prof["prefill"]``)."""
+    if prefill:
+        prompts = [np.concatenate([[(int(p[0]) + 1) % eng.cfg.vocab_size],
+                                   np.asarray(p)[1:]]).astype(np.int64)
+                   for p in prompts]
     for p in prompts:
         eng.add_request(Request(p, SamplingParams(max_new_tokens=16)))
+    prefill_prof = (profile_window(f"paged prefill step, {arena} arena, "
+                                   f"fresh prompts (512-token segments)",
+                                   eng.step) if prefill else None)
     while eng.waiting or eng.prefilling:
         eng.step()
     step_ms = wall_best(eng.step)
@@ -1863,16 +1907,20 @@ def profile_decode_step(eng, prompts, arena):
                           eng.step)
     eng.run()
     prof["step_ms"] = step_ms
+    if prefill_prof is not None:
+        prof["prefill"] = prefill_prof
     return prof
 
 
 def paged_tinyllama_waves(cfg, params, prompts, dense_logits, kv_dtype,
                           engine_cls=PagedServingEngine,
                           model="tinyllama-1.1b", max_new=32, long_new=96,
-                          after_wave3=None, near_tie=False, routing=None):
+                          after_wave3=None, near_tie=False, routing=None,
+                          profile_prefill=False):
     """The four waves over one arena dtype (``engine_cls`` and ``model``
     serve another family: phase 10c; ``after_wave3(engine)`` adds a check
-    of wave 3's engine; ``near_tie`` admits phase 6d's top-1 rule). With a
+    of wave 3's engine; ``near_tie`` admits phase 6d's top-1 rule;
+    ``profile_prefill`` adds a window of a prefill step). With a
     :class:`Routing` (an MoE model, phase 10b's dense wave-1 record in
     ``routing.wave1``) the bf16 arena's engines record their expert
     choices: where two computations of other shapes or kernels are compared,
@@ -1943,7 +1991,8 @@ def paged_tinyllama_waves(cfg, params, prompts, dense_logits, kv_dtype,
             and d12 == [None] * n):
         failed.append("wave 2 was not served from resident pages alone, or "
                       "changed greedy tokens")
-    profile = profile_decode_step(eng, prompts, arena)
+    profile = profile_decode_step(eng, prompts, arena,
+                                  prefill=profile_prefill)
 
     # a fresh engine on the same tier: nothing resident
     eng = paged_engine(cfg, params, num_pages=256, **kw)
@@ -3096,7 +3145,7 @@ def phase_mla(kv_wire_bytes, reps=2):
                 cfg, params, prompts, first["native"], kv_dtype,
                 engine_cls=MLAPagedServingEngine, model=MLA_MODEL, max_new=8,
                 long_new=66, after_wave3=injected_equal_dense, near_tie=True,
-                routing=routing)
+                routing=routing, profile_prefill=True)
         launches[f"mla paged {arena}"] = read_launch_counts()
         out["paged_decode_profiles"].append(profile)
         torch.cuda.empty_cache()
@@ -3569,7 +3618,8 @@ def phase_yardstick():
                "library_prepare_ms": pre_ms, "library_sdpa_ms": sdpa_ms,
                "sdpa_backends": backends, "bound_ms": bound_ms,
                "bound_by": bound_by}
-        if decode and not case["paged"]:
+        if decode:
+            # the kernels alone (row 10: the split and the combine)
             row["kernel_ms"] = kernel_ms(lambda: entry(*args, **kw),
                                          iters=50)
         prep = ("gather" if case["paged"] else "dequantize")
@@ -3583,6 +3633,25 @@ def phase_yardstick():
             f"library {lib}")
         rows[case["kernel"]].append(row)
         del args
+
+    for case in latent_combine_cases():
+        part_o, part_ml, T, H = make_latent_combine_inputs(case, gen)
+        ms = cuda_ms(lambda: pla.combine_partials(part_o, part_ml, T, H),
+                     iters=200)
+        dev_ms = kernel_ms(lambda: pla.combine_partials(part_o, part_ml, T,
+                                                        H), iters=50)
+        plain_ms = cuda_ms(lambda: pla.combine_partials_reference(
+            part_o, part_ml, T, H), iters=20)
+        bound_ms, bound_by = combine_bound(part_o[:, None], part_ml[:, None],
+                                           T, H)
+        rows["latent_combine_partials"].append({
+            "shape": case["name"], "ms": ms, "kernel_ms": dev_ms,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": bound_by})
+        log(f"  latent_combine_partials | {case['name']}: kernel {ms:.4f} ms "
+            f"(device time {dev_ms}), bound {bound_ms:.4f} ms ({bound_by}), "
+            f"plain {plain_ms:.4f} ms, library none (no single call)")
+        del part_o, part_ml
     return rows
 
 
@@ -3728,10 +3797,12 @@ def main():
                                ("prefill", "decode")),
         "mla serving int8": ("quantized_latent_flash_attention",
                              ("prefill", "decode")),
-        "mla paged bf16": ("paged_latent_attention_dma",
-                           ("prefill", "decode")),
-        "mla paged int8": ("quantized_paged_latent_attention_dma",
-                           ("prefill", "decode")),
+        "mla paged bf16": [("paged_latent_attention_dma",
+                            ("prefill", "decode")),
+                           ("latent_combine_partials", ("decode",))],
+        "mla paged int8": [("quantized_paged_latent_attention_dma",
+                            ("prefill", "decode")),
+                           ("latent_combine_partials", ("decode",))],
         "mla row 9": [("paged_latent_attention", ("prefill",)),
                       ("quantized_paged_latent_attention", ("prefill",))],
         "mla remote": [("range_encode", ("store",)),

@@ -14,66 +14,15 @@
 //   FLOP/byte ridge).
 // - at most 16 rows (every decode step of the dense engines): the
 //   key-split decode of flash_split.cuh, partials over splits of SPLIT
-//   keys, then this file's combine kernel, which merges the partials of a
-//   row in a fixed order and joins the sinks once. Bound by the K/V bytes
+//   keys, then the combine kernel of combine.cuh (its entry point is this
+//   file's), which merges the partials of a row in a fixed order and joins the sinks once. Bound by the K/V bytes
 //   (~G * 4 operations a byte): one block a (sequence, KV head) walking all
 //   its keys, as the TPU kernel's program does, would leave B * H_kv
 //   blocks on 132 SMs; the split puts B * H_kv * S / SPLIT blocks on them.
 
+#include "combine.cuh"
 #include "flash_split.cuh"
 #include "flash_sm90.cuh"
-
-namespace lmc {
-namespace split {
-
-// One row (token, head-in-group) of one (sequence, KV head), a thread a
-// column: the partials in split order, empty ones (l = 0) adding nothing
-// (their O is never used), then the sinks joined to the normalization, as
-// the body's end does. The partials' (m, l) are staged in shared memory
-// first, so that the loop over the splits issues its O loads back to back.
-__global__ void combine_partials_fwd(const float* part_o,
-                                     const float* part_ml,
-                                     const float* sinks, bf16* out, int T,
-                                     int G, int D, int nsplit, long long ob,
-                                     long long ot, long long oh) {
-  extern __shared__ float sml[];  // [nsplit][2]
-  const int r = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int d = threadIdx.x;
-  const int R = T * G;
-  const long long row0 =
-      static_cast<long long>(b * gridDim.y + h) * nsplit * R + r;
-  for (int s = d; s < nsplit; s += blockDim.x) {
-    const long long i = row0 + static_cast<long long>(s) * R;
-    sml[2 * s] = part_ml[2 * i];
-    sml[2 * s + 1] = part_ml[2 * i + 1];
-  }
-  __syncthreads();
-  float m = NEG_INF;
-  for (int s = 0; s < nsplit; ++s) {
-    if (sml[2 * s + 1] > 0.f) m = fmaxf(m, sml[2 * s]);
-  }
-  float l = 0.f, acc = 0.f;
-#pragma unroll 8
-  for (int s = 0; s < nsplit; ++s) {
-    const float ls = sml[2 * s + 1];
-    const float o = part_o[(row0 + static_cast<long long>(s) * R) * D + d];
-    const float wgt = ls > 0.f ? expf(sml[2 * s] - m) : 0.f;
-    l += wgt * ls;
-    acc += ls > 0.f ? wgt * o : 0.f;
-  }
-  const int head = h * G + r % G;
-  float inv = l > 0.f ? 1.f / l : 0.f;
-  if (sinks != nullptr) {
-    const float snk = sinks[head];
-    const float m2 = fmaxf(m, snk);
-    const float keep = expf(m - m2);
-    inv = keep / (l * keep + expf(snk - m2));
-  }
-  out[b * ob + (r / G) * ot + head * oh + d] = __float2bfloat16(acc * inv);
-}
-
-}  // namespace split
-}  // namespace lmc
 
 // Plain C entry points, bound with ctypes; each returns a cudaError_t (0 on
 // success) and launches on `stream`.
@@ -125,16 +74,6 @@ extern "C" int lmc_flash_combine_partials(const void* part_o,
                                           int nsplit, long long ob,
                                           long long ot, long long oh,
                                           void* stream) {
-  // (m, l) of a row's partials in the default 48 KB of shared memory
-  if (B < 0 || T < 0 || G <= 0 || Hkv <= 0 || D <= 0 || D > 1024 ||
-      nsplit <= 0 || nsplit > 6144) {
-    return cudaErrorInvalidValue;
-  }
-  if (B == 0 || T == 0) return cudaSuccess;
-  lmc::split::combine_partials_fwd<<<dim3(T * G, Hkv, B), D, 8 * nsplit,
-                                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
-      static_cast<const float*>(sinks), static_cast<lmc::bf16*>(out), T, G,
-      D, nsplit, ob, ot, oh);
-  return cudaGetLastError();
+  return lmc::split::launch_combine(part_o, part_ml, sinks, out, B, T, G, Hkv,
+                                    D, nsplit, ob, ot, oh, stream);
 }

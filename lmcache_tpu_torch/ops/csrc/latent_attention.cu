@@ -3,8 +3,8 @@
 //
 // Replaces the TPU kernel lmcache_tpu/ops/latent_attention.py::_latent_kernel
 // (entry points latent_flash_attention and quantized_latent_flash_attention,
-// through _latent_call's pallas_call) as lmc::latent::latent_sm90_fwd<bf16>
-// and <int8> of latent_sm90.cuh, which holds the contract, the design and
+// through _latent_call's pallas_call) as lmc::latent::latent_sm90_fwd<bf16 or
+// int8, dense, 32> of latent_sm90.cuh, which holds the contract, the design and
 // every step of the body: blocks of 64 (token, head) rows, a TMA ring of
 // latent tiles, S = Q K^T and O += P V as wgmma with S, P and O in
 // registers, the two consumer warpgroups taking the tiles in turn and
@@ -21,14 +21,14 @@
 #include "latent_sm90.cuh"
 
 // Plain C entry points, bound with ctypes: the argument block (device
-// pointers, strides in elements; the paged fields and tn unused), the
+// pointers, strides in elements; the paged and split fields unused), the
 // batch, the stream; they return a cudaError_t (0 on success).
 extern "C" int lmc_latent_attention_bf16(const lmc::LatentArgs* a, int B,
                                          void* stream) {
-  return lmc::latent::launch<lmc::bf16>(a, B, stream);
+  return lmc::latent::launch<lmc::bf16, false, 32>(a, B, 1, stream);
 }
 
 extern "C" int lmc_latent_attention_int8(const lmc::LatentArgs* a, int B,
                                          void* stream) {
-  return lmc::latent::launch<lmc::i8>(a, B, stream);
+  return lmc::latent::launch<lmc::i8, false, 32>(a, B, 1, stream);
 }

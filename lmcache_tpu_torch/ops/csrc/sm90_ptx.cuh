@@ -188,6 +188,20 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
     : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D[64 x 16] (+)= A[64 x 16] B[16 x 16]: A and B K-major in shared
+// memory; accumulate = 0 overwrites D
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}"
+      ", %8, %9, p, 1, 1, 0, 0;\n}\n"
+    : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+      "+f"(d[6]), "+f"(d[7])
+    : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // D[64 x 64] += A[64 x 16] B[16 x 64]: A K-major and B MN-major
 // (transposed) in shared memory
 __device__ __forceinline__ void wgmma_ss_n64_tb(float (&d)[32], uint64_t da,

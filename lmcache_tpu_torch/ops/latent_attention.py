@@ -18,7 +18,8 @@ the model applies ``w_kb_v``.
 
 :func:`latent_flash_attention` and :func:`quantized_latent_flash_attention`
 run the hand-written Hopper kernel (``csrc/latent_attention.cu``, the body
-of ``csrc/latent_sm90.cuh``: blocks of 64 (token, head) rows, TMA, wgmma)
+of ``csrc/latent_sm90.cuh``: blocks of 64 (token, head) rows, TMA, wgmma,
+shared with the paged kernels of ``paged_latent_attention.py``)
 on CUDA tensors and their plain versions on CPU tensors; each counts its
 kernel launches in ``.launches`` ("prefill" for T > 1, "decode" for
 T == 1). A row that sees no key gives 0 from both (the JAX ``*_reference``
@@ -92,13 +93,14 @@ def quantized_latent_attention_reference(q_full, lat_sym, lat_scale,
 # ------------------------------------------------------------ the kernels ---
 
 class LatentArgs(ctypes.Structure):
-    """The kernels' argument block (``csrc/latent_common.cuh::LatentArgs``):
+    """The kernels' argument block (``csrc/latent_args.cuh::LatentArgs``):
     device pointers, sizes and strides in elements."""
     _fields_ = (
         [(n, ctypes.c_void_p) for n in (
-            "q", "kv", "out", "kv_scale", "page_table", "q_offset", "kv_len")]
+            "q", "kv", "out", "kv_scale", "page_table", "q_offset", "kv_len",
+            "part_o", "part_ml")]
         + [(n, ctypes.c_int) for n in (
-            "T", "H", "C", "r", "S", "NP", "P", "page", "tn")]
+            "T", "H", "C", "r", "S", "NP", "P", "page", "box", "split")]
         + [("scale", ctypes.c_float)]
         + [(n, ctypes.c_longlong) for n in (
             "qb", "qt", "qh", "kb", "ks", "ob", "ot", "oh", "sb", "ss")])
@@ -107,22 +109,16 @@ class LatentArgs(ctypes.Structure):
 _entry_points = {}
 
 
-def load_entry(source: str, symbol: str):
+def load_entry(source: str, symbol: str, argtypes=None):
     """The C entry point ``symbol`` of ``csrc/<source>.cu`` (built at first
-    use): the dense kernel's ``(LatentArgs*, B, stream)``, the paged
-    kernels' ``(LatentArgs*, B, BM, stream)``, or for ``*_smem_bytes``
-    ``(BM, C, r, tn, stages)``."""
+    use), taking ``argtypes`` (default ``(LatentArgs*, B, stream)``) and
+    returning an int."""
     fn = _entry_points.get(symbol)
     if fn is None:
         fn = getattr(_build.load(source), symbol)
-        if symbol.endswith("smem_bytes"):
-            fn.argtypes = [ctypes.c_int] * 5
-        elif source == "latent_attention":
-            fn.argtypes = [ctypes.POINTER(LatentArgs), ctypes.c_int,
-                           ctypes.c_void_p]
-        else:
-            fn.argtypes = [ctypes.POINTER(LatentArgs), ctypes.c_int,
-                           ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = (argtypes if argtypes is not None else
+                       [ctypes.POINTER(LatentArgs), ctypes.c_int,
+                        ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _entry_points[symbol] = fn
     return fn
@@ -169,15 +165,16 @@ def check_cuda_args(q_full, rows, scales, q_offset, kv_len, rank, B):
             raise ValueError(f"{name} must be contiguous int32 [{B}]")
 
 
-def fill_args(q_full, rows, scales, out, q_offset, kv_len, scale, tn,
+def fill_args(q_full, rows, scales, out, q_offset, kv_len, scale,
               S) -> LatentArgs:
-    """The argument block of one launch (the paged fields left at 0)."""
+    """The argument block of one launch (the paged and split fields left at
+    0)."""
     B, T, H, C = q_full.shape
     a = LatentArgs()
     a.q, a.kv, a.out = q_full.data_ptr(), rows.data_ptr(), out.data_ptr()
     a.kv_scale = scales.data_ptr() if scales is not None else None
     a.q_offset, a.kv_len = q_offset.data_ptr(), kv_len.data_ptr()
-    a.T, a.H, a.C, a.r, a.S, a.tn = T, H, C, out.shape[3], S, tn
+    a.T, a.H, a.C, a.r, a.S = T, H, C, out.shape[3], S
     a.scale = scale
     a.qb, a.qt, a.qh = q_full.stride()[:3]
     a.kb, a.ks = rows.stride(0), rows.stride(1)
@@ -187,17 +184,26 @@ def fill_args(q_full, rows, scales, out, q_offset, kv_len, scale, tn,
     return a
 
 
-def launch(wrapper, source, symbol, a, q_full, *sizes):
-    """Launch on q_full's current stream (``sizes``: the paged kernels' row
-    block), raise if the launch is refused, and add one to
-    ``wrapper.launches`` ("prefill" for T > 1, "decode" for T == 1)."""
-    err = load_entry(source, symbol)(
-        ctypes.byref(a), q_full.shape[0], *sizes,
-        torch.cuda.current_stream(q_full.device).cuda_stream)
+def check_error(wrapper, err):
+    """Raise if a launch was refused (``err``: its cudaError_t)."""
     if err:
         raise RuntimeError(f"{wrapper.__name__} kernel launch failed: "
                            f"cudaError {err}")
-    wrapper.launches["decode" if q_full.shape[1] == 1 else "prefill"] += 1
+
+
+def count_launch(wrapper, T):
+    """Add one to ``wrapper.launches`` ("prefill" for T > 1, "decode" for
+    T == 1)."""
+    wrapper.launches["decode" if T == 1 else "prefill"] += 1
+
+
+def launch(wrapper, source, symbol, a, q_full):
+    """Launch ``(LatentArgs*, B, stream)`` on q_full's current stream, raise
+    if the launch is refused, and count it under ``wrapper``."""
+    check_error(wrapper, load_entry(source, symbol)(
+        ctypes.byref(a), q_full.shape[0],
+        torch.cuda.current_stream(q_full.device).cuda_stream))
+    count_launch(wrapper, q_full.shape[1])
 
 
 def _dense(wrapper, q_full, latents, lat_scale, q_offset, kv_len, rank,
@@ -223,7 +229,7 @@ def _dense(wrapper, q_full, latents, lat_scale, q_offset, kv_len, rank,
     out = torch.empty((B, T, H, rank), dtype=q_full.dtype,
                       device=q_full.device)
     a = fill_args(q_full, latents, lat_scale, out, q_offset, kv_len, scale,
-                  0, latents.shape[1])
+                  latents.shape[1])
     kind = "bf16" if lat_scale is None else "int8"
     launch(wrapper, "latent_attention", f"lmc_latent_attention_{kind}", a,
            q_full)

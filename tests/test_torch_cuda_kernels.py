@@ -915,20 +915,19 @@ PAGED_LATENT_CASES = {
     "prefill_over_prefix": (2, 70, 16, [100, 0], [170, 70]),
     "prefill_segment": (1, 512, 64, [1536], [2048]),
     "empty_seq": (2, 5, 16, [0, 20], [0, 25]),
+    # pages that row 10 takes and row 9 does not: larger than its tile
+    # fits, and no multiple of 16
+    "prefill_page128": (2, 40, 128, [300, 0], [340, 40]),
+    "decode_page24": (3, 1, 24, [500, 23, 0], [501, 24, 1]),
 }
 
 
-@pytest.mark.parametrize("case", sorted(PAGED_LATENT_CASES))
-@pytest.mark.parametrize("geom", ["tiny", "v2_lite"])
-@pytest.mark.parametrize("kind", sorted(PAGED_LATENT))
-def test_paged_latent_kernel_matches_plain(gen, kind, geom, case):
-    """A layer's slice of a lane-padded arena [L, P, page, Cp], a fragmented
-    table whose dead trailing slots hold ids outside the pool, queries of
-    the logical width C."""
-    entry, quant = PAGED_LATENT[kind]
+def _paged_latent_inputs(gen, quant, geom, B, T, page, kv_len, spare=2):
+    """A layer's slice of a lane-padded arena [L, P, page, Cp] and a
+    fragmented table whose dead trailing slots hold ids outside the pool
+    (-7 or 2**20); returns (q, arena, scales, table, P)."""
     H, C, rank, Cp = LATENT_GEOMETRY[geom]
-    B, T, page, q_off, kv_len = PAGED_LATENT_CASES[case]
-    NP = -(-max(kv_len) // page) + 2
+    NP = -(-max(kv_len) // page) + spare
     P = B * NP + 3
     q = torch.randn((B, T, H, C), generator=gen, device="cuda").bfloat16()
     arena, scales = _latent_rows(gen, (2, P, page, Cp), quant)
@@ -937,23 +936,264 @@ def test_paged_latent_kernel_matches_plain(gen, kind, geom, case):
     table = ids.reshape(B, NP).to(torch.int32)
     for b, n in enumerate(kv_len):
         table[b, -(-n // page):] = -7 if b % 2 else 1 << 20
-    table = table.contiguous()
+    return (q, arena[1], None if scales is None else scales[1],
+            table.contiguous(), P)
+
+
+def _paged_latent_call(entry, quant, q, arena, scales, table, qo, kl, **kw):
+    if quant:
+        return entry(q, arena, scales, table, qo, kl, **kw)
+    return entry(q, arena, table, qo, kl, **kw)
+
+
+def _paged_latent_plain(quant, q, arena, scales, table, qo, kl, **kw):
+    if quant:
+        return pla.quantized_paged_latent_attention_reference(
+            q, arena, scales, table, qo, kl, zero_dead_rows=True, **kw)
+    return pla.paged_latent_attention_reference(
+        q, arena, table, qo, kl, zero_dead_rows=True, **kw)
+
+
+@pytest.mark.parametrize("case", sorted(PAGED_LATENT_CASES))
+@pytest.mark.parametrize("geom", sorted(LATENT_GEOMETRY))
+@pytest.mark.parametrize("kind", sorted(PAGED_LATENT))
+def test_paged_latent_kernel_matches_plain(gen, kind, geom, case):
+    """A layer's slice of a lane-padded arena [L, P, page, Cp], a fragmented
+    table whose dead trailing slots hold ids outside the pool, queries of
+    the logical width C; row 9 refuses the pages its tile does not take."""
+    entry, quant = PAGED_LATENT[kind]
+    H, C, rank, Cp = LATENT_GEOMETRY[geom]
+    B, T, page, q_off, kv_len = PAGED_LATENT_CASES[case]
+    if geom == "v3_heads":
+        T = 1  # H = 128 is held at decode, where the path gives it
+        kv_len = [o + 1 for o in q_off]
+    q, arena, scales, table, P = _paged_latent_inputs(
+        gen, quant, geom, B, T, page, kv_len)
     qo = torch.tensor(q_off, dtype=torch.int32, device="cuda")
     kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
     kw = dict(rank=rank, scale=LATENT_SCALE)
+    if kind.startswith("grid") and (page % 16 or page > pla.max_page(quant)):
+        with pytest.raises(ValueError, match=f"page size {page}"):
+            _paged_latent_call(entry, quant, q, arena, scales, table, qo, kl,
+                               **kw)
+        return
     phase = "decode" if T == 1 else "prefill"
     before = entry.launches[phase]
-    live = table.clamp(0, P - 1)  # the plain version gathers every slot
-    if quant:
-        out = entry(q, arena[1], scales[1], table, qo, kl, **kw)
-        ref = pla.quantized_paged_latent_attention_reference(
-            q, arena[1], scales[1], live, qo, kl, zero_dead_rows=True, **kw)
-    else:
-        out = entry(q, arena[1], table, qo, kl, **kw)
-        ref = pla.paged_latent_attention_reference(
-            q, arena[1], live, qo, kl, zero_dead_rows=True, **kw)
+    out = _paged_latent_call(entry, quant, q, arena, scales, table, qo, kl,
+                             **kw)
+    # the plain version gathers every slot
+    ref = _paged_latent_plain(quant, q, arena, scales, table.clamp(0, P - 1),
+                              qo, kl, **kw)
     assert entry.launches[phase] == before + 1
     _assert_latent_close(out, ref, kl)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("page", [7, 12, 20])
+def test_paged_latent_stream_takes_pages_of_any_size(gen, page, quant):
+    """Row 10 at pages whose TMA box is a few rows (page 12 and 20: 4; page
+    7: one row, which int8 rows read without TMA), at prefill and in the
+    split decode."""
+    entry = (pla.quantized_paged_latent_attention_dma if quant
+             else pla.paged_latent_attention_dma)
+    H, C, rank, Cp = LATENT_GEOMETRY["v2_lite"]
+    kw = dict(rank=rank, scale=LATENT_SCALE)
+    for T in (1, 40):
+        kv_len = [700, 333]
+        q, arena, scales, table, P = _paged_latent_inputs(
+            gen, quant, "v2_lite", 2, T, page, kv_len)
+        kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+        out = _paged_latent_call(entry, quant, q, arena, scales, table,
+                                 kl - T, kl, **kw)
+        ref = _paged_latent_plain(quant, q, arena, scales,
+                                  table.clamp(0, P - 1), kl - T, kl, **kw)
+        _assert_latent_close(out, ref, kl)
+
+
+@pytest.mark.parametrize("kind", sorted(PAGED_LATENT))
+def test_paged_latent_nan_past_kv_len_and_in_dead_pages(gen, kind):
+    """NaN in the latent rows (int8: their scales) at and past kv_len inside
+    the last live page, and in every page that a dead slot names: neither
+    is read into the result, which stays finite and equals the plain
+    version on clean rows."""
+    entry, quant = PAGED_LATENT[kind]
+    H, C, rank, Cp = LATENT_GEOMETRY["v2_lite"]
+    kw = dict(rank=rank, scale=LATENT_SCALE)
+    for B, T, q_off in ((2, 37, [100, 0]), (3, 1, [1300, 40, 0])):
+        kv_len = [o + T for o in q_off]
+        q, arena, scales, table, P = _paged_latent_inputs(
+            gen, quant, "v2_lite", B, T, 64, kv_len)
+        dead = torch.ones(P, dtype=torch.bool, device="cuda")
+        for b, n in enumerate(kv_len):
+            dead[table[b, :-(-n // 64)].long()] = False
+        past = torch.zeros((P, 64), dtype=torch.bool, device="cuda")
+        for b, n in enumerate(kv_len):
+            live = -(-n // 64)
+            # in-pool ids for the dead slots: pages of nothing but NaN
+            table[b, live:] = torch.nonzero(dead)[b, 0].int()
+            if n % 64:
+                past[table[b, live - 1].long(), n % 64:] = True
+        past |= dead[:, None]
+        qo = torch.tensor(q_off, dtype=torch.int32, device="cuda")
+        kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+        if quant:
+            clean = scales.masked_fill(past, 0)
+            out = entry(q, arena, scales.masked_fill(past, float("nan")),
+                        table, qo, kl, **kw)
+            ref = _paged_latent_plain(True, q, arena, clean, table, qo, kl,
+                                      **kw)
+        else:
+            clean = arena.masked_fill(past[..., None], 0)
+            out = entry(q, arena.masked_fill(past[..., None], float("nan")),
+                        table, qo, kl, **kw)
+            ref = _paged_latent_plain(False, q, clean, None, table, qo, kl,
+                                      **kw)
+        _assert_latent_close(out, ref, kl)
+
+
+@pytest.mark.parametrize("kind", sorted(PAGED_LATENT))
+def test_paged_latent_id_outside_the_pool_reads_zeros(gen, kind):
+    """A live slot naming a page outside the pool (past it, or negative)
+    reads as latent rows of zeros (int8: scale 0), as the old kernels
+    did."""
+    entry, quant = PAGED_LATENT[kind]
+    H, C, rank, Cp = LATENT_GEOMETRY["v2_lite"]
+    kw = dict(rank=rank, scale=LATENT_SCALE)
+    for T, q_off in ((1, [300, 200]), (40, [250, 150])):
+        kv_len = [o + T for o in q_off]
+        q, arena, scales, table, P = _paged_latent_inputs(
+            gen, quant, "v2_lite", 2, T, 64, kv_len)
+        table[0, 1] = P + 5
+        table[1, 2] = -3
+        # the plain version reads those slots from an appended zero page
+        zero_arena = torch.cat([arena, torch.zeros_like(arena[:1])])
+        ref_table = table.clone()
+        ref_table[0, 1] = ref_table[1, 2] = P
+        ref_table = ref_table.clamp(0, P)
+        qo = torch.tensor(q_off, dtype=torch.int32, device="cuda")
+        kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+        out = _paged_latent_call(entry, quant, q, arena, scales, table, qo,
+                                 kl, **kw)
+        zero_scales = (None if scales is None else
+                       torch.cat([scales, torch.zeros_like(scales[:1])]))
+        ref = _paged_latent_plain(quant, q, zero_arena, zero_scales,
+                                  ref_table, qo, kl, **kw)
+        _assert_latent_close(out, ref, kl)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("geom", ["tiny", "v2_lite", "v3_heads"])
+def test_latent_split_decode_edges(gen, geom, quant):
+    """Row 10's split decode at kv_len 0, 1, exactly one split, one key past
+    a split, and 16k keys over fragmented pages, each row against the plain
+    version, and the partials' combine counted under its own wrapper."""
+    entry = (pla.quantized_paged_latent_attention_dma if quant
+             else pla.paged_latent_attention_dma)
+    H, C, rank, Cp = LATENT_GEOMETRY[geom]
+    n = pla.split_keys(1, H)
+    kv_len = [0, 1, n, n + 1, 16384]
+    q, arena, scales, table, P = _paged_latent_inputs(
+        gen, quant, geom, 5, 1, 64, kv_len)
+    qo = torch.tensor([max(k - 1, 0) for k in kv_len], dtype=torch.int32,
+                      device="cuda")
+    kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    kw = dict(rank=rank, scale=LATENT_SCALE)
+    assert pla.takes_split(1, H)
+    before = (entry.launches["decode"], pla.combine_partials.launches["decode"])
+    out = _paged_latent_call(entry, quant, q, arena, scales, table, qo, kl,
+                             **kw)
+    assert (entry.launches["decode"],
+            pla.combine_partials.launches["decode"]) == (before[0] + 1,
+                                                         before[1] + 1)
+    ref = _paged_latent_plain(quant, q, arena, scales, table.clamp(0, P - 1),
+                              qo, kl, **kw)
+    _assert_latent_close(out, ref, kl)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_paged_latent_launches_repeat_bits_and_a_decode_row_alone(gen, quant):
+    """Row 10: two launches give the same bits (a prefill over a prefix and a
+    split decode), and a decode row gives the same bits alone and among
+    three others of other lengths."""
+    entry = (pla.quantized_paged_latent_attention_dma if quant
+             else pla.paged_latent_attention_dma)
+    H, C, rank, Cp = LATENT_GEOMETRY["v2_lite"]
+    kw = dict(rank=rank, scale=LATENT_SCALE)
+    q, arena, scales, table, P = _paged_latent_inputs(
+        gen, quant, "v2_lite", 2, 300, 64, [2000, 300])
+    qo = torch.tensor([1700, 0], dtype=torch.int32, device="cuda")
+    args = (arena, scales) if quant else (arena,)
+    first = entry(q, *args, table, qo, qo + 300, **kw)
+    again = entry(q, *args, table, qo, qo + 300, **kw)
+    assert torch.equal(first, again)
+    kv_len = [3001, 4097, 18, 1501]
+    q, arena, scales, table, P = _paged_latent_inputs(
+        gen, quant, "v2_lite", 4, 1, 64, kv_len)
+    args = (arena, scales) if quant else (arena,)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    together = entry(q, *args, table, kl - 1, kl, **kw)
+    assert torch.equal(together, entry(q, *args, table, kl - 1, kl, **kw))
+    for i in range(4):
+        alone = entry(q[i:i + 1], *args, table[i:i + 1].contiguous(),
+                      kl[i:i + 1] - 1, kl[i:i + 1], **kw)
+        assert torch.equal(alone, together[i:i + 1])
+
+
+def test_latent_combine_matches_plain_with_empty_partials(gen):
+    """The latent combine alone against its plain version, on partials of
+    the plain split over 3k keys in which whole splits of some rows are
+    empty (kv_len 0 and 1 among them)."""
+    H, C, rank, Cp = LATENT_GEOMETRY["v2_lite"]
+    kv_len = [0, 1, 600, 3000]
+    q, arena, _, table, P = _paged_latent_inputs(
+        gen, False, "v2_lite", 4, 1, 64, kv_len)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    part_o, part_ml = pla.paged_latent_split_partials_reference(
+        q, arena, table.clamp(0, P - 1), (kl - 1).clamp(min=0), kl,
+        rank=rank, scale=LATENT_SCALE)
+    assert (part_ml[..., 1] == 0).any() and (part_ml[..., 1] > 0).any()
+    before = pla.combine_partials.launches["decode"]
+    out = pla.combine_partials(part_o, part_ml, 1, H)
+    assert pla.combine_partials.launches["decode"] == before + 1
+    ref = pla.combine_partials_reference(part_o, part_ml, 1, H)
+    _assert_latent_close(out, ref, kl)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("page", [16, 32, 64])
+def test_paged_latent_prefill_against_the_dense_kernel(gen, page, quant):
+    """Row 10 at prefill and row 8 on the same rows laid out densely: tiles
+    of the same 32 keys in the same order give the same bits, and so does
+    row 9 at page 32; row 9's tile (the page) differs from row 8's at the
+    other pages, which hold it within the tolerance."""
+    H, C, rank, Cp = LATENT_GEOMETRY["v2_lite"]
+    kw = dict(rank=rank, scale=LATENT_SCALE)
+    kv_len = [1100, 600]
+    q, arena, scales, table, P = _paged_latent_inputs(
+        gen, quant, "v2_lite", 2, 100, page, kv_len, spare=0)
+    qo = torch.tensor([1000, 500], dtype=torch.int32, device="cuda")
+    kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    NP = table.shape[1]
+    dense = arena[table.clamp(0, P - 1).long()][..., :C].reshape(
+        2, NP * page, C).contiguous()
+    if quant:
+        dscale = scales[table.clamp(0, P - 1).long()].reshape(2, NP * page)
+        row8 = la.quantized_latent_flash_attention(q, dense, dscale, qo, kl,
+                                                   **kw)
+        row10 = pla.quantized_paged_latent_attention_dma(
+            q, arena, scales, table, qo, kl, **kw)
+        row9 = pla.quantized_paged_latent_attention(q, arena, scales, table,
+                                                    qo, kl, **kw)
+    else:
+        row8 = la.latent_flash_attention(q, dense, qo, kl, **kw)
+        row10 = pla.paged_latent_attention_dma(q, arena, table, qo, kl, **kw)
+        row9 = pla.paged_latent_attention(q, arena, table, qo, kl, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(row10, row8)
+    if page == 32:
+        assert torch.equal(row9, row8)
+    else:
+        _assert_latent_close(row9, row8.float(), kl)
 
 
 @pytest.mark.parametrize("kind", sorted(PAGED_LATENT))
@@ -1005,6 +1245,12 @@ def test_latent_kernels_refuse_what_they_do_not_take(gen):
     pla.paged_latent_attention_dma(qb, pool, table, one, one, rank=64,
                                    scale=0.1)
     torch.cuda.synchronize()
+    # row 9's largest pages: one stage of a tile of the page fits
+    assert (pla.max_page(False), pla.max_page(True)) == (112, 80)
+    big = torch.zeros((4, 128, 128), device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="page size 128"):
+        pla.paged_latent_attention(qb, big, table, one, one, rank=64,
+                                   scale=0.1)
 
 
 # -------------------- row 13: the prefill ablation variants ---------------
