@@ -9,16 +9,17 @@ Phases, in order; any failure exits non-zero:
    per source, all at once) and print the build time and nvcc's report
    (registers and spills of every kernel), and the number of ``HGMMA``
    (wgmma) and ``UTMALDG`` (TMA load) instructions in the libraries of the
-   Hopper bodies, kernel rows 1, 2, 3, 8, 9 and 10 (``cuobjdump -sass``),
-   each of which must be above 0;
+   Hopper bodies, kernel rows 1, 2, 3, 4 and 6, 8, 9 and 10 (``cuobjdump
+   -sass``), each of which must be above 0;
 2. hold each kernel against its plain PyTorch version on the card, in
    bf16, at the shapes the paths below give it: ``flash_attention`` (plain
    and with each option: sliding and chunked window, softcap, sinks,
    ``kv_slot``, at the public shapes of Mistral, Phi-3, Gemma-2, GPT-OSS and
    Llama-4; its decode runs the key-split decode), the split decode's
-   ``combine_partials`` alone, ``flash_attention_dma``,
-   ``quantized_flash_attention`` (plain and with the same options), the
-   four paged-attention kernels (bf16 and int8 arenas), the two range
+   ``combine_partials`` alone (on row 1's and on the paged split's
+   partials), ``flash_attention_dma``, ``quantized_flash_attention`` (plain
+   and with the same options), the four paged-attention kernels (bf16 and
+   int8 arenas; the bf16 decodes run the paged key split), the two range
    coders (tolerance 0) and the six MLA
    latent-attention entry points (dense, paged one page per step, paged
    streamed; bf16 and int8 latents) at DeepSeek-V2-Lite's shapes and at
@@ -45,7 +46,9 @@ Phases, in order; any failure exits non-zero:
    96, sliding window 2047: the one-page-per-step kernels), two prompts of
    about 3000 tokens over a bf16 and then an int8 arena; the logits of the
    last prompt token are held against ``forward_paged*`` run with the plain
-   attention on the same arena (``phase_paged_phi3``);
+   attention on the same arena; one ``torch.profiler`` window over a
+   prefill step of two fresh prompts and one over a decode step, per arena
+   (``phase_paged_phi3``);
 6c. path C, the dense int8 pool on tinyllama-1.1B: the bench shape of
    phase 3 through ``forward_quantized`` (TTFT full, reuse and ratio; the
    reuse logits held to the full prefill's as in phase 3; the pool stored
@@ -129,7 +132,8 @@ Phases, in order; any failure exits non-zero:
    single call; for the latent kernels SDPA with the latents expanded over
    the heads as K and their first rank columns as V, the SDPA backends that
    take those shapes named); at decode also the device time of the dense
-   and latent kernels alone (``torch.profiler``). No PyTorch call computes
+   and latent kernels, the paged kernels and the combine on the paged
+   split's partials alone (``torch.profiler``). No PyTorch call computes
    a range coder: the coders' rows carry the host C++ coder's time at the
    same shape instead; none computes the split decodes' combines either.
 
@@ -218,7 +222,7 @@ KERNELS = {
     "flash_attention": (
         ops.flash_attention, "lmcache_tpu_torch/ops/csrc/flash_attention.cu",
         "lmcache_tpu/ops/attention.py:110"),
-    # the second kernel of row 1's key-split decode
+    # the second kernel of the key-split decodes of rows 1, 3, 4 and 6
     "combine_partials": (
         attn.combine_partials,
         "lmcache_tpu_torch/ops/csrc/flash_attention.cu",
@@ -367,11 +371,12 @@ def wall_best(fn, n=3):
 
 def sass_counts(libs):
     """The wgmma (``HGMMA``) and TMA load (``UTMALDG``) instructions in the
-    built libraries of rows 1, 2, 3, 8, 9 and 10, the Hopper bodies; exits
-    where either count is 0."""
+    built libraries of rows 1, 2, 3, 4 and 6, 8, 9 and 10, the Hopper
+    bodies; exits where either count is 0."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for name in ("flash_attention", "flash_stream_attention",
-                 "quantized_flash_attention", "latent_attention",
+                 "quantized_flash_attention", "paged_attention",
+                 "paged_stream_attention", "latent_attention",
                  "paged_latent_attention"):
         sass = subprocess.run([tool, "-sass", str(libs[name])],
                               capture_output=True, text=True, check=True,
@@ -518,15 +523,16 @@ def phase_kernels():
             worst["flash_attention"],
             hold_against_plain("flash_attention", case[0], out, ref))
         del q, k, v, out, ref
-    for case in combine_cases():
-        part_o, part_ml, T, G = make_combine_inputs(case, gen)
+    def hold_combine(name, part_o, part_ml, T, G):
         out = attn.combine_partials(part_o, part_ml, T, G)
         ref = attn.combine_partials_reference(part_o, part_ml, T, G)
         torch.cuda.synchronize()
         worst["combine_partials"] = max(
             worst["combine_partials"],
-            hold_against_plain("combine_partials", case[0], out, ref))
-        del part_o, part_ml, out, ref
+            hold_against_plain("combine_partials", name, out, ref))
+
+    for case in combine_cases():
+        hold_combine(case[0], *make_combine_inputs(case, gen))
     for case in dense_cases():
         q, kv, qo, kl, kw = make_dense_inputs(case, gen)
         out = dense_call(case, q, kv, qo, kl, kw)
@@ -545,6 +551,10 @@ def phase_kernels():
             worst[case["kernel"]],
             hold_against_plain(case["kernel"], case["name"], out, ref))
         del args, out, ref
+    # after the paged kernels' inputs, so that every earlier case draws the
+    # same numbers from the generator as before the paged split existed
+    for case in paged_combine_cases():
+        hold_combine(case["name"], *make_paged_combine_inputs(case, gen))
     for case in coder_cases():
         worst[case[1]] = max(worst[case[1]], hold_coder_against_plain(case,
                                                                       gen))
@@ -859,6 +869,22 @@ def make_paged_inputs(case, gen):
     arena = torch.randn((2, P, Hkv, PAGE, D), generator=gen,
                         device=dev).bfloat16()
     return (q, arena[0], arena[1], table, qo, kl), kw
+
+
+def paged_combine_cases():
+    """The bf16 paged cases that take the split decode (rows 4 and 6 at
+    ``DECODE_ROWS`` rows or fewer): row 1's combine merges their
+    partials."""
+    return [case for case in paged_cases() if not case["quant"]
+            and pa.takes_split(case["T"], case["H"] // case["Hkv"])]
+
+
+def make_paged_combine_inputs(case, gen):
+    """The partials the paged split decode gives the combine at ``case``
+    (from its plain version, on the card)."""
+    args, kw = make_paged_inputs(case, gen)
+    part_o, part_ml = pa.paged_split_partials_reference(*args, **kw)
+    return part_o, part_ml, case["T"], case["H"] // case["Hkv"]
 
 
 def paged_plain(case):
@@ -1884,11 +1910,11 @@ def paged_wave(eng, name, prompts, max_new, force=None):
     return reqs, first_logits, injected, record
 
 
-def profile_decode_step(eng, prompts, arena, prefill=False):
+def profile_decode_step(eng, prompts, arena, prefill=False, model="paged"):
     """Bring the prompts to decode, then time and profile one batched
-    decode step (3 of the 4 rows live, the fourth parked on the null
-    page). With ``prefill`` the prompts' first tokens change, so that no
-    page is resident or cached, and the first engine step, a step of
+    decode step (tinyllama: 3 of the 4 rows live, the fourth parked on the
+    null page). With ``prefill`` the prompts' first tokens change, so that
+    no page is resident or cached, and the first engine step, a step of
     512-token prefill segments, is profiled too (``prof["prefill"]``)."""
     if prefill:
         prompts = [np.concatenate([[(int(p[0]) + 1) % eng.cfg.vocab_size],
@@ -1896,15 +1922,15 @@ def profile_decode_step(eng, prompts, arena, prefill=False):
                    for p in prompts]
     for p in prompts:
         eng.add_request(Request(p, SamplingParams(max_new_tokens=16)))
-    prefill_prof = (profile_window(f"paged prefill step, {arena} arena, "
+    prefill_prof = (profile_window(f"{model} prefill step, {arena} arena, "
                                    f"fresh prompts (512-token segments)",
                                    eng.step) if prefill else None)
     while eng.waiting or eng.prefilling:
         eng.step()
     step_ms = wall_best(eng.step)
-    prof = profile_window(f"paged decode step, {arena} arena, 3 of 4 rows "
-                          f"live (step alone {step_ms:.3f} ms, best of 3)",
-                          eng.step)
+    prof = profile_window(f"{model} decode step, {arena} arena, "
+                          f"{len(prompts)} of {eng.B} rows live (step alone "
+                          f"{step_ms:.3f} ms, best of 3)", eng.step)
     eng.run()
     prof["step_ms"] = step_ms
     if prefill_prof is not None:
@@ -2114,7 +2140,7 @@ def phase_paged_phi3():
         cfg, generator=torch.Generator(device="cuda").manual_seed(0))
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in (3000, 2987)]
-    launches, first = {}, {}
+    launches, first, profiles = {}, {}, []
     for kv_dtype, arena in (("native", "bf16"), ("int8", "int8")):
         log(f"  -- {arena} arena")
         reset_launch_counts()
@@ -2153,13 +2179,18 @@ def phase_paged_phi3():
                 first[arena], [plain[r.request_id] for r in reqs])):
             raise SystemExit(f"phi3 {arena} arena: the kernel path disagrees "
                              f"with the plain attention")
+        # a step of two fresh prompts' 512-token segments, then a decode
+        # step of both rows (rows 4 and 5 over the window of 2047)
+        eng._prefill_segment = segment
+        profiles.append(profile_decode_step(eng, prompts, arena, prefill=True,
+                                            model="phi3 paged"))
         del eng, plain
         torch.cuda.empty_cache()
     if not _logits_agree("int8 arena vs bf16 arena", first["int8"],
                          first["bf16"], REL_L2_INT8, same_top1=False):
         raise SystemExit("phi3: the int8 arena's logits left the bf16 "
                          "arena's")
-    return launches
+    return launches, profiles
 
 
 # ------------------------------------------------------- phases 6c-6e ---
@@ -3525,20 +3556,29 @@ def phase_yardstick():
         rows["flash_attention"].append(row)
         del q, k, v, qh, mask_kw
 
-    for case in combine_cases():
-        part_o, part_ml, T, G = make_combine_inputs(case, gen)
+    def time_combine(name, paged, part_o, part_ml, T, G):
         ms = cuda_ms(lambda: attn.combine_partials(part_o, part_ml, T, G),
                      iters=200)
         plain_ms = cuda_ms(lambda: attn.combine_partials_reference(
             part_o, part_ml, T, G), iters=20)
         bound_ms, bound_by = combine_bound(part_o, part_ml, T, G)
-        rows["combine_partials"].append({
-            "shape": case[0], "ms": ms, "plain_ms": plain_ms,
-            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by})
-        log(f"  combine_partials | {case[0]}: kernel {ms:.4f} ms, bound "
+        row = {"shape": name, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": None, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        dev = ""
+        if paged:
+            # the paged split decode's combine alone, without the gaps in
+            # which the card waits for the host
+            row["kernel_ms"] = kernel_ms(lambda: attn.combine_partials(
+                part_o, part_ml, T, G), iters=50)
+            dev = f" (device time {row['kernel_ms']})"
+        rows["combine_partials"].append(row)
+        log(f"  combine_partials | {name}: kernel {ms:.4f} ms{dev}, bound "
             f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
             f"library none (no single call)")
-        del part_o, part_ml
+
+    for case in combine_cases():
+        time_combine(case[0], False, *make_combine_inputs(case, gen))
 
     for case in dense_cases():
         q, kv, qo, kl, kw = make_dense_inputs(case, gen)
@@ -3595,12 +3635,19 @@ def phase_yardstick():
                "plain_ms": plain_ms, "library_ms": gather_ms + sdpa_ms,
                "library_gather_ms": gather_ms, "library_sdpa_ms": sdpa_ms,
                "bound_ms": bound_ms, "bound_by": bound_by}
+        # the kernels alone, without the gaps in which the card waits for
+        # the host (rows 4 and 6 at decode: the split and the combine)
+        row["kernel_ms"] = kernel_ms(lambda: entry(*args, **kw), iters=50)
+        dev = f", device time of the kernels alone {row['kernel_ms']}"
         log(f"  {case['kernel']} | {case['name']}: kernel {ms:.4f} ms (L2 "
-            f"flushed before each launch: {cold_ms:.4f} ms), bound "
+            f"flushed before each launch: {cold_ms:.4f} ms{dev}), bound "
             f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
             f"gather {gather_ms:.4f} ms + SDPA {sdpa_ms:.4f} ms")
         rows[case["kernel"]].append(row)
         del args
+    # after the paged kernels, as in phase 2
+    for case in paged_combine_cases():
+        time_combine(case["name"], True, *make_paged_combine_inputs(case, gen))
     rows.update(coder_yardstick(gen, sm_clock_hz()))
 
     for case in latent_cases():
@@ -3754,7 +3801,8 @@ def main():
     torch.cuda.empty_cache()
     remote["codec_throughput"] = phase_codec_throughput()
     torch.cuda.empty_cache()
-    launches.update(phase_paged_phi3())
+    phi3_launches, phi3_profiles = phase_paged_phi3()
+    launches.update(phi3_launches)
     mistral_launches, mistral_profiles = phase_mistral()
     launches.update(mistral_launches)
     torch.cuda.empty_cache()
@@ -3769,11 +3817,13 @@ def main():
         "main_path": ("flash_attention", ("prefill",)),
         "serving": [("flash_attention", ("prefill", "decode")),
                     ("combine_partials", ("decode",))],
-        "paged tinyllama bf16": ("paged_attention_dma",
-                                 ("prefill", "decode")),
+        "paged tinyllama bf16": [("paged_attention_dma",
+                                  ("prefill", "decode")),
+                                 ("combine_partials", ("decode",))],
         "paged tinyllama int8": ("quantized_paged_attention_dma",
                                  ("prefill", "decode")),
-        "paged phi3 bf16": ("paged_attention", ("prefill", "decode")),
+        "paged phi3 bf16": [("paged_attention", ("prefill", "decode")),
+                            ("combine_partials", ("decode",))],
         "paged phi3 int8": ("quantized_paged_attention",
                             ("prefill", "decode")),
         "int8 dense bench": ("quantized_flash_attention", ("prefill",)),
@@ -3817,8 +3867,9 @@ def main():
                                              ("decode",)),
         "dense blend ServingEngine int8": ("quantized_flash_attention",
                                            ("decode",)),
-        "dense blend PagedServingEngine native": ("paged_attention_dma",
-                                                  ("decode",)),
+        "dense blend PagedServingEngine native": [
+            ("paged_attention_dma", ("decode",)),
+            ("combine_partials", ("decode",))],
         "mla blend store": ("latent_flash_attention", ("prefill",)),
         "mla blend MLAServingEngine native": ("latent_flash_attention",
                                               ("decode",)),
@@ -3853,6 +3904,7 @@ def main():
     record = {"kernels": kernels, "ttft": ttft, "ttft_int8": int8_bench,
               "ttft_streamed": stream_ttft, "remote": remote,
               "paged_decode_profiles": decode_profiles,
+              "phi3_paged_profiles": phi3_profiles,
               "dense_decode_profiles": dense_decode_profiles,
               "mistral_profiles": mistral_profiles, "mla": mla_out,
               "ablation": ablation, "blend": blend_out, "card": card}

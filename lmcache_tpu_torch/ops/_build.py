@@ -18,8 +18,14 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lmcache_tpu_torch"
+# -fno-gnu-unique: g++ otherwise makes a template's static locals (each
+# launcher's record of the shared memory it raised its kernel to) one
+# object across every library of the process, so that a second library
+# instantiating the same launcher would skip raising its own copy of the
+# kernel and have its launches refused
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC,-fno-gnu-unique", "-Xptxas",
+              "-v")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -239,8 +239,9 @@ def split_attention_reference(q, k, v, q_offset, kv_len, sm_scale=None,
 
 
 class FlashArgs(ctypes.Structure):
-    """The kernels' argument block (``csrc/flash_common.cuh::FlashArgs``):
-    device pointers, sizes, options and strides in elements."""
+    """The kernels' argument block (``csrc/flash_args.cuh::FlashArgs``):
+    device pointers, sizes, options and strides in elements; the page-table
+    fields are set for a paged arena only."""
     _fields_ = (
         [(n, ctypes.c_void_p) for n in (
             "q", "k", "v", "out", "k_scale", "v_scale", "q_offset", "kv_len",
@@ -249,7 +250,9 @@ class FlashArgs(ctypes.Structure):
         + [("softcap", ctypes.c_float), ("scale", ctypes.c_float)]
         + [(n, ctypes.c_longlong) for n in (
             "qb", "qt", "qh", "kb", "kh", "ks", "vb", "vh", "vs", "ob", "ot",
-            "oh", "ksb", "kss", "vsb", "vss")])
+            "oh", "ksb", "kss", "vsb", "vss")]
+        + [("page_table", ctypes.c_void_p)]
+        + [(n, ctypes.c_int) for n in ("NP", "P", "page", "box")])
 
 
 HEAD_DIMS = (64, 96, 128, 256)

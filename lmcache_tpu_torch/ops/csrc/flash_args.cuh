@@ -11,7 +11,8 @@
 // and, with a window W, kpos > qpos - W ("sliding") or
 // kpos / W == qpos / W ("chunked"). Online softmax in fp32, 0 for a row that
 // sees no key. With kv_slot the K/V (and scale) row is kv_slot[0], read on
-// the device, whatever b is.
+// the device, whatever b is. Over a paged arena (page_table set) key kpos
+// of sequence b is row kpos % page of page page_table[b, kpos / page].
 
 #pragma once
 
@@ -38,6 +39,12 @@ struct FlashArgs {
   float scale;
   long long qb, qt, qh, kb, kh, ks, vb, vh, vs, ob, ot, oh;
   long long ksb, kss, vsb, vss;  // scale strides [B, S]
+  // paged arena only (paged_attention.cu, paged_stream_attention.cu): K/V
+  // are pools [P, H_kv, page, D] whose page is named by page_table
+  // [B, NP] (kb, kh, ks: the strides of the page, head and row in page),
+  // S = NP * page; box: rows of one TMA box, a divisor of page and tile
+  const int* page_table;
+  int NP, P, page, box;
 };
 
 // sizes no launch can take (the wrapper refuses them first)

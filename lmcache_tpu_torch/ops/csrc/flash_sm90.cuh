@@ -1,7 +1,8 @@
 // The Hopper prefill body of the dense attention kernels
 // (flash_attention.cu, flash_stream_attention.cu over bf16 K/V,
-// quantized_flash_attention.cu over int8 K/V): TMA, wgmma, and the scores,
-// probabilities and output accumulator kept in registers.
+// quantized_flash_attention.cu over int8 K/V) and of the bf16 paged ones
+// (paged_attention.cu, paged_stream_attention.cu): TMA, wgmma, and the
+// scores, probabilities and output accumulator kept in registers.
 //
 // What the TPU kernels compute (lmcache_tpu/ops/attention.py::_flash_kernel
 // and ::_flash_dma_kernel): for each (sequence, KV head, block of query
@@ -59,6 +60,20 @@
 //   product run, took longer than row 1's whole prefill): tiles of 128 keys at D 64
 //   and 96 (167,040 and 224,352 bytes), 64 at D 128 (165,984) and 32 at
 //   D 256 (198,240).
+// - Tile source (PAGED): the dense pool [B, H_kv, S, D], a box of BN keys a
+//   panel at (column, key, KV head, sequence); or a paged arena [P, H_kv,
+//   page, D] (paged_attention.cu, paged_stream_attention.cu, bf16), read
+//   in place through page_table [B, NP]: the arena is a 4-d map whose key
+//   dimension is the row in page and whose pool row is the page id, and a
+//   tile of BN keys loads as pieces of `box` rows (gcd(BN, page), so a box
+//   never crosses a page) at (column, row in page, KV head, page id). The
+//   producer warp's 32 lanes hold 32 consecutive page ids of the block's
+//   table, one load a lane. Pieces at and past kend, and pieces wholly
+//   before the block's oldest visible key, are not loaded: dead slots are
+//   never read, and their shared memory keeps an older tile's rows, which
+//   the consumers zero in V as they zero V's tail (K's are masked). A
+//   page id outside the pool (< 0 or >= P) lies outside the map and reads
+//   as zeros, TMA's fill. Tile points are the dense body's.
 // - No float atomics and a fixed order of every sum: two launches on the
 //   same inputs give the same bits.
 // Tiles: BN = 128 keys at D 64, 96 and 128, 64 at D 256 (O alone takes 128
@@ -229,10 +244,10 @@ __device__ __forceinline__ int swizzle(int off) {
 }
 
 // What a block works on: its rows, its sequence's limits, the keys
-// [kbeg, kend) that some row of it can see (kbeg rounded down to a tile)
-// and the consumers that own a live row.
+// [kfirst, kend) that some row of it can see (kbeg: kfirst rounded down to
+// a tile) and the consumers that own a live row.
 struct Block {
-  int f0, rows, qoff, klen, kbeg, kend, tiles, nlive, bkv;
+  int f0, rows, qoff, klen, kfirst, kbeg, kend, tiles, nlive, bkv;
 };
 
 template <int D, typename KV>
@@ -248,7 +263,8 @@ __device__ __forceinline__ Block block_of(const FlashArgs& a) {
   r.bkv = a.kv_slot != nullptr ? a.kv_slot[0] : b;
   const int t_last = min((r.f0 + ROWS - 1) / a.G, a.T - 1);
   r.kend = max(0, min(r.qoff + t_last + 1, r.klen));
-  r.kbeg = window_start(a, r.qoff + r.f0 / a.G) / BN * BN;
+  r.kfirst = window_start(a, r.qoff + r.f0 / a.G);
+  r.kbeg = r.kfirst / BN * BN;
   r.tiles = r.kend > r.kbeg ? (r.kend - r.kbeg + BN - 1) / BN : 0;
   r.nlive = r.rows - r.f0 > 64 ? 2 : 1;
   return r;
@@ -286,6 +302,57 @@ __device__ __forceinline__ void tma_load_panel(const CUtensorMap* map,
     return pos[0] == i ? key : (pos[1] == i ? head : row);
   };
   tma_load_4d(dst, map, bar, col, at(1), at(2), at(3));
+}
+
+// Paged arena: the producer warp keeps the ring full, a TMA box a piece of
+// `box` rows, panel and side at (column, row in page, KV head, page id);
+// only the pieces that hold a key of [kfirst, kend) are loaded. The lanes
+// hold the page ids of 32 consecutive slots of the block's table from slot
+// `win` on, and lane 0 issues the loads.
+template <int D, int STAGES>
+__device__ __forceinline__ void load_paged_tiles(
+    const FlashArgs& a, const Block& blk, const CUtensorMap* kmap,
+    const CUtensorMap* vmap, const TmaOrder& ord, uint32_t ring,
+    uint32_t bar_full, uint32_t bar_empty, int lane) {
+  using Gm = Geometry<D>;
+  constexpr int BN = Gm::BN;
+  const int d = a.box;
+  const int* table =
+      a.page_table + static_cast<long long>(blockIdx.z) * a.NP;
+  const int slot_end = (blk.kend + a.page - 1) / a.page;
+  int win = -0x40000000, ids = 0;
+  for (int g = 0; g < blk.tiles; ++g) {
+    const int s = g % STAGES;
+    if (g >= STAGES) mbar_wait(bar_empty + 8 * s, ((g / STAGES) - 1) & 1);
+    const int k0 = blk.kbeg + g * BN;
+    // pieces [j0, j1) of the tile: none wholly before kfirst or past kend
+    const int j0 = max(0, blk.kfirst - k0) / d;
+    const int j1 = max(j0, (min(BN, blk.kend - k0) + d - 1) / d);
+    if (lane == 0) {
+      mbar_expect_tx(bar_full + 8 * s,
+                     2 * Gm::PANELS * (j1 - j0) * d * Gm::SWB);
+    }
+    for (int j = j0; j < j1; ++j) {
+      const int kj = k0 + j * d;
+      const int slot = kj / a.page;
+      if (slot < win || slot >= win + 32) {  // the same on every lane
+        win = slot;
+        ids = slot + lane < slot_end ? table[slot + lane] : 0;
+      }
+      const int pid = __shfl_sync(0xffffffffu, ids, slot - win);
+      if (lane == 0) {
+        const uint32_t dst = ring + s * Gm::STAGE + j * d * Gm::SWB;
+#pragma unroll
+        for (int p = 0; p < Gm::PANELS; ++p) {
+          tma_load_panel(kmap, ord.k, dst + p * Gm::T_PANEL, bar_full + 8 * s,
+                         p * Gm::PW, kj % a.page, blockIdx.y, pid);
+          tma_load_panel(vmap, ord.v, dst + Gm::TILE + p * Gm::T_PANEL,
+                         bar_full + 8 * s, p * Gm::PW, kj % a.page,
+                         blockIdx.y, pid);
+        }
+      }
+    }
+  }
 }
 
 // int8 K/V: the converting warps of the producer warpgroup (ct < 96) turn
@@ -378,13 +445,17 @@ __device__ __forceinline__ void convert_tiles(
   }
 }
 
-template <int D, int STAGES, bool SOFTCAP, typename KV = bf16>
+// PAGED: K/V from a bf16 paged arena through the page table (else the
+// dense pool).
+template <int D, int STAGES, bool SOFTCAP, typename KV = bf16,
+          bool PAGED = false>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_sm90_fwd(const FlashArgs a, __grid_constant__ const CUtensorMap kmap,
                    __grid_constant__ const CUtensorMap vmap,
                    const TmaOrder ord) {
   using Gm = Geometry<D, KV>;
   constexpr bool QUANT = Gm::QUANT;
+  static_assert(!(QUANT && PAGED), "the paged body reads bf16 arenas");
   constexpr int BN = Gm::BN, PW = Gm::PW, PANELS = Gm::PANELS;
   constexpr int S8 = Gm::STAGES8;
   extern __shared__ unsigned char smem_raw[];
@@ -444,6 +515,11 @@ __global__ void __launch_bounds__(THREADS, 1)
         convert_tiles<D, STAGES>(a, blk, gbase, KV_OFF, K8_OFF, SC_OFF,
                                  full(0), empty(0), full8(0), empty8(0),
                                  pt - 32);
+      }
+    } else if constexpr (PAGED) {
+      if (pt < 32) {
+        load_paged_tiles<D, STAGES>(a, blk, &kmap, &vmap, ord, base + KV_OFF,
+                                    full(0), empty(0), pt);
       }
     } else if (pt == 0) {
       for (int g = 0; g < blk.tiles; ++g) {
@@ -508,7 +584,31 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int s = g % STAGES;
     const int k0 = blk.kbeg + g * BN;
     mbar_wait(full(s), (g / STAGES) & 1);
-    if (!QUANT && k0 + BN > blk.kend) {
+    if constexpr (PAGED) {
+      // V rows that hold no visible key contribute exactly nothing: the
+      // pieces wholly before kfirst, which were not loaded (the first
+      // tile's [0, lead)), and the rows at and past kend (the last tile's).
+      // Kept apart from the dense pool's loop below: one loop for both
+      // scheduled the dense body's main loop otherwise and took 8 % more
+      // time at row 1's suffix prefill on an H100.
+      const int lead = max(0, blk.kfirst - k0) / a.box * a.box;
+      if (lead > 0 || k0 + BN > blk.kend) {
+        constexpr int CHUNKS = PANELS * Gm::SWB / 16;
+        const int tail = min(BN, max(blk.kend - k0, lead));
+        unsigned char* vs = gbase + v_stage(s);
+        for (int i = w * WG + tid; i < (lead + BN - tail) * CHUNKS;
+             i += WG * blk.nlive) {
+          const int r = i / CHUNKS;
+          const int row = r < lead ? r : tail + r - lead;
+          const int c = i % CHUNKS;
+          *reinterpret_cast<uint4*>(
+              vs + (c / (Gm::SWB / 16)) * Gm::T_PANEL + row * Gm::SWB +
+              (c % (Gm::SWB / 16)) * 16) = make_uint4(0, 0, 0, 0);
+        }
+        fence_async_smem();
+        named_sync(3, WG * blk.nlive);
+      }
+    } else if (!QUANT && k0 + BN > blk.kend) {
       // the last tile: V rows at and past kend contribute exactly nothing
       constexpr int CHUNKS = PANELS * Gm::SWB / 16;
       const int first = blk.kend - k0;
@@ -650,14 +750,16 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // K or V as a 4-d tensor map: D innermost, then the key, head and pool-row
 // dimensions in the order of their strides (elements), boxes of PW columns
-// by BN keys in the body's swizzle (int8: whole rows of D bytes by BN keys,
-// unswizzled, for the staging ring). pos[i] receives the coordinate that
-// carries index i (0 key, 1 head, 2 row). False where TMA cannot take the
-// tensor (the wrapper checks alignment and strides first).
+// by `box` keys in the body's swizzle (int8: whole rows of D bytes by BN
+// keys, unswizzled, for the staging ring). The dense pool has S keys and B
+// rows; a paged arena `page` keys (the row in page) and P rows (the page
+// id). pos[i] receives the coordinate that carries index i (0 key, 1 head,
+// 2 row). False where TMA cannot take the tensor (the wrapper checks
+// alignment and strides first).
 template <int D, typename KV>
 bool encode_kv_map(CUtensorMap* map, int (&pos)[3], const void* base,
-                   long long s_key, long long s_head, long long s_row, int S,
-                   int Hkv, unsigned long long rows) {
+                   long long s_key, long long s_head, long long s_row,
+                   int keys, int Hkv, unsigned long long rows, int box_keys) {
   using Gm = Geometry<D, KV>;
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return false;
@@ -665,7 +767,7 @@ bool encode_kv_map(CUtensorMap* map, int (&pos)[3], const void* base,
     cuuint64_t n;
     long long stride;
     int index;
-  } d[3] = {{static_cast<cuuint64_t>(S > 1 ? S : 1), s_key, 0},
+  } d[3] = {{static_cast<cuuint64_t>(keys > 1 ? keys : 1), s_key, 0},
             {static_cast<cuuint64_t>(Hkv > 1 ? Hkv : 1), s_head, 1},
             {rows, s_row, 2}};
   for (int i = 1; i < 3; ++i) {
@@ -681,7 +783,7 @@ bool encode_kv_map(CUtensorMap* map, int (&pos)[3], const void* base,
     if (d[i].stride < 0) return false;
     strides[i] = static_cast<cuuint64_t>(d[i].stride) * sizeof(KV);
     pos[d[i].index] = i + 1;
-    if (d[i].index == 0) box[i + 1] = Gm::BN;
+    if (d[i].index == 0) box[i + 1] = static_cast<cuuint32_t>(box_keys);
   }
   return encode(map,
                 Gm::QUANT ? CU_TENSOR_MAP_DATA_TYPE_UINT8
@@ -695,30 +797,51 @@ bool encode_kv_map(CUtensorMap* map, int (&pos)[3], const void* base,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The page-table fields a paged launch needs: pages a multiple of 16 rows,
+// S the table's width in keys, and a box that divides the tile and the page
+// (so that a piece never crosses a page) in whole 16-row steps (whole
+// periods of the panels' swizzle).
+template <int D>
+bool paged_args_ok(const FlashArgs& a) {
+  constexpr int BN = Geometry<D>::BN;
+  return a.page_table != nullptr && a.kv_slot == nullptr && a.NP > 0 &&
+         a.P > 0 && a.page > 0 && a.page % 16 == 0 &&
+         static_cast<long long>(a.NP) * a.page == a.S && a.box > 0 &&
+         a.box % 16 == 0 && BN % a.box == 0 && a.page % a.box == 0;
+}
+
 // Encode the launch's K and V maps and launch the body on `stream`. The
 // pool's row count is not in the argument block: without kv_slot it is B;
 // with it the row is the caller's word, read on the device, and the map's
-// row dimension is left open.
-template <int D, int STAGES, bool SOFTCAP, typename KV = bf16>
+// row dimension is left open. A paged arena has P rows of `page` keys.
+template <int D, int STAGES, bool SOFTCAP, typename KV = bf16,
+          bool PAGED = false>
 cudaError_t launch(const FlashArgs& a, int B, int Hkv, cudaStream_t stream) {
   constexpr int bytes = Geometry<D, KV>::bytes(STAGES);
   static_assert(bytes <= SMEM_LIMIT, "the ring does not fit shared memory");
+  if constexpr (PAGED) {
+    if (!paged_args_ok<D>(a)) return cudaErrorInvalidValue;
+  }
   static std::atomic<int> raised[64];
-  cudaError_t err = raise_smem_limit(flash_sm90_fwd<D, STAGES, SOFTCAP, KV>,
-                                     bytes, raised);
+  cudaError_t err = raise_smem_limit(
+      flash_sm90_fwd<D, STAGES, SOFTCAP, KV, PAGED>, bytes, raised);
   if (err != cudaSuccess) return err;
   const unsigned long long rows =
-      a.kv_slot != nullptr ? (1ull << 31) : static_cast<unsigned long long>(B);
+      PAGED                ? static_cast<unsigned long long>(a.P)
+      : a.kv_slot != nullptr ? (1ull << 31)
+                             : static_cast<unsigned long long>(B);
+  const int keys = PAGED ? a.page : a.S;
+  const int box = PAGED ? a.box : Geometry<D, KV>::BN;
   CUtensorMap kmap, vmap;
   TmaOrder ord;
-  if (!encode_kv_map<D, KV>(&kmap, ord.k, a.k, a.ks, a.kh, a.kb, a.S, Hkv,
-                            rows) ||
-      !encode_kv_map<D, KV>(&vmap, ord.v, a.v, a.vs, a.vh, a.vb, a.S, Hkv,
-                            rows)) {
+  if (!encode_kv_map<D, KV>(&kmap, ord.k, a.k, a.ks, a.kh, a.kb, keys, Hkv,
+                            rows, box) ||
+      !encode_kv_map<D, KV>(&vmap, ord.v, a.v, a.vs, a.vh, a.vb, keys, Hkv,
+                            rows, box)) {
     return cudaErrorInvalidValue;
   }
   const dim3 grid((a.T * a.G + ROWS - 1) / ROWS, Hkv, B);
-  flash_sm90_fwd<D, STAGES, SOFTCAP, KV>
+  flash_sm90_fwd<D, STAGES, SOFTCAP, KV, PAGED>
       <<<grid, THREADS, bytes, stream>>>(a, kmap, vmap, ord);
   return cudaGetLastError();
 }

@@ -1,6 +1,8 @@
 // The key-split decode of the dense kernels (flash_attention.cu over bf16
-// K/V, quantized_flash_attention.cu over int8 K/V): the first of its two
-// kernels, for launches of at most MAX_ROWS rows T * G (every decode step).
+// K/V, quantized_flash_attention.cu over int8 K/V) and of the bf16 paged
+// ones (paged_attention.cu, paged_stream_attention.cu): the first of its
+// two kernels, for launches of at most MAX_ROWS rows T * G (every decode
+// step).
 //
 // One block takes one (sequence, KV head, split of SPLIT keys) and writes
 // a partial (m, l, O[rows, D]) in fp32 to scratch the wrapper allocates;
@@ -20,8 +22,16 @@
 // converted to fp32 as they are read (exact), the K scale multiplies each
 // score (times the score scale) before softcap and mask, and the V scale
 // multiplies P after the row sum, as the TPU kernel does.
+//
+// Paged arena (PAGED, bf16): each key's row is found through the page
+// table as it is copied (row kpos % page of page page_table[b, kpos /
+// page]); keys outside the split's live range are not read, and a page id
+// outside the pool (< 0 or >= P) reads as zeros, as the TMA fill of the
+// paged prefill body does. The grid is sized from S = NP * page.
 
 #pragma once
+
+#include <type_traits>
 
 #include "flash_args.cuh"
 
@@ -76,12 +86,13 @@ __device__ __forceinline__ void i8_to_float(const uint32_t w, float* f) {
 
 // One (sequence, KV head, split): the partial of every row over the live
 // keys of the split, unnormalized, in fp32.
-template <int D, bool SOFTCAP, typename KV>
+template <int D, bool SOFTCAP, typename KV, bool PAGED = false>
 __global__ void __launch_bounds__(THREADS)
     decode_split_fwd(const FlashArgs a, float* part_o, float* part_ml,
                      int nsplit) {
   using Gm = Geometry<D, KV>;
   constexpr bool QUANT = Gm::QUANT;
+  static_assert(!(QUANT && PAGED), "the paged split reads bf16 arenas");
   constexpr int CH = Gm::CH, LD = Gm::LD;
   constexpr int VEC = Vec<KV>::N;  // elements a 16-byte copy
   extern __shared__ __align__(16) unsigned char smem[];
@@ -119,11 +130,14 @@ __global__ void __launch_bounds__(THREADS)
     }
     return;
   }
-  const long long bkv = a.kv_slot != nullptr ? a.kv_slot[0] : b;
+  const long long bkv = PAGED ? 0 : a.kv_slot != nullptr ? a.kv_slot[0] : b;
   const KV* kbase = static_cast<const KV*>(a.k) + bkv * a.kb + h * a.kh;
   const KV* vbase = static_cast<const KV*>(a.v) + bkv * a.vb + h * a.vh;
+  const int* table =
+      PAGED ? a.page_table + static_cast<long long>(b) * a.NP : nullptr;
 
-  // keys [c0, c0 + CH) into stage st, zero outside [lo, hi]
+  // keys [c0, c0 + CH) into stage st, zero outside [lo, hi] (and paged: in
+  // a page outside the pool)
   auto request = [&](int c0, int st) {
     KV* kd = k_chunk(st);
     KV* vd = v_chunk(st);
@@ -131,9 +145,17 @@ __global__ void __launch_bounds__(THREADS)
       const int row = i / (D / VEC);
       const int c = (i % (D / VEC)) * VEC;
       const int kpos = c0 + row;
-      if (kpos >= lo && kpos <= hi) {
-        copy16_async(kd + row * LD + c, kbase + kpos * a.ks + c);
-        copy16_async(vd + row * LD + c, vbase + kpos * a.vs + c);
+      bool in = kpos >= lo && kpos <= hi;
+      long long koff = kpos * a.ks, voff = kpos * a.vs;
+      if constexpr (PAGED) {
+        const int pid = in ? table[kpos / a.page] : -1;
+        in = pid >= 0 && pid < a.P;
+        koff = pid * a.kb + (kpos % a.page) * a.ks;
+        voff = pid * a.vb + (kpos % a.page) * a.vs;
+      }
+      if (in) {
+        copy16_async(kd + row * LD + c, kbase + koff + c);
+        copy16_async(vd + row * LD + c, vbase + voff + c);
       } else {
         *reinterpret_cast<uint4*>(kd + row * LD + c) = make_uint4(0, 0, 0, 0);
         *reinterpret_cast<uint4*>(vd + row * LD + c) = make_uint4(0, 0, 0, 0);
@@ -376,25 +398,27 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <int D, bool SOFTCAP, typename KV>
+template <int D, bool SOFTCAP, typename KV, bool PAGED>
 cudaError_t launch_split(const FlashArgs& a, int B, int Hkv, float* part_o,
                          float* part_ml, int nsplit, cudaStream_t stream) {
   constexpr int bytes = Geometry<D, KV>::BYTES;
   static_assert(bytes <= SMEM_LIMIT, "the split does not fit");
   static std::atomic<int> raised[64];
-  cudaError_t err =
-      raise_smem_limit(decode_split_fwd<D, SOFTCAP, KV>, bytes, raised);
+  cudaError_t err = raise_smem_limit(decode_split_fwd<D, SOFTCAP, KV, PAGED>,
+                                     bytes, raised);
   if (err != cudaSuccess) return err;
-  decode_split_fwd<D, SOFTCAP, KV><<<dim3(nsplit, Hkv, B), THREADS, bytes,
-                                     stream>>>(a, part_o, part_ml, nsplit);
+  decode_split_fwd<D, SOFTCAP, KV, PAGED>
+      <<<dim3(nsplit, Hkv, B), THREADS, bytes, stream>>>(a, part_o, part_ml,
+                                                         nsplit);
   return cudaGetLastError();
 }
 
 // What the split entry points do: check the sizes, pick the variant by
 // head dim and softcap, launch on `stream`. nsplit must be
 // max(1, ceil(S / SPLIT)); the partials are part_o [B, H_kv, nsplit,
-// T * G, D] and part_ml [.., 2] (m, l), fp32.
-template <typename KV>
+// T * G, D] and part_ml [.., 2] (m, l), fp32. PAGED: K/V are a bf16 arena
+// read through the page table (S = NP * page, no softcap).
+template <typename KV, bool PAGED = false>
 int split_entry(const FlashArgs* a, int B, int H, int Hkv, int D,
                 void* part_o, void* part_ml, int nsplit, void* stream) {
   if (flash_bad_sizes(a, B, H, Hkv) || a->T * a->G > MAX_ROWS ||
@@ -404,26 +428,37 @@ int split_entry(const FlashArgs* a, int B, int H, int Hkv, int D,
   if (sizeof(KV) == 1 && (a->k_scale == nullptr || a->v_scale == nullptr)) {
     return cudaErrorInvalidValue;
   }
+  if (PAGED && (a->page_table == nullptr || a->kv_slot != nullptr ||
+                a->NP <= 0 || a->P <= 0 || a->page <= 0 ||
+                static_cast<long long>(a->NP) * a->page != a->S ||
+                a->softcap > 0.f)) {
+    return cudaErrorInvalidValue;
+  }
   if (B == 0 || a->T == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   auto* po = static_cast<float*>(part_o);
   auto* pm = static_cast<float*>(part_ml);
   const bool cap = a->softcap > 0.f;
+  auto run = [&](auto d) -> int {
+    constexpr int Dc = decltype(d)::value;
+    if constexpr (!PAGED) {  // the paged split has no softcap variant
+      if (cap) {
+        return launch_split<Dc, true, KV, false>(*a, B, Hkv, po, pm, nsplit,
+                                                 s);
+      }
+    }
+    return launch_split<Dc, false, KV, PAGED>(*a, B, Hkv, po, pm, nsplit,
+                                              s);
+  };
   switch (D) {
     case 64:
-      return cap ? launch_split<64, true, KV>(*a, B, Hkv, po, pm, nsplit, s)
-                 : launch_split<64, false, KV>(*a, B, Hkv, po, pm, nsplit, s);
+      return run(std::integral_constant<int, 64>());
     case 96:
-      return cap ? launch_split<96, true, KV>(*a, B, Hkv, po, pm, nsplit, s)
-                 : launch_split<96, false, KV>(*a, B, Hkv, po, pm, nsplit, s);
+      return run(std::integral_constant<int, 96>());
     case 128:
-      return cap ? launch_split<128, true, KV>(*a, B, Hkv, po, pm, nsplit, s)
-                 : launch_split<128, false, KV>(*a, B, Hkv, po, pm, nsplit,
-                                                s);
+      return run(std::integral_constant<int, 128>());
     case 256:
-      return cap ? launch_split<256, true, KV>(*a, B, Hkv, po, pm, nsplit, s)
-                 : launch_split<256, false, KV>(*a, B, Hkv, po, pm, nsplit,
-                                                s);
+      return run(std::integral_constant<int, 256>());
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,39 +1,48 @@
-// Attention over a page-table-indexed KV arena, one page per step, for
-// Hopper (sm_90a): the general paged kernel, any head dim that is a multiple
-// of 16.
+// Attention over a page-table-indexed KV arena, one page per step on the
+// TPU, for Hopper (sm_90a): the general paged kernel.
 //
 // Replaces the TPU kernels lmcache_tpu/ops/paged_attention.py::_paged_kernel
-// (entry point paged_attention) as paged_fwd<D, bf16> and ::_paged_kernel_q
-// (entry point quantized_paged_attention) as paged_fwd<D, int8>; both share
-// _paged_body there and one template here. Contract: q [B, T, H, D] attends
-// to the pages page_table[b, :] of the K/V pools [P, H_kv, page, D] under
+// (entry point paged_attention, row 4) and ::_paged_kernel_q (entry point
+// quantized_paged_attention, row 5); both share _paged_body there.
+// Contract: q [B, T, H, D] attends to the pages page_table[b, :] of the K/V
+// pools [P, H_kv, page, D] under
 //     kpos <= min(q_offset[b] + t, kv_len[b] - 1)  and, with a window W,
 //     kpos >  q_offset[b] + t - W,
 // online softmax in fp32, P rounded to bf16 before the PV product, 0 for a
-// row that sees no key (so also for kv_len == 0). int8 pages convert to bf16
-// in registers (exact); the per-token scales correct the score columns
-// (s *= k_scale[col]) and the probability columns (p *= v_scale[col], after
-// the row sum).
+// row that sees no key (so also for kv_len == 0).
 //
-// The TPU kernel steps a sequential grid axis over every page-table slot and
-// pins the DMA of dead slots to a live page. Here one block owns a (batch,
-// KV head, 64-row q block) and loops over the live pages only: those below
-// kv_len, at or below the block's causal diagonal and, with a window, not
-// wholly older than the block's oldest query. A dead page is skipped, not
-// fetched.
+// Row 4, bf16 arenas: the Hopper body of rows 1-3 (flash_sm90.cuh) with the
+// arena as its tile source, read in place through the page table: a TMA
+// box a page piece and panel, the page ids loaded by the producer warp,
+// two wgmma consumer warpgroups with S, P and O in registers, the ring of
+// row 1 (2 stages). Launches of at most 16 rows T * G (every decode step)
+// run the key-split decode of flash_split.cuh over the arena (cp.async
+// copies through the page table, splits at absolute multiples of 256
+// keys), and flash_attention.cu's combine merges the partials. The TPU
+// kernel steps a sequential grid axis over every page-table slot and pins
+// the DMA of dead slots to a live page; here only the live pieces are
+// read. Bound on an H100: prefill by the tensor-core operations (4 H D a
+// live pair), decode by the live K/V bytes (~4 G operations a byte; Phi-3
+// at G 1: one block a (sequence, KV head) walking its ~33 window pages
+// would leave 64 blocks on 132 SMs, the split puts B * H_kv * splits on
+// them).
 //
-// Bound on an H100: as flash_attention.cu. Prefill is bound by operations
-// (WMMA bf16 16x16x16, fp32 accumulate); decode by the live K/V bytes, read
-// once per (sequence, KV head) because the block holds the whole GQA group.
-// int8 halves those bytes. A split over the keys, cp.async/TMA and wgmma are
-// left to a later revision.
-//
-// Layout of one block: BM = 64 query rows = consecutive (token,
-// head-in-group) pairs, token-major, four warps of 16 rows; warps with no
-// live row (decode with a small group) only help load. Per page: S = Q K^T
-// -> two lanes per row run the online softmax and write P in bf16 -> O
-// (fp32, shared memory) is rescaled and O += P V.
+// Row 5, int8 arenas: paged_fwd<D, int8> below, a WMMA body, any head dim
+// that is a multiple of 16. int8 pages convert to bf16 in registers
+// (exact); the per-token scales correct the score columns (s *= k_scale)
+// and the probability columns (p *= v_scale, after the row sum). One block
+// owns a (batch, KV head, 64-row q block) and loops over the live pages
+// only: those below kv_len, at or below the block's causal diagonal and,
+// with a window, not wholly older than the block's oldest query. Bound as
+// row 4, at half the K/V bytes; a split over the keys, cp.async/TMA and
+// wgmma are left to a later revision. Layout of one block: BM = 64 query
+// rows = consecutive (token, head-in-group) pairs, token-major, four warps
+// of 16 rows; warps with no live row (decode with a small group) only help
+// load. Per page: S = Q K^T -> two lanes per row run the online softmax and
+// write P in bf16 -> O (fp32, shared memory) is rescaled and O += P V.
 
+#include "flash_sm90.cuh"
+#include "flash_split.cuh"
 #include "paged_common.cuh"
 
 namespace {
@@ -273,13 +282,44 @@ extern "C" int lmc_paged_attention_smem_bytes(int D, int page) {
   return smem_bytes(D, page);
 }
 
-extern "C" int lmc_paged_attention_bf16(LMC_PAGED_PARAMS) {
-  if (B == 0 || T == 0) return cudaSuccess;
-  if (lmc::bad_sizes(B, T, H, Hkv, NP, P, page, sp)) {
+// Row 4's prefill body: the argument block (device pointers, strides in
+// elements, the page-table fields set) and the sizes it does not hold; the
+// options the paged entry points refuse must be off.
+extern "C" int lmc_paged_attention_bf16(const lmc::FlashArgs* a, int B,
+                                        int H, int Hkv, int D, void* stream) {
+  using lmc::sm90::launch;
+  if (lmc::flash_bad_sizes(a, B, H, Hkv) || a->softcap > 0.f ||
+      a->sinks != nullptr || a->chunked) {
     return cudaErrorInvalidValue;
   }
-  LMC_PAGED_ARGS_INIT;
-  return dispatch<bf16>(a, B, Hkv, D, static_cast<cudaStream_t>(stream));
+  if (B == 0 || a->T == 0) return cudaSuccess;
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64:
+      return launch<64, 2, false, lmc::bf16, true>(*a, B, Hkv, s);
+    case 96:
+      return launch<96, 2, false, lmc::bf16, true>(*a, B, Hkv, s);
+    case 128:
+      return launch<128, 2, false, lmc::bf16, true>(*a, B, Hkv, s);
+    case 256:
+      return launch<256, 2, false, lmc::bf16, true>(*a, B, Hkv, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Row 4's split decode, its first kernel: partials of T * G <= 16 rows into
+// part_o [B, H_kv, nsplit, T * G, D] and part_ml [.., 2] (m, l), fp32, with
+// nsplit = max(1, ceil(NP * page / SPLIT)); lmc_flash_combine_partials of
+// flash_attention.cu merges them.
+extern "C" int lmc_paged_attention_decode_split_bf16(
+    const lmc::FlashArgs* a, int B, int H, int Hkv, int D, void* part_o,
+    void* part_ml, int nsplit, void* stream) {
+  if (a == nullptr || a->sinks != nullptr || a->chunked) {
+    return cudaErrorInvalidValue;
+  }
+  return lmc::split::split_entry<lmc::bf16, true>(a, B, H, Hkv, D, part_o,
+                                                  part_ml, nsplit, stream);
 }
 
 extern "C" int lmc_paged_attention_int8(LMC_PAGED_PARAMS) {

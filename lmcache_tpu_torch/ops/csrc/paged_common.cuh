@@ -1,6 +1,7 @@
 // Shared pieces of the paged-attention kernels (paged_attention.cu,
-// paged_stream_attention.cu): the argument block, the page loaders for bf16
-// and int8 arenas, and the cp.async wrappers.
+// paged_stream_attention.cu): the WMMA bodies' argument block and page
+// loaders (int8 arenas; the bf16 arenas run flash_sm90.cuh and
+// flash_split.cuh), and the cp.async wrappers.
 //
 // Arena layout, as lmcache_tpu/models/paged.py builds it: K and V pools
 // [P, H_kv, page, D] (head-major pages; any strides with unit stride along
@@ -62,12 +63,8 @@ __device__ __forceinline__ void store_zero(bf16* dst) {
   for (int i = 0; i < N; i += 8) *reinterpret_cast<uint4*>(dst + i) = z;
 }
 
-// 16 bytes of a K/V row, already in registers, into the bf16 tile; the last
-// argument only names the row's type. int8 converts exactly.
-__device__ __forceinline__ void store_converted(bf16* dst, uint4 raw, bf16) {
-  *reinterpret_cast<uint4*>(dst) = raw;
-}
-
+// 16 int8 symbols of a K/V row, already in registers, into the bf16 tile,
+// exactly; the last argument only names the row's type
 __device__ __forceinline__ void store_converted(bf16* dst, uint4 raw, i8) {
   const i8* c = reinterpret_cast<const i8*>(&raw);
   __align__(16) bf16 tmp[16];
@@ -85,16 +82,8 @@ __device__ __forceinline__ void load_convert(bf16* dst, const KV* src) {
   store_converted(dst, *reinterpret_cast<const uint4*>(src), KV());
 }
 
-// the same, without waiting for the data where the type allows it: bf16 rows
-// go global -> shared by cp.async (16 bytes, L2 only); int8 rows have to pass
-// through registers to be converted
-__device__ __forceinline__ void load_async(bf16* dst, const bf16* src) {
-  const unsigned addr =
-      static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr),
-               "l"(src));
-}
-
+// the same at the stream kernel's asynchronous load points: int8 rows have
+// to pass through registers to be converted, so they load synchronously
 __device__ __forceinline__ void load_async(bf16* dst, const i8* src) {
   load_convert(dst, src);
 }

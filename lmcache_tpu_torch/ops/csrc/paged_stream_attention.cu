@@ -1,44 +1,43 @@
-// Paged attention that streams the live pages in tiles of several page
-// slots, for Hopper (sm_90a): the decode-oriented paged kernel, head dims
-// 64, 128 and 256.
+// Paged attention that streams the live pages, for Hopper (sm_90a): the
+// decode-oriented paged kernel, head dims 64, 128 and 256.
 //
 // Replaces the TPU kernels
 // lmcache_tpu/ops/paged_attention.py::_paged_dma_kernel (entry point
-// paged_attention_dma) as paged_stream_fwd<D, bf16> and
-// ::_paged_dma_kernel_q (entry point quantized_paged_attention_dma) as
-// paged_stream_fwd<D, int8>. Same contract as paged_attention.cu.
+// paged_attention_dma, row 6) and ::_paged_dma_kernel_q (entry point
+// quantized_paged_attention_dma, row 7). Same contract as
+// paged_attention.cu.
 //
+// Row 6, bf16 arenas: the design of paged_attention.cu's row 4, the Hopper
+// body of flash_sm90.cuh over the arena read through the page table, at
+// the deepest ring of TMA stages that shared memory holds (6 at D 64, 3 at
+// D 128, 2 at D 256; row 2's), which is what stays of the TPU kernel's own
+// ring of DMAs; launches of at most 16 rows T * G (every decode step) run
+// the paged key-split decode of flash_split.cuh and flash_attention.cu's
+// combine. Bound on an H100: prefill by the tensor-core operations, decode
+// by the live K/V bytes (~4 G operations a byte): at tinyllama's decode
+// (B 4, H_kv 4) one block a (sequence, KV head) would leave 16 blocks on
+// 132 SMs; the split puts B * H_kv * NP * page / 256 blocks on them.
+//
+// Row 7, int8 arenas: paged_stream_fwd<D, int8> below, a WMMA body.
 // What carries over from the TPU kernel is the work per step, not its
 // layout: the loop runs over the live page slots only (ceil(kv_len / page),
 // the causal limit, the window's first page); one key tile is `sp` page
 // slots (up to 512 tokens, fewer where shared memory is short), gathered
 // through the page table into shared memory; one score product and one
-// online-softmax update per tile; the next tile's loads are in flight while
-// this one is computed; trailing dead slots of a tile are zero-filled and
-// masked, never fetched (nor is a page id outside the pool). The TPU
-// kernel's 128-lane packing and its single strided copy for a run of
-// consecutive page ids have no counterpart: a page of one head is
-// contiguous, consecutive pages of one head are not, so a tile is gathered
-// by address arithmetic either way.
-//
-// Bound on an H100: decode reads each live K/V byte once per (sequence, KV
-// head) and does ~4 G operations per byte, far under the card's ~295
-// FLOP/byte ridge, so it is bound by bytes; the design keeps a whole tile
-// (up to 128 KB) of cp.async loads in flight per block. The pipeline has
-// one K and one V buffer: K of tile g+1 is requested as soon as the scores
-// of tile g are out (it lands during the softmax and the PV product), V of
-// tile g+1 after the PV product (it lands during the next score product).
-// int8 pages pass through registers to be converted, so they load
-// synchronously at the same points. B * H_kv * ceil(T G / 16) blocks run;
-// at decode that is few (16 at tinyllama, B 4), and a split over the keys
-// is left to a later revision, as are TMA and wgmma.
-//
-// Layout of one block: BM = 16 query rows = consecutive (token,
-// head-in-group) pairs, token-major (decode: the GQA group of one KV head),
-// eight warps. Score product: warp w takes the 16-key column tiles w, w + 8,
-// ...; softmax: 16 lanes per row; PV: warp w takes the output column tiles
-// w, w + 8, ... over the tile's live keys.
+// online-softmax update per tile; trailing dead slots of a tile are
+// zero-filled and masked, never fetched (nor is a page id outside the
+// pool). int8 pages pass through registers to be converted, so they load
+// synchronously: K of tile g+1 once the scores of tile g are out, V of tile
+// g+1 after the PV product. B * H_kv * ceil(T G / 16) blocks run; a split
+// over the keys, TMA and wgmma are left to a later revision. Layout of one
+// block: BM = 16 query rows = consecutive (token, head-in-group) pairs,
+// token-major (decode: the GQA group of one KV head), eight warps. Score
+// product: warp w takes the 16-key column tiles w, w + 8, ...; softmax: 16
+// lanes per row; PV: warp w takes the output column tiles w, w + 8, ...
+// over the tile's live keys.
 
+#include "flash_sm90.cuh"
+#include "flash_split.cuh"
 #include "paged_common.cuh"
 
 namespace {
@@ -316,6 +315,14 @@ cudaError_t dispatch(const PagedArgs& a, int B, int Hkv, int D,
   }
 }
 
+// row 6's Hopper body over the arena, at the deepest ring that fits
+template <int D>
+cudaError_t hopper_launch(const lmc::FlashArgs& a, int B, int Hkv,
+                          cudaStream_t stream) {
+  constexpr int stages = lmc::sm90::Geometry<D>::max_stages();
+  return lmc::sm90::launch<D, stages, false, bf16, true>(a, B, Hkv, stream);
+}
+
 }  // namespace
 
 // Shared memory (bytes) one block needs for tiles of `sp` page slots, so
@@ -325,13 +332,39 @@ extern "C" int lmc_paged_stream_attention_smem_bytes(int D, int page,
   return smem_bytes(D, sp * page);
 }
 
-extern "C" int lmc_paged_stream_attention_bf16(LMC_PAGED_PARAMS) {
-  if (B == 0 || T == 0) return cudaSuccess;
-  if (lmc::bad_sizes(B, T, H, Hkv, NP, P, page, sp)) {
+// Row 6's prefill body, as lmc_paged_attention_bf16 of paged_attention.cu
+// at the deepest ring.
+extern "C" int lmc_paged_stream_attention_bf16(const lmc::FlashArgs* a,
+                                               int B, int H, int Hkv, int D,
+                                               void* stream) {
+  if (lmc::flash_bad_sizes(a, B, H, Hkv) || a->softcap > 0.f ||
+      a->sinks != nullptr || a->chunked) {
     return cudaErrorInvalidValue;
   }
-  LMC_PAGED_ARGS_INIT;
-  return dispatch<bf16>(a, B, Hkv, D, static_cast<cudaStream_t>(stream));
+  if (B == 0 || a->T == 0) return cudaSuccess;
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64:
+      return hopper_launch<64>(*a, B, Hkv, s);
+    case 128:
+      return hopper_launch<128>(*a, B, Hkv, s);
+    case 256:
+      return hopper_launch<256>(*a, B, Hkv, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Row 6's split decode, its first kernel, as
+// lmc_paged_attention_decode_split_bf16 of paged_attention.cu.
+extern "C" int lmc_paged_stream_attention_decode_split_bf16(
+    const lmc::FlashArgs* a, int B, int H, int Hkv, int D, void* part_o,
+    void* part_ml, int nsplit, void* stream) {
+  if (a == nullptr || a->sinks != nullptr || a->chunked) {
+    return cudaErrorInvalidValue;
+  }
+  return lmc::split::split_entry<lmc::bf16, true>(a, B, H, Hkv, D, part_o,
+                                                  part_ml, nsplit, stream);
 }
 
 extern "C" int lmc_paged_stream_attention_int8(LMC_PAGED_PARAMS) {

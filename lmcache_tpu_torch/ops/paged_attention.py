@@ -1,16 +1,27 @@
 """Paged attention: decode/prefill over a page-table-indexed KV arena.
 
 The port of ``lmcache_tpu/ops/paged_attention.py``. Four entry points with
-the JAX signatures, each with a hand-written Hopper kernel of its own:
+the JAX signatures, each with hand-written Hopper kernels:
 
-- :func:`paged_attention` / :func:`quantized_paged_attention`: the general
-  kernel, one page per step, any head dim that is a multiple of 16
-  (``csrc/paged_attention.cu``);
-- :func:`paged_attention_dma` / :func:`quantized_paged_attention_dma`: the
-  decode-oriented kernel, which streams the live pages in tiles of up to 512
-  tokens with the next tile's loads in flight (head dims 64, 128, 256;
-  ``csrc/paged_stream_attention.cu``). The names are the JAX package's; on
-  the GPU the "dma" is ``cp.async``.
+- :func:`paged_attention` (row 4) and :func:`paged_attention_dma` (row 6),
+  bf16 arenas: the Hopper body of the dense kernels (``csrc/flash_sm90.cuh``:
+  TMA, wgmma, S, P and O in registers) with the arena as its tile source,
+  read in place through the page table (a TMA box a page piece of
+  :func:`box_rows` rows); launches of at most ``DECODE_ROWS`` rows T * G
+  (:func:`takes_split`, every decode step) run the paged key-split decode,
+  partials over splits of ``SPLIT_KEYS`` keys of the table's ``NP * page``
+  slots (``attention.n_splits``), then the dense kernels' combine
+  (:func:`~lmcache_tpu_torch.ops.attention.combine_partials`; plain versions
+  :func:`paged_split_partials_reference` and
+  :func:`paged_split_attention_reference`). ``paged_attention`` keeps row
+  1's ring of 2 stages (``csrc/paged_attention.cu``, head dims 64, 96, 128,
+  256), ``paged_attention_dma`` the deepest ring that fits, as row 2 does
+  (``csrc/paged_stream_attention.cu``, head dims 64, 128, 256);
+- :func:`quantized_paged_attention` (row 5) and
+  :func:`quantized_paged_attention_dma` (row 7), int8 arenas: the WMMA
+  kernels of the same two sources, one page per step (any head dim that is
+  a multiple of 16) and tiles of up to 512 tokens with the next tile's loads
+  in flight (64, 128, 256). The names are the JAX package's.
 
 Layouts: ``q [B, T, H, D]``; pools ``[P, H_kv, page, D]`` (head-major pages;
 any strides with unit stride along D, so a layer's slice of the arena is read
@@ -29,16 +40,19 @@ average V uniformly there and the Pallas kernels give 0.
 CUDA tensors go to the kernels, which raise on what they do not take; CPU
 tensors go to the plain versions (:func:`paged_attention_reference`,
 :func:`quantized_paged_attention_reference`). Each entry point counts its
-kernel launches in ``.launches`` ("prefill" for T > 1, "decode" for T == 1).
+kernel launches in ``.launches`` ("prefill" for T > 1, "decode" for T == 1;
+a split decode once, and once under ``attention.combine_partials``).
 """
 
 import ctypes
+import math
 from collections import Counter
 from typing import Optional
 
 import torch
 
 from lmcache_tpu_torch.ops import _build
+from lmcache_tpu_torch.ops import attention as _attn
 from lmcache_tpu_torch.ops.attention import mha_reference
 
 SUPER_TOKENS = 512  # target tokens per key tile of the streaming kernel
@@ -52,6 +66,27 @@ _NOT_PORTED = "is not ported yet (ROADMAP, module item 5)"
 def _super_pages(page: int) -> int:
     """Page slots per key tile for a given page size."""
     return max(1, min(SUPER_TOKENS // page, _SP_MAX))
+
+
+def tile_keys(D: int) -> int:
+    """Keys a tile of the Hopper body over a bf16 arena
+    (``csrc/flash_sm90.cuh``, ``Geometry::BN``): 128, and 64 at D 256,
+    where O alone takes 128 registers a thread."""
+    return 64 if D == 256 else 128
+
+
+def box_rows(D: int, page: int) -> int:
+    """Rows of one TMA box of the bf16 body: the largest divisor of the tile
+    that also divides the page, so that a box never crosses a page (a
+    multiple of 16, as pages are)."""
+    return math.gcd(tile_keys(D), page)
+
+
+def takes_split(T: int, G: int) -> bool:
+    """Whether a bf16 launch of T tokens of a group of G query heads runs
+    the key-split decode (every decode step of tinyllama, G 8, and Phi-3,
+    G 1) rather than the prefill body."""
+    return T * G <= _attn.DECODE_ROWS
 
 
 def _check_options(sliding_window, logit_softcap, window_kind, sinks):
@@ -109,6 +144,37 @@ def quantized_paged_attention_reference(q, k_sym_pool, v_sym_pool,
                          deq(v_sym_pool, v_scale_pool), q_offset, kv_len,
                          sm_scale=sm_scale, sliding_window=sliding_window,
                          zero_dead_rows=True)
+
+
+def paged_split_partials_reference(q, k_pool, v_pool, page_table, q_offset,
+                                   kv_len, sliding_window=None,
+                                   sm_scale=None):
+    """Plain version of the paged split decode's first kernel: the pages
+    gathered densely, then
+    :func:`~lmcache_tpu_torch.ops.attention.split_partials_reference` over
+    the table's ``NP * page`` slots. Returns fp32 ``part_o [B, H_kv, n, R,
+    D]`` and ``part_ml [B, H_kv, n, R, 2]`` with ``n =
+    attention.n_splits(NP * page)`` and R = T * G rows (token,
+    head-in-group) token-major; a split with no live key of a row gives it
+    ``m = -1e30, l = 0, O = 0``."""
+    return _attn.split_partials_reference(
+        q, _gather_pages(k_pool, page_table), _gather_pages(v_pool, page_table),
+        q_offset, kv_len, sm_scale=sm_scale, sliding_window=sliding_window)
+
+
+def paged_split_attention_reference(q, k_pool, v_pool, page_table, q_offset,
+                                    kv_len, sliding_window=None,
+                                    sm_scale=None):
+    """The plain split-then-combine of the paged decode:
+    :func:`paged_split_partials_reference`, then
+    :func:`~lmcache_tpu_torch.ops.attention.combine_partials_reference`;
+    fp32 ``[B, T, H, D]``, 0 for a row that sees no key. Equal to
+    :func:`paged_attention_reference` up to fp32 rounding."""
+    part_o, part_ml = paged_split_partials_reference(
+        q, k_pool, v_pool, page_table, q_offset, kv_len,
+        sliding_window=sliding_window, sm_scale=sm_scale)
+    return _attn.combine_partials_reference(
+        part_o, part_ml, q.shape[1], q.shape[2] // k_pool.shape[1])
 
 
 # ------------------------------------------------------------ the kernels ---
@@ -196,18 +262,41 @@ def _check_cuda_args(q, k_pool, v_pool, k_scale, v_scale, page_table,
             raise ValueError(f"{name} must be contiguous int32 [{B}]")
 
 
-def _launch(entry, stream_kernel, q, k_pool, v_pool, k_scale, v_scale,
-            page_table, q_offset, kv_len, sliding_window, sm_scale):
-    quant = k_scale is not None
-    _check_cuda_args(q, k_pool, v_pool, k_scale, v_scale, page_table,
-                     q_offset, kv_len,
-                     _STREAM_HEAD_DIMS if stream_kernel else _GRID_HEAD_DIMS)
+def _launch_bf16(entry, lib, q, k_pool, v_pool, page_table, q_offset,
+                 kv_len, sliding_window, sm_scale):
+    """Rows 4 and 6 (arguments checked): the Hopper body of ``lib`` over
+    the arena or, at most ``DECODE_ROWS`` rows, its split decode and the
+    dense kernels' combine."""
     B, T, H, D = q.shape
     P, Hkv, page, _ = k_pool.shape
     NP = page_table.shape[1]
-    lib = "paged_stream_attention" if stream_kernel else "paged_attention"
+    out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+    # the pool's head-major strides are the page's, the head's and the row
+    # in page's; its key count is the table's width
+    a, _, _ = _attn.fill_args(q, k_pool, v_pool, out, q_offset, kv_len, True,
+                              sm_scale, sliding_window)
+    a.S = NP * page
+    a.page_table = page_table.data_ptr()
+    a.NP, a.P, a.page, a.box = NP, P, page, box_rows(D, page)
+    if takes_split(T, H // Hkv):
+        # counted as the old kernels were: no "+window" phase
+        _attn.split_decode(entry, _attn.split_entry(
+            lib, f"lmc_{lib}_decode_split_bf16"), a, q, Hkv, NP * page, None,
+            out)
+    else:
+        _attn.launch(entry, _attn.load_entry(lib, f"lmc_{lib}_bf16"), a, q,
+                     Hkv)
+    return out
+
+
+def _launch_int8(entry, lib, q, k_pool, v_pool, k_scale, v_scale,
+                 page_table, q_offset, kv_len, sliding_window, sm_scale):
+    """Rows 5 and 7 (arguments checked): the WMMA body of ``lib``."""
+    B, T, H, D = q.shape
+    P, Hkv, page, _ = k_pool.shape
+    NP = page_table.shape[1]
     sp = 1
-    if stream_kernel:
+    if lib == "paged_stream_attention":
         # the largest tile of page slots whose K, V, score and probability
         # buffers fit the block's shared memory
         smem = _kernel(lib, f"lmc_{lib}_smem_bytes")
@@ -222,19 +311,16 @@ def _launch(entry, stream_kernel, q, k_pool, v_pool, k_scale, v_scale,
                          f"bytes of shared memory, above {_SMEM_LIMIT}")
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     scale = sm_scale if sm_scale is not None else 1.0 / (D**0.5)
-    fn = _kernel(lib, f"lmc_{lib}_{'int8' if quant else 'bf16'}")
+    fn = _kernel(lib, f"lmc_{lib}_int8")
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             out.data_ptr(),
-             k_scale.data_ptr() if quant else None,
-             v_scale.data_ptr() if quant else None,
+             out.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
              page_table.data_ptr(), q_offset.data_ptr(), kv_len.data_ptr(),
              B, T, H, Hkv, D, NP, P, page, sliding_window or 0, sp,
              q.stride(0), q.stride(1), q.stride(2),
              k_pool.stride(0), k_pool.stride(1), k_pool.stride(2),
              v_pool.stride(0), v_pool.stride(1), v_pool.stride(2),
              out.stride(0), out.stride(1), out.stride(2),
-             k_scale.stride(0) if quant else 0,
-             v_scale.stride(0) if quant else 0,
+             k_scale.stride(0), v_scale.stride(0),
              scale, torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"{entry.__name__} kernel launch failed: "
@@ -257,8 +343,16 @@ def _dispatch(entry, stream_kernel, q, k_pool, v_pool, k_scale, v_scale,
             kv_len, sliding_window=sliding_window, sm_scale=sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    return _launch(entry, stream_kernel, q, k_pool, v_pool, k_scale, v_scale,
-                   page_table, q_offset, kv_len, sliding_window, sm_scale)
+    _check_cuda_args(q, k_pool, v_pool, k_scale, v_scale, page_table,
+                     q_offset, kv_len,
+                     _STREAM_HEAD_DIMS if stream_kernel else _GRID_HEAD_DIMS)
+    lib = "paged_stream_attention" if stream_kernel else "paged_attention"
+    if k_scale is None:
+        return _launch_bf16(entry, lib, q, k_pool, v_pool, page_table,
+                            q_offset, kv_len, sliding_window, sm_scale)
+    return _launch_int8(entry, lib, q, k_pool, v_pool, k_scale, v_scale,
+                        page_table, q_offset, kv_len, sliding_window,
+                        sm_scale)
 
 
 def paged_attention(q, k_pool, v_pool, page_table, q_offset, kv_len, *,
@@ -267,11 +361,14 @@ def paged_attention(q, k_pool, v_pool, page_table, q_offset, kv_len, *,
                     logit_softcap: Optional[float] = None,
                     window_kind: str = "sliding",
                     sinks=None) -> torch.Tensor:
-    """Attention over paged KV, one page per step; see the module docstring.
+    """Attention over paged KV, one page per step on the TPU; see the
+    module docstring.
 
-    On CUDA tensors: ``paged_fwd<D, bf16>`` (bf16 q and pools, D of 64, 96,
-    128 or 256, page a multiple of 16); on CPU tensors
-    :func:`paged_attention_reference`. A row with no live key gives 0.
+    On CUDA tensors (bf16 q and pools, D of 64, 96, 128 or 256, page a
+    multiple of 16): the Hopper body over the arena, or at most
+    ``DECODE_ROWS`` rows the paged split decode and the combine; on CPU
+    tensors :func:`paged_attention_reference`. A row with no live key
+    gives 0.
     """
     return _dispatch(paged_attention, False, q, k_pool, v_pool, None, None,
                      page_table, q_offset, kv_len, sliding_window, sm_scale,
@@ -301,9 +398,10 @@ def paged_attention_dma(q, k_pool, v_pool, page_table, q_offset, kv_len, *,
                         logit_softcap: Optional[float] = None,
                         window_kind: str = "sliding",
                         sinks=None) -> torch.Tensor:
-    """:func:`paged_attention` with the live pages streamed in tiles of
-    several page slots; same contract, preferred for decode. On CUDA
-    tensors: ``paged_stream_fwd<D, bf16>`` (D of 64, 128 or 256)."""
+    """:func:`paged_attention` with the live pages streamed through a deeper
+    ring; same contract, preferred for decode. On CUDA tensors (D of 64, 128
+    or 256): the Hopper body over the arena at the deepest ring, or at most
+    ``DECODE_ROWS`` rows the paged split decode and the combine."""
     return _dispatch(paged_attention_dma, True, q, k_pool, v_pool, None,
                      None, page_table, q_offset, kv_len, sliding_window,
                      sm_scale, logit_softcap, window_kind, sinks)

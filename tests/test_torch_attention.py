@@ -337,4 +337,7 @@ def test_cuda_argument_block_holds_the_options():
         big = torch.zeros((1, 2, 8, 256), dtype=torch.bfloat16)
         tattn._check_cuda_args(big, big, big, one, one, 1, 2, 8,
                                head_dims=(64, 96, 128))
-    assert ctypes.sizeof(tattn.FlashArgs) == 10 * 8 + 7 * 4 + 4 + 16 * 8
+    # the page-table fields, set for a paged arena only, come last
+    assert ctypes.sizeof(tattn.FlashArgs) == (10 * 8 + 7 * 4 + 4 + 16 * 8
+                                              + 8 + 4 * 4)
+    assert not a.page_table and (a.NP, a.P, a.page, a.box) == (0, 0, 0, 0)

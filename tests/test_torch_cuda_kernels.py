@@ -625,6 +625,171 @@ def test_paged_kernels_refuse_what_they_do_not_take(gen):
     pa.paged_attention(qb, pb, pb, table, one, one)
 
 
+# --------- rows 4 and 6 on Hopper: the paged body and the paged split ---
+
+# (bf16 entry point, head dims): flash_sm90.cuh over the arena above
+# DECODE_ROWS rows T * G, flash_split.cuh's paged split and row 1's combine
+# at or below
+HOPPER_PAGED = {
+    "grid": (pa.paged_attention, (64, 96, 128, 256)),
+    "stream": (pa.paged_attention_dma, (64, 128, 256)),
+}
+
+
+def _hopper_paged_inputs(gen, B, T, G, D, page, q_off, kv_len, Hkv=2,
+                         fragmented=True, NP=None):
+    """q, a bf16 arena slice pair, a page table of distinct ids (one dead
+    trailing slot unless NP is given) and the int32 offsets."""
+    NP = NP or -(-max(kv_len) // page) + 1
+    P = B * NP + 3
+    q, arena, _, table = _paged_inputs(gen, B, T, G * Hkv, Hkv, D, page, NP,
+                                       P, False, fragmented)
+    qo = torch.tensor(q_off, dtype=torch.int32, device="cuda")
+    kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    return q, arena[0], arena[1], table, qo, kl
+
+
+def _hopper_paged_check(kind, args, window=None, ref_args=None):
+    """The entry point once against the plain version (on ``ref_args``
+    where given), with its launch counted under its phase and, for a split
+    decode, once under the combine. Returns the output."""
+    entry = HOPPER_PAGED[kind][0]
+    q, k_pool = args[0], args[1]
+    T = q.shape[1]
+    split = pa.takes_split(T, q.shape[2] // k_pool.shape[1])
+    phase = "decode" if T == 1 else "prefill"
+    before = entry.launches[phase]
+    combined = attn.combine_partials.launches[phase]
+    out = entry(*args, sliding_window=window)
+    ref = pa.paged_attention_reference(*(ref_args or args),
+                                       sliding_window=window)
+    torch.cuda.synchronize()
+    assert entry.launches[phase] == before + 1
+    assert attn.combine_partials.launches[phase] == combined + int(split)
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=ATOL,
+                               rtol=2.0**-7)
+    return out
+
+
+@pytest.mark.parametrize("G", [1, 5, 8])
+@pytest.mark.parametrize("page", [16, 48, 64, 128, 256])
+@pytest.mark.parametrize("kind, D", [(k, D) for k in sorted(HOPPER_PAGED)
+                                     for D in HOPPER_PAGED[k][1]])
+def test_paged_hopper_body_matches_plain(gen, kind, D, page, G):
+    """Decode (the split, ragged rows, one of one key) and prefill (the
+    body, over a prefix, a ragged second row; windowed too) at every page
+    size, head dim and group."""
+    dec = _hopper_paged_inputs(gen, 3, 1, G, D, page, [700, 255, 0],
+                               [701, 256, 1])
+    _hopper_paged_check(kind, dec)
+    _hopper_paged_check(kind, dec, window=300)
+    pre = _hopper_paged_inputs(gen, 2, 40, G, D, page, [300, 0], [340, 33])
+    _hopper_paged_check(kind, pre)
+    _hopper_paged_check(kind, pre, window=100)
+
+
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("T", [1, 90], ids=["decode", "prefill"])
+@pytest.mark.parametrize("kind", sorted(HOPPER_PAGED))
+def test_paged_hopper_nan_in_dead_pages_and_past_kv_len(gen, kind, T,
+                                                        window):
+    """NaN in every page no live slot names, in the rows past kv_len of a
+    sequence's last page and, under a window, in the pages wholly before
+    every row's window: the outputs stay finite and equal the plain
+    version's on zeros there (dead pieces are not read; V's rows that are
+    read past kv_len are zeroed before the PV product)."""
+    page = 16
+    q_off, kv_len = [400, 150], [400 + T, 150 + T]
+    q, kp, vp, table, qo, kl = _hopper_paged_inputs(gen, 2, T, 8, 64, page,
+                                                    q_off, kv_len)
+    dead = torch.ones(kp.shape[0], page, dtype=torch.bool, device="cuda")
+    for b in range(2):
+        first = (max(q_off[b] - window + 1, 0) if window else 0) // page
+        for j in range(first, -(-kv_len[b] // page)):
+            pid = int(table[b, j])
+            dead[pid] = torch.arange(page, device="cuda") >= (kv_len[b]
+                                                              - j * page)
+    mask = dead[:, None, :, None]
+    clean = [t.masked_fill(mask, 0) for t in (kp, vp)]
+    nan = [t.masked_fill(mask, float("nan")) for t in (kp, vp)]
+    _hopper_paged_check(kind, (q, *nan, table, qo, kl), window=window,
+                        ref_args=(q, *clean, table, qo, kl))
+
+
+@pytest.mark.parametrize("T", [1, 60], ids=["decode", "prefill"])
+@pytest.mark.parametrize("kind", sorted(HOPPER_PAGED))
+def test_paged_hopper_ids_outside_the_pool_read_zeros(gen, kind, T):
+    """Live table entries past the pool and below 0 read as a page of zeros
+    (TMA's fill, the split's zero rows), never as memory outside the
+    arena."""
+    q, kp, vp, table, qo, kl = _hopper_paged_inputs(gen, 2, T, 8, 64, 16,
+                                                    [100, 60], [100 + T,
+                                                                60 + T])
+    P = kp.shape[0]
+    table[0, 1], table[0, 3], table[1, 2] = 1 << 20, -5, P
+    # the plain version reads them as one more page of zeros
+    zero = torch.zeros_like(kp[:1])
+    mapped = torch.where((table < 0) | (table >= P), P, table)
+    _hopper_paged_check(kind, (q, kp, vp, table, qo, kl),
+                        ref_args=(q, torch.cat([kp, zero]),
+                                  torch.cat([vp, zero]), mapped, qo, kl))
+
+
+@pytest.mark.parametrize("kind", sorted(HOPPER_PAGED))
+def test_paged_hopper_bits_repeat_and_a_decode_row_alone(gen, kind):
+    """Two launches give the same bits (prefill and decode), and a decode
+    row gives the same bits alone and among three others, one parked on the
+    null page 0 at position S as the engines park an idle row."""
+    pre = _hopper_paged_inputs(gen, 2, 200, 8, 64, 64, [900, 0],
+                               [1100, 200])
+    entry = HOPPER_PAGED[kind][0]
+    assert torch.equal(entry(*pre, sliding_window=300),
+                       entry(*pre, sliding_window=300))
+    q, kp, vp, table, _, _ = _hopper_paged_inputs(gen, 4, 1, 8, 64, 64,
+                                                  [0] * 4, [3000] * 4)
+    S = table.shape[1] * 64 - 1
+    table[3] = 0
+    qo = torch.tensor([2999, 17, 1500, S], dtype=torch.int32, device="cuda")
+    together = entry(q, kp, vp, table, qo, qo + 1)
+    assert torch.equal(together, entry(q, kp, vp, table, qo, qo + 1))
+    for i in range(4):
+        alone = entry(q[i:i + 1], kp, vp, table[i:i + 1], qo[i:i + 1],
+                      qo[i:i + 1] + 1)
+        assert torch.equal(alone, together[i:i + 1])
+    _hopper_paged_check(kind, (q, kp, vp, table, qo, qo + 1))
+
+
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("T", [1, 300], ids=["decode", "prefill"])
+@pytest.mark.parametrize("kind", sorted(HOPPER_PAGED))
+def test_paged_hopper_gives_row_1_on_consecutive_pages(gen, kind, T,
+                                                       window):
+    """The same K/V laid out densely for row 1 and as consecutive pages of
+    an arena: the paged body and split give row 1's bits (the same tile and
+    split points, the same order of every sum)."""
+    B, Hkv, D, page, NP = 2, 2, 64, 64, 9
+    S = NP * page
+    q = torch.randn((B, T, 8 * Hkv, D), generator=gen,
+                    device="cuda").bfloat16()
+    k, v = (torch.randn((B, Hkv, S, D), generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    qo = torch.tensor([S - T - 20, 3], dtype=torch.int32, device="cuda")
+    kl = qo + T
+    # arena page 1 + b * NP + j holds keys [j * page, (j + 1) * page) of b
+    pools = [torch.cat([torch.zeros_like(t[:1, :, :page]),
+                        t.reshape(B, Hkv, NP, page, D).permute(
+                            0, 2, 1, 3, 4).reshape(B * NP, Hkv, page, D)])
+             for t in (k, v)]
+    table = (torch.arange(B * NP, device="cuda", dtype=torch.int32)
+             .reshape(B, NP) + 1)
+    dense = ops.flash_attention(q, k, v, qo, kl, kv_head_major=True,
+                                sliding_window=window)
+    paged = HOPPER_PAGED[kind][0](q, *pools, table, qo, kl,
+                                  sliding_window=window)
+    assert torch.equal(paged, dense)
+
+
 # ------------------------------------------------------------------------
 # kernel rows 11 and 12: the range decoder and encoder
 
