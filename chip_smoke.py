@@ -9,8 +9,10 @@ Phases, in order; any failure exits non-zero:
    per source, all at once) and print the build time and nvcc's report
    (registers and spills of every kernel), and the number of ``HGMMA``
    (wgmma) and ``UTMALDG`` (TMA load) instructions in the libraries of the
-   Hopper bodies, kernel rows 1, 2, 3, 4 and 6, 8, 9 and 10 (``cuobjdump
-   -sass``), each of which must be above 0;
+   Hopper bodies, kernel rows 1-10 (``cuobjdump -sass``), each of which must
+   be above 0; then, per instantiation, the registers, spills, ``HGMMA``
+   and ``UTMALDG`` of rows 5 and 7's int8 paged body and split (the body's
+   four and the split's registers must be above 0);
 2. hold each kernel against its plain PyTorch version on the card, in
    bf16, at the shapes the paths below give it: ``flash_attention`` (plain
    and with each option: sliding and chunked window, softcap, sinks,
@@ -19,7 +21,7 @@ Phases, in order; any failure exits non-zero:
    ``combine_partials`` alone (on row 1's and on the paged split's
    partials), ``flash_attention_dma``, ``quantized_flash_attention`` (plain
    and with the same options), the four paged-attention kernels (bf16 and
-   int8 arenas; the bf16 decodes run the paged key split), the two range
+   int8 arenas; their decodes run the paged key split), the two range
    coders (tolerance 0) and the six MLA
    latent-attention entry points (dense, paged one page per step, paged
    streamed; bf16 and int8 latents) at DeepSeek-V2-Lite's shapes and at
@@ -222,7 +224,7 @@ KERNELS = {
     "flash_attention": (
         ops.flash_attention, "lmcache_tpu_torch/ops/csrc/flash_attention.cu",
         "lmcache_tpu/ops/attention.py:110"),
-    # the second kernel of the key-split decodes of rows 1, 3, 4 and 6
+    # the second kernel of the key-split decodes of rows 1 and 3-7
     "combine_partials": (
         attn.combine_partials,
         "lmcache_tpu_torch/ops/csrc/flash_attention.cu",
@@ -369,11 +371,19 @@ def wall_best(fn, n=3):
     return best
 
 
+# rows 5 and 7's instantiations (mangled): the Hopper body and the split
+# decode over an int8 (``a``, signed char) paged (``Lb1E``) arena
+INT8_PAGED = {"body": re.compile(r"flash_sm90_fwdILi(\d+)ELi\d+ELb0EaLb1EE"),
+              "split": re.compile(r"decode_split_fwdILi(\d+)ELb0EaLb1EE")}
+
+
 def sass_counts(libs):
     """The wgmma (``HGMMA``) and TMA load (``UTMALDG``) instructions in the
-    built libraries of rows 1, 2, 3, 4 and 6, 8, 9 and 10, the Hopper
-    bodies; exits where either count is 0."""
+    built libraries of rows 1-10, the Hopper bodies, and per function of
+    rows 5 and 7's int8 paged instantiations; exits where a library's count
+    is 0. Returns {library: {function: {op: count}}}."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    per_function = {}
     for name in ("flash_attention", "flash_stream_attention",
                  "quantized_flash_attention", "paged_attention",
                  "paged_stream_attention", "latent_attention",
@@ -387,6 +397,67 @@ def sass_counts(libs):
             f"UTMALDG instructions (cuobjdump -sass)")
         if not all(counts.values()):
             raise SystemExit(f"{name} was built without wgmma or TMA")
+        funcs = {}
+        for part in re.split(r"\n\s*Function : ", sass)[1:]:
+            fname, _, body = part.partition("\n")
+            funcs[fname.strip()] = {op: len(re.findall(rf"\b{op}\b", body))
+                                    for op in ("HGMMA", "UTMALDG")}
+        per_function[name] = funcs
+    return per_function
+
+
+def ptxas_report(text):
+    """{function: {"registers": n, "spill_bytes": m}} from nvcc's
+    ``-Xptxas -v`` report of one library."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([\w$]+)", line)
+        if m:
+            cur = out.setdefault(m.group(1),
+                                 {"registers": 0, "spill_bytes": 0})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_bytes"] += int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def int8_paged_report(sass):
+    """Registers, spills, HGMMA and UTMALDG of each int8 paged instantiation
+    of rows 5 and 7 (``paged_attention.cu``, ``paged_stream_attention.cu``);
+    exits where one was not built or reports no registers, or where the
+    body lacks wgmma or TMA. Returns the rows it logged."""
+    rows = []
+    for lib in ("paged_attention", "paged_stream_attention"):
+        # nvcc's report exists where this process built the library
+        built = lib in _build.build_logs
+        regs = ptxas_report(_build.build_logs.get(lib, ""))
+        for kind, pattern in INT8_PAGED.items():
+            found = {f: c for f, c in sass[lib].items() if pattern.search(f)}
+            if not found:
+                raise SystemExit(f"{lib}: no int8 paged {kind} was built")
+            for fname, counts in sorted(found.items()):
+                D = int(pattern.search(fname).group(1))
+                report = regs.get(fname, {"registers": 0, "spill_bytes": 0})
+                row = dict(library=lib, kind=kind, D=D, **report, **counts)
+                rows.append(row)
+                log(f"  {lib} int8 paged {kind} D {D}: "
+                    f"{report['registers']} registers, "
+                    f"{report['spill_bytes']} spill bytes, "
+                    f"{counts['HGMMA']} HGMMA, {counts['UTMALDG']} UTMALDG")
+                if ((built and report["registers"] <= 0)
+                        or (kind == "body"
+                            and not (counts["HGMMA"] and counts["UTMALDG"]))):
+                    raise SystemExit(f"{lib}: the int8 paged {kind} at D {D} "
+                                     f"has no registers, wgmma or TMA")
+    return rows
 
 
 # ---------------------------------------------------------------- phase 2 ---
@@ -1374,11 +1445,12 @@ def phase_main_path(cfg, params):
             "speedup": t_full / t_reuse, "profile": profile}
 
 
-def profile_window(name, fn, top=5):
+def profile_window(name, fn, top=5, watch=None):
     """One warm run of ``fn`` under ``torch.profiler``: host time, summed
     kernel time, device idle share (1 - kernel / host time; one stream, so
-    kernels do not overlap) and the kernels that took the most time. Host
-    time includes the profiler's own overhead."""
+    kernels do not overlap) and the kernels that took the most time, and
+    those whose name matches the regular expression ``watch`` wherever they
+    rank. Host time includes the profiler's own overhead."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1404,10 +1476,21 @@ def profile_window(name, fn, top=5):
     for ms, count, key in by_time[:top]:
         log(f"    {ms:10.3f} ms {100 * ms / host_ms:6.2f} %  x{count:<5d} "
             f"{key[:90]}")
+    watched = [(ms, c, k) for ms, c, k in by_time
+               if watch and re.search(watch, k)]
+    for ms, count, key in watched:
+        log(f"    watched: {ms:10.3f} ms x{count:<5d} {key[:90]}")
     return {"window": name, "host_ms": host_ms, "device_ms": device_ms,
             "idle_share": idle,
             "top": [{"kernel": k, "ms": ms, "count": c}
-                    for ms, c, k in by_time[:top]]}
+                    for ms, c, k in by_time[:top]],
+            "watched": [{"kernel": k, "ms": ms, "count": c}
+                        for ms, c, k in watched]}
+
+
+# the attention kernels a profiled paged step shows wherever they rank: the
+# Hopper body, the split decode and its combine
+ATTENTION_KERNELS = r"flash_sm90_fwd|decode_split_fwd|combine_partials_fwd"
 
 
 # ---------------------------------------------------------------- phase 4 ---
@@ -1924,13 +2007,15 @@ def profile_decode_step(eng, prompts, arena, prefill=False, model="paged"):
         eng.add_request(Request(p, SamplingParams(max_new_tokens=16)))
     prefill_prof = (profile_window(f"{model} prefill step, {arena} arena, "
                                    f"fresh prompts (512-token segments)",
-                                   eng.step) if prefill else None)
+                                   eng.step, watch=ATTENTION_KERNELS)
+                    if prefill else None)
     while eng.waiting or eng.prefilling:
         eng.step()
     step_ms = wall_best(eng.step)
     prof = profile_window(f"{model} decode step, {arena} arena, "
                           f"{len(prompts)} of {eng.B} rows live (step alone "
-                          f"{step_ms:.3f} ms, best of 3)", eng.step)
+                          f"{step_ms:.3f} ms, best of 3)", eng.step,
+                          watch=ATTENTION_KERNELS)
     eng.run()
     prof["step_ms"] = step_ms
     if prefill_prof is not None:
@@ -3759,7 +3844,7 @@ def main():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  nvcc {name}: {line.strip()}")
-    sass_counts(libs)
+    int8_paged = int8_paged_report(sass_counts(libs))
 
     max_abs = phase_kernels()
     launches = {}
@@ -3820,12 +3905,14 @@ def main():
         "paged tinyllama bf16": [("paged_attention_dma",
                                   ("prefill", "decode")),
                                  ("combine_partials", ("decode",))],
-        "paged tinyllama int8": ("quantized_paged_attention_dma",
-                                 ("prefill", "decode")),
+        "paged tinyllama int8": [("quantized_paged_attention_dma",
+                                  ("prefill", "decode")),
+                                 ("combine_partials", ("decode",))],
         "paged phi3 bf16": [("paged_attention", ("prefill", "decode")),
                             ("combine_partials", ("decode",))],
-        "paged phi3 int8": ("quantized_paged_attention",
-                            ("prefill", "decode")),
+        "paged phi3 int8": [("quantized_paged_attention",
+                             ("prefill", "decode")),
+                            ("combine_partials", ("decode",))],
         "int8 dense bench": ("quantized_flash_attention", ("prefill",)),
         "int8 dense serving": [("quantized_flash_attention",
                                 ("prefill", "decode")),
@@ -3907,7 +3994,8 @@ def main():
               "phi3_paged_profiles": phi3_profiles,
               "dense_decode_profiles": dense_decode_profiles,
               "mistral_profiles": mistral_profiles, "mla": mla_out,
-              "ablation": ablation, "blend": blend_out, "card": card}
+              "ablation": ablation, "blend": blend_out,
+              "int8_paged_build": int8_paged, "card": card}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,8 @@
 
 #pragma once
 
+#include <mma.h>
+
 #include "flash_args.cuh"
 
 namespace lmc {

@@ -1,8 +1,9 @@
 // The Hopper prefill body of the dense attention kernels
 // (flash_attention.cu, flash_stream_attention.cu over bf16 K/V,
-// quantized_flash_attention.cu over int8 K/V) and of the bf16 paged ones
-// (paged_attention.cu, paged_stream_attention.cu): TMA, wgmma, and the
-// scores, probabilities and output accumulator kept in registers.
+// quantized_flash_attention.cu over int8 K/V) and of the paged ones
+// (paged_attention.cu, paged_stream_attention.cu over bf16 or int8 arenas):
+// TMA, wgmma, and the scores, probabilities and output accumulator kept in
+// registers.
 //
 // What the TPU kernels compute (lmcache_tpu/ops/attention.py::_flash_kernel
 // and ::_flash_dma_kernel): for each (sequence, KV head, block of query
@@ -62,11 +63,11 @@
 //   D 256 (198,240).
 // - Tile source (PAGED): the dense pool [B, H_kv, S, D], a box of BN keys a
 //   panel at (column, key, KV head, sequence); or a paged arena [P, H_kv,
-//   page, D] (paged_attention.cu, paged_stream_attention.cu, bf16), read
-//   in place through page_table [B, NP]: the arena is a 4-d map whose key
-//   dimension is the row in page and whose pool row is the page id, and a
-//   tile of BN keys loads as pieces of `box` rows (gcd(BN, page), so a box
-//   never crosses a page) at (column, row in page, KV head, page id). The
+//   page, D] (paged_attention.cu, paged_stream_attention.cu), read in place
+//   through page_table [B, NP]: the arena is a 4-d map whose key dimension
+//   is the row in page and whose pool row is the page id, and a tile of BN
+//   keys loads as pieces of `box` rows (gcd(BN, page), so a box never
+//   crosses a page) at (column, row in page, KV head, page id). The
 //   producer warp's 32 lanes hold 32 consecutive page ids of the block's
 //   table, one load a lane. Pieces at and past kend, and pieces wholly
 //   before the block's oldest visible key, are not loaded: dead slots are
@@ -74,6 +75,15 @@
 //   the consumers zero in V as they zero V's tail (K's are masked). A
 //   page id outside the pool (< 0 or >= P) lies outside the map and reads
 //   as zeros, TMA's fill. Tile points are the dense body's.
+// - int8 arena (PAGED, KV = i8): the producer warp lands the pieces, whole
+//   rows of D bytes (int8 boxes of at least 16 rows: TMA's alignment), in
+//   the staging ring; the converting warps read each key's two scales
+//   through the page table (0 for a page id outside the pool, and 0 for the
+//   keys before the block's oldest visible key, where a dead page may hold
+//   NaN), and write the rows of unloaded pieces and those at and past kend
+//   as symbol 0 with scale 0, so the bf16 stage is whole and the consumers
+//   zero nothing. The scales are selected, not multiplied, so NaN in a dead
+//   page's scales stays out.
 // - No float atomics and a fixed order of every sum: two launches on the
 //   same inputs give the same bits.
 // Tiles: BN = 128 keys at D 64, 96 and 128, 64 at D 256 (O alone takes 128
@@ -140,7 +150,8 @@ struct Geometry {
                    ? (SMEM_LIMIT - fixed(2)) / (STAGE8 + 16)
                    : 4;
   // registers a thread (setmaxnreg): 128 * producer + 256 * consumer
-  // <= 65,536
+  // may not pass the block's launch allocation, 384 * 168 = 64,512 (a
+  // consumer's setmaxnreg.inc waits for registers until they are free)
   static constexpr int PRODUCER_REGS = QUANT ? 56 : 40;
   static constexpr int CONSUMER_REGS = QUANT ? 224 : 232;
   static constexpr int bytes(int stages) {
@@ -308,14 +319,20 @@ __device__ __forceinline__ void tma_load_panel(const CUtensorMap* map,
 // `box` rows, panel and side at (column, row in page, KV head, page id);
 // only the pieces that hold a key of [kfirst, kend) are loaded. The lanes
 // hold the page ids of 32 consecutive slots of the block's table from slot
-// `win` on, and lane 0 issues the loads.
-template <int D, int STAGES>
+// `win` on, and lane 0 issues the loads. int8: the ring is the staging
+// ring, a piece one box of whole D-byte rows a side.
+template <int D, int STAGES, typename KV = bf16>
 __device__ __forceinline__ void load_paged_tiles(
     const FlashArgs& a, const Block& blk, const CUtensorMap* kmap,
     const CUtensorMap* vmap, const TmaOrder& ord, uint32_t ring,
     uint32_t bar_full, uint32_t bar_empty, int lane) {
-  using Gm = Geometry<D>;
+  using Gm = Geometry<D, KV>;
   constexpr int BN = Gm::BN;
+  // bytes a stage, a side and a row of a panel; panels a side
+  constexpr int STAGE = Gm::QUANT ? Gm::STAGE8 : Gm::STAGE;
+  constexpr int SIDE = Gm::QUANT ? Gm::TILE8 : Gm::TILE;
+  constexpr int ROW = Gm::QUANT ? D : Gm::SWB;
+  constexpr int PANELS = Gm::QUANT ? 1 : Gm::PANELS;
   const int d = a.box;
   const int* table =
       a.page_table + static_cast<long long>(blockIdx.z) * a.NP;
@@ -329,8 +346,7 @@ __device__ __forceinline__ void load_paged_tiles(
     const int j0 = max(0, blk.kfirst - k0) / d;
     const int j1 = max(j0, (min(BN, blk.kend - k0) + d - 1) / d);
     if (lane == 0) {
-      mbar_expect_tx(bar_full + 8 * s,
-                     2 * Gm::PANELS * (j1 - j0) * d * Gm::SWB);
+      mbar_expect_tx(bar_full + 8 * s, 2 * PANELS * (j1 - j0) * d * ROW);
     }
     for (int j = j0; j < j1; ++j) {
       const int kj = k0 + j * d;
@@ -341,12 +357,12 @@ __device__ __forceinline__ void load_paged_tiles(
       }
       const int pid = __shfl_sync(0xffffffffu, ids, slot - win);
       if (lane == 0) {
-        const uint32_t dst = ring + s * Gm::STAGE + j * d * Gm::SWB;
+        const uint32_t dst = ring + s * STAGE + j * d * ROW;
 #pragma unroll
-        for (int p = 0; p < Gm::PANELS; ++p) {
+        for (int p = 0; p < PANELS; ++p) {
           tma_load_panel(kmap, ord.k, dst + p * Gm::T_PANEL, bar_full + 8 * s,
                          p * Gm::PW, kj % a.page, blockIdx.y, pid);
-          tma_load_panel(vmap, ord.v, dst + Gm::TILE + p * Gm::T_PANEL,
+          tma_load_panel(vmap, ord.v, dst + SIDE + p * Gm::T_PANEL,
                          bar_full + 8 * s, p * Gm::PW, kj % a.page,
                          blockIdx.y, pid);
         }
@@ -360,8 +376,11 @@ __device__ __forceinline__ void load_paged_tiles(
 // zero at and past kend; the stage is signalled full once all three warps
 // are done, and the staging stage free. The next tile's scales are loaded
 // into registers while this tile is converted, so that their device-memory
-// latency does not hold up every tile.
-template <int D, int STAGES>
+// latency does not hold up every tile. PAGED: a key's scales are entry
+// k % page of row page_table[b, k / page] of the scale pools, 0 before
+// kfirst and for a page id outside the pool; the rows of the pieces before
+// kfirst that were not loaded are converted as zeros.
+template <int D, int STAGES, bool PAGED = false>
 __device__ __forceinline__ void convert_tiles(
     const FlashArgs& a, const Block& blk, unsigned char* gbase, int kv_off,
     int k8_off, int sc_off, uint32_t bar_full, uint32_t bar_empty,
@@ -372,15 +391,30 @@ __device__ __forceinline__ void convert_tiles(
   constexpr int NSC = (BN + CONVERTERS - 1) / CONVERTERS;  // scales a thread
   const float* ksb = a.k_scale + static_cast<long long>(blk.bkv) * a.ksb;
   const float* vsb = a.v_scale + static_cast<long long>(blk.bkv) * a.vsb;
+  const int* table =
+      PAGED ? a.page_table + static_cast<long long>(blockIdx.z) * a.NP
+            : nullptr;
   float next_k[NSC], next_v[NSC];  // tile g's scales, 0 at and past kend
   auto fetch = [&](int g) {
 #pragma unroll
     for (int j = 0; j < NSC; ++j) {
       const int c = ct + j * CONVERTERS;
-      const long long k = blk.kbeg + g * BN + c;
-      const bool in = c < BN && k < blk.kend;
-      next_k[j] = in ? ksb[k * a.kss] : 0.f;
-      next_v[j] = in ? vsb[k * a.vss] : 0.f;
+      if constexpr (PAGED) {
+        const int k = blk.kbeg + g * BN + c;
+        const int pid =
+            c < BN && k >= blk.kfirst && k < blk.kend ? table[k / a.page] : -1;
+        const bool in = pid >= 0 && pid < a.P;
+        const long long row = in ? static_cast<long long>(pid) : 0;
+        const float ks = a.k_scale[row * a.ksb + (k % a.page) * a.kss];
+        const float vs = a.v_scale[row * a.vsb + (k % a.page) * a.vss];
+        next_k[j] = in ? ks : 0.f;
+        next_v[j] = in ? vs : 0.f;
+      } else {
+        const long long k = blk.kbeg + g * BN + c;
+        const bool in = c < BN && k < blk.kend;
+        next_k[j] = in ? ksb[k * a.kss] : 0.f;
+        next_v[j] = in ? vsb[k * a.vss] : 0.f;
+      }
     }
   };
   if (blk.tiles > 0) fetch(0);
@@ -398,8 +432,11 @@ __device__ __forceinline__ void convert_tiles(
     if (g >= STAGES) mbar_wait(bar_empty + 8 * s, ((g / STAGES) - 1) & 1);
     mbar_wait(bar_full8 + 8 * s8, (g / S8) & 1);
     const unsigned char* src = gbase + k8_off + s8 * Gm::STAGE8;
+    // PAGED: the rows of the pieces wholly before kfirst, not loaded
+    const int lead = PAGED ? max(0, blk.kfirst - k0) / a.box * a.box : 0;
     // CONVERT_VECTORS loads in flight, then their conversions and stores
-    // (rows at and past kend read as symbol 0, which converts to 0)
+    // (rows at and past kend, and before lead, read as symbol 0, which
+    // converts to 0)
     for (int i0 = ct; i0 < 2 * CHUNKS; i0 += CONVERT_VECTORS * CONVERTERS) {
       uint4 raw[CONVERT_VECTORS];
 #pragma unroll
@@ -407,7 +444,7 @@ __device__ __forceinline__ void convert_tiles(
         const int i = i0 + u * CONVERTERS;
         const int row = (i % CHUNKS) / (D / 16);
         raw[u] = make_uint4(0, 0, 0, 0);
-        if (i < 2 * CHUNKS && row < live) {
+        if (i < 2 * CHUNKS && row < live && (!PAGED || row >= lead)) {
           raw[u] = *reinterpret_cast<const uint4*>(
               src + (i / CHUNKS) * Gm::TILE8 + row * D + (i % (D / 16)) * 16);
         }
@@ -445,8 +482,8 @@ __device__ __forceinline__ void convert_tiles(
   }
 }
 
-// PAGED: K/V from a bf16 paged arena through the page table (else the
-// dense pool).
+// PAGED: K/V (int8: and their scales) from a paged arena through the page
+// table (else the dense pool).
 template <int D, int STAGES, bool SOFTCAP, typename KV = bf16,
           bool PAGED = false>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -455,7 +492,11 @@ __global__ void __launch_bounds__(THREADS, 1)
                    const TmaOrder ord) {
   using Gm = Geometry<D, KV>;
   constexpr bool QUANT = Gm::QUANT;
-  static_assert(!(QUANT && PAGED), "the paged body reads bf16 arenas");
+  // the paged converters also walk the page table: with 56 registers
+  // ptxas spills 72-164 bytes of them at D 64-128, with 64 at most 16;
+  // 64 * 128 + 216 * 256 stays within the block's launch allocation
+  constexpr int PRODUCER_REGS = QUANT && PAGED ? 64 : Gm::PRODUCER_REGS;
+  constexpr int CONSUMER_REGS = QUANT && PAGED ? 216 : Gm::CONSUMER_REGS;
   constexpr int BN = Gm::BN, PW = Gm::PW, PANELS = Gm::PANELS;
   constexpr int S8 = Gm::STAGES8;
   extern __shared__ unsigned char smem_raw[];
@@ -496,9 +537,18 @@ __global__ void __launch_bounds__(THREADS, 1)
     // ---- producer: one thread keeps the ring full (int8: the staging
     // ring, which the other three warps convert into the ring)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
-        Gm::PRODUCER_REGS));
+        PRODUCER_REGS));
     const int pt = threadIdx.x - CONSUMERS * WG;
-    if constexpr (QUANT) {
+    if constexpr (QUANT && PAGED) {
+      if (pt < 32) {
+        load_paged_tiles<D, S8, i8>(a, blk, &kmap, &vmap, ord, base + K8_OFF,
+                                    full8(0), empty8(0), pt);
+      } else {
+        convert_tiles<D, STAGES, true>(a, blk, gbase, KV_OFF, K8_OFF, SC_OFF,
+                                       full(0), empty(0), full8(0), empty8(0),
+                                       pt - 32);
+      }
+    } else if constexpr (QUANT) {
       if (pt == 0) {
         for (int g = 0; g < blk.tiles; ++g) {
           const int s8 = g % S8;
@@ -541,7 +591,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   // ---- consumers: 64 rows each
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
-      Gm::CONSUMER_REGS));
+      CONSUMER_REGS));
   const int w = threadIdx.x / WG;
   if (w >= blk.nlive) return;  // no live row
   const int tid = threadIdx.x % WG;
@@ -584,7 +634,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int s = g % STAGES;
     const int k0 = blk.kbeg + g * BN;
     mbar_wait(full(s), (g / STAGES) & 1);
-    if constexpr (PAGED) {
+    if constexpr (PAGED && !QUANT) {
       // V rows that hold no visible key contribute exactly nothing: the
       // pieces wholly before kfirst, which were not loaded (the first
       // tile's [0, lead)), and the rows at and past kend (the last tile's).
@@ -797,17 +847,23 @@ bool encode_kv_map(CUtensorMap* map, int (&pos)[3], const void* base,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The page-table fields a paged launch needs: pages a multiple of 16 rows,
-// S the table's width in keys, and a box that divides the tile and the page
-// (so that a piece never crosses a page) in whole 16-row steps (whole
-// periods of the panels' swizzle).
-template <int D>
+// The fields a paged launch needs: pages a multiple of 16 rows, S the
+// table's width in keys, and a box that divides the tile of KV (int8 tiles
+// are not bf16's) and the page (so that a piece never crosses a page) in
+// whole 16-row steps (whole periods of the panels' swizzle; int8: a box of
+// at least 16 rows of D >= 64 bytes meets TMA's alignment); int8 the
+// scales; and none of the options the paged rows refuse (softcap, sinks,
+// the chunked window: ROADMAP, module item 5).
+template <int D, typename KV>
 bool paged_args_ok(const FlashArgs& a) {
-  constexpr int BN = Geometry<D>::BN;
+  constexpr int BN = Geometry<D, KV>::BN;
   return a.page_table != nullptr && a.kv_slot == nullptr && a.NP > 0 &&
          a.P > 0 && a.page > 0 && a.page % 16 == 0 &&
          static_cast<long long>(a.NP) * a.page == a.S && a.box > 0 &&
-         a.box % 16 == 0 && BN % a.box == 0 && a.page % a.box == 0;
+         a.box % 16 == 0 && BN % a.box == 0 && a.page % a.box == 0 &&
+         (!Geometry<D, KV>::QUANT ||
+          (a.k_scale != nullptr && a.v_scale != nullptr)) &&
+         a.softcap <= 0.f && a.sinks == nullptr && !a.chunked;
 }
 
 // Encode the launch's K and V maps and launch the body on `stream`. The
@@ -820,7 +876,7 @@ cudaError_t launch(const FlashArgs& a, int B, int Hkv, cudaStream_t stream) {
   constexpr int bytes = Geometry<D, KV>::bytes(STAGES);
   static_assert(bytes <= SMEM_LIMIT, "the ring does not fit shared memory");
   if constexpr (PAGED) {
-    if (!paged_args_ok<D>(a)) return cudaErrorInvalidValue;
+    if (!paged_args_ok<D, KV>(a)) return cudaErrorInvalidValue;
   }
   static std::atomic<int> raised[64];
   cudaError_t err = raise_smem_limit(

@@ -1,8 +1,8 @@
 // The key-split decode of the dense kernels (flash_attention.cu over bf16
-// K/V, quantized_flash_attention.cu over int8 K/V) and of the bf16 paged
-// ones (paged_attention.cu, paged_stream_attention.cu): the first of its
-// two kernels, for launches of at most MAX_ROWS rows T * G (every decode
-// step).
+// K/V, quantized_flash_attention.cu over int8 K/V) and of the paged ones
+// (paged_attention.cu, paged_stream_attention.cu, bf16 or int8 arenas): the
+// first of its two kernels, for launches of at most MAX_ROWS rows T * G
+// (every decode step).
 //
 // One block takes one (sequence, KV head, split of SPLIT keys) and writes
 // a partial (m, l, O[rows, D]) in fp32 to scratch the wrapper allocates;
@@ -23,11 +23,13 @@
 // score (times the score scale) before softcap and mask, and the V scale
 // multiplies P after the row sum, as the TPU kernel does.
 //
-// Paged arena (PAGED, bf16): each key's row is found through the page
-// table as it is copied (row kpos % page of page page_table[b, kpos /
-// page]); keys outside the split's live range are not read, and a page id
-// outside the pool (< 0 or >= P) reads as zeros, as the TMA fill of the
-// paged prefill body does. The grid is sized from S = NP * page.
+// Paged arena (PAGED): each key's row is found through the page table as
+// it is copied (row kpos % page of page page_table[b, kpos / page]), and
+// over int8 its scales likewise (entry kpos % page of the scale pools' row
+// page_table[b, kpos / page]); keys outside the split's live range are not
+// read, and a page id outside the pool (< 0 or >= P) reads as zero rows
+// with scale 0, as the TMA fill of the paged prefill body does. The grid is
+// sized from S = NP * page.
 
 #pragma once
 
@@ -76,6 +78,15 @@ __device__ __forceinline__ void copy4_async(float* dst, const float* src) {
                "l"(src));
 }
 
+__device__ __forceinline__ void async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 // 4 symbols -> fp32, exactly
 __device__ __forceinline__ void i8_to_float(const uint32_t w, float* f) {
 #pragma unroll
@@ -92,9 +103,8 @@ __global__ void __launch_bounds__(THREADS)
                      int nsplit) {
   using Gm = Geometry<D, KV>;
   constexpr bool QUANT = Gm::QUANT;
-  static_assert(!(QUANT && PAGED), "the paged split reads bf16 arenas");
   constexpr int CH = Gm::CH, LD = Gm::LD;
-  constexpr int VEC = Vec<KV>::N;  // elements a 16-byte copy
+  constexpr int VEC = 16 / sizeof(KV);  // elements a 16-byte copy
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem + Gm::Q_OFF);
   float* Ss = reinterpret_cast<float*>(smem + Gm::S_OFF);
@@ -137,7 +147,7 @@ __global__ void __launch_bounds__(THREADS)
       PAGED ? a.page_table + static_cast<long long>(b) * a.NP : nullptr;
 
   // keys [c0, c0 + CH) into stage st, zero outside [lo, hi] (and paged: in
-  // a page outside the pool)
+  // a page outside the pool; int8: their scales 0)
   auto request = [&](int c0, int st) {
     KV* kd = k_chunk(st);
     KV* vd = v_chunk(st);
@@ -166,10 +176,19 @@ __global__ void __launch_bounds__(THREADS)
       const float* ksb = a.k_scale + bkv * a.ksb;
       const float* vsb = a.v_scale + bkv * a.vsb;
       for (int row = tid; row < CH; row += THREADS) {
-        const long long kpos = c0 + row;
-        if (kpos >= lo && kpos <= hi) {
-          copy4_async(sc + row, ksb + kpos * a.kss);
-          copy4_async(sc + CH + row, vsb + kpos * a.vss);
+        const int kpos = c0 + row;
+        bool in = kpos >= lo && kpos <= hi;
+        long long koff = static_cast<long long>(kpos) * a.kss;
+        long long voff = static_cast<long long>(kpos) * a.vss;
+        if constexpr (PAGED) {
+          const int pid = in ? table[kpos / a.page] : -1;
+          in = pid >= 0 && pid < a.P;
+          koff = pid * a.ksb + (kpos % a.page) * a.kss;
+          voff = pid * a.vsb + (kpos % a.page) * a.vss;
+        }
+        if (in) {
+          copy4_async(sc + row, ksb + koff);
+          copy4_async(sc + CH + row, vsb + voff);
         } else {
           sc[row] = 0.f;
           sc[CH + row] = 0.f;
@@ -416,8 +435,10 @@ cudaError_t launch_split(const FlashArgs& a, int B, int Hkv, float* part_o,
 // What the split entry points do: check the sizes, pick the variant by
 // head dim and softcap, launch on `stream`. nsplit must be
 // max(1, ceil(S / SPLIT)); the partials are part_o [B, H_kv, nsplit,
-// T * G, D] and part_ml [.., 2] (m, l), fp32. PAGED: K/V are a bf16 arena
-// read through the page table (S = NP * page, no softcap).
+// T * G, D] and part_ml [.., 2] (m, l), fp32. PAGED: K/V (and int8: their
+// scale pools [P, page]) are an arena read through the page table
+// (S = NP * page; no softcap, sinks or chunked window: ROADMAP, module
+// item 5).
 template <typename KV, bool PAGED = false>
 int split_entry(const FlashArgs* a, int B, int H, int Hkv, int D,
                 void* part_o, void* part_ml, int nsplit, void* stream) {
@@ -431,7 +452,7 @@ int split_entry(const FlashArgs* a, int B, int H, int Hkv, int D,
   if (PAGED && (a->page_table == nullptr || a->kv_slot != nullptr ||
                 a->NP <= 0 || a->P <= 0 || a->page <= 0 ||
                 static_cast<long long>(a->NP) * a->page != a->S ||
-                a->softcap > 0.f)) {
+                a->softcap > 0.f || a->sinks != nullptr || a->chunked)) {
     return cudaErrorInvalidValue;
   }
   if (B == 0 || a->T == 0) return cudaSuccess;

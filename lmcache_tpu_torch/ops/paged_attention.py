@@ -1,27 +1,30 @@
 """Paged attention: decode/prefill over a page-table-indexed KV arena.
 
 The port of ``lmcache_tpu/ops/paged_attention.py``. Four entry points with
-the JAX signatures, each with hand-written Hopper kernels:
+the JAX signatures (the names are the JAX package's), all on the Hopper
+body of the dense kernels (``csrc/flash_sm90.cuh``: TMA, wgmma, S, P and O
+in registers) with the arena as its tile source, read in place through the
+page table (a TMA box a page piece of :func:`box_rows` rows); launches of
+at most ``DECODE_ROWS`` rows T * G (:func:`takes_split`, every decode step)
+run the paged key-split decode, partials over splits of ``SPLIT_KEYS`` keys
+of the table's ``NP * page`` slots (``attention.n_splits``), then the dense
+kernels' combine (:func:`~lmcache_tpu_torch.ops.attention.combine_partials`):
 
 - :func:`paged_attention` (row 4) and :func:`paged_attention_dma` (row 6),
-  bf16 arenas: the Hopper body of the dense kernels (``csrc/flash_sm90.cuh``:
-  TMA, wgmma, S, P and O in registers) with the arena as its tile source,
-  read in place through the page table (a TMA box a page piece of
-  :func:`box_rows` rows); launches of at most ``DECODE_ROWS`` rows T * G
-  (:func:`takes_split`, every decode step) run the paged key-split decode,
-  partials over splits of ``SPLIT_KEYS`` keys of the table's ``NP * page``
-  slots (``attention.n_splits``), then the dense kernels' combine
-  (:func:`~lmcache_tpu_torch.ops.attention.combine_partials`; plain versions
+  bf16 arenas (plain versions of the split
   :func:`paged_split_partials_reference` and
   :func:`paged_split_attention_reference`). ``paged_attention`` keeps row
   1's ring of 2 stages (``csrc/paged_attention.cu``, head dims 64, 96, 128,
   256), ``paged_attention_dma`` the deepest ring that fits, as row 2 does
   (``csrc/paged_stream_attention.cu``, head dims 64, 128, 256);
 - :func:`quantized_paged_attention` (row 5) and
-  :func:`quantized_paged_attention_dma` (row 7), int8 arenas: the WMMA
-  kernels of the same two sources, one page per step (any head dim that is
-  a multiple of 16) and tiles of up to 512 tokens with the next tile's loads
-  in flight (64, 128, 256). The names are the JAX package's.
+  :func:`quantized_paged_attention_dma` (row 7), int8 arenas, in the same
+  two sources and head dims: row 3's int8 body (the pieces land in a
+  staging ring and are converted exactly to bf16 on the chip, each key's
+  scales read through the page table; int8 tiles of :func:`tile_keys`
+  ``(D, quant=True)`` keys) and the int8 paged split (plain versions
+  :func:`quantized_paged_split_partials_reference` and
+  :func:`quantized_paged_split_attention_reference`).
 
 Layouts: ``q [B, T, H, D]``; pools ``[P, H_kv, page, D]`` (head-major pages;
 any strides with unit stride along D, so a layer's slice of the arena is read
@@ -44,48 +47,43 @@ kernel launches in ``.launches`` ("prefill" for T > 1, "decode" for T == 1;
 a split decode once, and once under ``attention.combine_partials``).
 """
 
-import ctypes
 import math
 from collections import Counter
 from typing import Optional
 
 import torch
 
-from lmcache_tpu_torch.ops import _build
 from lmcache_tpu_torch.ops import attention as _attn
 from lmcache_tpu_torch.ops.attention import mha_reference
 
-SUPER_TOKENS = 512  # target tokens per key tile of the streaming kernel
-_SP_MAX = 8
-_SMEM_LIMIT = 232448  # bytes a block may use on sm_90 (227 KB)
 _GRID_HEAD_DIMS = (64, 96, 128, 256)
 _STREAM_HEAD_DIMS = (64, 128, 256)
 _NOT_PORTED = "is not ported yet (ROADMAP, module item 5)"
 
 
-def _super_pages(page: int) -> int:
-    """Page slots per key tile for a given page size."""
-    return max(1, min(SUPER_TOKENS // page, _SP_MAX))
-
-
-def tile_keys(D: int) -> int:
-    """Keys a tile of the Hopper body over a bf16 arena
-    (``csrc/flash_sm90.cuh``, ``Geometry::BN``): 128, and 64 at D 256,
-    where O alone takes 128 registers a thread."""
+def tile_keys(D: int, quant: bool = False) -> int:
+    """Keys a tile of the Hopper body (``csrc/flash_sm90.cuh``,
+    ``Geometry::BN``): over a bf16 arena 128, and 64 at D 256, where O
+    alone takes 128 registers a thread; over an int8 arena 128 at D 64 and
+    96, else 16 KB of symbols a side (64 at D 128, 32 at D 256), so that
+    four staging stages fit beside two bf16 stages."""
+    if quant:
+        return 128 if D <= 96 else 8192 // D
     return 64 if D == 256 else 128
 
 
-def box_rows(D: int, page: int) -> int:
-    """Rows of one TMA box of the bf16 body: the largest divisor of the tile
+def box_rows(D: int, page: int, quant: bool = False) -> int:
+    """Rows of one TMA box of the body: the largest divisor of its tile
     that also divides the page, so that a box never crosses a page (a
-    multiple of 16, as pages are)."""
-    return math.gcd(tile_keys(D), page)
+    multiple of 16, as pages are; an int8 box of 16 rows of at least 64
+    bytes meets TMA's alignment)."""
+    return math.gcd(tile_keys(D, quant), page)
 
 
 def takes_split(T: int, G: int) -> bool:
-    """Whether a bf16 launch of T tokens of a group of G query heads runs
-    the key-split decode (every decode step of tinyllama, G 8, and Phi-3,
-    G 1) rather than the prefill body."""
+    """Whether a launch of T tokens of a group of G query heads runs the
+    key-split decode (every decode step of tinyllama, G 8, and Phi-3, G 1)
+    rather than the prefill body."""
     return T * G <= _attn.DECODE_ROWS
 
 
@@ -132,18 +130,26 @@ def quantized_paged_attention_reference(q, k_sym_pool, v_sym_pool,
     """Dequantize the pages densely, then dense attention: the plain version
     of the two int8 entry points."""
     _check_options(sliding_window, logit_softcap, window_kind, sinks)
+    return mha_reference(q, _dequantize_pages(k_sym_pool, k_scale_pool,
+                                              page_table),
+                         _dequantize_pages(v_sym_pool, v_scale_pool,
+                                           page_table),
+                         q_offset, kv_len, sm_scale=sm_scale,
+                         sliding_window=sliding_window, zero_dead_rows=True)
+
+
+def _dequantize_pages(sym_pool, scale_pool, page_table, kv_len=None):
+    """int8 [P, H_kv, page, D] pool and its [P, page] scales -> fp32
+    token-major [B, NP*page, H_kv, D]; with ``kv_len`` the scales at and
+    past it are selected to 0 first, as the kernels' are (so NaN there
+    stays out)."""
     B, NP = page_table.shape
-    page = k_sym_pool.shape[2]
-
-    def deq(sym_pool, scale_pool):
-        x = _gather_pages(sym_pool, page_table).float()
-        s = scale_pool[page_table.long()].reshape(B, NP * page)
-        return x * s[:, :, None, None]
-
-    return mha_reference(q, deq(k_sym_pool, k_scale_pool),
-                         deq(v_sym_pool, v_scale_pool), q_offset, kv_len,
-                         sm_scale=sm_scale, sliding_window=sliding_window,
-                         zero_dead_rows=True)
+    s = scale_pool[page_table.long()].reshape(B, NP * sym_pool.shape[2])
+    if kv_len is not None:
+        kpos = torch.arange(s.shape[1], device=s.device)
+        s = torch.where(kpos[None] < kv_len.to(s.device)[:, None], s,
+                        torch.zeros((), device=s.device))
+    return _gather_pages(sym_pool, page_table).float() * s[:, :, None, None]
 
 
 def paged_split_partials_reference(q, k_pool, v_pool, page_table, q_offset,
@@ -177,27 +183,44 @@ def paged_split_attention_reference(q, k_pool, v_pool, page_table, q_offset,
         part_o, part_ml, q.shape[1], q.shape[2] // k_pool.shape[1])
 
 
+def quantized_paged_split_partials_reference(q, k_sym_pool, v_sym_pool,
+                                             k_scale_pool, v_scale_pool,
+                                             page_table, q_offset, kv_len,
+                                             sliding_window=None,
+                                             sm_scale=None):
+    """Plain version of the int8 paged split decode's first kernel: the
+    pages dequantized densely to fp32, then
+    :func:`~lmcache_tpu_torch.ops.attention.split_partials_reference` over
+    the table's ``NP * page`` slots (shapes as
+    :func:`paged_split_partials_reference`). Where the kernel multiplies a
+    score by its key's K scale and P by its key's V scale (after the row
+    sum), this multiplies the symbols first: the same function. As the
+    kernel gives a key outside its split's live range scale 0, the scales
+    at and past ``kv_len`` are 0 here, so that NaN there stays out."""
+    return _attn.split_partials_reference(
+        q, _dequantize_pages(k_sym_pool, k_scale_pool, page_table, kv_len),
+        _dequantize_pages(v_sym_pool, v_scale_pool, page_table, kv_len),
+        q_offset, kv_len, sm_scale=sm_scale, sliding_window=sliding_window)
+
+
+def quantized_paged_split_attention_reference(q, k_sym_pool, v_sym_pool,
+                                              k_scale_pool, v_scale_pool,
+                                              page_table, q_offset, kv_len,
+                                              sliding_window=None,
+                                              sm_scale=None):
+    """The plain split-then-combine of the int8 paged decode:
+    :func:`quantized_paged_split_partials_reference`, then
+    :func:`~lmcache_tpu_torch.ops.attention.combine_partials_reference`;
+    fp32 ``[B, T, H, D]``, 0 for a row that sees no key. Equal to
+    :func:`quantized_paged_attention_reference` up to fp32 rounding."""
+    part_o, part_ml = quantized_paged_split_partials_reference(
+        q, k_sym_pool, v_sym_pool, k_scale_pool, v_scale_pool, page_table,
+        q_offset, kv_len, sliding_window=sliding_window, sm_scale=sm_scale)
+    return _attn.combine_partials_reference(
+        part_o, part_ml, q.shape[1], q.shape[2] // k_sym_pool.shape[1])
+
+
 # ------------------------------------------------------------ the kernels ---
-
-_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
-             + [ctypes.c_longlong] * 14 + [ctypes.c_float, ctypes.c_void_p])
-_fns = {}
-
-
-def _kernel(lib_name: str, fn_name: str):
-    """The C entry point ``fn_name`` of library ``lib_name``, built at first
-    use, with its argument types set."""
-    fn = _fns.get(fn_name)
-    if fn is None:
-        lib = _build.load(lib_name)
-        fn = getattr(lib, fn_name)
-        if fn_name.endswith("smem_bytes"):
-            fn.argtypes = [ctypes.c_int] * (3 if "stream" in fn_name else 2)
-        else:
-            fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-        _fns[fn_name] = fn
-    return fn
 
 
 def _check_cuda_args(q, k_pool, v_pool, k_scale, v_scale, page_table,
@@ -262,70 +285,34 @@ def _check_cuda_args(q, k_pool, v_pool, k_scale, v_scale, page_table,
             raise ValueError(f"{name} must be contiguous int32 [{B}]")
 
 
-def _launch_bf16(entry, lib, q, k_pool, v_pool, page_table, q_offset,
-                 kv_len, sliding_window, sm_scale):
-    """Rows 4 and 6 (arguments checked): the Hopper body of ``lib`` over
-    the arena or, at most ``DECODE_ROWS`` rows, its split decode and the
-    dense kernels' combine."""
+def _launch(entry, lib, q, k_pool, v_pool, k_scale, v_scale, page_table,
+            q_offset, kv_len, sliding_window, sm_scale):
+    """Rows 4-7 (arguments checked): the Hopper body of ``lib`` over the
+    arena (int8 where ``k_scale`` is given) or, at most ``DECODE_ROWS``
+    rows, its split decode and the dense kernels' combine."""
     B, T, H, D = q.shape
     P, Hkv, page, _ = k_pool.shape
     NP = page_table.shape[1]
+    quant = k_scale is not None
+    kind = "int8" if quant else "bf16"
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     # the pool's head-major strides are the page's, the head's and the row
+    # in page's, the scale pools' [P, page] strides the page's and the row
     # in page's; its key count is the table's width
     a, _, _ = _attn.fill_args(q, k_pool, v_pool, out, q_offset, kv_len, True,
-                              sm_scale, sliding_window)
+                              sm_scale, sliding_window, k_scale=k_scale,
+                              v_scale=v_scale)
     a.S = NP * page
     a.page_table = page_table.data_ptr()
-    a.NP, a.P, a.page, a.box = NP, P, page, box_rows(D, page)
+    a.NP, a.P, a.page, a.box = NP, P, page, box_rows(D, page, quant)
     if takes_split(T, H // Hkv):
         # counted as the old kernels were: no "+window" phase
         _attn.split_decode(entry, _attn.split_entry(
-            lib, f"lmc_{lib}_decode_split_bf16"), a, q, Hkv, NP * page, None,
-            out)
+            lib, f"lmc_{lib}_decode_split_{kind}"), a, q, Hkv, NP * page,
+            None, out)
     else:
-        _attn.launch(entry, _attn.load_entry(lib, f"lmc_{lib}_bf16"), a, q,
+        _attn.launch(entry, _attn.load_entry(lib, f"lmc_{lib}_{kind}"), a, q,
                      Hkv)
-    return out
-
-
-def _launch_int8(entry, lib, q, k_pool, v_pool, k_scale, v_scale,
-                 page_table, q_offset, kv_len, sliding_window, sm_scale):
-    """Rows 5 and 7 (arguments checked): the WMMA body of ``lib``."""
-    B, T, H, D = q.shape
-    P, Hkv, page, _ = k_pool.shape
-    NP = page_table.shape[1]
-    sp = 1
-    if lib == "paged_stream_attention":
-        # the largest tile of page slots whose K, V, score and probability
-        # buffers fit the block's shared memory
-        smem = _kernel(lib, f"lmc_{lib}_smem_bytes")
-        sp = _super_pages(page)
-        while sp > 1 and smem(D, page, sp) > _SMEM_LIMIT:
-            sp //= 2
-        need = smem(D, page, sp)
-    else:
-        need = _kernel(lib, f"lmc_{lib}_smem_bytes")(D, page)
-    if need > _SMEM_LIMIT:
-        raise ValueError(f"page size {page} with head dim {D} needs {need} "
-                         f"bytes of shared memory, above {_SMEM_LIMIT}")
-    out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
-    scale = sm_scale if sm_scale is not None else 1.0 / (D**0.5)
-    fn = _kernel(lib, f"lmc_{lib}_int8")
-    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             out.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-             page_table.data_ptr(), q_offset.data_ptr(), kv_len.data_ptr(),
-             B, T, H, Hkv, D, NP, P, page, sliding_window or 0, sp,
-             q.stride(0), q.stride(1), q.stride(2),
-             k_pool.stride(0), k_pool.stride(1), k_pool.stride(2),
-             v_pool.stride(0), v_pool.stride(1), v_pool.stride(2),
-             out.stride(0), out.stride(1), out.stride(2),
-             k_scale.stride(0), v_scale.stride(0),
-             scale, torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"{entry.__name__} kernel launch failed: "
-                           f"cudaError {err}")
-    entry.launches["decode" if T == 1 else "prefill"] += 1
     return out
 
 
@@ -347,12 +334,8 @@ def _dispatch(entry, stream_kernel, q, k_pool, v_pool, k_scale, v_scale,
                      q_offset, kv_len,
                      _STREAM_HEAD_DIMS if stream_kernel else _GRID_HEAD_DIMS)
     lib = "paged_stream_attention" if stream_kernel else "paged_attention"
-    if k_scale is None:
-        return _launch_bf16(entry, lib, q, k_pool, v_pool, page_table,
-                            q_offset, kv_len, sliding_window, sm_scale)
-    return _launch_int8(entry, lib, q, k_pool, v_pool, k_scale, v_scale,
-                        page_table, q_offset, kv_len, sliding_window,
-                        sm_scale)
+    return _launch(entry, lib, q, k_pool, v_pool, k_scale, v_scale,
+                   page_table, q_offset, kv_len, sliding_window, sm_scale)
 
 
 def paged_attention(q, k_pool, v_pool, page_table, q_offset, kv_len, *,
@@ -383,9 +366,14 @@ def quantized_paged_attention(q, k_sym_pool, v_sym_pool, k_scale_pool,
                               window_kind: str = "sliding",
                               sinks=None) -> torch.Tensor:
     """:func:`paged_attention` over an int8 page arena: pages are read at
-    half the bytes and dequantized in registers, the per-token scales applied
-    to the score and probability columns. On CUDA tensors:
-    ``paged_fwd<D, int8>``."""
+    half the bytes and converted exactly to bf16 on the chip, the per-token
+    scales applied to the score and probability columns. On CUDA tensors
+    (bf16 q, int8 pools, fp32 scale pools [P, page], D of 64, 96, 128 or
+    256, page a multiple of 16): ``flash_sm90_fwd<D, 2, false, int8,
+    true>`` over the arena, or at most ``DECODE_ROWS`` rows the int8 paged
+    split decode and the combine; on CPU tensors
+    :func:`quantized_paged_attention_reference`. A row with no live key
+    gives 0."""
     return _dispatch(quantized_paged_attention, False, q, k_sym_pool,
                      v_sym_pool, k_scale_pool, v_scale_pool, page_table,
                      q_offset, kv_len, sliding_window, sm_scale,
@@ -415,8 +403,11 @@ def quantized_paged_attention_dma(q, k_sym_pool, v_sym_pool, k_scale_pool,
                                   logit_softcap: Optional[float] = None,
                                   window_kind: str = "sliding",
                                   sinks=None) -> torch.Tensor:
-    """:func:`quantized_paged_attention` with streamed tiles. On CUDA
-    tensors: ``paged_stream_fwd<D, int8>``."""
+    """:func:`quantized_paged_attention` with streamed tiles; same contract,
+    preferred for decode. On CUDA tensors (D of 64, 128 or 256): the int8
+    body over the arena, its staging ring as deep as shared memory holds,
+    or at most ``DECODE_ROWS`` rows the int8 paged split decode and the
+    combine."""
     return _dispatch(quantized_paged_attention_dma, True, q, k_sym_pool,
                      v_sym_pool, k_scale_pool, v_scale_pool, page_table,
                      q_offset, kv_len, sliding_window, sm_scale,

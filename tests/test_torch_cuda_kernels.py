@@ -7,6 +7,8 @@ elsewhere. On a machine with the card:
     python -m pytest tests/test_torch_cuda_kernels.py -q -m cuda
 """
 
+import math
+
 import pytest
 import torch
 
@@ -652,8 +654,12 @@ def _hopper_paged_inputs(gen, B, T, G, D, page, q_off, kv_len, Hkv=2,
 def _hopper_paged_check(kind, args, window=None, ref_args=None):
     """The entry point once against the plain version (on ``ref_args``
     where given), with its launch counted under its phase and, for a split
-    decode, once under the combine. Returns the output."""
-    entry = HOPPER_PAGED[kind][0]
+    decode, once under the combine; int8 (rows 5 and 7) where ``args`` carry
+    the scale pools. Returns the output."""
+    quant = len(args) == 8
+    entry = (HOPPER_INT8 if quant else HOPPER_PAGED)[kind][0]
+    plain = (pa.quantized_paged_attention_reference if quant
+             else pa.paged_attention_reference)
     q, k_pool = args[0], args[1]
     T = q.shape[1]
     split = pa.takes_split(T, q.shape[2] // k_pool.shape[1])
@@ -661,8 +667,7 @@ def _hopper_paged_check(kind, args, window=None, ref_args=None):
     before = entry.launches[phase]
     combined = attn.combine_partials.launches[phase]
     out = entry(*args, sliding_window=window)
-    ref = pa.paged_attention_reference(*(ref_args or args),
-                                       sliding_window=window)
+    ref = plain(*(ref_args or args), sliding_window=window)
     torch.cuda.synchronize()
     assert entry.launches[phase] == before + 1
     assert attn.combine_partials.launches[phase] == combined + int(split)
@@ -788,6 +793,187 @@ def test_paged_hopper_gives_row_1_on_consecutive_pages(gen, kind, T,
     paged = HOPPER_PAGED[kind][0](q, *pools, table, qo, kl,
                                   sliding_window=window)
     assert torch.equal(paged, dense)
+
+
+# ------ rows 5 and 7 on Hopper: the int8 paged body and the int8 split ---
+
+# (int8 entry point, head dims): row 3's int8 body over the arena above
+# DECODE_ROWS rows T * G, flash_split.cuh's int8 paged split and row 1's
+# combine at or below
+HOPPER_INT8 = {
+    "grid": (pa.quantized_paged_attention, (64, 96, 128, 256)),
+    "stream": (pa.quantized_paged_attention_dma, (64, 128, 256)),
+}
+
+
+def _int8_paged_inputs(gen, B, T, G, D, page, q_off, kv_len, Hkv=2,
+                       fragmented=True, NP=None):
+    """q, an int8 arena slice pair with its scale pools, a page table of
+    distinct ids (one dead trailing slot unless NP is given) and the int32
+    offsets: the argument list of the int8 entry points."""
+    NP = NP or -(-max(kv_len) // page) + 1
+    P = B * NP + 3
+    q, arena, scales, table = _paged_inputs(gen, B, T, G * Hkv, Hkv, D, page,
+                                            NP, P, True, fragmented)
+    qo = torch.tensor(q_off, dtype=torch.int32, device="cuda")
+    kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    return q, arena[0], arena[1], scales[0], scales[1], table, qo, kl
+
+
+@pytest.mark.parametrize("G", [1, 5, 8])
+@pytest.mark.parametrize("page", [16, 48, 64])
+@pytest.mark.parametrize("kind, D", [(k, D) for k in sorted(HOPPER_INT8)
+                                     for D in HOPPER_INT8[k][1]])
+def test_paged_hopper_int8_body_matches_plain(gen, kind, D, page, G):
+    """Decode (the int8 split, ragged rows, one of one key) and prefill (the
+    int8 body, over a prefix, a ragged second row; windowed too) at pages
+    16, 48 (boxes of 16 rows) and 64, every head dim and group."""
+    dec = _int8_paged_inputs(gen, 3, 1, G, D, page, [700, 255, 0],
+                             [701, 256, 1])
+    _hopper_paged_check(kind, dec)
+    _hopper_paged_check(kind, dec, window=300)
+    pre = _int8_paged_inputs(gen, 2, 40, G, D, page, [300, 0], [340, 33])
+    _hopper_paged_check(kind, pre)
+    _hopper_paged_check(kind, pre, window=100)
+
+
+@pytest.mark.parametrize("kv_len", [0, 1, attn.SPLIT_KEYS,
+                                    attn.SPLIT_KEYS + 1, 16384],
+                         ids=["empty", "one_key", "one_split",
+                              "one_past_a_split", "16k"])
+@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("kind", sorted(HOPPER_INT8))
+def test_paged_hopper_int8_split_edges(gen, kind, G, kv_len):
+    """Decode rows at the split edges over the int8 arena: no key, one key,
+    exactly one split, one key past a split, 16k keys; the table is wider
+    than the row."""
+    args = _int8_paged_inputs(gen, 2, 1, G, 64, 64, [max(kv_len - 1, 0), 700],
+                              [kv_len, 701], NP=258)
+    _hopper_paged_check(kind, args)
+
+
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("T", [1, 90], ids=["decode", "prefill"])
+@pytest.mark.parametrize("kind", sorted(HOPPER_INT8))
+def test_paged_hopper_int8_nan_scales_in_dead_pages_and_past_kv_len(
+        gen, kind, T, window):
+    """NaN in the scales (int8 symbols have none) of every page no live
+    slot names, of the rows past kv_len of a sequence's last page and,
+    under a window, of the pages wholly before every row's window: the
+    outputs stay finite and equal the plain version's on zero scales there
+    (dead pieces are not read, and the scales are selected, not
+    multiplied)."""
+    page = 16
+    q_off, kv_len = [400, 150], [400 + T, 150 + T]
+    q, ks, vs, kc, vc, table, qo, kl = _int8_paged_inputs(
+        gen, 2, T, 8, 64, page, q_off, kv_len)
+    dead = torch.ones(ks.shape[0], page, dtype=torch.bool, device="cuda")
+    for b in range(2):
+        first = (max(q_off[b] - window + 1, 0) if window else 0) // page
+        for j in range(first, -(-kv_len[b] // page)):
+            pid = int(table[b, j])
+            dead[pid] = torch.arange(page, device="cuda") >= (kv_len[b]
+                                                              - j * page)
+    clean = [t.masked_fill(dead, 0) for t in (kc, vc)]
+    nan = [t.masked_fill(dead, float("nan")) for t in (kc, vc)]
+    _hopper_paged_check(kind, (q, ks, vs, *nan, table, qo, kl),
+                        window=window,
+                        ref_args=(q, ks, vs, *clean, table, qo, kl))
+
+
+@pytest.mark.parametrize("T", [1, 60], ids=["decode", "prefill"])
+@pytest.mark.parametrize("kind", sorted(HOPPER_INT8))
+def test_paged_hopper_int8_ids_outside_the_pool_read_zeros(gen, kind, T):
+    """Live table entries past the pool and below 0 read as a page of zero
+    symbols with zero scales (TMA's fill and the converters' select, the
+    split's zero rows), never as memory outside the arena."""
+    q, ks, vs, kc, vc, table, qo, kl = _int8_paged_inputs(
+        gen, 2, T, 8, 64, 16, [100, 60], [100 + T, 60 + T])
+    P = ks.shape[0]
+    table[0, 1], table[0, 3], table[1, 2] = 1 << 20, -5, P
+    # the plain version reads them as one more page of zeros
+    mapped = torch.where((table < 0) | (table >= P), P, table)
+    _hopper_paged_check(
+        kind, (q, ks, vs, kc, vc, table, qo, kl),
+        ref_args=(q, *(torch.cat([t, torch.zeros_like(t[:1])])
+                       for t in (ks, vs, kc, vc)), mapped, qo, kl))
+
+
+@pytest.mark.parametrize("kind", sorted(HOPPER_INT8))
+def test_paged_hopper_int8_bits_repeat_and_a_decode_row_alone(gen, kind):
+    """Two launches give the same bits (prefill and decode), and a decode
+    row gives the same bits alone and among three others, one parked on the
+    null page 0 at position S as the engines park an idle row."""
+    pre = _int8_paged_inputs(gen, 2, 200, 8, 64, 64, [900, 0], [1100, 200])
+    entry = HOPPER_INT8[kind][0]
+    assert torch.equal(entry(*pre, sliding_window=300),
+                       entry(*pre, sliding_window=300))
+    q, ks, vs, kc, vc, table, _, _ = _int8_paged_inputs(
+        gen, 4, 1, 8, 64, 64, [0] * 4, [3000] * 4)
+    S = table.shape[1] * 64 - 1
+    table[3] = 0
+    qo = torch.tensor([2999, 17, 1500, S], dtype=torch.int32, device="cuda")
+    pools = (ks, vs, kc, vc)
+    together = entry(q, *pools, table, qo, qo + 1)
+    assert torch.equal(together, entry(q, *pools, table, qo, qo + 1))
+    for i in range(4):
+        alone = entry(q[i:i + 1], *pools, table[i:i + 1], qo[i:i + 1],
+                      qo[i:i + 1] + 1)
+        assert torch.equal(alone, together[i:i + 1])
+    _hopper_paged_check(kind, (q, *pools, table, qo, qo + 1))
+
+
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("T", [1, 300], ids=["decode", "prefill"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("kind", sorted(HOPPER_INT8))
+def test_paged_hopper_int8_gives_row_3_on_consecutive_pages(gen, kind, D, T,
+                                                           window):
+    """The same int8 K/V and scales laid out densely for row 3 and as
+    consecutive pages of an arena: the int8 paged body and split give row
+    3's bits (the same tile and split points, the same order of every
+    sum)."""
+    B, Hkv, page, NP = 2, 2, 64, 9
+    S = NP * page
+    q = torch.randn((B, T, 8 * Hkv, D), generator=gen,
+                    device="cuda").bfloat16()
+    k, v = (torch.randint(-127, 128, (B, Hkv, S, D), generator=gen,
+                          device="cuda", dtype=torch.int32).to(torch.int8)
+            for _ in range(2))
+    ksc, vsc = (torch.rand((B, S), generator=gen, device="cuda") * 0.02
+                + 0.001 for _ in range(2))
+    qo = torch.tensor([S - T - 20, 3], dtype=torch.int32, device="cuda")
+    kl = qo + T
+    # arena page 1 + b * NP + j holds keys [j * page, (j + 1) * page) of b
+    pools = [torch.cat([torch.zeros_like(t[:1, :, :page]),
+                        t.reshape(B, Hkv, NP, page, D).permute(
+                            0, 2, 1, 3, 4).reshape(B * NP, Hkv, page, D)])
+             for t in (k, v)]
+    scales = [torch.cat([torch.zeros_like(t[:1, :page]),
+                         t.reshape(B * NP, page)]) for t in (ksc, vsc)]
+    table = (torch.arange(B * NP, device="cuda", dtype=torch.int32)
+             .reshape(B, NP) + 1)
+    dense = qa.quantized_flash_attention(q, k, v, ksc, vsc, qo, kl,
+                                         kv_head_major=True,
+                                         sliding_window=window)
+    paged = HOPPER_INT8[kind][0](q, *pools, *scales, table, qo, kl,
+                                 sliding_window=window)
+    assert torch.equal(paged, dense)
+
+
+def test_paged_hopper_int8_refuses_a_box_that_does_not_divide_its_tile(
+        gen, monkeypatch):
+    """At D 128 the int8 tile is 64 keys, the bf16 tile 128: a box of the
+    bf16 rule (128 rows at page 128) would make a tile overrun its staging
+    stage, and the launch is refused."""
+    args = _int8_paged_inputs(gen, 1, 40, 8, 128, 128, [100], [140])
+    pa.quantized_paged_attention(*args)  # the int8 rule: boxes of 64 rows
+    monkeypatch.setattr(pa, "box_rows", lambda D, page, quant=False:
+                        math.gcd(pa.tile_keys(D), page))
+    for entry in (pa.quantized_paged_attention,
+                  pa.quantized_paged_attention_dma):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            entry(*args)
 
 
 # ------------------------------------------------------------------------

@@ -198,8 +198,3 @@ def test_cuda_wrapper_refuses_what_the_kernels_do_not_take():
         check(q=qb, kp=kb, vp=vb, ks=sc, vs=sc)
     with pytest.raises(ValueError, match="float32"):
         check(q=qb, kp=ki, vp=ki, ks=sc.double(), vs=sc)
-
-
-def test_super_pages_follow_the_jax_rule():
-    for page in (16, 32, 64, 128, 512, 1024):
-        assert tpa._super_pages(page) == jpa._super_pages(page)
