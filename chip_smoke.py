@@ -21,8 +21,9 @@ Phases, in order; any failure exits non-zero:
    ``combine_partials`` alone (on row 1's and on the paged split's
    partials), ``flash_attention_dma``, ``quantized_flash_attention`` (plain
    and with the same options), the four paged-attention kernels (bf16 and
-   int8 arenas; their decodes run the paged key split), the two range
-   coders (tolerance 0) and the six MLA
+   int8 arenas; their decodes run the paged key split), the range coders
+   at the remote paths' launches (tolerance 0: row 12 and its copy pass,
+   row 11's symbols and its fused entry's blob) and the six MLA
    latent-attention entry points (dense, paged one page per step, paged
    streamed; bf16 and int8 latents) at DeepSeek-V2-Lite's shapes and at
    128 heads, V2/V3's, and the latent split decode's combine alone;
@@ -72,12 +73,15 @@ Phases, in order; any failure exits non-zero:
    (``phase_streamed_prefill``);
 9. remote CacheGen reuse through the port's cache server (a subprocess):
    instance A stores phase 3's 15872-token prefix with the CacheGen serde
-   (quantize, CDF, one range-encoder launch a half, row 12); every
-   container must equal the host C++ coder's, the card's quantizer and CDF
-   the CPU's. A fresh pipelined instance B under a ``ServingEngine`` serves
-   the 16384-token prompt: groups of 16 still-coded chunks, one
-   range-decoder launch a group (row 11), dequantize, inject, suffix
-   prefill; every group's symbols must equal the host C++ decode, the slot
+   (quantize, CDF, one range-encoder launch for both halves, row 12, and
+   its copy pass); every container must equal the host C++ coder's, the
+   card's quantizer and CDF the CPU's (the encode's parts:
+   ``python -m lmcache_tpu_torch.tools.store_split``). A fresh
+   pipelined instance B under a ``ServingEngine`` serves the 16384-token
+   prompt: groups of 16 still-coded chunks, one launch a group of row 11's
+   fused entry (decode and dequantization into the blob), inject, suffix
+   prefill; every group's symbols (decoded again on the card) must equal
+   the host C++ decode and its blob those symbols dequantized, the slot
    the KV of ``retrieve()`` with the host decoder. TTFT remote (best of 3
    and median, each request a new suffix) beside phase 3's TTFT full, the
    stage split of bench.py:470-526, a ``torch.profiler`` window of one
@@ -98,8 +102,8 @@ Phases, in order; any failure exits non-zero:
    no serving path calls: the last prefill segment again with the paged
    forward's attention bound to it, logits held to row 10's; 10e the latent
    prefix through the cache server with CacheGen (N = 1 containers equal to
-   the host C++ coder's, a fresh pipelined engine's decoded symbols equal
-   to the host decode; logits and wire bytes reported). Where phase 10
+   the host C++ coder's, a fresh pipelined engine's fused decodes checked
+   as phase 9's; logits and wire bytes reported). Where phase 10
    compares tokens computed in other shapes, phase 6d's near-tie top-1
    rule applies and the logits are held within ``REL_L2_REUSE``, or within
    ``REL_L2_MOE`` for a request in which the two computations picked other
@@ -136,8 +140,11 @@ Phases, in order; any failure exits non-zero:
    take those shapes named); at decode also the device time of the dense
    and latent kernels, the paged kernels and the combine on the paged
    split's partials alone (``torch.profiler``). No PyTorch call computes
-   a range coder: the coders' rows carry the host C++ coder's time at the
-   same shape instead; none computes the split decodes' combines either.
+   a range coder: the coders' rows (row 12 and its copy pass at tinyllama's
+   store, phase 9b's geometry and V2-Lite's latent store; row 11's two
+   entries at a retrieve group of each) carry the host C++ coder's time at
+   the same shape instead; none computes the split decodes' combines
+   either.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without printing a result
@@ -150,6 +157,8 @@ import shutil
 import subprocess
 import sys
 import time
+from collections import Counter
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -254,6 +263,10 @@ KERNELS = {
         "lmcache_tpu/ops/paged_attention.py:885"),
     "range_encode": (
         re_.encode_streams_raw, "lmcache_tpu_torch/ops/csrc/range_encode.cu",
+        "lmcache_tpu/ops/range_encode.py:176"),
+    # row 12's copy pass: the coded bytes of the staging rows to the payload
+    "range_encode_compact": (
+        re_.compact, "lmcache_tpu_torch/ops/csrc/range_encode.cu",
         "lmcache_tpu/ops/range_encode.py:176"),
     "range_decode": (
         rd.decode_streams, "lmcache_tpu_torch/ops/csrc/range_decode.cu",
@@ -626,9 +639,10 @@ def phase_kernels():
     # same numbers from the generator as before the paged split existed
     for case in paged_combine_cases():
         hold_combine(case["name"], *make_paged_combine_inputs(case, gen))
-    for case in coder_cases():
-        worst[case[1]] = max(worst[case[1]], hold_coder_against_plain(case,
-                                                                      gen))
+    skip_former_coder_draws(gen)
+    for i, case in enumerate(coder_cases()):
+        for kernel, err in hold_coder_against_plain(case, 100 + i).items():
+            worst[kernel] = max(worst[kernel], err)
     for case in latent_cases():
         args, kw = make_latent_inputs(case, gen)
         out = KERNELS[case["kernel"]][0](*args, **kw)
@@ -1004,91 +1018,167 @@ REMOTE_CHUNK = 256  # chunk size of the remote path, as bench.py's
 STORE_CHUNKS = CTX // REMOTE_CHUNK  # 62
 GROUP_CHUNKS = ServingEngine.inject_group_chunks  # 16
 TINY_CG = CacheGenConfig.from_model_name("tinyllama-1.1b", 22)
-# Integer operations the coders need, counted from the kernels' source
-# (ops/csrc/range_{de,en}code.cu); only the 32-bit division is taken as the
-# sequence nvcc 12.8 emits for sm_90a (cuobjdump -sass): 15 integer
-# instructions. Loads and stores, shared-memory reloads of the CDF and the
-# division's I2F, MUFU.RCP and F2I are left out (the last three run on the
-# 16-lane conversion and special-function unit of an SM: 3 a symbol there
-# take an eighth of the decoder's integer time).
+# Operations the coders' work needs, whatever implements it; only the 32-bit
+# division is taken as the sequence nvcc 12.8 emits for sm_90a (cuobjdump
+# -sass): 15 integer instructions. Loads and stores and the division's I2F,
+# MUFU.RCP and F2I are left out (they run on the conversion and
+# special-function unit).
 # Decoder, a symbol: the range shift, code - low, max(range, 1), the
-# division (15), the clamp, the search (31 compares and 31 adds), cf / cfn
-# (lo + 1, its test and select, low += cf * range, cfn - cf, range *=),
-# the renormalization test that ends the loop (5), range == 0 and the
-# loop's count and test: 95. A renormalization round (one coded byte): its
-# test (4), pos < len and the select, pos++, code << 8 | byte, low <<= 8,
-# range <<= 8: 11.
-# Encoder, a symbol: cf and cfn (x < 32 and its select; x + 1, its test
-# and select), the range shift, low += cf * range, cfn - cf, range *=, the
-# test that ends the loop (4) and the loop's count and test: 15. A round:
-# its test (3), pos >= stride, low >> 24, pos++, low <<= 8, range <<= 8: 8;
-# each of the 4 flushed bytes of a stream: 4.
+# division (15), the clamp, the symbol search as log2(32) = 5 compares,
+# cfn's test and select for the last bin, low += cf * range, cfn - cf,
+# range *=, the renormalization test that ends the loop (5), range == 0 and
+# the loop's count and test: 38. A renormalization round (one coded byte):
+# its test (4), the end-of-stream test and select, the byte's shift out of
+# the register window, code << 8 | byte, low <<= 8, range <<= 8: 11 (the
+# window's refill, one aligned load every 8 bytes, is left out).
+# Encoder, a symbol: cf and cfn (x < 32 and its select; x + 1, its test and
+# select), the range shift, low += cf * range, cfn - cf, range *=, the test
+# that ends the loop (4) and the loop's count and test: 15. A round: its
+# test (3), pos >= cap, the byte's move into the packing register, pos++,
+# low <<= 8, range <<= 8: 8; each of the 4 flushed bytes of a stream: 4.
 # A stream's rounds are its coded bytes less the 4 of the flush.
-DEC_OPS_SYMBOL, DEC_OPS_ROUND = 95, 11
+# The fused decode adds, a symbol kept in the token window, 10 fp32
+# operations: the symbol's conversion, - half, * max, the IEEE division
+# (a reciprocal, four fused multiply-adds and the range check: 6) and the
+# rounding to the blob's dtype.
+DEC_OPS_SYMBOL, DEC_OPS_ROUND = 38, 11
 ENC_OPS_SYMBOL, ENC_OPS_ROUND, ENC_OPS_FLUSH_BYTE = 15, 8, 4
+DEQ_FP32_OPS = 10
 INT32_LANES = 132 * 64  # H100 SXM: 64 INT32 lanes on each of 132 SMs
+FP32_LANES = 132 * 128  # and 128 FP32 lanes
+ISSUE_LANES = 132 * 128  # 4 schedulers an SM, a warp instruction a clock
 PLAIN_STREAMS = 16384  # the plain coders' Python loop is timed at this S
+LONGCHAT_CG = CacheGenConfig.from_model_name("lmsys/longchat-7b-16k", 32)
+V2_LITE_LAYERS = 27
 
 
 def coder_cases():
-    """(name, kernel, bins of each (chunk, half, layer) plane): the launches
-    the remote path gives the coders at tinyllama (22 layers, 4 x 64 = 256
-    channels, chunks of 256 tokens, one stream per channel): one half of
-    the 62-chunk store (349184 streams), one retrieve group of 16 chunks
-    with both halves (180224 streams)."""
+    """The launches the remote paths give the coders: dicts of the kernel,
+    the blob geometry of the launch's streams (nchunks, N, L, H, D, T, g;
+    streams in (chunk, half, layer, channel group) order, g * T symbols
+    each) and the bins of each half's layers. Row 12: tinyllama's store of
+    62 chunks (one launch for K and V; the earlier serializer's one half is
+    kept beside it), phase 9b's longchat-7b geometry and DeepSeek-V2-Lite's
+    latent store (576 channels in groups of 4); row 11 (both entries):
+    tinyllama's retrieve group of 16 chunks, 9b's 8 chunks and a V2-Lite
+    latent group of 16 chunks."""
     key, value = list(TINY_CG.key_bins), list(TINY_CG.value_bins)
+    tiny, longchat = (4, 64, REMOTE_CHUNK, 1), (8, 128, REMOTE_CHUNK, 1)
+    latent = (1, MLA_C, REMOTE_CHUNK, 4)
+    lat_bins = [CacheGenConfig.for_latent(V2_LITE_LAYERS).key_bins]
+    lc = [list(LONGCHAT_CG.key_bins), list(LONGCHAT_CG.value_bins)]
     return [
-        ("tinyllama store, one half of 62 chunks", "range_encode",
-         key * STORE_CHUNKS),
-        ("tinyllama retrieve group, 16 chunks x K and V", "range_decode",
-         (key + value) * GROUP_CHUNKS),
+        {"name": "tinyllama store of 62 chunks, K and V", "kernel":
+         "range_encode", "geo": (STORE_CHUNKS, 2, 22) + tiny,
+         "bins": [key, value]},
+        {"name": "tinyllama store, one half of 62 chunks", "kernel":
+         "range_encode", "geo": (STORE_CHUNKS, 1, 22) + tiny, "bins": [key]},
+        {"name": "longchat-7b geometry (phase 9b), 8 chunks", "kernel":
+         "range_encode", "geo": (8, 2, 32) + longchat, "bins": lc},
+        {"name": "DeepSeek-V2-Lite latent store of 62 chunks", "kernel":
+         "range_encode", "geo": (STORE_CHUNKS, 1, V2_LITE_LAYERS) + latent,
+         "bins": lat_bins},
+        {"name": "tinyllama retrieve group, 16 chunks x K and V", "kernel":
+         "range_decode", "geo": (GROUP_CHUNKS, 2, 22) + tiny,
+         "bins": [key, value]},
+        {"name": "longchat-7b geometry (phase 9b), 8 chunks", "kernel":
+         "range_decode", "geo": (8, 2, 32) + longchat, "bins": lc},
+        {"name": "DeepSeek-V2-Lite latent group of 16 chunks", "kernel":
+         "range_decode", "geo": (GROUP_CHUNKS, 1, V2_LITE_LAYERS) + latent,
+         "bins": lat_bins},
     ]
 
 
-def coder_inputs(case, gen):
-    """Symbols of random-normal bf16 KV, quantized with the case's bins and
-    laid out as the serializer's streams (uint8 [planes * 256, 256]), and
-    their CDFs."""
-    bins = torch.tensor(case[2], dtype=torch.int32, device="cuda")
-    x = torch.randn((len(case[2]), REMOTE_CHUNK, 256), generator=gen,
+def skip_former_coder_draws(gen):
+    """Draw from ``gen`` what the coders' inputs drew before they took a
+    generator of their own, so that the cases after them get the same
+    inputs as before."""
+    key = len(TINY_CG.key_bins)
+    for planes in (key * STORE_CHUNKS, 2 * key * GROUP_CHUNKS):
+        torch.randn((planes, REMOTE_CHUNK, 256), generator=gen, device="cuda")
+
+
+def coder_inputs(case, seed):
+    """Symbols of random-normal bf16 KV quantized with the case's bins, laid
+    out as the serializer's streams (uint8 [S, g * T]), their CDFs, the
+    maxes [nchunks, N, L, T] and halves [N, L]."""
+    nchunks, N, L, H, D, T, g = case["geo"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    bins = torch.tensor(case["bins"], dtype=torch.int32, device="cuda")
+    x = torch.randn((nchunks * N * L, T, H * D), generator=gen,
                     device="cuda").bfloat16()
-    sym, _ = quant.quantize(x, bins)
-    streams = sym.transpose(1, 2).reshape(-1, REMOTE_CHUNK)
-    return streams, quant.stream_cdf(streams)
+    sym, maxes = quant.quantize(x, bins.reshape(-1).repeat(nchunks))
+    del x
+    streams = sym.transpose(1, 2).reshape(-1, g * T)
+    return (streams, quant.stream_cdf(streams),
+            maxes[..., 0].reshape(nchunks, N, L, T).contiguous(),
+            (bins // 2 - 1).float())
 
 
-def hold_coder_against_plain(case, gen):
-    """Launch the case's kernel at its shape and hold it against its plain
-    version on the same inputs: tolerance 0 (the lengths and coded bytes
-    of every stream, or every symbol). Returns the max abs error (0)."""
-    name, kernel, _ = case
-    streams, cdf = coder_inputs(case, gen)
+def coded(streams, cdf):
+    """Row 12's payload on the card and its int64 offsets [S + 1]."""
     out, lens = re_.encode_streams_raw(streams, cdf)
-    payload = re_.compact(out, lens)
-    if kernel == "range_encode":
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int64, device="cuda"),
+                         lens.long().cumsum(0)])
+    return re_.compact(out, lens), offsets, out, lens
+
+
+def blob_geo(case, nchunks=None):
+    c, N, L, H, D, T, g = case["geo"]
+    return dict(nchunks=nchunks or c, L=L, H=H, D=D, T=T, g=g, N=N,
+                hf=False, dtype=torch.bfloat16, tok_start=0,
+                tok_stop=(nchunks or c) * T)
+
+
+def hold_coder_against_plain(case, seed):
+    """Launch the case's kernels at its shape and hold each against its
+    plain version on the same inputs, tolerance 0: row 12's lengths and
+    coded bytes of every stream and the copy pass's payload, or row 11's
+    symbols and the fused entry's blob bits. Returns {kernel: max abs
+    error} (0)."""
+    streams, cdf, maxes, half = coder_inputs(case, seed)
+    payload, offsets, out, lens = coded(streams, cdf)
+    errs = {}
+    if case["kernel"] == "range_encode":
         ref_out, ref_lens = re_.encode_streams_reference(streams, cdf)
-        ref = re_.compact(ref_out, ref_lens)
+        ref = re_.compact_reference(ref_out, ref_lens)
         same = torch.equal(lens, ref_lens) and torch.equal(payload, ref)
-        err = (lens - ref_lens).abs().max().item()
+        errs["range_encode"] = (lens - ref_lens).abs().max().item()
         if same:
-            err = max(err, (payload.int() - ref.int()).abs().max().item())
-        what = f"{int(lens.sum())} coded bytes of {streams.numel()} symbols"
+            errs["range_encode"] = max(errs["range_encode"], (
+                payload.int() - ref.int()).abs().max().item())
+        mine = re_.compact_reference(out, lens)
+        same_copy = torch.equal(payload, mine)
+        errs["range_encode_compact"] = (0 if same_copy else float("inf"))
+        same = same and same_copy
+        what = (f"{int(lens.sum())} coded bytes of {streams.numel()} symbols"
+                f"; the copy pass's payload equals the masked gather: "
+                f"{same_copy}")
     else:
-        offsets = torch.cat([torch.zeros(1, dtype=torch.int64, device="cuda"),
-                             lens.long().cumsum(0)])
-        sym = rd.decode_streams(payload, offsets, cdf, REMOTE_CHUNK)
-        ref = rd.decode_streams_reference(payload, offsets, cdf,
-                                          REMOTE_CHUNK)
-        same = torch.equal(sym, ref) and torch.equal(sym, streams)
-        err = (sym.int() - ref.int()).abs().max().item()
-        what = f"{sym.numel()} symbols from {payload.numel()} coded bytes"
+        T = streams.shape[1]
+        sym = rd.decode_streams(payload, offsets, cdf, T)
+        ref = rd.decode_streams_reference(payload, offsets, cdf, T)
+        geo = blob_geo(case)
+        blob = rd.decode_to_blob(payload, offsets, cdf, maxes, half, **geo)
+        want = rd.dequantize_symbols(ref, maxes, half, **geo)
+        same_blob = torch.equal(blob.view(torch.int16),
+                                want.view(torch.int16))
+        same = (torch.equal(sym, ref) and torch.equal(sym, streams)
+                and same_blob)
+        errs["range_decode"] = max(
+            (sym.int() - ref.int()).abs().max().item(),
+            (blob.float() - want.float()).abs().max().item())
+        what = (f"{sym.numel()} symbols from {payload.numel()} coded bytes; "
+                f"the fused entry's bf16 blob {list(blob.shape)} bit-equal "
+                f"to the plain decode + dequantization: {same_blob}")
     torch.cuda.synchronize()
-    log(f"  {kernel} | {name}: {streams.shape[0]} streams, {what}, max_abs_err "
-        f"{err} (tolerance 0: equal) {'ok' if same else 'FAILED'}")
+    log(f"  {case['kernel']} | {case['name']}: {streams.shape[0]} streams, "
+        f"{what}, max_abs_err {errs} (tolerance 0: equal) "
+        f"{'ok' if same else 'FAILED'}")
     if not same:
-        raise SystemExit(f"{kernel} disagrees with its plain version at "
-                         f"{name}")
-    return err
+        raise SystemExit(f"{case['kernel']} disagrees with its plain version "
+                         f"at {case['name']}")
+    return errs
 
 
 def sm_clock_hz():
@@ -1099,64 +1189,104 @@ def sm_clock_hz():
     return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
-def coder_yardstick(gen, clock_hz):
-    """{kernel: rows}: each coder at its path shape against its bound, its
-    plain version (at PLAIN_STREAMS streams of the same data) and, as no
-    PyTorch call computes a range coder, the host C++ coder at the same
-    shape (host time, OpenMP threads)."""
-    rows = {}
-    for case in coder_cases():
-        name, kernel, _ = case
-        streams, cdf = coder_inputs(case, gen)
+def coder_bound(int_ops, fp_ops, nbytes, clock_hz):
+    """(ms, "operations" or "bytes"): the largest of the integer operations
+    at the INT32 lanes' rate, the fp32 ones at the FP32 lanes', all of them
+    at the schedulers' issue rate (an fp32 instruction issues beside the
+    integer ones, in the clock an INT32 warp instruction leaves free) and
+    the bytes at the HBM rate."""
+    t_ops = max(int_ops / INT32_LANES, fp_ops / FP32_LANES,
+                (int_ops + fp_ops) / ISSUE_LANES) / clock_hz
+    t_bytes = nbytes / PEAK_BYTES_S
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
+
+
+def coder_yardstick(clock_hz):
+    """{kernel: rows}: each coder entry at each of its path shapes against
+    its bound, its plain version (at about PLAIN_STREAMS streams of the
+    same data) and, as no PyTorch call computes a range coder, the host C++
+    coder at the same shape (host time, OpenMP threads). Row 12's copy pass
+    is timed at the encoder's shapes, the fused decode beside row 11's."""
+    rows = {"range_encode": [], "range_encode_compact": [],
+            "range_decode": []}
+    for i, case in enumerate(coder_cases()):
+        name, kernel = case["name"], case["kernel"]
+        nchunks, N, L, H, D, T_chunk, g = case["geo"]
+        streams, cdf, maxes, half = coder_inputs(case, 100 + i)
         S, T = streams.shape
-        out, lens = re_.encode_streams_raw(streams, cdf)
-        coded = int(lens.sum())
+        payload, offsets, out, lens = coded(streams, cdf)
+        coded_bytes = int(lens.sum())
         sym_h, cdf_h = streams.cpu().numpy(), quant.cdf_to_numpy(cdf)
+        lens_h = lens.cpu().numpy()
         sub = (streams[:PLAIN_STREAMS], cdf[:PLAIN_STREAMS])
+        common = {"shape": name, "streams": S, "symbols": S * T,
+                  "coded_bytes": coded_bytes, "library_ms": None,
+                  "host_threads": range_coder.num_threads()}
+        int_ops = ENC_OPS_SYMBOL * S * T + ENC_OPS_ROUND * (
+            coded_bytes - 4 * S) + ENC_OPS_FLUSH_BYTE * 4 * S
         if kernel == "range_encode":
-            ms = cuda_ms(lambda: re_.encode_streams_raw(streams, cdf),
-                         iters=10)
-            plain_ms = cuda_ms(lambda: re_.encode_streams_reference(*sub),
-                               iters=1, warmup=1)
-            host = wall_best(lambda: range_coder.encode_streams(sym_h, cdf_h),
-                             n=1)
-            ops = (ENC_OPS_SYMBOL * S * T + ENC_OPS_ROUND * (coded - 4 * S)
-                   + ENC_OPS_FLUSH_BYTE * 4 * S)
-            nbytes = S * T + S * 66 + coded + 4 * S
+            entries = [("range_encode", "encode_streams_raw",
+                        lambda: re_.encode_streams_raw(streams, cdf),
+                        lambda: re_.encode_streams_reference(*sub),
+                        PLAIN_STREAMS, lambda: range_coder.encode_streams(
+                            sym_h, cdf_h), int_ops, 0,
+                        S * T + S * 66 + coded_bytes + 4 * S),
+                       ("range_encode_compact", "compact",
+                        lambda: re_.compact(out, lens, offsets[:-1],
+                                            coded_bytes),
+                        lambda: re_.compact_reference(out, lens), S, None,
+                        0, 0, 2 * coded_bytes + 12 * S)]
         else:
-            payload = re_.compact(out, lens)
-            offsets = torch.cat([torch.zeros(1, dtype=torch.int64,
-                                             device="cuda"),
-                                 lens.long().cumsum(0)])
-            ms = cuda_ms(lambda: rd.decode_streams(payload, offsets, cdf, T),
-                         iters=10)
-            n_sub = int(offsets[PLAIN_STREAMS])
-            plain_ms = cuda_ms(lambda: rd.decode_streams_reference(
-                payload[:n_sub], offsets[:PLAIN_STREAMS + 1], sub[1], T),
-                iters=1, warmup=1)
-            pay_h, lens_h = payload.cpu().numpy(), lens.cpu().numpy()
-            host = wall_best(lambda: range_coder.decode_streams(
-                pay_h, lens_h, T, cdf_h), n=1)
-            ops = DEC_OPS_SYMBOL * S * T + DEC_OPS_ROUND * (coded - 4 * S)
-            nbytes = coded + S * 66 + 8 * (S + 1) + S * T
-        t_ops, t_bytes = ops / (INT32_LANES * clock_hz), nbytes / PEAK_BYTES_S
-        bound_ms, bound_by = ((t_ops * 1e3, "operations") if t_ops >= t_bytes
-                              else (t_bytes * 1e3, "bytes"))
-        row = {"shape": name, "streams": S, "symbols": S * T,
-               "coded_bytes": coded, "ms": ms, "plain_ms": plain_ms,
-               "plain_streams": PLAIN_STREAMS, "library_ms": None,
-               "host_coder_ms": host,
-               "host_threads": range_coder.num_threads(),
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "bound_operations": ops, "bound_bytes": nbytes}
-        log(f"  {kernel} | {name}: kernel {ms:.4f} ms, bound {bound_ms:.4f} "
-            f"ms ({bound_by}: {ops / 1e9:.3f} G integer operations at "
-            f"{clock_hz / 1e6:.0f} MHz, {nbytes / 1e6:.1f} MB), plain "
-            f"{plain_ms:.1f} ms at {PLAIN_STREAMS} streams, host C++ coder "
-            f"{host:.1f} ms ({row['host_threads']} threads; no PyTorch call "
-            f"computes a range coder)")
-        rows[kernel] = [row]
-        del streams, cdf, out, lens
+            n_sub = min(nchunks, max(1, PLAIN_STREAMS // (N * L * H * D // g)))
+            S_sub = S * n_sub // nchunks
+            pay_sub = payload[:int(offsets[S_sub])]
+            off_sub, cdf_sub = offsets[:S_sub + 1], cdf[:S_sub]
+            geo, geo_sub = blob_geo(case), blob_geo(case, n_sub)
+            dec_ops = DEC_OPS_SYMBOL * S * T + DEC_OPS_ROUND * (
+                coded_bytes - 4 * S)
+            coded_in = coded_bytes + S * 66 + 8 * (S + 1)
+            pay_h = payload.cpu().numpy()
+            entries = [
+                ("range_decode", "decode_streams",
+                 lambda: rd.decode_streams(payload, offsets, cdf, T),
+                 lambda: rd.decode_streams_reference(pay_sub, off_sub,
+                                                     cdf_sub, T),
+                 S_sub, lambda: range_coder.decode_streams(
+                     pay_h, lens_h, T, cdf_h), dec_ops, 0, coded_in + S * T),
+                ("range_decode", "decode_to_blob",
+                 lambda: rd.decode_to_blob(payload, offsets, cdf, maxes,
+                                           half, **geo),
+                 lambda: rd.dequantize_symbols(rd.decode_streams_reference(
+                     pay_sub, off_sub, cdf_sub, T), maxes[:n_sub], half,
+                     **geo_sub),
+                 S_sub, None, dec_ops, DEQ_FP32_OPS * S * T,
+                 coded_in + maxes.numel() * 4 + half.numel() * 4
+                 + 2 * S * T)]
+        for (row_kernel, entry, fn, plain, plain_streams, host, iops, fops,
+             nbytes) in entries:
+            ms = cuda_ms(fn, iters=10)
+            plain_ms = cuda_ms(plain, iters=1, warmup=1)
+            host_ms = wall_best(host, n=1) if host else None
+            bound_ms, bound_by = coder_bound(iops, fops, nbytes, clock_hz)
+            row = {**common, "entry": entry, "ms": ms, "plain_ms": plain_ms,
+                   "plain_streams": plain_streams, "host_coder_ms": host_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bound_int_operations": iops, "bound_fp32_operations": fops,
+                   "bound_bytes": nbytes}
+            host_txt = (f", host C++ coder {host_ms:.1f} ms "
+                        f"({common['host_threads']} threads)" if host else "")
+            log(f"  {row_kernel} | {name} ({entry}): kernel {ms:.4f} ms, "
+                f"bound {bound_ms:.4f} ms ({bound_by}: {iops / 1e9:.3f} G "
+                f"integer and {fops / 1e9:.3f} G fp32 operations at "
+                f"{clock_hz / 1e6:.0f} MHz, {nbytes / 1e6:.1f} MB), "
+                f"{ms / bound_ms:.2f}x the bound; plain {plain_ms:.1f} ms at "
+                f"{plain_streams} streams{host_txt}; no PyTorch call "
+                f"computes it")
+            rows[row_kernel].append(row)
+        del streams, cdf, out, lens, payload, offsets
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2576,9 +2706,10 @@ def remote_tier(url, cfg, **kw):
 
 
 def remote_store(url, cfg, tokens_np, prefix):
-    """Instance A stores the CTX prefix (row 12, one launch a half); every
-    container must equal the host C++ coder's; the card's quantization and
-    CDF must equal the CPU's."""
+    """Instance A stores the CTX prefix (row 12, one launch for both halves,
+    and its copy pass); every container must equal the host C++ coder's;
+    the card's quantization and CDF must equal the CPU's; a second pass
+    splits the encode into its parts."""
     a = remote_tier(url, cfg)
     serializer = a.engine_.serializer
     encode, encode_ms = serializer.to_bytes_batch, []
@@ -2647,42 +2778,88 @@ def remote_store(url, cfg, tokens_np, prefix):
                       "device_to_host_bytes": d2h}
 
 
+@contextmanager
+def uncounted():
+    """Launches made inside (checks of a path against its references) are
+    not the path's: every count is put back as it was."""
+    saved = {name: Counter(w.launches) for name, (w, _, _) in KERNELS.items()}
+    try:
+        yield
+    finally:
+        for name, (w, _, _) in KERNELS.items():
+            w.launches.clear()
+            w.launches.update(saved[name])
+
+
+def same_bits(a, b):
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.contiguous().view(-1).view(torch.uint8),
+                            b.contiguous().view(-1).view(torch.uint8)))
+
+
+@contextmanager
+def keeping_fused_decodes():
+    """Within the block, each call of row 11's fused entry (the remote
+    path's decode) keeps its inputs and blob in the list it yields."""
+    groups, fused = [], rd.decode_to_blob
+
+    def fused_and_keep(payload, offsets, cdf, maxes, half, **geo):
+        blob = fused(payload, offsets, cdf, maxes, half, **geo)
+        groups.append((payload, offsets, cdf, maxes, half, geo, blob))
+        return blob
+
+    rd.decode_to_blob = fused_and_keep
+    try:
+        yield groups
+    finally:
+        rd.decode_to_blob = fused
+
+
+def fused_decodes_exact(groups):
+    """For each kept fused decode: (its streams' symbols decoded on the card
+    equal the host C++ decode, its blob is those symbols dequantized bit for
+    bit). These checks' launches are not counted."""
+    checks = []
+    with uncounted():
+        for payload, offsets, cdf, maxes, half, geo, blob in groups:
+            n = geo["g"] * geo["T"]
+            sym = rd.decode_streams(payload, offsets, cdf, n)
+            host = range_coder.decode_streams(
+                payload.cpu().numpy(), np.diff(offsets.cpu().numpy()), n,
+                quant.cdf_to_numpy(cdf))
+            checks.append((
+                bool(np.array_equal(sym.cpu().numpy(), host)),
+                same_bits(blob, rd.dequantize_symbols(sym, maxes, half,
+                                                      **geo))))
+    return checks
+
+
 def remote_reuse_gate(url, cfg, params, tokens_np, full_logits):
     """Instance B (pipelined) serves the CTX + SUFFIX prompt: grouped
-    inject (row 11, one launch a group), then the suffix prefill. Gates:
-    the cached prefix; every group's symbols equal the host C++ decode of
-    its containers; the slot equals retrieve() with the host decoder
-    injected into a second slot. Returns the engine (its slot is read by
-    the paged wave)."""
+    inject (row 11's fused entry, one launch a group), then the suffix
+    prefill. Gates: the cached prefix; every group's symbols, decoded again
+    on the card, equal the host C++ decode of its containers, and its blob
+    those symbols dequantized; the slot equals retrieve() with the host
+    decoder injected into a second slot. Returns the engine (its slot is
+    read by the paged wave)."""
     b = remote_tier(url, cfg, pipelined_backend=True)
     eng = ServingEngine(cfg, params, max_batch=2, max_seq=CTX + SUFFIX + 8,
                         cache_engine=b)
-    kept, groups = {}, []
-    finish, decode = eng._finish_prefill, rd.decode_streams
+    kept = {}
+    finish = eng._finish_prefill
 
     def finish_and_keep(req, logits):
         kept[req.request_id] = logits.float().clone()
         finish(req, logits)
 
-    def decode_and_keep(payload, offsets, cdf, n):
-        out = decode(payload, offsets, cdf, n)
-        groups.append((payload, offsets, cdf, n, out))
-        return out
-
     eng._finish_prefill = finish_and_keep
-    rd.decode_streams = decode_and_keep
-    try:
+    with keeping_fused_decodes() as groups:
         [req] = eng.generate([tokens_np], SamplingParams(max_new_tokens=1))
-    finally:
-        rd.decode_streams = decode
     b.engine_.flush()
     group_sizes = [g[1].numel() - 1 for g in groups]
-    same_symbols = []
-    for payload, offsets, cdf, n, out in groups:
-        lens = np.diff(offsets.cpu().numpy())
-        ref = range_coder.decode_streams(payload.cpu().numpy(), lens, n,
-                                         quant.cdf_to_numpy(cdf))
-        same_symbols.append(bool(np.array_equal(out.cpu().numpy(), ref)))
+    checks = fused_decodes_exact(groups)
+    same_symbols = [c[0] for c in checks]
+    same_blobs = [c[1] for c in checks]
     off = remote_tier(url, cfg, cachegen_device_decode="off")
     blob, mask = off.retrieve(tokens_np[:CTX], return_tuple=False)
     off.close()
@@ -2692,16 +2869,18 @@ def remote_reuse_gate(url, cfg, params, tokens_np, full_logits):
                           eng.kv_pool[:, :, other, :, :CTX])
     logits = kept[req.request_id]
     rel = ((logits - full_logits).norm() / full_logits.norm()).item()
-    log(f"  reuse: cached_prefix_len {req.cached_prefix_len}; decode groups "
-        f"of {group_sizes} streams; symbols equal the host C++ decode "
-        f"{same_symbols}; slot KV equals retrieve() with the host decoder "
+    log(f"  reuse: cached_prefix_len {req.cached_prefix_len}; fused decode "
+        f"groups of {group_sizes} streams; symbols equal the host C++ decode "
+        f"{same_symbols}; blobs equal those symbols dequantized "
+        f"{same_blobs}; slot KV equals retrieve() with the host decoder "
         f"injected into slot {other}: {same_kv}")
     log(f"  first-token logits against the full prefill's (CacheGen is "
         f"lossy, random-init KV its worst case; reported): rel_l2 {rel:.4e}, "
         f"top-1 {int(logits.argmax())} vs {int(full_logits.argmax())}")
     if not (req.cached_prefix_len >= CTX - 1
             and len(groups) == -(-STORE_CHUNKS // GROUP_CHUNKS)
-            and all(same_symbols) and same_kv and int(mask.sum()) == CTX
+            and all(same_symbols) and all(same_blobs) and same_kv
+            and int(mask.sum()) == CTX
             and bool(torch.isfinite(logits).all())):
         raise SystemExit("remote reuse: a gate failed")
     return eng, {"cached_prefix_len": req.cached_prefix_len,
@@ -2713,9 +2892,9 @@ def remote_reuse_gate(url, cfg, params, tokens_np, full_logits):
 def remote_stage_split(url, cfg, params, tokens, tokens_np):
     """bench.py:470-526's stages, one measured pass each, over the 62
     containers in the engine's groups of 16: mexist, fetch, parse, then for
-    every group the host concat + upload, the row-11 decode, the host C++
-    decode of the same group, dequantize + inject; then the suffix
-    prefill over the injected slot."""
+    every group the host concat + upload, row 11's fused decode and
+    dequantization (the blob), the host C++ decode of the same group, the
+    inject; then the suffix prefill over the injected slot."""
     ce = remote_tier(url, cfg)
     backend = ce.engine_
     keys = [ce._make_key(h, "vllm")
@@ -2732,7 +2911,8 @@ def remote_stage_split(url, cfg, params, tokens, tokens_np):
     st["parse_ms"] = (time.perf_counter() - t0) * 1e3
     ce.close()
     eng = ServingEngine(cfg, params, max_batch=1, max_seq=CTX + SUFFIX + 8)
-    for k in ("upload_ms", "decode_ms", "host_decode_ms", "dequant_inject_ms"):
+    for k in ("upload_ms", "decode_dequant_ms", "host_decode_ms",
+              "inject_ms"):
         st[k] = 0.0
     up_bytes = 0
     for g0 in range(0, STORE_CHUNKS, GROUP_CHUNKS):
@@ -2759,20 +2939,20 @@ def remote_stage_split(url, cfg, params, tokens, tokens_np):
         st["upload_ms"] += (time.perf_counter() - t0) * 1e3
         up_bytes += payload.nbytes + cdf.nbytes + offsets.nbytes + maxes.nbytes
         t0 = time.perf_counter()
-        sym = rd.decode_streams(d_pay, d_offs, d_cdf, c0.g * c0.T)
+        blob = rd.decode_to_blob(
+            d_pay, d_offs, d_cdf, d_max, half, nchunks=len(group), L=c0.L,
+            H=c0.H, D=c0.D, T=c0.T, g=c0.g, N=c0.N, hf=False,
+            dtype=cgs.torch_dtype(c0.dtype), tok_start=0,
+            tok_stop=len(group) * c0.T)
         torch.cuda.synchronize()
-        st["decode_ms"] += (time.perf_counter() - t0) * 1e3
+        st["decode_dequant_ms"] += (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
         range_coder.decode_streams(payload, lens, c0.g * c0.T, cdf)
         st["host_decode_ms"] += (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
-        blob = cgs.symbols_to_blob(
-            sym, d_max, half, nchunks=len(group), L=c0.L, H=c0.H, D=c0.D,
-            T=c0.T, g=c0.g, N=c0.N, fmt="vllm", dtype=c0.dtype, tok_start=0,
-            tok_stop=len(group) * c0.T)
         eng._inject(blob, 0, g0 * REMOTE_CHUNK)
         torch.cuda.synchronize()
-        st["dequant_inject_ms"] += (time.perf_counter() - t0) * 1e3
+        st["inject_ms"] += (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
     llama.forward(params, cfg, tokens[:, CTX:],
                   torch.full((1,), CTX, dtype=torch.int32, device="cuda"),
@@ -3136,27 +3316,19 @@ def mla_remote(cfg, params, tokens_np, prefix, full_logits, kv_wire_bytes):
         b = tier(pipelined_backend=True)
         eng = MLAServingEngine(cfg, params, max_batch=1,
                                max_seq=CTX + SUFFIX + 8, cache_engine=b)
-        kept, groups = {}, []
-        finish, decode = eng._finish_prefill, rd.decode_streams
+        kept = {}
+        finish = eng._finish_prefill
 
         def finish_and_keep(req, logits):
             kept[req.request_id] = logits.float().clone()
             finish(req, logits)
 
-        def decode_and_keep(payload, offsets, cdf, n_sym):
-            out = decode(payload, offsets, cdf, n_sym)
-            groups.append((payload, offsets, cdf, n_sym, out))
-            return out
-
         eng._finish_prefill = finish_and_keep
-        rd.decode_streams = decode_and_keep
-        try:
+        with keeping_fused_decodes() as groups:
             t0 = time.perf_counter()
             [req] = eng.generate([tokens_np], SamplingParams(max_new_tokens=1))
             torch.cuda.synchronize()
             serve_ms = (time.perf_counter() - t0) * 1e3
-        finally:
-            rd.decode_streams = decode
         b.engine_.flush()
         b.close()
     finally:
@@ -3166,13 +3338,9 @@ def mla_remote(cfg, params, tokens_np, prefix, full_logits, kv_wire_bytes):
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait(timeout=10)
-    same_symbols = []
-    for payload, offsets, cdf, n_sym, out in groups:
-        lens = np.diff(offsets.cpu().numpy())
-        host_sym = range_coder.decode_streams(payload.cpu().numpy(), lens,
-                                              n_sym, quant.cdf_to_numpy(cdf))
-        same_symbols.append(bool(np.array_equal(out.cpu().numpy(),
-                                                host_sym)))
+    checks = fused_decodes_exact(groups)
+    same_symbols = [c[0] for c in checks]
+    same_blobs = [c[1] for c in checks]
     logits = kept[req.request_id]
     rel = ((logits - full_logits).norm() / full_logits.norm()).item()
     log(f"  store: {n} chunks in {store_ms:.2f} ms; wire {wire_bytes / 1e6:.3f}"
@@ -3181,14 +3349,16 @@ def mla_remote(cfg, params, tokens_np, prefix, full_logits, kv_wire_bytes):
         f"{CTX} tokens: {kv_wire_bytes / 1e6:.3f} MB); containers equal to "
         f"the host C++ coder's: {equal} of {len(wire)}")
     log(f"  served by a fresh pipelined engine in {serve_ms:.2f} ms: "
-        f"cached_prefix_len {req.cached_prefix_len}; decode groups of "
+        f"cached_prefix_len {req.cached_prefix_len}; fused decode groups of "
         f"{[g[1].numel() - 1 for g in groups]} streams; symbols equal the "
-        f"host C++ decode {same_symbols}")
+        f"host C++ decode {same_symbols}; blobs equal those symbols "
+        f"dequantized {same_blobs}")
     log(f"  first-token logits against the full prefill's (lossy; "
         f"reported): rel_l2 {rel:.4e}, top-1 {int(logits.argmax())} vs "
         f"{int(full_logits.argmax())}")
     if not (n == STORE_CHUNKS and equal == STORE_CHUNKS and groups
-            and all(same_symbols) and req.cached_prefix_len >= CTX - 1
+            and all(same_symbols) and all(same_blobs)
+            and req.cached_prefix_len >= CTX - 1
             and bool(torch.isfinite(logits).all())):
         raise SystemExit("mla remote: a gate failed")
     return {"store_ms": store_ms, "wire_bytes": wire_bytes, "raw_bytes": raw,
@@ -3733,7 +3903,8 @@ def phase_yardstick():
     # after the paged kernels, as in phase 2
     for case in paged_combine_cases():
         time_combine(case["name"], True, *make_paged_combine_inputs(case, gen))
-    rows.update(coder_yardstick(gen, sm_clock_hz()))
+    skip_former_coder_draws(gen)
+    rows.update(coder_yardstick(sm_clock_hz()))
 
     for case in latent_cases():
         args, kw = make_latent_inputs(case, gen)
@@ -3923,9 +4094,11 @@ def main():
         "mistral int8": [("quantized_flash_attention",
                           ("prefill+window", "decode+window")),
                          ("combine_partials", ("decode",))],
-        "remote store": ("range_encode", ("store",)),
+        "remote store": [("range_encode", ("store",)),
+                         ("range_encode_compact", ("store",))],
         "remote reuse": [("range_decode", ("retrieve",)),
                          ("range_encode", ("store",)),
+                         ("range_encode_compact", ("store",)),
                          ("flash_attention", ("prefill",))],
         "remote paged": [("range_decode", ("retrieve",)),
                          ("paged_attention_dma", ("prefill",))],
@@ -3943,6 +4116,7 @@ def main():
         "mla row 9": [("paged_latent_attention", ("prefill",)),
                       ("quantized_paged_latent_attention", ("prefill",))],
         "mla remote": [("range_encode", ("store",)),
+                       ("range_encode_compact", ("store",)),
                        ("range_decode", ("retrieve",)),
                        ("latent_flash_attention", ("prefill",))],
         "row 13 ablation": [("variant_attention",

@@ -5,15 +5,22 @@ Port of ``lmcache_tpu/ops/range_decode.py`` (``decode_streams_device``, the
 decodes S independent streams of ``n_symbols`` symbols, symbol-exact with the
 host C++ coder (``codec/csrc/lmtc_codec.cc::decode_stream``).
 
-:func:`decode_streams` launches the hand-written Hopper kernel
-(``csrc/range_decode.cu``, one thread a stream) on CUDA tensors and computes
-its plain version, :func:`decode_streams_reference`, on CPU tensors. The
-streams are passed concatenated, with int64 offsets, as the container holds
-them: nothing is padded to a stride. The kernel's renormalization loop has
-no bound, so unlike the TPU kernels it has no overflow flag. A stream whose
-range collapses to 0, which only a corrupt CDF can do (a non-monotone one
-can decode a zero-width bin) and where the C++ coder never returns, decodes
-as zeros from there on.
+Two entries run the hand-written Hopper kernel (``csrc/range_decode.cu``:
+two streams a thread, a 5-step symbol search, payload bytes through
+registers) on CUDA tensors:
+
+- :func:`decode_streams` writes the symbols, uint8 [S, n]; its plain
+  version, taken for CPU tensors, is :func:`decode_streams_reference`;
+- :func:`decode_to_blob` writes the CacheGen serde's dequantized wire blob
+  instead, bit-equal with :func:`decode_streams` followed by
+  :func:`dequantize_symbols`, which together are its plain version.
+
+The streams are passed concatenated, with int64 offsets, as the container
+holds them: nothing is padded to a stride. The kernel's renormalization loop
+has no bound, so unlike the TPU kernels it has no overflow flag. A stream
+whose range collapses to 0, which only a corrupt CDF can do (a non-monotone
+one can decode a zero-width bin) and where the C++ coder never returns,
+decodes as zeros from there on.
 
 CDF tables are the container's uint16 bits carried in int16 tensors
 (:mod:`lmcache_tpu_torch.ops.quant`).
@@ -126,36 +133,27 @@ def decode_streams_reference(payload: torch.Tensor, offsets: torch.Tensor,
     return out
 
 
-_entry = None
-# launches of the kernel; the wrapper's ``launches`` attribute is this object
+_entries = {}
+# launches of the kernel by either entry; their ``launches`` attribute is
+# this object
 _launches = Counter()
+_BLOB_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 
-def _load():
-    global _entry
-    if _entry is None:
-        fn = _build.load("range_decode").lmc_range_decode
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, I, I, P, P]
+def _load(name):
+    if name not in _entries:
+        fn = getattr(_build.load("range_decode"), name)
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        fn.argtypes = ([P, P, P, I, I, P, P] if name == "lmc_range_decode"
+                       else [P, P, P, I, P, P] + [I] * 8 + [L] * 4
+                       + [P, I, P])
         fn.restype = I
-        _entry = fn
-    return _entry
+        _entries[name] = fn
+    return _entries[name]
 
 
-def decode_streams(payload: torch.Tensor, offsets: torch.Tensor,
-                   cdf: torch.Tensor, n_symbols: int) -> torch.Tensor:
-    """Decode S range-coded streams -> uint8 [S, n_symbols] on the inputs'
-    device; see :func:`decode_streams_reference` for the arguments.
-
-    On CUDA tensors this launches the Hopper kernel (contiguous uint8
-    payload, int64 offsets, 33-entry uint16 CDFs as int16 or uint16) and
-    raises on anything it does not take; on CPU tensors it computes
-    :func:`decode_streams_reference`. ``decode_streams.launches["retrieve"]``
-    counts kernel launches."""
-    if payload.device.type == "cpu":
-        return decode_streams_reference(payload, offsets, cdf, n_symbols)
-    if payload.device.type != "cuda":
-        raise ValueError(f"unsupported device {payload.device}")
+def _check_streams(payload, offsets, cdf):
+    """The kernel's checks of the coded inputs, shared by both entries."""
     S = cdf.shape[0]
     for name, t, dtypes in (("payload", payload, (torch.uint8,)),
                             ("offsets", offsets, (torch.int64,)),
@@ -171,20 +169,132 @@ def decode_streams(payload: torch.Tensor, offsets: torch.Tensor,
                          f"{KERNEL_BINS + 1}]: {tuple(cdf.shape)}")
     if tuple(offsets.shape) != (S + 1,):
         raise ValueError(f"offsets must be [{S + 1}]: {tuple(offsets.shape)}")
-    if not 0 < n_symbols < 2**31 or S >= 2**31:
+    if S >= 2**31:
+        raise ValueError(f"{S} streams")
+
+
+def _launched(err, what):
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
+    _launches["retrieve"] += 1
+
+
+def decode_streams(payload: torch.Tensor, offsets: torch.Tensor,
+                   cdf: torch.Tensor, n_symbols: int) -> torch.Tensor:
+    """Decode S range-coded streams -> uint8 [S, n_symbols] on the inputs'
+    device; see :func:`decode_streams_reference` for the arguments.
+
+    On CUDA tensors this launches the Hopper kernel (contiguous uint8
+    payload, int64 offsets, 33-entry uint16 CDFs as int16 or uint16) and
+    raises on anything it does not take; on CPU tensors it computes
+    :func:`decode_streams_reference`. ``decode_streams.launches["retrieve"]``
+    counts kernel launches (of both entries)."""
+    if payload.device.type == "cpu":
+        return decode_streams_reference(payload, offsets, cdf, n_symbols)
+    if payload.device.type != "cuda":
+        raise ValueError(f"unsupported device {payload.device}")
+    _check_streams(payload, offsets, cdf)
+    S = cdf.shape[0]
+    if not 0 < n_symbols < 2**31:
         raise ValueError(f"{S} streams of {n_symbols} symbols")
     out = torch.empty((S, n_symbols), dtype=torch.uint8,
                       device=payload.device)
     if S == 0:
         return out
-    err = _load()(payload.data_ptr(), offsets.data_ptr(), cdf.data_ptr(), S,
-                  n_symbols, out.data_ptr(),
-                  torch.cuda.current_stream(payload.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"range_decode kernel launch failed: cudaError "
-                           f"{err}")
-    _launches["retrieve"] += 1
+    _launched(_load("lmc_range_decode")(
+        payload.data_ptr(), offsets.data_ptr(), cdf.data_ptr(), S, n_symbols,
+        out.data_ptr(), torch.cuda.current_stream(payload.device).cuda_stream),
+        "range_decode")
     return out
 
 
 decode_streams.launches = _launches
+
+
+def _blob_shape(L, N, H, D, T_out, hf):
+    return (L, N, H, T_out, D) if hf else (L, N, T_out, H, D)
+
+
+def dequantize_symbols(sym: torch.Tensor, maxes: torch.Tensor,
+                       half: torch.Tensor, *, nchunks, L, H, D, T, g, N, hf,
+                       dtype, tok_start, tok_stop) -> torch.Tensor:
+    """Decoded symbols -> the CacheGen serde's dequantized wire blob, on
+    ``sym``'s device (the plain version of :func:`decode_to_blob` after
+    :func:`decode_streams`).
+
+    sym: uint8 [nchunks * N * L * Cg, g * T] in coder stream order (chunk,
+    half, layer, channel group; symbols: channel in group, token); maxes:
+    f32 [nchunks, N, L, T]; half: f32 [N, L] (bins // 2 - 1). Returns
+    [L, N, T_out, H, D] (vllm) / [L, N, H, T_out, D] (``hf``) in ``dtype``
+    over tokens [tok_start, tok_stop) of the run, computing
+    ``(s - half) * max / half`` in fp32 as the JAX package does.
+    """
+    C = H * D
+    Cg = C // g
+    x = sym.reshape(nchunks, N, L, Cg, g, T).permute(0, 1, 2, 5, 3, 4)
+    x = x.reshape(nchunks, N, L, T, C)
+    h = half[None, :, :, None, None]
+    x = (x.to(torch.float32) - h) * maxes[..., None] / h
+    x = x.permute(2, 1, 0, 3, 4).reshape(L, N, nchunks * T, H, D)
+    x = x[:, :, tok_start:tok_stop].to(dtype)
+    if hf:
+        x = x.transpose(2, 3)
+    return x.contiguous()
+
+
+def decode_to_blob(payload: torch.Tensor, offsets: torch.Tensor,
+                   cdf: torch.Tensor, maxes: torch.Tensor,
+                   half: torch.Tensor, *, nchunks, L, H, D, T, g, N, hf,
+                   dtype, tok_start, tok_stop) -> torch.Tensor:
+    """Decode the streams of ``nchunks`` CacheGen chunks and dequantize them
+    into the wire blob in one pass; arguments and result as
+    :func:`decode_streams` and :func:`dequantize_symbols` (each stream has
+    g * T symbols).
+
+    On CUDA tensors this launches the kernel's fused entry (bfloat16,
+    float16 or float32 out; maxes and half contiguous float32) and raises
+    on anything it does not take; on CPU tensors it computes
+    :func:`decode_streams_reference` then :func:`dequantize_symbols`. It
+    counts its launches in ``decode_streams.launches["retrieve"]``."""
+    geo = dict(nchunks=nchunks, L=L, H=H, D=D, T=T, g=g, N=N, hf=hf,
+               dtype=dtype, tok_start=tok_start, tok_stop=tok_stop)
+    if payload.device.type == "cpu":
+        sym = decode_streams_reference(payload, offsets, cdf, g * T)
+        return dequantize_symbols(sym, maxes, half, **geo)
+    if payload.device.type != "cuda":
+        raise ValueError(f"unsupported device {payload.device}")
+    _check_streams(payload, offsets, cdf)
+    C = H * D
+    if g < 1 or C % g or cdf.shape[0] != nchunks * N * L * (C // g):
+        raise ValueError(f"{cdf.shape[0]} streams are not {nchunks} chunks "
+                         f"of {N} x {L} x {C} channels in groups of {g}")
+    if dtype not in _BLOB_DTYPES:
+        raise ValueError(f"the CUDA kernel writes {list(_BLOB_DTYPES)}, "
+                         f"not {dtype}")
+    for name, t, shape in (("maxes", maxes, (nchunks, N, L, T)),
+                           ("half", half, (N, L))):
+        if (t.device != payload.device or t.dtype != torch.float32
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"the CUDA kernel takes {name} as contiguous "
+                             f"float32 {list(shape)} on {payload.device}: "
+                             f"{t.dtype} {list(t.shape)} on {t.device}")
+    if not 0 <= tok_start <= tok_stop <= nchunks * T:
+        raise ValueError(f"token window [{tok_start}, {tok_stop}) outside "
+                         f"{nchunks * T} tokens")
+    T_out = tok_stop - tok_start
+    out = torch.empty(_blob_shape(L, N, H, D, T_out, hf), dtype=dtype,
+                      device=payload.device)
+    S = cdf.shape[0]
+    if S == 0 or out.numel() == 0:
+        return out
+    # strides of the layer, half, token and head axes (a dim's is 1)
+    sL, sN = out.stride(0), out.stride(1)
+    sT, sH = (out.stride(3), out.stride(2)) if hf else (out.stride(2),
+                                                         out.stride(3))
+    _launched(_load("lmc_range_decode_blob")(
+        payload.data_ptr(), offsets.data_ptr(), cdf.data_ptr(), S,
+        maxes.data_ptr(), half.data_ptr(), N, L, H, D, T, g, tok_start,
+        tok_stop, sL, sN, sT, sH, out.data_ptr(), _BLOB_DTYPES[dtype],
+        torch.cuda.current_stream(payload.device).cuda_stream),
+        "range_decode_blob")
+    return out

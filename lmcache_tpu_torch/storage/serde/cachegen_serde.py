@@ -71,19 +71,6 @@ def _group_for(T: int, C: int, min_g: int = 1) -> int:
     return g
 
 
-def _to_token_major(blob: torch.Tensor, fmt: str):
-    """[L, N, ...] blob -> N halves as [L, T, C] plus (H, D). N is 2 for
-    K/V blobs and 1 for MLA latent blobs ([L, 1, T, 1, r+p])."""
-    if fmt == "huggingface":  # [L, N, H, T, D] -> [L, N, T, H, D]
-        blob = blob.transpose(2, 3)
-    L, N, T, H, D = blob.shape
-    if N not in (1, 2):
-        raise ValueError(f"blob axis 1 must be 1 (latent) or 2 (K/V), "
-                         f"got {N}")
-    halves = [blob[:, i].reshape(L, T, H * D) for i in range(N)]
-    return halves, H, D
-
-
 class CacheGenSerializer(Serializer):
 
     def __init__(self, config: LMCacheEngineConfig,
@@ -122,11 +109,15 @@ class CacheGenSerializer(Serializer):
         return self._cg_cache[num_layers]
 
     def _geometry(self, blob_shape):
-        """(L, N, T, H, D, C, g, Cg, cg) for a blob of this shape."""
+        """(L, N, T, H, D, C, g, Cg, cg) for a blob of this shape. N is 2
+        for K/V blobs and 1 for MLA latent blobs ([L, 1, T, 1, r+p])."""
         if self.fmt == "huggingface":
             L, N, H, T, D = blob_shape
         else:
             L, N, T, H, D = blob_shape
+        if N not in (1, 2):
+            raise ValueError(f"blob axis 1 must be 1 (latent) or 2 (K/V), "
+                             f"got {N}")
         C = H * D
         g = _group_for(T, C, min_g=4 if N == 1 else 1)
         if N == 1 and self._cg_override is None:
@@ -135,9 +126,12 @@ class CacheGenSerializer(Serializer):
             cg = self._cg(L)
         return L, N, T, H, D, C, g, C // g, cg
 
-    def _container(self, L, N, T, H, D, g, cg, dtype_bytes, maxes_all,
-                   cdf_all, lens_all, payloads) -> bytes:
-        """Assemble one LMCG container from its computed pieces."""
+    def _container(self, L, N, T, H, D, g, cg, dtype_bytes,
+                   halves) -> bytes:
+        """Assemble one LMCG container from its computed pieces: ``halves``
+        holds, for each of the N halves, its maxes (float32 [L, T]), CDF
+        tables (uint16 [L, Cg, 33]), lengths (uint32 [L * Cg]) and payload,
+        each contiguous, so that the join copies each byte once."""
         version = VERSION if N == 2 else 3  # v3 adds the stream count
         parts = [
             _HDR.pack(MAGIC, version, _FMT_CODE[self.fmt],
@@ -150,12 +144,8 @@ class CacheGenSerializer(Serializer):
         ]
         if version >= 3:
             parts.append(struct.pack("<B", N))
-        parts.append(np.ascontiguousarray(
-            maxes_all.astype(np.float32)).tobytes())
-        parts.append(np.ascontiguousarray(cdf_all).tobytes())
-        parts.append(np.ascontiguousarray(
-            lens_all.astype(np.uint32)).tobytes())
-        parts.extend(memoryview(p) for p in payloads)
+        for i in range(4):  # maxes, CDF tables, lengths, payloads
+            parts.extend(memoryview(h[i]) for h in halves)
         return b"".join(parts)
 
     def _bins(self, cg: CacheGenConfig, N: int, device):
@@ -166,30 +156,7 @@ class CacheGenSerializer(Serializer):
 
     @_lmcache_trace_annotate
     def to_bytes(self, blob) -> bytes:
-        blob = torch.as_tensor(blob)
-        halves, H, D = _to_token_major(blob, self.fmt)
-        N = len(halves)
-        L, T, C = halves[0].shape
-        _, _, _, _, _, _, g, Cg, cg = self._geometry(blob.shape)
-
-        maxes_parts, cdf_parts, lens_parts, payloads = [], [], [], []
-        for x, bins in zip(halves, self._bins(cg, N, blob.device)):
-            sym, maxes = quant.quantize(x, bins)
-            # [L, T, C] -> [L, C, T] -> g adjacent channels into one
-            # [L, Cg, g*T] block: one g*T-symbol stream per (layer, group)
-            sym_g = sym.transpose(1, 2).reshape(L, Cg, g * T)
-            cdf = quant.compute_cdf(sym_g.transpose(1, 2))
-            payload, lens, cdf_h = self._encode_streams(
-                sym_g.reshape(L * Cg, g * T),
-                cdf.reshape(L * Cg, _MAX_BINS + 1))
-            maxes_parts.append(maxes[..., 0].cpu().numpy())
-            cdf_parts.append(cdf_h.reshape(L, Cg, _MAX_BINS + 1))
-            lens_parts.append(lens.astype(np.uint32))
-            payloads.append(payload)
-        return self._container(
-            L, N, T, H, D, g, cg, dtype_name(blob.dtype).encode("ascii"),
-            np.stack(maxes_parts), np.stack(cdf_parts),
-            np.stack(lens_parts), payloads)
+        return self._encode_stacked(torch.as_tensor(blob)[None])[0]
 
     @_lmcache_trace_annotate
     def to_bytes_batch(self, blobs) -> List[bytes]:
@@ -213,43 +180,43 @@ class CacheGenSerializer(Serializer):
         return out  # type: ignore[return-value]
 
     def _encode_stacked(self, stacked: torch.Tensor) -> List[bytes]:
+        """Containers of n same-shape chunks ``stacked`` [n, *blob shape]:
+        one quantization and one CDF pass a half, one coder pass over every
+        stream of both halves."""
         n = stacked.shape[0]
         L, N, T, H, D, C, g, Cg, cg = self._geometry(stacked.shape[1:])
         if self.fmt == "huggingface":  # [n, L, N, H, T, D] token-major
             stacked = stacked.transpose(3, 4)
 
-        halves_out = []
+        # streams in (half, chunk, layer, group) order; a stream is g
+        # adjacent channels of a [C, T] plane: [n * L, C, T] viewed as
+        # [n * L, Cg, g * T]
+        streams = torch.empty((N, n * L, C, T), dtype=torch.uint8,
+                              device=stacked.device)
+        maxes_h, cdfs = [], []
         for hi, bins in enumerate(self._bins(cg, N, stacked.device)):
             x = stacked[:, :, hi].reshape(n * L, T, C)
             sym, maxes = quant.quantize(x, bins.repeat(n))
-            sym_g = sym.transpose(1, 2).reshape(n * L, Cg, g * T)
-            cdf = quant.compute_cdf(sym_g.transpose(1, 2))
-            # one coder pass over every chunk's streams
-            payload, lens, cdf_h = self._encode_streams(
-                sym_g.reshape(n * L * Cg, g * T),
-                cdf.reshape(n * L * Cg, _MAX_BINS + 1))
-            halves_out.append((
-                maxes[..., 0].cpu().numpy().reshape(n, L, T),
-                cdf_h.reshape(n, L, Cg, _MAX_BINS + 1),
-                lens.astype(np.uint32).reshape(n, L * Cg),
-                payload))
+            streams[hi].copy_(sym.transpose(1, 2))
+            cdfs.append(quant.compute_cdf(
+                streams[hi].view(n * L, Cg, g * T).transpose(1, 2)))
+            maxes_h.append(maxes[..., 0].cpu().numpy().reshape(n, L, T))
+        payload, lens, cdf_h = self._encode_streams(
+            streams.view(N * n * L * Cg, g * T),
+            torch.cat(cdfs).reshape(N * n * L * Cg, _MAX_BINS + 1))
+        lens = lens.astype(np.uint32).reshape(N, n, L * Cg)
+        cdf_h = cdf_h.reshape(N, n, L, Cg, _MAX_BINS + 1)
+        # bytes of each (half, chunk) in the payload, and where they end
+        sizes = lens.sum(axis=2, dtype=np.int64).reshape(-1)
+        ends = np.cumsum(sizes)
+        starts = ends - sizes
 
         dtype_bytes = dtype_name(stacked.dtype).encode("ascii")
-        containers = []
-        offs = [0] * len(halves_out)
-        for ci in range(n):
-            payloads = []
-            for hi, (_, _, lens, payload) in enumerate(halves_out):
-                nb = int(lens[ci].sum())
-                payloads.append(payload[offs[hi]:offs[hi] + nb])
-                offs[hi] += nb
-            containers.append(self._container(
-                L, N, T, H, D, g, cg, dtype_bytes,
-                np.stack([h[0][ci] for h in halves_out]),
-                np.stack([h[1][ci] for h in halves_out]),
-                np.stack([h[2][ci] for h in halves_out]),
-                payloads))
-        return containers
+        return [self._container(
+            L, N, T, H, D, g, cg, dtype_bytes,
+            [(maxes_h[hi][ci], cdf_h[hi, ci], lens[hi, ci],
+              payload[starts[hi * n + ci]:ends[hi * n + ci]])
+             for hi in range(N)]) for ci in range(n)]
 
 
 class CacheGenHostChunk:
@@ -385,26 +352,13 @@ def _parse_container(bs) -> CacheGenHostChunk:
 def symbols_to_blob(sym: torch.Tensor, maxes: torch.Tensor,
                     half: torch.Tensor, *, nchunks, L, H, D, T, g, N, fmt,
                     dtype, tok_start, tok_stop) -> torch.Tensor:
-    """Decoded symbols -> the dequantized wire blob, on ``sym``'s device.
-
-    sym: uint8 [nchunks * N * L * Cg, g * T] in coder stream order; maxes:
-    f32 [nchunks, N, L, T]; half: f32 [N, L] (bins // 2 - 1). Returns
-    [L, N, T_out, H, D] (vllm) / [L, N, H, T_out, D] (hf) in ``dtype``,
-    computing ``(s - half) * max / half`` in fp32 as the JAX package does.
-    """
-    C = H * D
-    Cg = C // g
-    # stream order within a chunk: (half, layer, group); symbols within a
-    # stream: (channel in group, token)
-    x = sym.reshape(nchunks, N, L, Cg, g, T).permute(0, 1, 2, 5, 3, 4)
-    x = x.reshape(nchunks, N, L, T, C)
-    h = half[None, :, :, None, None]
-    x = (x.to(torch.float32) - h) * maxes[..., None] / h
-    x = x.permute(2, 1, 0, 3, 4).reshape(L, N, nchunks * T, H, D)
-    x = x[:, :, tok_start:tok_stop].to(torch_dtype(dtype))
-    if fmt == "huggingface":
-        x = x.transpose(2, 3)
-    return x.contiguous()
+    """Decoded symbols -> the dequantized wire blob, on ``sym``'s device
+    (:func:`range_decode.dequantize_symbols` with the container's format
+    and dtype names)."""
+    return range_decode.dequantize_symbols(
+        sym, maxes, half, nchunks=nchunks, L=L, H=H, D=D, T=T, g=g, N=N,
+        hf=fmt == "huggingface", dtype=torch_dtype(dtype),
+        tok_start=tok_start, tok_stop=tok_stop)
 
 
 def finish_host_chunks(chunks: List[CacheGenHostChunk],
@@ -413,14 +367,15 @@ def finish_host_chunks(chunks: List[CacheGenHostChunk],
     """Decode and dequantize a token-consecutive run of same-shape host
     chunks in one batch on ``device`` (default: the device stamped on the
     chunks): one upload of the still-coded payload, CDF tables, offsets and
-    maxes, one range-decoder launch for every stream of every chunk, one
-    dequantization.
+    maxes, then one range decode and dequantization of every stream of
+    every chunk.
 
     mode: None uses the mode stamped on the chunks (the config's
-    ``cachegen_device_decode``); ``"auto"``/``"on"`` range-decode where the
-    blob lands (the Hopper kernel on the card, its plain version on the
-    CPU); ``"off"`` decodes with the host C++ coder and uploads the
-    symbols.
+    ``cachegen_device_decode``); ``"auto"``/``"on"`` decode where the blob
+    lands: on the card one launch of row 11's fused entry, which writes the
+    blob (:func:`range_decode.decode_to_blob`), on the CPU its plain
+    version; ``"off"`` decodes with the host C++ coder and uploads the
+    symbols for :func:`symbols_to_blob`.
     """
     first = chunks[0]
     if mode is None:
@@ -457,22 +412,23 @@ def finish_host_chunks(chunks: List[CacheGenHostChunk],
     payload = np.concatenate(
         [np.frombuffer(c.payload, np.uint8) for c in chunks])
 
+    geo = dict(nchunks=nchunks, L=L, H=H, D=D, T=T, g=g, N=N,
+               tok_start=chunks[0].tok_start,
+               tok_stop=(nchunks - 1) * T + chunks[-1].tok_stop)
+    maxes_d = torch.from_numpy(maxes).to(device)
+    halfs_d = torch.from_numpy(halfs).to(device)
     if mode == "off":
         sym = torch.from_numpy(range_coder.decode_streams(
             payload, lens, n_symbols, cdf)).to(device)
-    else:
-        offsets = np.zeros(len(lens) + 1, np.int64)
-        np.cumsum(lens, out=offsets[1:])
-        sym = range_decode.decode_streams(
-            torch.from_numpy(payload).to(device),
-            torch.from_numpy(offsets).to(device),
-            torch.from_numpy(cdf.view(np.int16)).to(device), n_symbols)
-    return symbols_to_blob(
-        sym, torch.from_numpy(maxes).to(device),
-        torch.from_numpy(halfs).to(device), nchunks=nchunks, L=L, H=H,
-        D=D, T=T, g=g, N=N, fmt=first.fmt, dtype=first.dtype,
-        tok_start=chunks[0].tok_start,
-        tok_stop=(nchunks - 1) * T + chunks[-1].tok_stop)
+        return symbols_to_blob(sym, maxes_d, halfs_d, fmt=first.fmt,
+                               dtype=first.dtype, **geo)
+    offsets = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    return range_decode.decode_to_blob(
+        torch.from_numpy(payload).to(device),
+        torch.from_numpy(offsets).to(device),
+        torch.from_numpy(cdf.view(np.int16)).to(device), maxes_d, halfs_d,
+        hf=first.fmt == "huggingface", dtype=torch_dtype(first.dtype), **geo)
 
 
 def finish_mixed_chunks(chunks: List[CacheGenHostChunk],

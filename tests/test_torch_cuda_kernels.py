@@ -1012,8 +1012,10 @@ def _coder_case(kind, S, T, seed=0):
     return sym, quant.stream_cdf(sym)
 
 
-@pytest.mark.parametrize("S, T", [(96, 256), (1000, 255), (257, 1024)],
-                         ids=["96x256", "1000x255", "257x1024"])
+@pytest.mark.parametrize("S, T", [(96, 256), (1000, 255), (257, 1024),
+                                  (7, 256), (1, 64)],
+                         ids=["96x256", "1000x255", "257x1024", "7x256",
+                              "1x64"])
 @pytest.mark.parametrize("kind", SYMBOL_KINDS)
 def test_range_kernels_match_plain_and_host_coder(gen, kind, S, T):
     if not range_coder.codec_available():
@@ -1029,8 +1031,10 @@ def test_range_kernels_match_plain_and_host_coder(gen, kind, S, T):
     out, raw_lens = re_.encode_streams_raw(sym, cdf)
     ref_out, ref_lens = re_.encode_streams_reference(sym.cpu(), cdf.cpu())
     assert torch.equal(raw_lens.cpu(), ref_lens)
+    before = re_.compact.launches["store"]
     assert torch.equal(re_.compact(out, raw_lens).cpu(),
-                       re_.compact(ref_out, ref_lens))
+                       re_.compact_reference(ref_out, ref_lens))
+    assert re_.compact.launches["store"] == before + 1
     # row 11: symbol-exact with the host coder and the plain version
     offs = torch.from_numpy(np.concatenate([[0], np.cumsum(lens)])).cuda()
     pay = torch.from_numpy(np.frombuffer(payload, np.uint8).copy()).cuda()
@@ -1099,6 +1103,187 @@ def test_range_decoder_ends_a_collapsed_stream_like_its_plain_version(gen):
     torch.cuda.synchronize()
     assert torch.equal(out.cpu(), ref)
     assert ref[0, 0] == 2 and not ref[0, 1:].any()
+
+
+def _coded(kind, S, T, seed=0):
+    """(symbols, CDF) on the card and the host coder's payload and lens."""
+    sym, cdf = _coder_case(kind, S, T, seed)
+    payload, lens = range_coder.encode_streams(sym.cpu().numpy(),
+                                               quant.cdf_to_numpy(cdf))
+    return sym, cdf, payload, lens
+
+
+def _on_card(payload, lens, shift=0):
+    """The payload on the card starting ``shift`` bytes into its
+    allocation, and its int64 offsets."""
+    buf = torch.zeros(len(payload) + shift, dtype=torch.uint8)
+    buf[shift:] = torch.frombuffer(bytearray(payload), dtype=torch.uint8)
+    offs = torch.from_numpy(np.concatenate([[0], np.cumsum(lens)]))
+    return buf.cuda()[shift:], offs.cuda()
+
+
+@pytest.mark.parametrize("S", [256 * 600 + 77, 256 * 600 + 200])
+def test_range_kernels_with_a_ragged_last_block(gen, S):
+    """A block codes 256 streams, two a thread: 77 streams leave the last
+    block's threads with one stream or none, 200 some with two and some
+    with one (both kernels and the copy pass)."""
+    T = 64
+    sym, cdf, payload, lens = _coded("gauss", S, T, seed=3)
+    got, got_lens = re_.encode_streams(sym, cdf)
+    assert np.array_equal(got_lens, lens) and got.tobytes() == payload
+    pay, offs = _on_card(payload, lens)
+    assert torch.equal(rd.decode_streams(pay, offs, cdf, T), sym)
+
+
+@pytest.mark.parametrize("shift", [0, 1, 5, 7])
+def test_range_decoder_reads_any_span_and_alignment(gen, shift):
+    """Long streams (32 bins, n 1024: about 650 bytes each) from a payload
+    that starts off an 8-byte boundary, and a stream of length 0 at its
+    very end: the decoder's aligned loads stop at the payload's last word
+    and its zero feed covers the rest."""
+    S, T = 300, 1024
+    sym, cdf, payload, lens = _coded("uniform", S, T, seed=shift)
+    assert lens.min() > 600
+    pay, offs = _on_card(payload, lens, shift)
+    dec = rd.decode_streams(pay, offs, cdf, T)
+    assert torch.equal(dec, sym)
+    # a last stream of no bytes decodes as the zero feed does on the host
+    cdf2 = torch.cat([cdf, cdf[:1]])
+    offs2 = torch.cat([offs, offs[-1:]])
+    want = range_coder.decode_streams(payload, np.append(lens, 0), T,
+                                      quant.cdf_to_numpy(cdf2))
+    assert np.array_equal(rd.decode_streams(pay, offs2, cdf2, T).cpu(),
+                          want)
+
+
+def test_range_encoder_overflow_reports_minus_one_and_raises(gen):
+    sym = torch.full((300, 64), 5, dtype=torch.uint8, device="cuda")
+    cdf = quant.stream_cdf(sym)
+    bad = cdf.clone()
+    bad[1, 6] = bad[1, 5]  # symbol 5 of stream 1 gets no width
+    _, lens = re_.encode_streams_raw(sym, bad)
+    _, ref_lens = re_.encode_streams_reference(sym.cpu(), bad.cpu())
+    assert lens[1] == -1 and (lens[2:] > 0).all()
+    assert torch.equal(lens.cpu(), ref_lens)
+    with pytest.raises(RuntimeError, match="overflow"):
+        re_.encode_streams(sym, bad)
+
+
+def test_range_encoder_payloads_outlive_later_calls(gen):
+    """Calls of growing and shrinking size each return a payload of their
+    own: a later call, which may reuse pinned blocks of PyTorch's host
+    cache, leaves the earlier payloads as they were."""
+    kept = []
+    for S in (400, 50, 2000, 10, 2000):
+        sym, cdf, payload, lens = _coded("skewed", S, 256, seed=S)
+        got, got_lens = re_.encode_streams(sym, cdf)
+        assert np.array_equal(got_lens, lens) and got.tobytes() == payload
+        kept.append((got, payload))
+    for got, payload in kept:
+        assert got.tobytes() == payload
+
+
+# (nchunks, N, L, H, D, T, g): tinyllama-like K/V of full chunks, a short
+# chunk's g 4 streams, and an MLA latent run (N 1, C 576, g 4)
+BLOB_GEOMETRIES = {
+    "kv_g1": (3, 2, 3, 4, 64, 256, 1),
+    "kv_g4": (1, 2, 3, 4, 64, 50, 4),
+    "latent": (2, 1, 3, 1, 576, 256, 4),
+}
+
+
+def _blob_case(name, seed=0):
+    nchunks, N, L, H, D, T, g = BLOB_GEOMETRIES[name]
+    C = H * D
+    x = torch.randn((nchunks * N * L, T, C), generator=gen_cpu(seed))
+    bins = torch.tensor([32, 16, 8][:L] * (nchunks * N), dtype=torch.int32)
+    sym, maxes = quant.quantize(x, bins)
+    streams = sym.transpose(1, 2).reshape(-1, g * T).contiguous()
+    cdf = quant.stream_cdf(streams)
+    payload, lens = range_coder.encode_streams(streams.numpy(),
+                                               quant.cdf_to_numpy(cdf))
+    half = (bins[:N * L].reshape(N, L) // 2 - 1).float()
+    return (streams.cuda(), cdf.cuda(), payload, lens,
+            maxes[..., 0].reshape(nchunks, N, L, T).contiguous().cuda(),
+            half.cuda())
+
+
+def gen_cpu(seed):
+    return torch.Generator().manual_seed(seed)
+
+
+@pytest.mark.parametrize("window", [(0, 0), (7, 3)], ids=["all", "window"])
+@pytest.mark.parametrize("fmt", ["vllm", "huggingface"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32],
+                         ids=["bf16", "fp16", "fp32"])
+@pytest.mark.parametrize("name", BLOB_GEOMETRIES)
+def test_fused_decode_is_decode_then_symbols_to_blob(gen, name, dtype, fmt,
+                                                     window):
+    """The fused entry's blob, bit for bit, against decode_streams and the
+    serde's dequantization on the card, over every layout the remote path
+    gives it; one launch, counted under row 11."""
+    from lmcache_tpu_torch.storage.serde import cachegen_serde as cgs
+    from lmcache_tpu_torch.storage.serde.raw_serde import dtype_name
+    nchunks, N, L, H, D, T, g = BLOB_GEOMETRIES[name]
+    streams, cdf, payload, lens, maxes, half = _blob_case(name)
+    pay, offs = _on_card(payload, lens, shift=3)
+    geo = dict(nchunks=nchunks, L=L, H=H, D=D, T=T, g=g, N=N,
+               tok_start=window[0], tok_stop=nchunks * T - window[1])
+    sym = rd.decode_streams(pay, offs, cdf, g * T)
+    assert torch.equal(sym, streams)
+    want = cgs.symbols_to_blob(sym, maxes, half, fmt=fmt,
+                               dtype=dtype_name(dtype), **geo)
+    before = rd.decode_streams.launches["retrieve"]
+    got = rd.decode_to_blob(pay, offs, cdf, maxes, half,
+                            hf=fmt == "huggingface", dtype=dtype, **geo)
+    torch.cuda.synchronize()
+    assert rd.decode_streams.launches["retrieve"] == before + 1
+    assert got.shape == want.shape and got.dtype == dtype
+    bits = torch.int16 if dtype != torch.float32 else torch.int32
+    assert torch.equal(got.view(bits), want.view(bits))
+
+
+def test_fused_decode_of_a_collapsed_stream_ends_in_zeros(gen):
+    """The fused entry on a stream whose CDF does not rise: its channel
+    holds symbol 0's value after the collapse, as the plain version."""
+    streams, cdf, payload, lens, maxes, half = _blob_case("kv_g1")
+    nchunks, N, L, H, D, T, g = BLOB_GEOMETRIES["kv_g1"]
+    cdf[3] = torch.tensor([0, 60000, 50, 50] + list(range(60001, 60030)),
+                          dtype=torch.int32).to(torch.int16)
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    payload = (payload[:offs[3]] + bytes([0x10, 0x20, 0x30, 0x40, 0x50])
+               + payload[offs[4]:])
+    lens = lens.copy()
+    lens[3] = 5
+    pay, offs = _on_card(payload, lens)
+    geo = dict(nchunks=nchunks, L=L, H=H, D=D, T=T, g=g, N=N, hf=False,
+               dtype=torch.float32, tok_start=0, tok_stop=nchunks * T)
+    got = rd.decode_to_blob(pay, offs, cdf, maxes, half, **geo)
+    want = rd.decode_to_blob(pay.cpu(), offs.cpu(), cdf.cpu(), maxes.cpu(),
+                             half.cpu(), **geo)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    h0 = half[0, 0].item()
+    assert torch.equal(got[0, 0, 1:T, 0, 3].cpu(),
+                       (0 - h0) * maxes[0, 0, 0, 1:].cpu() / h0)
+
+
+def test_fused_decode_refuses_what_it_does_not_take(gen):
+    streams, cdf, payload, lens, maxes, half = _blob_case("kv_g4")
+    nchunks, N, L, H, D, T, g = BLOB_GEOMETRIES["kv_g4"]
+    pay, offs = _on_card(payload, lens)
+    geo = dict(nchunks=nchunks, L=L, H=H, D=D, T=T, g=g, N=N, hf=False,
+               dtype=torch.bfloat16, tok_start=0, tok_stop=nchunks * T)
+    with pytest.raises(ValueError, match="maxes"):
+        rd.decode_to_blob(pay, offs, cdf, maxes.double(), half, **geo)
+    with pytest.raises(ValueError, match="streams"):
+        rd.decode_to_blob(pay, offs, cdf, maxes, half, **{**geo, "g": 2})
+    with pytest.raises(ValueError, match="window"):
+        rd.decode_to_blob(pay, offs, cdf, maxes, half,
+                          **{**geo, "tok_stop": nchunks * T + 1})
+    with pytest.raises(ValueError, match="writes"):
+        rd.decode_to_blob(pay, offs, cdf, maxes, half,
+                          **{**geo, "dtype": torch.int8})
 
 
 # ------------------------------------------------------------------------
