@@ -12,7 +12,8 @@ Phases, in order; any failure exits non-zero:
    Hopper bodies, kernel rows 1-10 (``cuobjdump -sass``), each of which must
    be above 0; then, per instantiation, the registers, spills, ``HGMMA``
    and ``UTMALDG`` of rows 5 and 7's int8 paged body and split (the body's
-   four and the split's registers must be above 0);
+   four and the split's registers must be above 0), and of the softcap
+   variants of rows 4-7's body and split;
 2. hold each kernel against its plain PyTorch version on the card, in
    bf16, at the shapes the paths below give it: ``flash_attention`` (plain
    and with each option: sliding and chunked window, softcap, sinks,
@@ -21,7 +22,12 @@ Phases, in order; any failure exits non-zero:
    ``combine_partials`` alone (on row 1's and on the paged split's
    partials), ``flash_attention_dma``, ``quantized_flash_attention`` (plain
    and with the same options), the four paged-attention kernels (bf16 and
-   int8 arenas; their decodes run the paged key split), the range coders
+   int8 arenas; their decodes run the paged key split; with softcap, sinks
+   and chunked windows at Gemma-2's, GPT-OSS's and Llama-4's shapes, rows
+   4 and 5 with each at D 96 and D 256, and chunks of 24 keys over pages of
+   16: ``paged_option_cases``; the softcap at a cap of 3, which must move
+   the plain output by ten times the tolerance, and at Gemma-2's 50 in its
+   own prefill segment), the range coders
    at the remote paths' launches (tolerance 0: row 12 and its copy pass,
    row 11's symbols and its fused entry's blob) and the six MLA
    latent-attention entry points (dense, paged one page per step, paged
@@ -51,7 +57,7 @@ Phases, in order; any failure exits non-zero:
    last prompt token are held against ``forward_paged*`` run with the plain
    attention on the same arena; one ``torch.profiler`` window over a
    prefill step of two fresh prompts and one over a decode step, per arena
-   (``phase_paged_phi3``);
+   (``phase_paged_phi3``, ``paged_full_depth``);
 6c. path C, the dense int8 pool on tinyllama-1.1B: the bench shape of
    phase 3 through ``forward_quantized`` (TTFT full, reuse and ratio; the
    reuse logits held to the full prefill's as in phase 3; the pool stored
@@ -127,10 +133,29 @@ Phases, in order; any failure exits non-zero:
    native and int8, paged; MLA dense and paged) must start with the
    blender's token; TTFT of the blend request against a full prefill of the
    same T and a profiler window of one blend admission;
-7. the launch counts of phases 3 to 12, read per phase with every count
+13. the ``LlamaConfig`` families that the forwards refused before (Qwen3,
+   Qwen3-MoE, Mixtral, Gemma-2/3, GLM-4-0414, OLMo-2, GPT-OSS, Llama-4):
+   13a each of the ten presets at full width and 2 layers (a global layer
+   among them) with random bf16 weights, a 2048-token prompt and 3 decode
+   steps over the dense native and int8 pools and the bf16 and int8
+   arenas, the prompt's last-token logits and the last step's held against
+   the same forward with the plain attention on a copy of the pool (an MoE
+   preset's plain forward routed as its kernel forward;
+   ``phase_presets``); 13b Qwen3-30B-A3B at full width and depth (61 GB of
+   random weights, after V2-Lite's are freed; ``phase_qwen3_moe``): the
+   bench shape (TTFT full and reuse, reuse logits held to the full
+   prefill's under phase 10's routing rule, the MoE MLP's device time and
+   padded rows, a profiler window each), phase 4's waves on
+   ``ServingEngine`` and phase 5's on ``PagedServingEngine`` per dtype
+   with the experts counted (``Routing``) and profiled decode steps; 13c
+   Gemma-2-9B at full width and depth on ``PagedServingEngine`` (window
+   4096 on alternate layers, softcap 50), two prompts of about 6000
+   tokens over a bf16 and an int8 arena, held as phase 6 holds Phi-3
+   (``phase_gemma2``);
+7. the launch counts of phases 3 to 13, read per phase with every count
    set to 0 just before it (prefill and decode, each > 0 where the phase
-   runs them; "+window" marks launches under a window; the coders count
-   "store" and "retrieve" launches);
+   runs them; "+window", "+softcap" and "+sinks" mark launches under those
+   options; the coders count "store" and "retrieve" launches);
 8. the yardstick: each kernel's time at phase 2's shapes beside its bound,
    its plain version and a PyTorch library time (SDPA; for a paged arena
    the gather of the live pages into dense K/V, then SDPA; for int8 K/V the
@@ -139,7 +164,11 @@ Phases, in order; any failure exits non-zero:
    the heads as K and their first rank columns as V, the SDPA backends that
    take those shapes named); at decode also the device time of the dense
    and latent kernels, the paged kernels and the combine on the paged
-   split's partials alone (``torch.profiler``). No PyTorch call computes
+   split's partials alone (``torch.profiler``); each paged case (rows 4-7,
+   options included) also with the L2 cache flushed before each launch,
+   and by events around calls queued behind a spin of the card
+   (``queued_ms``, warm and L2-cold): a time that the host cannot lengthen
+   and that does not rest on the profiler's records. No PyTorch call computes
    a range coder: the coders' rows (row 12 and its copy pass at tinyllama's
    store, phase 9b's geometry and V2-Lite's latent store; row 11's two
    entries at a retrieve group of each) carry the host C++ coder's time at
@@ -151,6 +180,8 @@ The line before the last is the kernels' JSON record; the last line is
 when CUDA is unavailable or the package is missing.
 """
 
+import dataclasses
+import gc
 import json
 import re
 import shutil
@@ -168,7 +199,7 @@ from lmcache_tpu_torch import (LMCacheEngine, LMCacheEngineConfig,
 from lmcache_tpu_torch import blend, blend_mla, kv, ops
 from lmcache_tpu_torch.chunks import prefix_chunk_hashes
 from lmcache_tpu_torch.codec import CacheGenConfig, range_coder
-from lmcache_tpu_torch.models import llama, mla
+from lmcache_tpu_torch.models import experts, llama, mla, paged
 from lmcache_tpu_torch.ops import _build
 from lmcache_tpu_torch.ops import attention as attn
 from lmcache_tpu_torch.ops import latent_attention as la
@@ -473,6 +504,40 @@ def int8_paged_report(sass):
     return rows
 
 
+# the softcap instantiations of rows 4-7 (mangled): the Hopper body and the
+# split decode over a paged (``Lb1E``) bf16 or int8 (``a``) arena
+PAGED_SOFTCAP = {
+    "body": re.compile(r"flash_sm90_fwdILi(\d+)ELi\d+ELb1E"
+                       r"(a|13__nv_bfloat16)Lb1EE"),
+    "split": re.compile(r"decode_split_fwdILi(\d+)ELb1E"
+                        r"(a|13__nv_bfloat16)Lb1EE")}
+
+
+def paged_softcap_report(sass):
+    """Registers, spills, HGMMA and UTMALDG of each softcap instantiation
+    of rows 4-7's body and split (bf16 and int8 arenas); exits where one
+    was not built. Returns the rows it logged."""
+    rows = []
+    for lib in ("paged_attention", "paged_stream_attention"):
+        regs = ptxas_report(_build.build_logs.get(lib, ""))
+        for kind, pattern in PAGED_SOFTCAP.items():
+            found = {f: c for f, c in sass[lib].items() if pattern.search(f)}
+            if not found:
+                raise SystemExit(f"{lib}: no paged softcap {kind} was built")
+            for fname, counts in sorted(found.items()):
+                m = pattern.search(fname)
+                D, arena = int(m.group(1)), ("int8" if m.group(2) == "a"
+                                             else "bf16")
+                report = regs.get(fname, {"registers": 0, "spill_bytes": 0})
+                rows.append(dict(library=lib, kind=kind, D=D, arena=arena,
+                                 **report, **counts))
+                log(f"  {lib} softcap {kind} D {D} {arena}: "
+                    f"{report['registers']} registers, "
+                    f"{report['spill_bytes']} spill bytes, "
+                    f"{counts['HGMMA']} HGMMA, {counts['UTMALDG']} UTMALDG")
+    return rows
+
+
 # ---------------------------------------------------------------- phase 2 ---
 
 SERVE_S = 2048 + 64 + 1  # phase 4's pool: max_seq + one parking position
@@ -662,7 +727,34 @@ def phase_kernels():
             hold_against_plain("latent_combine_partials", case["name"], out,
                                ref))
         del part_o, part_ml, out, ref
+    opt_gen = torch.Generator(device="cuda").manual_seed(13)
+    for case in paged_option_cases():
+        args, kw = make_paged_inputs(case, opt_gen)
+        out = KERNELS[case["kernel"]][0](*args, **kw)
+        ref = paged_plain(case)(*args, **kw)
+        torch.cuda.synchronize()
+        if case["softcap"] and not case["own_cap"]:
+            cap_moves(case, args, kw, ref)
+        worst[case["kernel"]] = max(
+            worst[case["kernel"]],
+            hold_against_plain(case["kernel"], case["name"], out, ref))
+        del args, out, ref
     return worst
+
+
+def cap_moves(case, args, kw, ref):
+    """Exits unless the cap moves the plain version's output at ``case`` by
+    at least CAP_MOVES (rel_l2): a kernel that ignored the cap would then
+    fail its own tolerance there."""
+    uncapped = paged_plain(case)(*args, **dict(kw, logit_softcap=None))
+    moved = ((ref.float() - uncapped.float()).norm()
+             / ref.float().norm()).item()
+    ok = moved >= CAP_MOVES
+    log(f"    the cap moves the plain output by rel_l2 {moved:.3e} (at "
+        f"least {CAP_MOVES:g}) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise SystemExit(f"{case['kernel']} | {case['name']}: the cap does "
+                         f"not move the plain output past the tolerance")
 
 
 # ------------------------- rows 1 (options), 2 and 3: the dense kernels ---
@@ -882,6 +974,12 @@ NP_PHI3 = -(-(4096 + 1) // PAGE)
 PHI3_WINDOW = 2047
 
 
+# the options of a paged case, off: no window kind but sliding, no softcap,
+# no sinks, the default score scale, pages of PAGE rows
+PAGED_OFF = dict(kind="sliding", softcap=None, sinks=False, sm_scale=None,
+                 page=PAGE)
+
+
 def paged_cases():
     """The shapes the two paged paths give the four kernels, each for the
     bf16 and the int8 arena. ``table``: "fragmented" (a seeded permutation
@@ -918,10 +1016,98 @@ def paged_cases():
             stream = shape["D"] == 64
             kernel = (("quantized_" if quant else "") + "paged_attention"
                       + ("_dma" if stream else ""))
-            cases.append(dict(shape, kernel=kernel, quant=quant,
+            cases.append(dict({**PAGED_OFF, **shape}, kernel=kernel,
+                              quant=quant,
                               kv_len=[o + shape["T"] for o in shape["q_off"]],
                               table=shape.get("table", "fragmented"),
                               idle=shape.get("idle", [])))
+    return cases
+
+
+# Gemma-2's, GPT-OSS's and Llama-4's tables: max_seq 8192 (Gemma-2), and the
+# 16384 positions a prompt of phases 2 and 8 reaches (GPT-OSS, Llama-4)
+NP_GEMMA2 = -(-(8192 + 1) // PAGE)
+NP_16K = -(-(16384 + 1) // PAGE)
+# The scores of these random inputs are about N(0, 1) at the default scale
+# (bf16 arena), where cap * tanh(s / cap) differs from s by about
+# s^3 / (3 cap^2): Gemma-2's cap of 50 moves a bf16 case's output by well
+# under REL_L2_KERNEL, so a kernel that ignored it would pass. A cap of 3
+# moves them by about a third (phase 2 logs it). Each softcap case but
+# Gemma-2's own shape case holds its plain version with and without the cap
+# at least CAP_MOVES apart (rel_l2), so that it fails a kernel that drops
+# the cap.
+CAP_SMALL = 3.0
+CAP_MOVES = 10 * REL_L2_KERNEL
+
+
+def paged_option_cases():
+    """Rows 4-7 with the options of the presets that have them, at their
+    public shapes, over bf16 and int8 arenas, each a prefill segment (the
+    Hopper body) and a decode (the paged split and the combine): Gemma-2
+    (D 256, softcap 50, window 4096), GPT-OSS (D 64, H 64, H_kv 8, sinks,
+    window 128), Llama-4 (D 128, H 40, H_kv 8, chunks of 8192) on the
+    streaming rows 6 and 7, as the paged forward gives them; rows 4 and 5
+    with each option at D 96 (Phi-3's geometry) and D 256 (Gemma-2's); and
+    chunks of 24 keys over pages of 16 (a chunk boundary inside a page).
+    Drawn from their own generator after every other case of phases 2 and
+    8. Softcap at ``CAP_SMALL`` except in Gemma-2's own prefill segment
+    (``own_cap``), which keeps its cap of 50."""
+    off = dict(PAGED_OFF, window=None, idle=[], table="fragmented",
+               own_cap=False)
+    gemma2 = dict(H=16, Hkv=8, D=256, NP=NP_GEMMA2, sm_scale=256.0**-0.5)
+    gpt_oss = dict(H=64, Hkv=8, D=64, NP=NP_16K, sinks=True)
+    llama4 = dict(H=40, Hkv=8, D=128, NP=NP_16K, window=8192,
+                  kind="chunked")
+    phi3 = dict(H=32, Hkv=32, D=96, NP=NP_PHI3)
+    cap = f"softcap {CAP_SMALL:g}"
+    shapes = [
+        ("stream", "gemma-2 prefill segment past the window (softcap 50, "
+         "window 4096)", dict(gemma2, T=512, q_off=[5120], window=4096,
+                              softcap=50.0, own_cap=True)),
+        ("stream", f"gemma-2 prefill segment past the window ({cap}, "
+         "window 4096)", dict(gemma2, T=512, q_off=[5120], window=4096,
+                              softcap=CAP_SMALL)),
+        ("stream", f"gemma-2 decode, local layer ({cap}, window 4096)",
+         dict(gemma2, T=1, q_off=[6005, 5995], window=4096,
+              softcap=CAP_SMALL)),
+        ("stream", f"gemma-2 decode, global layer ({cap})",
+         dict(gemma2, T=1, q_off=[8000, 3000], softcap=CAP_SMALL)),
+        ("stream", "gpt-oss prefill segment (sinks, window 128)",
+         dict(gpt_oss, T=512, q_off=[2000], window=128)),
+        ("stream", "gpt-oss decode, global layer (sinks)",
+         dict(gpt_oss, T=1, q_off=[4000, 17])),
+        ("stream", "llama-4 prefill, a block across the chunk boundary",
+         dict(llama4, T=512, q_off=[8001])),
+        ("stream", "llama-4 decode (chunk 8192)",
+         dict(llama4, T=1, q_off=[8191, 8192])),
+        ("stream", "chunks of 24 keys over pages of 16 (D 128)",
+         dict(H=40, Hkv=8, D=128, NP=64, T=100, q_off=[700], window=24,
+              kind="chunked", page=16)),
+        ("grid", f"D 96 prefill segment ({cap}, window 2047)",
+         dict(phi3, T=512, q_off=[2560], window=2047, softcap=CAP_SMALL)),
+        ("grid", "D 96 decode (sinks, window 2047)",
+         dict(phi3, T=1, q_off=[3010, 2990], window=2047, sinks=True)),
+        ("grid", "D 96 prefill segment across a chunk boundary (chunk "
+         "512)", dict(phi3, T=512, q_off=[3500], window=512, kind="chunked")),
+        ("grid", f"D 256 decode ({cap}, window 4096)",
+         dict(gemma2, T=1, q_off=[6005, 5995], window=4096,
+              softcap=CAP_SMALL)),
+        ("grid", "D 256 prefill segment (sinks)",
+         dict(gemma2, T=512, q_off=[3000], sinks=True)),
+        ("grid", "D 256 decode (chunk 4096)",
+         dict(gemma2, T=1, q_off=[4095, 4096], window=4096,
+              kind="chunked")),
+    ]
+    cases = []
+    for quant in (False, True):
+        for route, name, shape in shapes:
+            kernel = (("quantized_" if quant else "") + "paged_attention"
+                      + ("_dma" if route == "stream" else ""))
+            B = len(shape["q_off"])
+            cases.append(dict(off, name=name, kernel=kernel, quant=quant,
+                              B=B, **shape,
+                              kv_len=[o + shape["T"]
+                                      for o in shape["q_off"]]))
     return cases
 
 
@@ -931,6 +1117,7 @@ def make_paged_inputs(case, gen):
     the case's entry point and of its plain version."""
     dev = "cuda"
     B, T, H, Hkv, D, NP = (case[k] for k in ("B", "T", "H", "Hkv", "D", "NP"))
+    page = case["page"]
     P = B * NP + 1
     q = torch.randn((B, T, H, D), generator=gen, device=dev).bfloat16()
     if case["table"] == "fragmented":
@@ -943,15 +1130,18 @@ def make_paged_inputs(case, gen):
     table = table.contiguous()
     qo = torch.tensor(case["q_off"], dtype=torch.int32, device=dev)
     kl = torch.tensor(case["kv_len"], dtype=torch.int32, device=dev)
-    kw = dict(sliding_window=case["window"])
+    kw = dict(sliding_window=case["window"], window_kind=case["kind"],
+              logit_softcap=case["softcap"], sm_scale=case["sm_scale"])
+    if case["sinks"]:
+        kw["sinks"] = torch.randn(H, generator=gen, device=dev) * 3.0
     if case["quant"]:
-        arena = torch.randint(-127, 128, (2, P, Hkv, PAGE, D), generator=gen,
+        arena = torch.randint(-127, 128, (2, P, Hkv, page, D), generator=gen,
                               device=dev, dtype=torch.int32).to(torch.int8)
         # scales of unit-variance tokens: absmax / 127 is about 0.03
-        scale = (torch.rand((2, P, PAGE), generator=gen, device=dev) * 0.02
+        scale = (torch.rand((2, P, page), generator=gen, device=dev) * 0.02
                  + 0.02)
         return (q, arena[0], arena[1], scale[0], scale[1], table, qo, kl), kw
-    arena = torch.randn((2, P, Hkv, PAGE, D), generator=gen,
+    arena = torch.randn((2, P, Hkv, page, D), generator=gen,
                         device=dev).bfloat16()
     return (q, arena[0], arena[1], table, qo, kl), kw
 
@@ -982,16 +1172,21 @@ def paged_live(case):
     for a query under the causal limit, kv_len and the window; a page is
     live when it holds a key that some query of the sequence sees."""
     pairs, pages = 0, 0
-    W = case["window"]
+    W, page = case["window"], case["page"]
     for b, (q_off, kv_len) in enumerate(zip(case["q_off"], case["kv_len"])):
         qpos = q_off + np.arange(case["T"])
         hi = np.minimum(qpos, kv_len - 1)  # last live key of each query
-        lo = np.maximum(qpos - W + 1, 0) if W else np.zeros_like(qpos)
+        if not W:
+            lo = np.zeros_like(qpos)
+        elif case["kind"] == "chunked":
+            lo = qpos // W * W
+        else:
+            lo = np.maximum(qpos - W + 1, 0)
         pairs += int(np.maximum(hi - lo + 1, 0).sum())
         if b in case["idle"]:
             continue  # every slot of an idle row is the one null page
         if hi.max() >= lo.min():
-            pages += int(hi.max()) // PAGE - int(lo.min()) // PAGE + 1
+            pages += int(hi.max()) // page - int(lo.min()) // page + 1
     return pairs, pages + bool(case["idle"])
 
 
@@ -1001,10 +1196,11 @@ def paged_bound(case):
     live K/V pages once and, for an int8 arena, their scale rows."""
     pairs, pages = paged_live(case)
     B, T, H, Hkv, D = (case[k] for k in ("B", "T", "H", "Hkv", "D"))
+    page = case["page"]
     flops = 4.0 * D * H * pairs
-    kv_bytes = 2 * pages * Hkv * PAGE * D * (1 if case["quant"] else 2)
+    kv_bytes = 2 * pages * Hkv * page * D * (1 if case["quant"] else 2)
     if case["quant"]:
-        kv_bytes += 2 * pages * PAGE * 4
+        kv_bytes += 2 * pages * page * 4
     nbytes = 2 * (2 * B * T * H * D) + kv_bytes
     t_flops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
     if t_flops >= t_bytes:
@@ -1706,9 +1902,10 @@ def _logits_agree(name, got, want, tol=REL_L2_REUSE, same_top1=True,
 
 
 class Routing:
-    """The routed experts that DeepSeek-V2-Lite's MoE layers pick for each
-    token a watched engine computes (phase 10). While it is entered,
-    ``mla._gate`` is wrapped. ``watch(eng)`` makes each forward of ``eng``
+    """The routed experts that an MoE model's layers pick for each token a
+    watched engine computes (DeepSeek-V2-Lite in phase 10, Qwen3-MoE in
+    phase 13b). While it is entered, the model's routing function is
+    wrapped: ``mla._gate``, or ``llama._route`` with ``model="llama"``. ``watch(eng)`` makes each forward of ``eng``
     that runs inside :func:`_recording` store, per live row, the sorted
     top-k expert ids of every MoE layer ``[n_moe, k]`` under a key of the
     token's whole prefix, so two computations of one token (a row of a
@@ -1719,10 +1916,13 @@ class Routing:
     record as it stands (``routing_seen``, in the order of its first token
     and its resumes): the computations its logits saw. A record given as
     ``force`` replays the reference's choice for every token it holds: the
-    gate's weights are taken at the forced experts, as ``mla._gate`` takes
-    them."""
+    gate's weights are taken at the forced experts, as the routing function
+    takes them. Outside an engine, :func:`routed` records or forces one
+    bare forward."""
 
-    def __init__(self):
+    def __init__(self, model="mla"):
+        self.module, self.name = ((llama, "_route") if model == "llama"
+                                  else (mla, "_gate"))
         self.rows = None  # (req, position) or None per row of the forward
         self.picks = []  # the forward's top-k ids, one tensor per MoE layer
         self.force = None  # [n_moe, rows, k] forced ids, -1 where free
@@ -1730,12 +1930,25 @@ class Routing:
         self.wave1 = {}  # the dense engine's (wave 1 record, requests)
 
     def __enter__(self):
-        self.gate = mla._gate
-        mla._gate = self._gate
+        self.gate = getattr(self.module, self.name)
+        setattr(self.module, self.name, self._gate)
         return self
 
     def __exit__(self, *exc):
-        mla._gate = self.gate
+        setattr(self.module, self.name, self.gate)
+
+    def _weights(self, h, lp, cfg, ids):
+        """The routing weights of experts ``ids`` of tokens ``h``."""
+        if self.module is llama:
+            return llama._route_weights(llama._router_logits(h, lp, cfg),
+                                        ids, cfg)
+        logits = h.float() @ lp["router"].float()
+        scores = (torch.sigmoid(logits) if cfg.arch == "v3"
+                  else torch.softmax(logits, dim=-1))
+        w = torch.gather(scores, -1, ids)
+        if cfg.norm_topk_prob:
+            w = w / (w.sum(dim=-1, keepdim=True) + 1e-20)
+        return w * cfg.routed_scaling_factor
 
     def _gate(self, h, lp, cfg):
         topi, topw = self.gate(h, lp, cfg)
@@ -1747,15 +1960,9 @@ class Routing:
                                         != want).any(dim=-1)
             n = int(swap.sum())
             if n:
-                logits = h.float() @ lp["router"].float()
-                scores = (torch.sigmoid(logits) if cfg.arch == "v3"
-                          else torch.softmax(logits, dim=-1))
-                w = torch.gather(scores, -1, want.clamp(min=0))
-                if cfg.norm_topk_prob:
-                    w = w / (w.sum(dim=-1, keepdim=True) + 1e-20)
+                w = self._weights(h, lp, cfg, want.clamp(min=0))
                 topi = torch.where(swap[:, None], want, topi)
-                topw = torch.where(swap[:, None],
-                                   w * cfg.routed_scaling_factor, topw)
+                topw = torch.where(swap[:, None], w, topw)
                 self.swapped += n
         self.picks.append(topi)
         return topi, topw
@@ -1854,6 +2061,18 @@ class Routing:
                 n += int((a != b).any(axis=-1).sum())
                 seen += a.shape[0]
         return n, seen
+
+
+def routed(routing, fn, force=None):
+    """``fn()``, one bare forward, with its expert choices recorded:
+    (its result, the sorted top-k ids [n_moe, rows, k]); routed as
+    ``force`` ([n_moe, rows, k] sorted ids, -1 where free) where given."""
+    routing.rows, routing.picks, routing.force = True, [], force
+    try:
+        out = fn()
+    finally:
+        routing.rows, routing.force = None, None
+    return out, torch.stack(routing.picks).sort(dim=-1).values
 
 
 def _recording(eng, fn, force=None):
@@ -2347,21 +2566,22 @@ def phase_paged_tinyllama(cfg, params, prompts, dense_logits):
     return launches, profiles
 
 
-def phase_paged_phi3():
-    log("== phase 6: PagedServingEngine, Phi-3-mini-4k (D 96, window 2047), "
-        "full width and depth")
-    cfg = llama.LlamaConfig.phi3_mini_4k()
-    params = llama.init_params(
-        cfg, generator=torch.Generator(device="cuda").manual_seed(0))
-    rng = np.random.default_rng(2)
-    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (3000, 2987)]
+def paged_full_depth(cfg, params, model, prompts, num_pages,
+                     near_tie=False):
+    """A ``PagedServingEngine`` on ``cfg`` at full width and depth over a
+    bf16 and then an int8 arena: the two prompts, 16 new tokens; the logits
+    of the last prompt token held against ``forward_paged*`` with the plain
+    attention on the same arena (``near_tie``: phase 6d's top-1 rule); one
+    ``torch.profiler`` window over a prefill step of two fresh prompts and
+    one over a decode step, per arena. Returns (launch counts by arena, the
+    profiles)."""
     launches, first, profiles = {}, {}, []
     for kv_dtype, arena in (("native", "bf16"), ("int8", "int8")):
         log(f"  -- {arena} arena")
         reset_launch_counts()
-        eng = paged_engine(cfg, params, max_batch=2, max_seq=cfg.max_seq_len,
-                           num_pages=128, prefill_token_budget=2 * 512,
-                           kv_dtype=kv_dtype)
+        eng = paged_engine(cfg, params, max_batch=2,
+                           max_seq=cfg.max_seq_len, num_pages=num_pages,
+                           prefill_token_budget=2 * 512, kv_dtype=kv_dtype)
         plain = {}
         segment = eng._prefill_segment
 
@@ -2387,25 +2607,60 @@ def phase_paged_phi3():
         eng._prefill_segment = segment_and_plain
         reqs, first[arena], _, _ = paged_wave(
             eng, "two prompts, 16 new tokens", prompts, 16)
-        launches[f"paged phi3 {arena}"] = read_launch_counts()
+        launches[f"paged {model} {arena}"] = read_launch_counts()
         finite = all(bool(torch.isfinite(l).all()) for l in first[arena])
         if not (finite and _logits_agree(
                 "last prompt token vs forward_paged with the plain attention",
-                first[arena], [plain[r.request_id] for r in reqs])):
-            raise SystemExit(f"phi3 {arena} arena: the kernel path disagrees "
-                             f"with the plain attention")
+                first[arena], [plain[r.request_id] for r in reqs],
+                near_tie=near_tie)):
+            raise SystemExit(f"{model} {arena} arena: the kernel path "
+                             f"disagrees with the plain attention")
         # a step of two fresh prompts' 512-token segments, then a decode
-        # step of both rows (rows 4 and 5 over the window of 2047)
+        # step of both rows
         eng._prefill_segment = segment
         profiles.append(profile_decode_step(eng, prompts, arena, prefill=True,
-                                            model="phi3 paged"))
+                                            model=f"{model} paged"))
         del eng, plain
         torch.cuda.empty_cache()
     if not _logits_agree("int8 arena vs bf16 arena", first["int8"],
                          first["bf16"], REL_L2_INT8, same_top1=False):
-        raise SystemExit("phi3: the int8 arena's logits left the bf16 "
-                         "arena's")
+        raise SystemExit(f"{model}: the int8 arena's logits left the bf16 "
+                         f"arena's")
     return launches, profiles
+
+
+def free_device_memory():
+    """Collect the engines an earlier phase left in reference cycles (the
+    checks wrap an engine's methods in closures over the engine) with the
+    weights they hold, and return the cached blocks."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def draw_params(cfg):
+    """Random bf16 weights of ``cfg`` from a generator seeded 0, drawn after
+    :func:`free_device_memory`; logs their size and the time to draw
+    them."""
+    free_device_memory()
+    t0 = time.perf_counter()
+    params = llama.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n = sum(t.numel() * t.element_size() for t in (
+        [params[k] for k in ("embed", "final_norm", "lm_head")]
+        + list(params["layers"].values())))
+    log(f"  weights {n / 1e9:.2f} GB drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def phase_paged_phi3():
+    log("== phase 6: PagedServingEngine, Phi-3-mini-4k (D 96, window 2047), "
+        "full width and depth")
+    cfg = llama.LlamaConfig.phi3_mini_4k()
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (3000, 2987)]
+    return paged_full_depth(cfg, draw_params(cfg), "phi3", prompts, 128)
 
 
 # ------------------------------------------------------- phases 6c-6e ---
@@ -3744,6 +3999,342 @@ def phase_blend(cfg, params, mla_model, routing=None, engines=()):
 
 # ---------------------------------------------------------------- phase 8 ---
 
+# ------------------------ phase 13: the LlamaConfig families at full width ---
+
+# the presets that the forwards refused before this slice, in the order
+# phase 13a runs them
+NEW_PRESETS = ("qwen3_4b", "qwen3_8b", "glm4_0414_9b", "olmo2_7b",
+               "gemma2_9b", "gemma3_4b", "gpt_oss_20b", "mixtral_8x7b",
+               "qwen3_moe_30b_a3b", "llama4_scout_17b_16e")
+PRESET_PROMPT, PRESET_DECODE = 2048, 3
+PRESET_NP = -(-(PRESET_PROMPT + PRESET_DECODE) // PAGE)
+QWEN_MOE_MODEL = "qwen3-moe-30b-a3b"
+GEMMA2_PROMPTS = (6000, 5987)
+
+
+def preset_at_depth(name, n_layers=2):
+    """The preset at full width and ``n_layers`` layers. Where its pattern
+    puts no global layer among them (Gemma-3's 5 local to 1 global, Llama-4's
+    3 to 1), the last of them is made global, so that both kinds run."""
+    cfg = getattr(llama.LlamaConfig, name)()
+    cut = dataclasses.replace(cfg, n_layers=n_layers)
+    if cfg.sliding_window is not None and not cut.layer_windows().any():
+        cut = dataclasses.replace(
+            cut, global_layer_map=(False,) * (n_layers - 1) + (True,))
+    return cut
+
+
+def expected_kinds(cfg, phase):
+    """The launch-count keys a forward of ``cfg`` gives the attention
+    kernels in ``phase`` ("prefill" or "decode"): "+window" on local
+    layers, "+softcap" and "+sinks" where the config has them."""
+    marks = ("+softcap" if cfg.attn_logit_softcap else "") + (
+        "+sinks" if cfg.attn_sinks else "")
+    return tuple(sorted({phase + ("+window" if w else "") + marks
+                         for w in llama._layer_windows(cfg)}))
+
+
+def preset_paths(cfg):
+    """(name, fresh pool or arena, forward, extra arguments) of the four
+    paths a preset runs in phase 13a: the dense native and int8 pools and
+    the bf16 and int8 arenas (page 64, one sequence's table)."""
+    S = PRESET_NP * PAGE
+    table = torch.arange(1, PRESET_NP + 1, dtype=torch.int32,
+                         device="cuda")[None]
+    return [
+        ("dense native", lambda: llama.new_kv_cache(cfg, 1, S),
+         llama.forward, ()),
+        ("dense int8", lambda: llama.new_quantized_kv_cache(cfg, 1, S),
+         llama.forward_quantized, ()),
+        ("paged bf16",
+         lambda: paged.new_paged_kv_pool(cfg, PRESET_NP + 1, PAGE),
+         paged.forward_paged, (table,)),
+        ("paged int8",
+         lambda: paged.new_quantized_paged_pool(cfg, PRESET_NP + 1, PAGE),
+         paged.forward_paged_quantized, (table,)),
+    ]
+
+
+def _clone_pool(pool):
+    return ({k: v.clone() for k, v in pool.items()} if isinstance(pool, dict)
+            else pool.clone())
+
+
+def phase_presets():
+    """Phase 13a: every newly served preset at full width and 2 layers with
+    random bf16 weights: a 2048-token prompt and 3 decode steps through the
+    dense native and int8 pools and the bf16 and int8 arenas; the prompt's
+    last-token logits and the last decode step's held against the same
+    forward with the plain attention on a copy of the same pool (an MoE
+    preset's plain forward routed as the kernel forward was, the (layer,
+    token) sets it would have picked otherwise counted). Returns (launch
+    counts by preset, the phase's numbers)."""
+    log(f"== phase 13a: the newly served presets at full width and 2 layers, "
+        f"a {PRESET_PROMPT}-token prompt and {PRESET_DECODE} decode steps "
+        f"over the dense native and int8 pools and the bf16 and int8 arenas")
+    launches, out = {}, {}
+    rng = np.random.default_rng(13)
+    for name in NEW_PRESETS:
+        cfg = preset_at_depth(name)
+        log(f"  -- {name}: dim {cfg.dim}, heads {cfg.n_heads}/"
+            f"{cfg.n_kv_heads}, D {cfg.head_dim}, global layers "
+            f"{cfg.layer_windows().tolist()}, "
+            f"{cfg.n_experts or 0} experts")
+        params = draw_params(cfg)
+        routing = Routing(model="llama") if cfg.n_experts else None
+        tokens = torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, PRESET_PROMPT),
+            device="cuda").long()[None]
+        reset_launch_counts()
+        rows = {}
+        for path, new, fwd, extra in preset_paths(cfg):
+            def step(tok, pos, pool, use_kernel=True):
+                logits, _ = fwd(params, cfg, tok, torch.tensor(
+                    [pos], dtype=torch.int32, device="cuda"), pool, *extra,
+                    use_kernel=use_kernel, last_logit_only=True)
+                return logits[0, -1].float()
+
+            def against_plain(tok, pos, pool):
+                """The kernel step on ``pool``, the plain step on a copy of
+                it as it was: (kernel logits, plain logits, swaps)."""
+                copy = _clone_pool(pool)
+                if routing is None:
+                    got = step(tok, pos, pool)
+                    return got, step(tok, pos, copy, False), 0
+                with routing:
+                    got, picks = routed(routing, lambda: step(tok, pos, pool))
+                    routing.swapped = 0
+                    want, _ = routed(routing,
+                                     lambda: step(tok, pos, copy, False),
+                                     force=picks)
+                return got, want, routing.swapped
+
+            pool = new()
+            got, want, sw1 = against_plain(tokens, 0, pool)
+            pos, nxt = PRESET_PROMPT, int(got.argmax())
+            for _ in range(PRESET_DECODE - 1):
+                logits = step(torch.tensor([[nxt]], device="cuda"), pos, pool)
+                pos, nxt = pos + 1, int(logits.argmax())
+            got2, want2, sw2 = against_plain(
+                torch.tensor([[nxt]], device="cuda"), pos, pool)
+            ok = all(bool(torch.isfinite(t).all()) for t in (got, got2))
+            ok = _logits_agree(f"{path}: prompt's last token and the last "
+                               f"decode step vs the plain attention"
+                               f"{f' (routed as the kernel forward: {sw1} and {sw2} sets swapped)' if routing else ''}",
+                               [got, got2], [want, want2],
+                               near_tie=True) and ok
+            rows[path] = {"rel_l2": [((g - w).norm() / w.norm()).item()
+                                     for g, w in ((got, want),
+                                                  (got2, want2))],
+                          "swapped": [sw1, sw2]}
+            if not ok:
+                raise SystemExit(f"{name} {path}: the kernel path disagrees "
+                                 f"with the plain attention")
+            del pool
+        launches[f"preset {name}"] = read_launch_counts()
+        out[name] = rows
+        del params
+        torch.cuda.empty_cache()
+    return launches, out
+
+
+@contextmanager
+def moe_meter():
+    """While entered, the device time of every ``llama._moe_mlp`` call
+    (routing, dispatch, expert products and combine; CUDA events around
+    each) and the rows of the padded expert blocks against the routed
+    pairs (``experts.dispatch``). Yields a dict whose "ms", "calls",
+    "block_rows" and "pairs" are read after a synchronise."""
+    stats = {"events": [], "block_rows": 0, "pairs": 0}
+    moe, dispatch = llama._moe_mlp, experts.dispatch
+
+    def timed_moe(h, lp, cfg):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        y = moe(h, lp, cfg)
+        end.record()
+        stats["events"].append((start, end))
+        return y
+
+    def counted_dispatch(hf, topi, n_experts, scale=None):
+        x, slot = dispatch(hf, topi, n_experts, scale)
+        stats["block_rows"] += x.shape[0] * x.shape[1]
+        stats["pairs"] += topi.numel()
+        return x, slot
+
+    llama._moe_mlp, experts.dispatch = timed_moe, counted_dispatch
+    try:
+        yield stats
+    finally:
+        llama._moe_mlp, experts.dispatch = moe, dispatch
+        torch.cuda.synchronize()
+        stats["ms"] = sum(a.elapsed_time(b) for a, b in stats.pop("events"))
+
+
+def llama_bench(cfg, params, routing, model, reps):
+    """13b's bench shape: full prefill of CTX + SUFFIX tokens, store of the
+    CTX prefix into the "cuda" tier, retrieve, inject, suffix prefill. The
+    suffix's expert choices in the reuse request are compared with the full
+    prefill's: a request whose routing flipped in some (layer, token) is
+    held to ``REL_L2_MOE`` and run again routed as the full prefill, which
+    must hold ``REL_L2_REUSE``; else it is held to ``REL_L2_REUSE``. Phase
+    6d's top-1 rule. TTFT full and reuse, a profiler window and the MoE
+    MLP's device time and padded rows over each."""
+    log(f"  -- 13b bench: prefill -> store -> retrieve -> inject -> suffix "
+        f"prefill, CTX {CTX} + SUFFIX {SUFFIX}")
+    S = CTX + SUFFIX
+    tokens_np = np.random.default_rng(14).integers(0, cfg.vocab_size, S,
+                                                   dtype=np.int32)
+    tokens = torch.as_tensor(tokens_np, device="cuda").long()[None]
+    engine = _tier(model, cfg)
+    zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+    def prefill_full():
+        logits, cache = llama.forward(params, cfg, tokens, zero,
+                                      llama.new_kv_cache(cfg, 1, S),
+                                      last_logit_only=True)
+        return logits[0, -1].float(), cache
+
+    def prefill_reuse():
+        blob, mask = engine.retrieve(tokens_np, return_tuple=False)
+        if int(mask.sum()) != CTX:
+            raise SystemExit(f"expected {CTX} hits, got {int(mask.sum())}")
+        cache = llama.blob_into_cache(llama.new_kv_cache(cfg, 1, S), blob)
+        logits, _ = llama.forward(
+            params, cfg, tokens[:, CTX:],
+            torch.full((1,), CTX, dtype=torch.int32, device="cuda"), cache,
+            last_logit_only=True)
+        return logits[0, -1].float()
+
+    with routing:
+        (full_logits, cache), full_picks = routed(routing, prefill_full)
+        n_chunks = engine.store(tokens_np[:CTX],
+                                llama.cache_to_blob(cache, 0, CTX))
+        del cache
+        reuse_logits, reuse_picks = routed(routing, prefill_reuse)
+        want = full_picks[:, CTX:]
+        flips = int((reuse_picks != want).any(dim=-1).sum())
+        seen = want.shape[0] * want.shape[1]
+        log(f"  stored {n_chunks} chunks; the suffix's routing in the reuse "
+            f"request differs from the full prefill's in {flips} of {seen} "
+            f"(layer, token) top-{cfg.n_experts_per_tok} sets")
+        ok = bool(torch.isfinite(reuse_logits).all()) and _logits_agree(
+            "reuse vs full prefill", [reuse_logits], [full_logits],
+            near_tie=True, flips=[(flips, seen)])
+        if ok and flips:
+            routing.swapped = 0
+            forced, _ = routed(routing, prefill_reuse, force=want)
+            log(f"  reuse again routed as the full prefill: "
+                f"{routing.swapped} sets replaced")
+            ok = _logits_agree("reuse routed as the full prefill vs full "
+                               "prefill", [forced], [full_logits],
+                               near_tie=True)
+        del full_picks, reuse_picks, want
+    if not ok:
+        raise SystemExit(f"{model}: reuse logits disagree with the full "
+                         f"prefill")
+    t_full = wall_best(lambda: prefill_full(), n=reps)
+    t_reuse = wall_best(prefill_reuse, n=reps)
+    log(f"  TTFT full {t_full:.2f} ms, TTFT reuse {t_reuse:.2f} ms, ratio "
+        f"{t_full / t_reuse:.2f}x (best of {reps} after a warm-up)")
+    meters = []
+    for name, fn in (("full prefill", lambda: prefill_full()),
+                     ("reuse request", prefill_reuse)):
+        with moe_meter() as meter:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        log(f"  {name}: MoE MLP device time {meter['ms']:.2f} ms of "
+            f"{wall:.2f} ms wall ({meter['ms'] / wall:.4f}); padded expert "
+            f"blocks {meter['block_rows']} rows for {meter['pairs']} routed "
+            f"pairs ({meter['block_rows'] / meter['pairs']:.4f}x)")
+        meters.append({"window": name, "wall_ms": wall, "moe_ms": meter["ms"],
+                       "block_rows": meter["block_rows"],
+                       "pairs": meter["pairs"]})
+    profile = [profile_window(f"{model} full prefill",
+                              lambda: prefill_full(), top=8),
+               profile_window(f"{model} reuse request", prefill_reuse,
+                              top=8)]
+    engine.close()
+    return {"ttft_full_ms": t_full, "ttft_reuse_ms": t_reuse,
+            "speedup": t_full / t_reuse, "routing_flips": [flips, seen],
+            "moe": meters, "profile": profile}
+
+
+def phase_qwen3_moe(reps=2):
+    """Phase 13b: Qwen3-30B-A3B at full width and depth (48 layers, 128
+    experts, top 8, qk-norm; random bf16 weights from a seeded generator,
+    61 GB): the bench shape (:func:`llama_bench`), phase 4's four waves on
+    ``ServingEngine`` over the native and the int8 pool and phase 5's on
+    ``PagedServingEngine`` over the bf16 and the int8 arena (one
+    preemption), with a profiled decode step each, the expert choices
+    counted by :class:`Routing` as phase 10 counts V2-Lite's. Returns
+    (launch counts by sub-phase, the phase's numbers)."""
+    cfg = llama.LlamaConfig.qwen3_moe_30b_a3b()
+    log(f"== phase 13b: Qwen3-30B-A3B ({cfg.n_layers} layers, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, D {cfg.head_dim}, "
+        f"{cfg.n_experts} experts of {cfg.moe_hidden_dim}, top "
+        f"{cfg.n_experts_per_tok}), random weights, full width and depth")
+    params = draw_params(cfg)
+    launches, out = {}, {}
+    routing = Routing(model="llama")
+    reset_launch_counts()
+    out["bench"] = llama_bench(cfg, params, routing, QWEN_MOE_MODEL, reps)
+    launches["qwen3-moe bench"] = read_launch_counts()
+    first = {}
+    for kv_dtype in ("native", "int8"):
+        reset_launch_counts()
+        with routing:
+            prompts, first[kv_dtype] = phase_serving(
+                cfg, params, kv_dtype, model=QWEN_MOE_MODEL, max_new=8,
+                near_tie=True, routing=routing,
+                label=f"  -- 13b: ServingEngine, four waves, {kv_dtype} pool")
+        launches[f"qwen3-moe serving {kv_dtype}"] = read_launch_counts()
+        torch.cuda.empty_cache()
+    if not _logits_agree("int8 pool vs native pool, wave 1", first["int8"],
+                         first["native"], REL_L2_INT8, same_top1=False):
+        raise SystemExit("qwen3-moe: the int8 pool's logits left the native "
+                         "pool's")
+    out["dense_decode_profile"] = profile_dense_decode_step(
+        cfg, params, prompts, "native")
+    log("  -- 13b: PagedServingEngine (page 64), four waves per arena")
+    paged_first, out["paged_decode_profiles"] = {}, []
+    for kv_dtype, arena in (("native", "bf16"), ("int8", "int8")):
+        reset_launch_counts()
+        with routing:
+            paged_first[arena], profile = paged_tinyllama_waves(
+                cfg, params, prompts, first["native"], kv_dtype,
+                model=QWEN_MOE_MODEL, max_new=8, long_new=66, near_tie=True,
+                routing=routing)
+        launches[f"qwen3-moe paged {arena}"] = read_launch_counts()
+        out["paged_decode_profiles"].append(profile)
+        torch.cuda.empty_cache()
+    if not _logits_agree("int8 arena vs bf16 arena, wave 1",
+                         paged_first["int8"], paged_first["bf16"],
+                         REL_L2_INT8, same_top1=False):
+        raise SystemExit("qwen3-moe: the int8 arena's logits left the bf16 "
+                         "arena's")
+    del params
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def phase_gemma2():
+    """Phase 13c: Gemma-2-9B at full width and depth (42 layers, D 256,
+    softcap 50, window 4096 on alternate layers) on ``PagedServingEngine``,
+    two prompts past the window, bf16 then int8 arena, held as phase 6
+    holds Phi-3 (phase 6d's top-1 rule)."""
+    log("== phase 13c: PagedServingEngine, Gemma-2-9B (42 layers, D 256, "
+        "softcap 50, window 4096 on alternate layers), full width and depth")
+    cfg = llama.LlamaConfig.gemma2_9b()
+    rng = np.random.default_rng(15)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in GEMMA2_PROMPTS]
+    return paged_full_depth(cfg, draw_params(cfg), "gemma2", prompts, 200,
+                            near_tie=True)
+
+
 def cuda_ms_cold(fn, iters):
     """Mean device time of ``fn`` in ms with the L2 cache flushed before
     every call (a 128 MiB buffer is overwritten; the flush is outside the
@@ -3760,6 +4351,76 @@ def cuda_ms_cold(fn, iters):
         end.record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
+def queued_ms(fn, iters, flush=None):
+    """Mean device time of one call of ``fn`` in ms, each of ``iters``
+    calls between its own two events, all of them queued while the card
+    spins (``torch.cuda._sleep``), so that no call waits for the host:
+    what the card takes for the call's kernels alone. With ``flush`` (a
+    buffer), the L2 cache is flushed before each call, outside its events.
+    The spin doubles until the card is still in it when the host has
+    queued the last call."""
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    spin = 1 << 24  # cycles, about 10 ms
+    for _ in range(8):
+        torch.cuda._sleep(spin)
+        for start, end in events:
+            if flush is not None:
+                flush.zero_()
+            start.record()
+            fn()
+            end.record()
+        queued = not events[0][0].query()
+        torch.cuda.synchronize()
+        if queued:
+            return sum(s.elapsed_time(e) for s, e in events) / iters
+        spin *= 2
+    raise SystemExit("queued_ms: the host did not queue the calls within "
+                     "the card's spin")
+
+
+def time_paged(case, gen, flush):
+    """Phase 8's row of a paged case: its times by events (back to back, and
+    with the L2 cache flushed before each launch), the kernels alone (by
+    the profiler, and queued behind a spin, warm and with the L2 cache
+    ``flush``ed), its bound, plain version and library call."""
+    args, kw = make_paged_inputs(case, gen)
+    entry = KERNELS[case["kernel"]][0]
+    plain = paged_plain(case)
+    iters = 200 if case["T"] == 1 else 20
+    ms = cuda_ms(lambda: entry(*args, **kw), iters=iters)
+    cold_ms = cuda_ms_cold(lambda: entry(*args, **kw), iters=50)
+    plain_ms = cuda_ms(lambda: plain(*args, **kw), iters=3, warmup=1)
+    gather_ms, sdpa_ms = paged_library(case, args, iters)
+    bound_ms, bound_by = paged_bound(case)
+    row = {"shape": case["name"], "ms": ms, "cold_ms": cold_ms,
+           "plain_ms": plain_ms,
+           "library_ms": (None if sdpa_ms is None
+                          else gather_ms + sdpa_ms),
+           "library_gather_ms": gather_ms, "library_sdpa_ms": sdpa_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    # the kernels alone, without the gaps in which the card waits for
+    # the host (rows 4 and 6 at decode: the split and the combine): by
+    # the profiler, and by events around calls queued behind a spin,
+    # warm and with the L2 cache flushed before each call
+    row["kernel_ms"] = kernel_ms(lambda: entry(*args, **kw), iters=50)
+    row["queued_ms"] = queued_ms(lambda: entry(*args, **kw), iters=50)
+    row["queued_cold_ms"] = queued_ms(lambda: entry(*args, **kw),
+                                      iters=50, flush=flush)
+    dev = (f" (L2 flushed before each launch: {cold_ms:.4f} ms; the "
+           f"kernels alone: profiler {row['kernel_ms']}, queued "
+           f"{row['queued_ms']:.4f} ms, queued with the L2 flushed "
+           f"{row['queued_cold_ms']:.4f} ms)")
+    lib = ("none (no single call)" if sdpa_ms is None else
+           f"gather {gather_ms:.4f} ms + SDPA {sdpa_ms:.4f} ms")
+    log(f"  {case['kernel']} | {case['name']}: kernel {ms:.4f} ms{dev}, "
+        f"bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
+        f"library {lib}")
+    return row
 
 
 def phase_yardstick():
@@ -3876,30 +4537,9 @@ def phase_yardstick():
         rows[case["kernel"]].append(row)
         del q, kv
 
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     for case in paged_cases():
-        args, kw = make_paged_inputs(case, gen)
-        entry = KERNELS[case["kernel"]][0]
-        plain = paged_plain(case)
-        iters = 200 if case["T"] == 1 else 20
-        ms = cuda_ms(lambda: entry(*args, **kw), iters=iters)
-        cold_ms = cuda_ms_cold(lambda: entry(*args, **kw), iters=50)
-        plain_ms = cuda_ms(lambda: plain(*args, **kw), iters=3, warmup=1)
-        gather_ms, sdpa_ms = paged_library(case, args, iters)
-        bound_ms, bound_by = paged_bound(case)
-        row = {"shape": case["name"], "ms": ms, "cold_ms": cold_ms,
-               "plain_ms": plain_ms, "library_ms": gather_ms + sdpa_ms,
-               "library_gather_ms": gather_ms, "library_sdpa_ms": sdpa_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by}
-        # the kernels alone, without the gaps in which the card waits for
-        # the host (rows 4 and 6 at decode: the split and the combine)
-        row["kernel_ms"] = kernel_ms(lambda: entry(*args, **kw), iters=50)
-        dev = f", device time of the kernels alone {row['kernel_ms']}"
-        log(f"  {case['kernel']} | {case['name']}: kernel {ms:.4f} ms (L2 "
-            f"flushed before each launch: {cold_ms:.4f} ms{dev}), bound "
-            f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
-            f"gather {gather_ms:.4f} ms + SDPA {sdpa_ms:.4f} ms")
-        rows[case["kernel"]].append(row)
-        del args
+        rows[case["kernel"]].append(time_paged(case, gen, flush))
     # after the paged kernels, as in phase 2
     for case in paged_combine_cases():
         time_combine(case["name"], True, *make_paged_combine_inputs(case, gen))
@@ -3955,6 +4595,9 @@ def phase_yardstick():
             f"(device time {dev_ms}), bound {bound_ms:.4f} ms ({bound_by}), "
             f"plain {plain_ms:.4f} ms, library none (no single call)")
         del part_o, part_ml
+    opt_gen = torch.Generator(device="cuda").manual_seed(13)
+    for case in paged_option_cases():
+        rows[case["kernel"]].append(time_paged(case, opt_gen, flush))
     return rows
 
 
@@ -3962,16 +4605,20 @@ def paged_library(case, args, iters):
     """No single PyTorch call reads a paged arena: the library yardstick is
     the gather of the live pages into dense bf16 K/V [B, H_kv, S, D]
     (dequantized for an int8 arena), then SDPA over it with the same mask.
-    Returns (gather ms, SDPA ms)."""
+    Returns (gather ms, SDPA ms), or (None, None) where a softcap or sinks
+    leave no single call."""
+    if case["softcap"] or case["sinks"]:
+        return None, None
     if case["quant"]:
         q, k_pool, v_pool, k_scale, v_scale, table, qo, kl = args
     else:
         q, k_pool, v_pool, table, qo, kl = args
         k_scale = v_scale = None
     B, T, Hkv, D = case["B"], case["T"], case["Hkv"], case["D"]
-    n_live = -(-max(case["kv_len"]) // PAGE)
+    page = case["page"]
+    n_live = -(-max(case["kv_len"]) // page)
     ids = table[:, :n_live].long()
-    S = n_live * PAGE
+    S = n_live * page
 
     def dense(pool, scale):
         x = pool[ids]  # [B, n, H_kv, page, D]
@@ -3987,12 +4634,16 @@ def paged_library(case, args, iters):
     kpos = torch.arange(S, device="cuda")[None, None]
     qpos = (qo[:, None] + torch.arange(T, device="cuda")[None])[:, :, None]
     mask = (kpos <= qpos) & (kpos < kl[:, None, None])
-    if case["window"]:
-        mask &= kpos > qpos - case["window"]
+    W = case["window"]
+    if W and case["kind"] == "chunked":
+        mask &= (kpos // W) == (qpos // W)
+    elif W:
+        mask &= kpos > qpos - W
     mask = mask[:, None]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return (cuda_ms(gather, iters=iters),
-            cuda_ms(lambda: sdpa(qh, k, v, attn_mask=mask, enable_gqa=True),
+            cuda_ms(lambda: sdpa(qh, k, v, attn_mask=mask, enable_gqa=True,
+                                 scale=case["sm_scale"]),
                     iters=iters))
 
 
@@ -4015,7 +4666,9 @@ def main():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  nvcc {name}: {line.strip()}")
-    int8_paged = int8_paged_report(sass_counts(libs))
+    sass = sass_counts(libs)
+    int8_paged = int8_paged_report(sass)
+    paged_softcap = paged_softcap_report(sass)
 
     max_abs = phase_kernels()
     launches = {}
@@ -4064,6 +4717,13 @@ def main():
     torch.cuda.empty_cache()
     mla_launches, mla_out = phase_mla(remote["store"]["wire_bytes"])
     launches.update(mla_launches)
+    torch.cuda.empty_cache()
+    qwen_launches, qwen_out = phase_qwen3_moe()
+    launches.update(qwen_launches)
+    preset_launches, preset_out = phase_presets()
+    launches.update(preset_launches)
+    gemma2_launches, gemma2_profiles = phase_gemma2()
+    launches.update(gemma2_launches)
     reset_launch_counts()
 
     log("== phase 7: launch counts")
@@ -4079,10 +4739,11 @@ def main():
         "paged tinyllama int8": [("quantized_paged_attention_dma",
                                   ("prefill", "decode")),
                                  ("combine_partials", ("decode",))],
-        "paged phi3 bf16": [("paged_attention", ("prefill", "decode")),
+        "paged phi3 bf16": [("paged_attention",
+                             ("prefill+window", "decode+window")),
                             ("combine_partials", ("decode",))],
         "paged phi3 int8": [("quantized_paged_attention",
-                             ("prefill", "decode")),
+                             ("prefill+window", "decode+window")),
                             ("combine_partials", ("decode",))],
         "int8 dense bench": ("quantized_flash_attention", ("prefill",)),
         "int8 dense serving": [("quantized_flash_attention",
@@ -4136,7 +4797,37 @@ def main():
                                               ("decode",)),
         "mla blend MLAPagedServingEngine native": (
             "paged_latent_attention_dma", ("decode",)),
+        "qwen3-moe bench": ("flash_attention", ("prefill",)),
+        "qwen3-moe serving native": [("flash_attention",
+                                      ("prefill", "decode")),
+                                     ("combine_partials", ("decode",))],
+        "qwen3-moe serving int8": [("quantized_flash_attention",
+                                    ("prefill", "decode")),
+                                   ("combine_partials", ("decode",))],
+        "qwen3-moe paged bf16": [("paged_attention_dma",
+                                  ("prefill", "decode")),
+                                 ("combine_partials", ("decode",))],
+        "qwen3-moe paged int8": [("quantized_paged_attention_dma",
+                                  ("prefill", "decode")),
+                                 ("combine_partials", ("decode",))],
     }
+    gemma2 = llama.LlamaConfig.gemma2_9b()
+    for arena, kernel in (("bf16", "paged_attention_dma"),
+                          ("int8", "quantized_paged_attention_dma")):
+        expected[f"paged gemma2 {arena}"] = [
+            (kernel, expected_kinds(gemma2, "prefill")
+             + expected_kinds(gemma2, "decode")),
+            ("combine_partials", ("decode",))]
+    for name in NEW_PRESETS:
+        cfg = preset_at_depth(name)
+        kinds = (expected_kinds(cfg, "prefill")
+                 + expected_kinds(cfg, "decode"))
+        expected[f"preset {name}"] = [
+            (k, kinds) for k in ("flash_attention",
+                                 "quantized_flash_attention",
+                                 "paged_attention_dma",
+                                 "quantized_paged_attention_dma")] + [
+            ("combine_partials", ("decode",))]
     for phase, wanted in expected.items():
         for kernel, kinds in (wanted if isinstance(wanted, list)
                               else [wanted]):
@@ -4168,8 +4859,11 @@ def main():
               "phi3_paged_profiles": phi3_profiles,
               "dense_decode_profiles": dense_decode_profiles,
               "mistral_profiles": mistral_profiles, "mla": mla_out,
+              "qwen3_moe": qwen_out, "presets": preset_out,
+              "gemma2_paged_profiles": gemma2_profiles,
               "ablation": ablation, "blend": blend_out,
-              "int8_paged_build": int8_paged, "card": card}
+              "int8_paged_build": int8_paged,
+              "paged_softcap_build": paged_softcap, "card": card}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,8 +24,11 @@ missing. The blend:
 The chunk prefills run ``llama.forward``, whose attention is kernel row 1
 on the card; the gathered-token attention of :func:`_attend_selected` is
 plain PyTorch, as the JAX package computes it outside any Pallas kernel.
-Family traits that the port's forwards refuse (ROADMAP, module item 6)
-are refused here too.
+Every ``LlamaConfig`` family blends: the selective recompute runs the
+forward's block structure (q/k norms, sandwich norms, MoE MLP, Llama-4's
+query traits by each layer's is-global flag), and the key shift spins at
+each layer's own rope frequencies where they differ by layer (Gemma-3's
+dual theta; Llama-4's NoPE global layers, whose keys do not move).
 """
 
 from typing import List, Sequence, Tuple
@@ -55,7 +58,9 @@ def rope_shift_keys(keys: torch.Tensor, delta, theta: float,
     ``LlamaConfig.rope_scaling_spec`` frequency scaling: the shift must spin
     at the *scaled* frequencies). The keys already carry yarn's mscale from
     their first roping, so the shift, a pure rotation, does not apply it
-    again. ``inv_freq`` overrides the derived frequencies."""
+    again. ``inv_freq`` overrides the derived frequencies; it may carry
+    leading axes that broadcast against ``delta[..., None]`` (``[L, 1,
+    rd/2]``: a layer's own frequencies, :func:`assemble_chunks`)."""
     D = keys.shape[-1]
     rd = rotary_dim or D
     kr = keys[..., :rd].float()
@@ -151,11 +156,18 @@ def blend_prefill(params, cfg: llama.LlamaConfig, tokens: torch.Tensor,
     group = cfg.n_heads // cfg.n_kv_heads
     positions = torch.arange(T, device=dev)
     windows = llama._layer_windows(cfg)
+    # the JAX blend hands each layer its is-global flag as the config gives
+    # it (not the forward scan's uniform-pattern False)
+    globals_ = [bool(g) for g in cfg.layer_windows()]
     lps = params["layers"]
     kv = blended_kv.clone()
 
     def lp_at(i):
         return {name: w[i] for name, w in lps.items()}
+
+    def heads(x, li, lp, pos):
+        return llama._qkv_heads(llama._attn_input(x, lp, cfg), lp, cfg,
+                                pos[None], globals_[li])
 
     def attend(q, k, v, qpos, li, lp):
         opts = llama._attention_options(cfg, lp, windows[li])
@@ -164,13 +176,13 @@ def blend_prefill(params, cfg: llama.LlamaConfig, tokens: torch.Tensor,
     # pass 1: exact layer 0 for every token, then true layer-1 K/V
     x = llama._embed(params, cfg, tokens[None])  # [1, T, dim]
     lp0 = lp_at(0)
-    q0, k0, v0 = llama._qkv_heads(x, lp0, cfg, positions[None])
+    q0, k0, v0 = heads(x, 0, lp0, positions)
     kv[0, 0], kv[0, 1] = k0[0].to(kv.dtype), v0[0].to(kv.dtype)
-    x = llama._attn_mlp_residual(
+    x = llama._block(
         x, attend(q0[0], k0[0], v0[0], positions, 0, lp0)[None], lp0, cfg)
 
     l1 = min(1, cfg.n_layers - 1)
-    _, k1, v1 = llama._qkv_heads(x, lp_at(l1), cfg, positions[None])
+    _, k1, v1 = heads(x, l1, lp_at(l1), positions)
     deviation = (((k1[0].float() - kv[l1, 0].float())**2).sum(dim=(1, 2))
                  + ((v1[0].float() - kv[l1, 1].float())**2).sum(dim=(1, 2)))
     sel = select_tokens(deviation, n_recompute)
@@ -180,30 +192,51 @@ def blend_prefill(params, cfg: llama.LlamaConfig, tokens: torch.Tensor,
     xs = x[:, sel]
     for li in range(1, cfg.n_layers):
         lp = lp_at(li)
-        q, k, v = llama._qkv_heads(xs, lp, cfg, sel[None])
+        q, k, v = heads(xs, li, lp, sel)
         kv[li, 0, sel] = k[0].to(kv.dtype)
         kv[li, 1, sel] = v[0].to(kv.dtype)
         attn = attend(q[0], kv[li, 0], kv[li, 1], sel, li, lp)
-        xs = llama._attn_mlp_residual(xs, attn[None], lp, cfg)
+        xs = llama._block(xs, attn[None], lp, cfg)
     logits = llama._lm_logits(xs[:, -1:], params, cfg)[0, 0]
     return logits, kv
 
 
 def assemble_chunks(chunk_blobs: Sequence[torch.Tensor], theta: float,
-                    rotary_dim=None, interleaved=False,
-                    scaling=None) -> torch.Tensor:
+                    rotary_dim=None, interleaved=False, scaling=None,
+                    local_theta=None, global_layers=None,
+                    nope_global=False) -> torch.Tensor:
     """Concatenate independently cached chunk KV (wire format
     ``[L, 2, t_i, H, D]``, each prefilled at positions 0..t_i) into one
     position-corrected ``[L, 2, T, H, D]`` buffer on the first blob's
-    device."""
+    device.
+
+    Families whose rope differs by layer give ``global_layers`` (the
+    per-layer is-global flags [L]) and either ``local_theta`` (Gemma-3: the
+    sliding layers' keys were roped at that base, unscaled) or
+    ``nope_global`` (Llama-4: the global layers' keys carry no rotation, so
+    their shift is the identity); each layer's keys then spin at its own
+    frequencies."""
     dev = chunk_blobs[0].device
+    inv = None
+    if local_theta is not None or nope_global:
+        rd = rotary_dim or chunk_blobs[0].shape[-1]
+        inv_g, _ = llama.rope_inv_freq(theta, rd, scaling, device=dev)
+        if nope_global:
+            inv_glb, inv_loc = torch.zeros_like(inv_g), inv_g
+        else:
+            inv_glb = inv_g
+            inv_loc, _ = llama.rope_inv_freq(local_theta, rd, None,
+                                             device=dev)
+        glb = torch.as_tensor(list(global_layers), device=dev)[:, None, None]
+        inv = torch.where(glb, inv_glb, inv_loc)  # [L, 1, rd/2]
     parts, offset = [], 0
     for blob in chunk_blobs:
         blob = blob.to(dev)
         t = blob.shape[2]
         k = rope_shift_keys(blob[:, 0],
                             torch.full((t,), float(offset), device=dev),
-                            theta, rotary_dim, interleaved, scaling)
+                            theta, rotary_dim, interleaved, scaling,
+                            inv_freq=inv)
         parts.append(torch.stack([k, blob[:, 1]], dim=1))
         offset += t
     return torch.cat(parts, dim=2)
@@ -294,8 +327,12 @@ class CacheBlender(BlenderBase):
 
     def _assemble(self, blobs):
         c = self.cfg
-        return assemble_chunks(blobs, c.rope_theta, c.rotary_dim,
-                               c.rope_interleaved, c.rope_scaling_spec)
+        per_layer = c.rope_local_theta is not None or c.nope_on_global_layers
+        return assemble_chunks(
+            blobs, c.rope_theta, c.rotary_dim, c.rope_interleaved,
+            c.rope_scaling_spec, local_theta=c.rope_local_theta,
+            global_layers=tuple(c.layer_windows()) if per_layer else None,
+            nope_global=c.nope_on_global_layers)
 
     def _heal(self, full, blended, n_rec):
         return blend_prefill(self.params, self.cfg, full, blended, n_rec)

@@ -13,7 +13,7 @@ each step:
    true layer-1 latent and the blended one.
 3. **Selective recompute**: the selected tokens flow through layers
    1..L-1 (dense and MoE, the MoE layers through ``mla``'s padded expert
-   blocks, ``mla.EXPERT_ROWS``) with absorbed-MQA attention over the
+   blocks, ``experts.EXPERT_ROWS``) with absorbed-MQA attention over the
    blended latent stream, their healed rows scattered back first.
 
 ``recompute_ratio=1.0`` is an exact full prefill. The chunk prefills run

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from lmcache_tpu_torch.models import experts
 from lmcache_tpu_torch.models.llama import (_positions, _rms_norm, _rope,
                                             _tensor_from_numpy, torch_dtype)
 from lmcache_tpu_torch.ops.latent_attention import (
@@ -580,43 +581,18 @@ def _swiglu(h, w_gate, w_up, w_down):
     return (gate * up).to(h.dtype) @ w_down
 
 
-# every expert's block of routed rows is padded to the same multiple of this:
-# one batched product a weight over all experts (a few launches a layer
-# whatever the tokens), and a token's product does not depend on how many
-# other tokens share its expert, since a decode step's 1 to 4 rows an expert
-# all pad to one shape (the GEMM library picks its kernel, and its order of
-# summation, by the row count)
-EXPERT_ROWS = 16
-
-
 def _routed_experts(hf, topi, topw, lp, cfg: MLAConfig):
     """Routed experts of tokens ``hf [N, dim]`` routed to ``topi [N, k]``
-    with weights ``topw``: the (token, expert) pairs are scattered into
-    per-expert blocks of M rows (M the largest block, rounded up to
-    ``EXPERT_ROWS``; zero rows elsewhere), each weight runs as one batched
-    product over the E blocks, and every token sums its k weighted outputs
-    in fp32. Returns [N, dim] fp32."""
-    N, k = topi.shape
-    E = cfg.n_routed_experts
-    flat = topi.reshape(-1)
-    counts = torch.bincount(flat, minlength=E)
-    # a token's k experts are distinct, so no block holds more than N rows:
-    # a decode step pads to EXPERT_ROWS without reading the counts back
-    M = EXPERT_ROWS if N <= EXPERT_ROWS else (
-        -(-int(counts.max()) // EXPERT_ROWS) * EXPERT_ROWS)
-    # each pair's row within its expert's block, tokens in order
-    order = torch.argsort(flat, stable=True)
-    first = torch.cumsum(counts, 0) - counts
-    row = torch.empty_like(flat)
-    row[order] = torch.arange(N * k, device=flat.device) - first[flat[order]]
-    slot = flat * M + row
-    x = hf.new_zeros((E * M, hf.shape[1]))
-    x[slot] = hf.repeat_interleave(k, dim=0)
-    x = x.view(E, M, -1)
+    with weights ``topw``: the (token, expert) pairs in padded per-expert
+    blocks (:func:`experts.dispatch`), each weight one batched product over
+    the E blocks, and every token sums its k weighted outputs in fp32.
+    Returns [N, dim] fp32."""
+    k = topi.shape[1]
+    x, slot = experts.dispatch(hf, topi, cfg.n_routed_experts)
     gate = F.silu(torch.bmm(x, lp["e_gate"]).float())
     up = torch.bmm(x, lp["e_up"]).float()
-    y = torch.bmm((gate * up).to(hf.dtype), lp["e_down"]).view(E * M, -1)
-    return (topw[..., None] * y[slot].float().view(N, k, -1)).sum(dim=1)
+    y = torch.bmm((gate * up).to(hf.dtype), lp["e_down"])
+    return (topw[..., None] * experts.gather(y, slot, k).float()).sum(dim=1)
 
 
 def _moe_mlp(h, lp, cfg: MLAConfig):

@@ -19,7 +19,11 @@ memory is bounded by the tokens actually resident.
   in place;
 - the kernel is chosen by head dim as in the JAX file: ``D % 128 == 0 or
   128 % D == 0`` takes the streaming (``_dma``) kernels, any other head dim
-  the one-page-per-step kernels.
+  the one-page-per-step kernels;
+- each layer is ``llama.forward``'s (the same block structure, per-layer
+  rope and query traits and MoE MLP) and attends under its own window,
+  sliding or chunked, with the config's score softcap and attention sinks,
+  so every ``LlamaConfig`` preset runs here.
 
 Page size should divide the cache-engine chunk_size so retrieved chunks land
 on whole pages. ``mesh`` (head-sharded arenas) is not ported yet.
@@ -151,9 +155,11 @@ def _streams(cfg: llama.LlamaConfig) -> bool:
 
 def _paged_forward(params, cfg, tokens, start_pos, page_table, page, dev,
                    write_and_attend, last_logit_only):
-    """The layer loop shared by both arena dtypes; ``write_and_attend(li, q,
-    k, v, pidx, poff, table, start, kv_len)`` scatters the new K/V into layer
-    ``li`` of the arena and returns the attention output."""
+    """The layer loop shared by both arena dtypes, each layer under its own
+    window and the config's softcap and sinks; ``write_and_attend(li, q, k,
+    v, pidx, poff, table, start, kv_len, opts)`` scatters the new K/V into
+    layer ``li`` of the arena and returns the attention output under the
+    options ``opts`` (``llama._attention_options``)."""
     B, T = tokens.shape
     start_pos = start_pos.to(device=dev, dtype=torch.int32)
     table = page_table.to(device=dev, dtype=torch.int32).contiguous()
@@ -165,12 +171,14 @@ def _paged_forward(params, cfg, tokens, start_pos, page_table, page, dev,
     poff = positions % page
     x = llama._embed(params, cfg, tokens.to(dev))
     lps = params["layers"]
-    for li in range(cfg.n_layers):
+    for li, window, g in llama._layer_plan(cfg):
         lp = {name: w[li] for name, w in lps.items()}
-        q, k, v = llama._qkv_heads(x, lp, cfg, positions)
+        q, k, v = llama._qkv_heads(llama._attn_input(x, lp, cfg), lp, cfg,
+                                   positions, g)
         attn = write_and_attend(li, q, k, v, pidx, poff, table, start_pos,
-                                kv_len)
-        x = llama._attn_mlp_residual(x, attn, lp, cfg)
+                                kv_len, llama._attention_options(cfg, lp,
+                                                                 window))
+        x = llama._block(x, attn, lp, cfg)
     if last_logit_only:
         x = x[:, -1:]
     return llama._lm_logits(x, params, cfg)
@@ -199,7 +207,7 @@ def forward_paged(
     """
     if mesh is not None:
         raise ValueError(_MESH_NOT_PORTED)
-    llama.check_supported(cfg, paged=True)
+    llama.check_supported(cfg)
     page = kv_pool.shape[4]
     if not use_kernel:
         impl = pa.paged_attention_reference
@@ -208,15 +216,15 @@ def forward_paged(
     else:
         impl = pa.paged_attention
 
-    def write_and_attend(li, q, k, v, pidx, poff, table, start, kv_len):
+    def write_and_attend(li, q, k, v, pidx, poff, table, start, kv_len,
+                         opts):
         # pool[p, h, o] = kv[b, t, h] with (p, o) from the page table; idle
         # decode rows all land in the null page 0 (duplicate indices, order
         # undefined, masked)
         kp, vp = kv_pool[li, 0], kv_pool[li, 1]
         kp[pidx, :, poff] = k.to(kp.dtype)
         vp[pidx, :, poff] = v.to(vp.dtype)
-        return impl(q, kp, vp, table, start, kv_len,
-                    sliding_window=cfg.sliding_window, sm_scale=cfg.sm_scale)
+        return impl(q, kp, vp, table, start, kv_len, **opts)
 
     logits = _paged_forward(params, cfg, tokens, start_pos, page_table, page,
                             kv_pool.device, write_and_attend,
@@ -241,7 +249,7 @@ def forward_paged_quantized(
     quantization on write, dequantization inside the kernel on read."""
     if mesh is not None:
         raise ValueError(_MESH_NOT_PORTED)
-    llama.check_supported(cfg, paged=True)
+    llama.check_supported(cfg)
     sym_pool, scale_pool = kv_pool["sym"], kv_pool["scale"]
     page = sym_pool.shape[4]
     if not use_kernel:
@@ -251,7 +259,8 @@ def forward_paged_quantized(
     else:
         impl = pa.quantized_paged_attention
 
-    def write_and_attend(li, q, k, v, pidx, poff, table, start, kv_len):
+    def write_and_attend(li, q, k, v, pidx, poff, table, start, kv_len,
+                         opts):
         k_sym, k_scale = quantize_tokens(k, (2, 3))  # [B,T,H,D], [B,T]
         v_sym, v_scale = quantize_tokens(v, (2, 3))
         sym, scl = sym_pool[li], scale_pool[li]
@@ -260,7 +269,7 @@ def forward_paged_quantized(
         scl[0][pidx, poff] = k_scale
         scl[1][pidx, poff] = v_scale
         return impl(q, sym[0], sym[1], scl[0], scl[1], table, start, kv_len,
-                    sliding_window=cfg.sliding_window, sm_scale=cfg.sm_scale)
+                    **opts)
 
     logits = _paged_forward(params, cfg, tokens, start_pos, page_table, page,
                             sym_pool.device, write_and_attend,

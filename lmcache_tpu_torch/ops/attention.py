@@ -381,11 +381,16 @@ def fill_args(q, k, v, out, q_offset, kv_len, kv_head_major, sm_scale,
     return a, Hkv, S
 
 
-def count_launch(wrapper, T, sliding_window=None):
+def count_launch(wrapper, T, a=None):
     """Add one to ``wrapper.launches`` under the phase ("prefill" for
-    T > 1, "decode" for T == 1, "+window" appended under a window)."""
+    T > 1, "decode" for T == 1), with "+window", "+softcap" and "+sinks"
+    appended where the argument block ``a`` sets those options."""
     phase = "decode" if T == 1 else "prefill"
-    wrapper.launches[phase + ("+window" if sliding_window else "")] += 1
+    if a is not None:
+        phase += "+window" if a.window > 0 else ""
+        phase += "+softcap" if a.softcap > 0 else ""
+        phase += "+sinks" if a.sinks else ""
+    wrapper.launches[phase] += 1
 
 
 def check_error(wrapper, err):
@@ -394,13 +399,13 @@ def check_error(wrapper, err):
                            f"cudaError {err}")
 
 
-def launch(wrapper, fn, a, q, Hkv, sliding_window=None):
+def launch(wrapper, fn, a, q, Hkv):
     """Launch ``fn`` on q's current stream, raise if the launch is refused,
     and count it (:func:`count_launch`)."""
     B, T, H, D = q.shape
     check_error(wrapper, fn(ctypes.byref(a), B, H, Hkv, D,
                             torch.cuda.current_stream(q.device).cuda_stream))
-    count_launch(wrapper, T, sliding_window)
+    count_launch(wrapper, T, a)
 
 
 def split_entry(source: str, symbol: str):
@@ -485,8 +490,7 @@ def _combine(part_o, part_ml, T, G, sinks, out):
 combine_partials.launches = Counter()
 
 
-def split_decode(wrapper, split, a, q, Hkv, S, sinks, out,
-                 sliding_window=None):
+def split_decode(wrapper, split, a, q, Hkv, S, sinks, out):
     """The key-split decode of a launch of at most ``DECODE_ROWS`` rows
     (arguments checked and ``a`` filled): ``split`` (a :func:`split_entry`)
     writes the partials into one fp32 scratch allocation, then
@@ -505,7 +509,7 @@ def split_decode(wrapper, split, a, q, Hkv, S, sinks, out,
         ctypes.byref(a), B, H, Hkv, D, part_o.data_ptr(), part_ml.data_ptr(),
         n, torch.cuda.current_stream(q.device).cuda_stream))
     _combine(part_o, part_ml, T, G, sinks, out)
-    count_launch(wrapper, T, sliding_window)
+    count_launch(wrapper, T, a)
 
 
 def slot_row(t, kv_slot):
@@ -538,8 +542,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the prefill body above ``DECODE_ROWS`` rows (T * G), else the key-split
     decode and :func:`combine_partials`. On CPU tensors it computes
     :func:`mha_reference`. ``flash_attention.launches`` counts launches by
-    phase ("prefill" for T > 1, "decode" for T == 1, "+window" appended
-    under a window); a split decode counts once.
+    phase ("prefill" for T > 1, "decode" for T == 1, "+window",
+    "+softcap" and "+sinks" appended under those options); a split decode
+    counts once.
     """
     check_options(q, sliding_window, window_kind, logit_softcap, sinks,
                   kv_slot, kv_head_major)
@@ -565,11 +570,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if T * G > DECODE_ROWS:
         launch(flash_attention,
                load_entry("flash_attention", "lmc_flash_attention_bf16"), a,
-               q, Hkv, sliding_window)
+               q, Hkv)
         return out
     split_decode(flash_attention,
                  split_entry("flash_attention", "lmc_flash_decode_split_bf16"),
-                 a, q, Hkv, S, sinks, out, sliding_window)
+                 a, q, Hkv, S, sinks, out)
     return out
 
 

@@ -851,9 +851,11 @@ bool encode_kv_map(CUtensorMap* map, int (&pos)[3], const void* base,
 // table's width in keys, and a box that divides the tile of KV (int8 tiles
 // are not bf16's) and the page (so that a piece never crosses a page) in
 // whole 16-row steps (whole periods of the panels' swizzle; int8: a box of
-// at least 16 rows of D >= 64 bytes meets TMA's alignment); int8 the
-// scales; and none of the options the paged rows refuse (softcap, sinks,
-// the chunked window: ROADMAP, module item 5).
+// at least 16 rows of D >= 64 bytes meets TMA's alignment); and int8 the
+// scales. The options (window, sliding or chunked; softcap; sinks) are the
+// dense body's: a chunk boundary may fall inside a page, as the piece that
+// holds the block's oldest visible key is loaded whole and its earlier keys
+// are masked (bf16: and their V rows zeroed; int8: their scales 0).
 template <int D, typename KV>
 bool paged_args_ok(const FlashArgs& a) {
   constexpr int BN = Geometry<D, KV>::BN;
@@ -862,8 +864,7 @@ bool paged_args_ok(const FlashArgs& a) {
          static_cast<long long>(a.NP) * a.page == a.S && a.box > 0 &&
          a.box % 16 == 0 && BN % a.box == 0 && a.page % a.box == 0 &&
          (!Geometry<D, KV>::QUANT ||
-          (a.k_scale != nullptr && a.v_scale != nullptr)) &&
-         a.softcap <= 0.f && a.sinks == nullptr && !a.chunked;
+          (a.k_scale != nullptr && a.v_scale != nullptr));
 }
 
 // Encode the launch's K and V maps and launch the body on `stream`. The

@@ -437,8 +437,8 @@ cudaError_t launch_split(const FlashArgs& a, int B, int Hkv, float* part_o,
 // max(1, ceil(S / SPLIT)); the partials are part_o [B, H_kv, nsplit,
 // T * G, D] and part_ml [.., 2] (m, l), fp32. PAGED: K/V (and int8: their
 // scale pools [P, page]) are an arena read through the page table
-// (S = NP * page; no softcap, sinks or chunked window: ROADMAP, module
-// item 5).
+// (S = NP * page), with every option of the dense split: the window,
+// sliding or chunked, and the softcap here, the sinks at the combine.
 template <typename KV, bool PAGED = false>
 int split_entry(const FlashArgs* a, int B, int H, int Hkv, int D,
                 void* part_o, void* part_ml, int nsplit, void* stream) {
@@ -451,8 +451,7 @@ int split_entry(const FlashArgs* a, int B, int H, int Hkv, int D,
   }
   if (PAGED && (a->page_table == nullptr || a->kv_slot != nullptr ||
                 a->NP <= 0 || a->P <= 0 || a->page <= 0 ||
-                static_cast<long long>(a->NP) * a->page != a->S ||
-                a->softcap > 0.f || a->sinks != nullptr || a->chunked)) {
+                static_cast<long long>(a->NP) * a->page != a->S)) {
     return cudaErrorInvalidValue;
   }
   if (B == 0 || a->T == 0) return cudaSuccess;
@@ -462,11 +461,8 @@ int split_entry(const FlashArgs* a, int B, int H, int Hkv, int D,
   const bool cap = a->softcap > 0.f;
   auto run = [&](auto d) -> int {
     constexpr int Dc = decltype(d)::value;
-    if constexpr (!PAGED) {  // the paged split has no softcap variant
-      if (cap) {
-        return launch_split<Dc, true, KV, false>(*a, B, Hkv, po, pm, nsplit,
-                                                 s);
-      }
+    if (cap) {
+      return launch_split<Dc, true, KV, PAGED>(*a, B, Hkv, po, pm, nsplit, s);
     }
     return launch_split<Dc, false, KV, PAGED>(*a, B, Hkv, po, pm, nsplit,
                                               s);

@@ -8,9 +8,12 @@
 // Contract: q [B, T, H, D] attends to the pages page_table[b, :] of the K/V
 // pools [P, H_kv, page, D] under
 //     kpos <= min(q_offset[b] + t, kv_len[b] - 1)  and, with a window W,
-//     kpos >  q_offset[b] + t - W,
-// online softmax in fp32, P rounded to bf16 before the PV product, 0 for a
-// row that sees no key (so also for kv_len == 0). An int8 arena carries one
+//     kpos >  q_offset[b] + t - W  (sliding) or
+//     kpos / W == (q_offset[b] + t) / W  (chunked),
+// the scores softcapped (cap * tanh(s / cap)) before the mask where a cap
+// is set, online softmax in fp32, P rounded to bf16 before the PV product,
+// the attention sinks [H] joined to the normalization, 0 for a row that
+// sees no key (so also for kv_len == 0). An int8 arena carries one
 // fp32 scale per (page, token) in [P, page] pools shared by all heads: the
 // K scale multiplies the score column, the V scale P's column after the row
 // sum.
@@ -39,24 +42,31 @@
 
 namespace {
 
+// The body at head dim D, with the softcap a variant of its own (as row 1's)
+// so that the others carry no tanh.
+template <int D, typename KV>
+cudaError_t paged_launch(const lmc::FlashArgs& a, int B, int Hkv,
+                         cudaStream_t s) {
+  using lmc::sm90::launch;
+  return a.softcap > 0.f ? launch<D, 2, true, KV, true>(a, B, Hkv, s)
+                         : launch<D, 2, false, KV, true>(a, B, Hkv, s);
+}
+
 template <typename KV>
 int body(const lmc::FlashArgs* a, int B, int H, int Hkv, int D,
          void* stream) {
-  using lmc::sm90::launch;
-  // (the options of ROADMAP, module item 5 are refused by
-  // lmc::sm90::paged_args_ok and lmc::split::split_entry)
   if (lmc::flash_bad_sizes(a, B, H, Hkv)) return cudaErrorInvalidValue;
   if (B == 0 || a->T == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch<64, 2, false, KV, true>(*a, B, Hkv, s);
+      return paged_launch<64, KV>(*a, B, Hkv, s);
     case 96:
-      return launch<96, 2, false, KV, true>(*a, B, Hkv, s);
+      return paged_launch<96, KV>(*a, B, Hkv, s);
     case 128:
-      return launch<128, 2, false, KV, true>(*a, B, Hkv, s);
+      return paged_launch<128, KV>(*a, B, Hkv, s);
     case 256:
-      return launch<256, 2, false, KV, true>(*a, B, Hkv, s);
+      return paged_launch<256, KV>(*a, B, Hkv, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -5,7 +5,8 @@
 // lmcache_tpu/ops/paged_attention.py::_paged_dma_kernel (entry point
 // paged_attention_dma, row 6) and ::_paged_dma_kernel_q (entry point
 // quantized_paged_attention_dma, row 7). Same contract as
-// paged_attention.cu.
+// paged_attention.cu, its options (sliding or chunked window, softcap,
+// sinks) included.
 //
 // The design of paged_attention.cu's rows 4 and 5: the Hopper body of
 // flash_sm90.cuh over the arena read through the page table, and at most
@@ -27,19 +28,22 @@
 
 namespace {
 
+// The body at head dim D and the ring's depth, with the softcap a variant
+// of its own (as row 1's) so that the others carry no tanh.
 template <int D, typename KV>
 cudaError_t stream_launch(const lmc::FlashArgs& a, int B, int Hkv,
                           cudaStream_t stream) {
+  using lmc::sm90::launch;
   constexpr int stages =
       sizeof(KV) == 1 ? 2 : lmc::sm90::Geometry<D>::max_stages();
-  return lmc::sm90::launch<D, stages, false, KV, true>(a, B, Hkv, stream);
+  return a.softcap > 0.f ? launch<D, stages, true, KV, true>(a, B, Hkv, stream)
+                         : launch<D, stages, false, KV, true>(a, B, Hkv,
+                                                              stream);
 }
 
 template <typename KV>
 int body(const lmc::FlashArgs* a, int B, int H, int Hkv, int D,
          void* stream) {
-  // (the options of ROADMAP, module item 5 are refused by
-  // lmc::sm90::paged_args_ok and lmc::split::split_entry)
   if (lmc::flash_bad_sizes(a, B, H, Hkv)) return cudaErrorInvalidValue;
   if (B == 0 || a->T == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);

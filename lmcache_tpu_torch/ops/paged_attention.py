@@ -32,8 +32,13 @@ in place); int8 arenas carry fp32 scale pools ``[P, page]``, one scale per
 (page, token) shared by all heads; ``page_table int32 [B, NP]``;
 ``q_offset``/``kv_len int32 [B]``. Query ``t`` of sequence ``b`` sees key
 positions ``kpos <= min(q_offset[b] + t, kv_len[b] - 1)`` and, with
-``sliding_window=W``, ``kpos > q_offset[b] + t - W``. Page-table entries past
-a sequence's live pages may be any id: they are masked, not read.
+``sliding_window=W``, ``kpos > q_offset[b] + t - W`` (``window_kind=
+"sliding"``) or ``kpos // W == (q_offset[b] + t) // W`` (``"chunked"``,
+Llama-4). ``logit_softcap`` bounds the scores by ``cap * tanh(s / cap)``
+before the mask (Gemma-2); ``sinks`` ([H] fp32) joins per-head sink logits
+to the softmax normalization (GPT-OSS): on the card the prefill body joins
+them at its end, the split decode at the combine. Page-table entries past a
+sequence's live pages may be any id: they are masked, not read.
 
 A query that sees no key (``kv_len == 0``, or a window with no live key)
 gives 0, on the card and on the CPU alike; the JAX ``*_reference`` functions
@@ -43,8 +48,9 @@ average V uniformly there and the Pallas kernels give 0.
 CUDA tensors go to the kernels, which raise on what they do not take; CPU
 tensors go to the plain versions (:func:`paged_attention_reference`,
 :func:`quantized_paged_attention_reference`). Each entry point counts its
-kernel launches in ``.launches`` ("prefill" for T > 1, "decode" for T == 1;
-a split decode once, and once under ``attention.combine_partials``).
+kernel launches in ``.launches`` ("prefill" for T > 1, "decode" for T == 1,
+with "+window", "+softcap" and "+sinks" appended under those options; a
+split decode once, and once under ``attention.combine_partials``).
 """
 
 import math
@@ -58,7 +64,6 @@ from lmcache_tpu_torch.ops.attention import mha_reference
 
 _GRID_HEAD_DIMS = (64, 96, 128, 256)
 _STREAM_HEAD_DIMS = (64, 128, 256)
-_NOT_PORTED = "is not ported yet (ROADMAP, module item 5)"
 
 
 def tile_keys(D: int, quant: bool = False) -> int:
@@ -87,18 +92,6 @@ def takes_split(T: int, G: int) -> bool:
     return T * G <= _attn.DECODE_ROWS
 
 
-def _check_options(sliding_window, logit_softcap, window_kind, sinks):
-    if logit_softcap is not None:
-        raise NotImplementedError(f"logit_softcap {_NOT_PORTED}")
-    if sinks is not None:
-        raise NotImplementedError(f"attention sinks {_NOT_PORTED}")
-    if sliding_window is not None and window_kind != "sliding":
-        raise NotImplementedError(
-            f"window_kind={window_kind!r} {_NOT_PORTED}")
-    if sliding_window is not None and sliding_window <= 0:
-        raise ValueError(f"sliding_window must be positive: {sliding_window}")
-
-
 def _gather_pages(pool, page_table):
     """[P, H_kv, page, D] pool -> token-major [B, NP*page, H_kv, D]."""
     B, NP = page_table.shape
@@ -112,12 +105,15 @@ def paged_attention_reference(q, k_pool, v_pool, page_table, q_offset,
                               logit_softcap=None, window_kind="sliding",
                               sinks=None) -> torch.Tensor:
     """Gather the pages densely, then dense attention: the plain version of
-    :func:`paged_attention` and :func:`paged_attention_dma`."""
-    _check_options(sliding_window, logit_softcap, window_kind, sinks)
+    :func:`paged_attention` and :func:`paged_attention_dma`, with the
+    options of :func:`~lmcache_tpu_torch.ops.attention.mha_reference`."""
+    _attn.check_options(q, sliding_window, window_kind, logit_softcap,
+                        sinks, None, True)
     return mha_reference(q, _gather_pages(k_pool, page_table),
                          _gather_pages(v_pool, page_table), q_offset, kv_len,
                          sm_scale=sm_scale, sliding_window=sliding_window,
-                         zero_dead_rows=True)
+                         zero_dead_rows=True, logit_softcap=logit_softcap,
+                         window_kind=window_kind, sinks=sinks)
 
 
 def quantized_paged_attention_reference(q, k_sym_pool, v_sym_pool,
@@ -128,14 +124,17 @@ def quantized_paged_attention_reference(q, k_sym_pool, v_sym_pool,
                                         window_kind="sliding",
                                         sinks=None) -> torch.Tensor:
     """Dequantize the pages densely, then dense attention: the plain version
-    of the two int8 entry points."""
-    _check_options(sliding_window, logit_softcap, window_kind, sinks)
+    of the two int8 entry points, with the same options."""
+    _attn.check_options(q, sliding_window, window_kind, logit_softcap,
+                        sinks, None, True)
     return mha_reference(q, _dequantize_pages(k_sym_pool, k_scale_pool,
                                               page_table),
                          _dequantize_pages(v_sym_pool, v_scale_pool,
                                            page_table),
                          q_offset, kv_len, sm_scale=sm_scale,
-                         sliding_window=sliding_window, zero_dead_rows=True)
+                         sliding_window=sliding_window, zero_dead_rows=True,
+                         logit_softcap=logit_softcap, window_kind=window_kind,
+                         sinks=sinks)
 
 
 def _dequantize_pages(sym_pool, scale_pool, page_table, kv_len=None):
@@ -154,7 +153,8 @@ def _dequantize_pages(sym_pool, scale_pool, page_table, kv_len=None):
 
 def paged_split_partials_reference(q, k_pool, v_pool, page_table, q_offset,
                                    kv_len, sliding_window=None,
-                                   sm_scale=None):
+                                   sm_scale=None, window_kind="sliding",
+                                   logit_softcap=None):
     """Plain version of the paged split decode's first kernel: the pages
     gathered densely, then
     :func:`~lmcache_tpu_torch.ops.attention.split_partials_reference` over
@@ -162,15 +162,18 @@ def paged_split_partials_reference(q, k_pool, v_pool, page_table, q_offset,
     D]`` and ``part_ml [B, H_kv, n, R, 2]`` with ``n =
     attention.n_splits(NP * page)`` and R = T * G rows (token,
     head-in-group) token-major; a split with no live key of a row gives it
-    ``m = -1e30, l = 0, O = 0``."""
+    ``m = -1e30, l = 0, O = 0``. The window (sliding or chunked) and the
+    softcap act on the scores; sinks join at the combine."""
     return _attn.split_partials_reference(
         q, _gather_pages(k_pool, page_table), _gather_pages(v_pool, page_table),
-        q_offset, kv_len, sm_scale=sm_scale, sliding_window=sliding_window)
+        q_offset, kv_len, sm_scale=sm_scale, sliding_window=sliding_window,
+        window_kind=window_kind, logit_softcap=logit_softcap)
 
 
 def paged_split_attention_reference(q, k_pool, v_pool, page_table, q_offset,
                                     kv_len, sliding_window=None,
-                                    sm_scale=None):
+                                    sm_scale=None, window_kind="sliding",
+                                    logit_softcap=None, sinks=None):
     """The plain split-then-combine of the paged decode:
     :func:`paged_split_partials_reference`, then
     :func:`~lmcache_tpu_torch.ops.attention.combine_partials_reference`;
@@ -178,16 +181,20 @@ def paged_split_attention_reference(q, k_pool, v_pool, page_table, q_offset,
     :func:`paged_attention_reference` up to fp32 rounding."""
     part_o, part_ml = paged_split_partials_reference(
         q, k_pool, v_pool, page_table, q_offset, kv_len,
-        sliding_window=sliding_window, sm_scale=sm_scale)
+        sliding_window=sliding_window, sm_scale=sm_scale,
+        window_kind=window_kind, logit_softcap=logit_softcap)
     return _attn.combine_partials_reference(
-        part_o, part_ml, q.shape[1], q.shape[2] // k_pool.shape[1])
+        part_o, part_ml, q.shape[1], q.shape[2] // k_pool.shape[1],
+        sinks=sinks)
 
 
 def quantized_paged_split_partials_reference(q, k_sym_pool, v_sym_pool,
                                              k_scale_pool, v_scale_pool,
                                              page_table, q_offset, kv_len,
                                              sliding_window=None,
-                                             sm_scale=None):
+                                             sm_scale=None,
+                                             window_kind="sliding",
+                                             logit_softcap=None):
     """Plain version of the int8 paged split decode's first kernel: the
     pages dequantized densely to fp32, then
     :func:`~lmcache_tpu_torch.ops.attention.split_partials_reference` over
@@ -200,14 +207,17 @@ def quantized_paged_split_partials_reference(q, k_sym_pool, v_sym_pool,
     return _attn.split_partials_reference(
         q, _dequantize_pages(k_sym_pool, k_scale_pool, page_table, kv_len),
         _dequantize_pages(v_sym_pool, v_scale_pool, page_table, kv_len),
-        q_offset, kv_len, sm_scale=sm_scale, sliding_window=sliding_window)
+        q_offset, kv_len, sm_scale=sm_scale, sliding_window=sliding_window,
+        window_kind=window_kind, logit_softcap=logit_softcap)
 
 
 def quantized_paged_split_attention_reference(q, k_sym_pool, v_sym_pool,
                                               k_scale_pool, v_scale_pool,
                                               page_table, q_offset, kv_len,
                                               sliding_window=None,
-                                              sm_scale=None):
+                                              sm_scale=None,
+                                              window_kind="sliding",
+                                              logit_softcap=None, sinks=None):
     """The plain split-then-combine of the int8 paged decode:
     :func:`quantized_paged_split_partials_reference`, then
     :func:`~lmcache_tpu_torch.ops.attention.combine_partials_reference`;
@@ -215,9 +225,11 @@ def quantized_paged_split_attention_reference(q, k_sym_pool, v_sym_pool,
     :func:`quantized_paged_attention_reference` up to fp32 rounding."""
     part_o, part_ml = quantized_paged_split_partials_reference(
         q, k_sym_pool, v_sym_pool, k_scale_pool, v_scale_pool, page_table,
-        q_offset, kv_len, sliding_window=sliding_window, sm_scale=sm_scale)
+        q_offset, kv_len, sliding_window=sliding_window, sm_scale=sm_scale,
+        window_kind=window_kind, logit_softcap=logit_softcap)
     return _attn.combine_partials_reference(
-        part_o, part_ml, q.shape[1], q.shape[2] // k_sym_pool.shape[1])
+        part_o, part_ml, q.shape[1], q.shape[2] // k_sym_pool.shape[1],
+        sinks=sinks)
 
 
 # ------------------------------------------------------------ the kernels ---
@@ -286,10 +298,13 @@ def _check_cuda_args(q, k_pool, v_pool, k_scale, v_scale, page_table,
 
 
 def _launch(entry, lib, q, k_pool, v_pool, k_scale, v_scale, page_table,
-            q_offset, kv_len, sliding_window, sm_scale):
+            q_offset, kv_len, sliding_window, sm_scale, logit_softcap,
+            window_kind, sinks):
     """Rows 4-7 (arguments checked): the Hopper body of ``lib`` over the
     arena (int8 where ``k_scale`` is given) or, at most ``DECODE_ROWS``
-    rows, its split decode and the dense kernels' combine."""
+    rows, its split decode and the dense kernels' combine (which joins the
+    sinks), with the window, the softcap and the sinks in the argument
+    block."""
     B, T, H, D = q.shape
     P, Hkv, page, _ = k_pool.shape
     NP = page_table.shape[1]
@@ -300,16 +315,16 @@ def _launch(entry, lib, q, k_pool, v_pool, k_scale, v_scale, page_table,
     # in page's, the scale pools' [P, page] strides the page's and the row
     # in page's; its key count is the table's width
     a, _, _ = _attn.fill_args(q, k_pool, v_pool, out, q_offset, kv_len, True,
-                              sm_scale, sliding_window, k_scale=k_scale,
+                              sm_scale, sliding_window, window_kind,
+                              logit_softcap, sinks, k_scale=k_scale,
                               v_scale=v_scale)
     a.S = NP * page
     a.page_table = page_table.data_ptr()
     a.NP, a.P, a.page, a.box = NP, P, page, box_rows(D, page, quant)
     if takes_split(T, H // Hkv):
-        # counted as the old kernels were: no "+window" phase
         _attn.split_decode(entry, _attn.split_entry(
             lib, f"lmc_{lib}_decode_split_{kind}"), a, q, Hkv, NP * page,
-            None, out)
+            sinks, out)
     else:
         _attn.launch(entry, _attn.load_entry(lib, f"lmc_{lib}_{kind}"), a, q,
                      Hkv)
@@ -319,15 +334,18 @@ def _launch(entry, lib, q, k_pool, v_pool, k_scale, v_scale, page_table,
 def _dispatch(entry, stream_kernel, q, k_pool, v_pool, k_scale, v_scale,
               page_table, q_offset, kv_len, sliding_window, sm_scale,
               logit_softcap, window_kind, sinks):
-    _check_options(sliding_window, logit_softcap, window_kind, sinks)
+    _attn.check_options(q, sliding_window, window_kind, logit_softcap,
+                        sinks, None, True)
+    opts = dict(sliding_window=sliding_window, sm_scale=sm_scale,
+                logit_softcap=logit_softcap, window_kind=window_kind,
+                sinks=sinks)
     if q.device.type == "cpu":
         if k_scale is None:
             return paged_attention_reference(
-                q, k_pool, v_pool, page_table, q_offset, kv_len,
-                sliding_window=sliding_window, sm_scale=sm_scale)
+                q, k_pool, v_pool, page_table, q_offset, kv_len, **opts)
         return quantized_paged_attention_reference(
             q, k_pool, v_pool, k_scale, v_scale, page_table, q_offset,
-            kv_len, sliding_window=sliding_window, sm_scale=sm_scale)
+            kv_len, **opts)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check_cuda_args(q, k_pool, v_pool, k_scale, v_scale, page_table,
@@ -335,7 +353,8 @@ def _dispatch(entry, stream_kernel, q, k_pool, v_pool, k_scale, v_scale,
                      _STREAM_HEAD_DIMS if stream_kernel else _GRID_HEAD_DIMS)
     lib = "paged_stream_attention" if stream_kernel else "paged_attention"
     return _launch(entry, lib, q, k_pool, v_pool, k_scale, v_scale,
-                   page_table, q_offset, kv_len, sliding_window, sm_scale)
+                   page_table, q_offset, kv_len, sliding_window, sm_scale,
+                   logit_softcap, window_kind, sinks)
 
 
 def paged_attention(q, k_pool, v_pool, page_table, q_offset, kv_len, *,

@@ -139,8 +139,8 @@ def quantized_flash_attention(
     the int8 key-split decode and :func:`combine_partials`' kernel. On CPU
     tensors it computes :func:`quantized_attention_reference`.
     ``quantized_flash_attention.launches`` counts launches by phase
-    ("prefill" for T > 1, "decode" for T == 1, "+window" appended under a
-    window); a split decode counts once."""
+    ("prefill" for T > 1, "decode" for T == 1, "+window", "+softcap" and
+    "+sinks" appended under those options); a split decode counts once."""
     _attn.check_options(q, sliding_window, window_kind, logit_softcap, sinks,
                         kv_slot, kv_head_major)
     if q.device.type == "cpu":
@@ -169,14 +169,13 @@ def quantized_flash_attention(
     if T * (H // Hkv) > _attn.DECODE_ROWS:
         _attn.launch(quantized_flash_attention,
                      _attn.load_entry("quantized_flash_attention",
-                                      "lmc_qflash_attention_int8"), a, q, Hkv,
-                     sliding_window)
+                                      "lmc_qflash_attention_int8"), a, q, Hkv)
         return out
     _attn.split_decode(
         quantized_flash_attention,
         _attn.split_entry("quantized_flash_attention",
                           "lmc_qflash_decode_split_int8"),
-        a, q, Hkv, S, sinks, out, sliding_window)
+        a, q, Hkv, S, sinks, out)
     return out
 
 

@@ -106,7 +106,7 @@ class PagedServingEngine(ServingEngine):
                          if kv_dtype == "int8" else forward_paged)
 
     def _check_config(self, cfg: llama.LlamaConfig) -> None:
-        llama.check_supported(cfg, paged=True)
+        llama.check_supported(cfg)
 
     def _alloc_pool(self):
         """Build the page arena instead of the dense slot pool, and the

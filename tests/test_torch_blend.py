@@ -12,6 +12,7 @@ orders), and the engines give the JAX engines' greedy tokens.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -62,12 +63,19 @@ def _blob(tcfg, tparams, tokens):
     return tl.cache_to_blob(cache, 0, len(tokens)).contiguous()
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_prefill(jcfg):
+    """The JAX forward of ``jcfg`` from position 0 under one jit: prompts of
+    one length share its compile."""
+    return jax.jit(lambda p, t, c: jl.forward(
+        p, jcfg, t, jnp.zeros(1, jnp.int32), c, use_pallas=False))
+
+
 def _golden(jcfg, jparams, tokens):
     """The JAX full prefill: (last logits, KV wire blob)."""
     cache = jl.new_kv_cache(jcfg, 1, len(tokens))
-    logits, cache = jl.forward(jparams, jcfg, jnp.asarray(tokens)[None],
-                               jnp.zeros(1, jnp.int32), cache,
-                               use_pallas=False)
+    logits, cache = _jax_prefill(jcfg)(jparams, jnp.asarray(tokens)[None],
+                                       cache)
     return np.asarray(logits[0, -1]), np.asarray(jl.cache_to_blob(cache))
 
 
@@ -225,8 +233,8 @@ def test_cache_blender_end_to_end(setup):
     tce.close()
 
 
-# the JAX test's families, then the windows, softcap and sinks the port's
-# dense forward runs
+# the JAX test's families, then windows, softcap and sinks, each with the
+# traits it exercises beyond the llama block (None: none of them)
 FAMILIES = [
     (dict(attention_bias=True), None),  # Qwen-style
     (dict(attention_bias=True, rotary_dim=32, rope_interleaved=True),
@@ -260,19 +268,26 @@ FAMILIES = [
 ]
 
 
-@pytest.mark.parametrize("family_kw,unported", FAMILIES)
-def test_blend_exact_anchor_other_families(family_kw, unported):
-    """Ratio 1.0 equals a full prefill for bias, partial interleaved rotary,
-    window, softcap and sinks families, and the port's blend equals the JAX
-    blend; families whose traits the port's forwards refuse (ROADMAP,
-    module item 6) are refused by the blend too."""
+def _per_layer_rope(cfg):
+    """The per-layer rope arguments of ``assemble_chunks`` (both packages),
+    as their ``CacheBlender._assemble`` gives them."""
+    if cfg.rope_local_theta is None and not cfg.nope_on_global_layers:
+        return {}
+    return dict(local_theta=cfg.rope_local_theta,
+                global_layers=tuple(cfg.layer_windows()),
+                nope_global=cfg.nope_on_global_layers)
+
+
+@pytest.mark.parametrize("family_kw,traits", FAMILIES)
+def test_blend_exact_anchor_other_families(family_kw, traits):
+    """Ratio 1.0 equals a full prefill for every family (``traits``: those
+    of its traits beyond the llama block that it exercises, if any: sandwich
+    and q/k norms, MoE, dual-theta and iRoPE rope), and the port's blend
+    equals the JAX blend, the chunks assembled at each layer's own rope
+    frequencies."""
     jcfg = jl.LlamaConfig.tiny(n_layers=2, **family_kw)
     jparams = jl.init_params(jax.random.PRNGKey(5), jcfg)
     tcfg = tl.LlamaConfig(**dataclasses.asdict(jcfg))
-    if unported is not None:
-        with pytest.raises(NotImplementedError, match=unported):
-            tblend.CacheBlender(tcfg, {"embed": torch.zeros(1)}, None)
-        return
     tparams = tl.params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
                                  device="cpu")
     rng = np.random.default_rng(8)
@@ -281,7 +296,8 @@ def test_blend_exact_anchor_other_families(family_kw, unported):
     full = np.concatenate(docs)
     blended = tblend.assemble_chunks(
         [_blob(tcfg, tparams, d) for d in docs], tcfg.rope_theta,
-        tcfg.rotary_dim, tcfg.rope_interleaved, tcfg.rope_scaling_spec)
+        tcfg.rotary_dim, tcfg.rope_interleaved, tcfg.rope_scaling_spec,
+        **_per_layer_rope(tcfg))
     logits, kv = tblend.blend_prefill(tparams, tcfg, _t(full), blended,
                                       len(full))
     gold_logits, gold_kv = _golden(jcfg, jparams, full)
@@ -290,7 +306,8 @@ def test_blend_exact_anchor_other_families(family_kw, unported):
     np.testing.assert_allclose(kv.numpy(), gold_kv, atol=GOLD, rtol=GOLD)
     jblended = jblend.assemble_chunks(
         _jax_blobs(jcfg, jparams, docs), jcfg.rope_theta, jcfg.rotary_dim,
-        jcfg.rope_interleaved)
+        jcfg.rope_interleaved, jcfg.rope_scaling_spec,
+        **_per_layer_rope(jcfg))
     n_rec = len(full) // 4
     jlogits, jkv = jblend.blend_prefill(jparams, jcfg, jnp.asarray(full),
                                         jblended, n_rec)
@@ -310,33 +327,40 @@ def test_blend_exact_anchor_other_families(family_kw, unported):
          nope_on_global_layers=True),  # Llama-4 iRoPE
 ])
 def test_assemble_shift_selects_per_layer_freqs(family_kw):
-    """A uniform-rope model's chunks: chunk A unshifted, chunk B's keys
-    rotated by A's length at every layer, values untouched, as the JAX
-    assemble does. Per-layer rope frequencies (dual theta, NoPE layers) are
-    module item 6's traits, which the port's blender refuses."""
+    """Chunk A unshifted, chunk B's keys rotated by A's length at every
+    layer at that layer's rope frequencies (uniform; Gemma-3's local theta
+    on sliding layers; none on Llama-4's NoPE global layers), values
+    untouched, as the JAX assemble does."""
     jcfg = jl.LlamaConfig.tiny(n_layers=2, **family_kw)
-    tcfg = tl.LlamaConfig(**dataclasses.asdict(jcfg))
-    if family_kw:
-        with pytest.raises(NotImplementedError, match="module item 6"):
-            tblend.CacheBlender(tcfg, {"embed": torch.zeros(1)}, None)
-        return
     jparams = jl.init_params(jax.random.PRNGKey(9), jcfg)
-    _, tparams = _port(jcfg, jparams)
+    tcfg, tparams = _port(jcfg, jparams)
     rng = np.random.default_rng(10)
     tA = 24
     A = rng.integers(0, jcfg.vocab_size, tA, dtype=np.int32)
     B = rng.integers(0, jcfg.vocab_size, 24, dtype=np.int32)
     blobA, blobB = _blob(tcfg, tparams, A), _blob(tcfg, tparams, B)
-    blended = tblend.assemble_chunks([blobA, blobB], tcfg.rope_theta)
+    per_layer = _per_layer_rope(tcfg)
+    blended = tblend.assemble_chunks(
+        [blobA, blobB], tcfg.rope_theta, tcfg.rotary_dim,
+        tcfg.rope_interleaved, tcfg.rope_scaling_spec, **per_layer)
     assert torch.equal(blended[:, :, :tA], blobA)
     assert torch.equal(blended[:, 1, tA:], blobB[:, 1])
-    for layer in range(tcfg.n_layers):
-        want = tl._rope(blobB[layer, 0][None],
-                        torch.full((1, 24), float(tA)), tcfg.rope_theta)[0]
+    rd = tcfg.rotary_dim or tcfg.head_dim
+    for layer, g in enumerate(tcfg.layer_windows()):
+        inv = (tl._layer_rope_freqs(tcfg, bool(g))[0] if per_layer
+               else tl.rope_inv_freq(tcfg.rope_theta, rd,
+                                     tcfg.rope_scaling_spec)[0])
+        want = tl._rope(blobB[layer, 0][None], torch.full((1, 24), float(tA)),
+                        tcfg.rope_theta, tcfg.rotary_dim,
+                        tcfg.rope_interleaved, freqs=(inv, 1.0))[0]
         torch.testing.assert_close(blended[layer, 0, tA:], want, atol=2e-5,
                                    rtol=2e-5)
-    jblended = jblend.assemble_chunks([blobA.numpy(), blobB.numpy()],
-                                      jcfg.rope_theta)
+        if per_layer and g and tcfg.nope_on_global_layers:
+            assert torch.equal(blended[layer, 0, tA:], blobB[layer, 0])
+    jblended = jblend.assemble_chunks(
+        [blobA.numpy(), blobB.numpy()], jcfg.rope_theta, jcfg.rotary_dim,
+        jcfg.rope_interleaved, jcfg.rope_scaling_spec,
+        **_per_layer_rope(jcfg))
     np.testing.assert_allclose(blended.numpy(), np.asarray(jblended),
                                atol=1e-6)
 

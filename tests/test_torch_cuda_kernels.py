@@ -29,19 +29,27 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+def _phase(T, sliding_window=None, logit_softcap=None, sinks=None, **_):
+    """The key under which an attention entry point counts a launch of T
+    tokens with these options (``attention.count_launch``)."""
+    return (("decode" if T == 1 else "prefill")
+            + ("+window" if sliding_window else "")
+            + ("+softcap" if logit_softcap else "")
+            + ("+sinks" if sinks is not None else ""))
+
+
 def _check(gen, B, T, H, Hkv, D, S, q_off, kv_len, **kw):
     q = torch.randn((B, T, H, D), generator=gen, device="cuda").bfloat16()
     k = torch.randn((B, Hkv, S, D), generator=gen, device="cuda").bfloat16()
     v = torch.randn((B, Hkv, S, D), generator=gen, device="cuda").bfloat16()
     qo = torch.tensor(q_off, dtype=torch.int32, device="cuda")
     kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
-    before = ops.flash_attention.launches["decode" if T == 1 else "prefill"]
+    before = ops.flash_attention.launches[_phase(T, **kw)]
     out = ops.flash_attention(q, k, v, qo, kl, kv_head_major=True, **kw)
     ref = ops.mha_reference(q, k.transpose(1, 2), v.transpose(1, 2), qo, kl,
                             **kw)
     torch.cuda.synchronize()
-    assert ops.flash_attention.launches[
-        "decode" if T == 1 else "prefill"] == before + 1
+    assert ops.flash_attention.launches[_phase(T, **kw)] == before + 1
     assert torch.isfinite(out.float()).all()
     # a sequence that sees no key gets 0 from the kernel (the plain
     # version spreads such a row evenly over the masked keys)
@@ -157,8 +165,7 @@ def _dense_check(gen, quant, B, T, G, D, S, q_off, kv_len, **kw):
     kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
     entry = qa.quantized_flash_attention if quant else ops.flash_attention
     plain = qa.quantized_attention_reference if quant else ops.mha_reference
-    phase = ("decode" if T == 1 else "prefill") + (
-        "+window" if kw.get("sliding_window") else "")
+    phase = _phase(T, **kw)
     before = entry.launches[phase]
     out = entry(q, *kv, qo, kl, kv_head_major=True, **kw)
     ref = plain(q, *(t.transpose(1, 2) if t.dim() == 4 else t for t in kv),
@@ -343,8 +350,7 @@ def _split_case(gen, B, T, G, D, S, q_off, kv_len, nan_tail=False,
     entry = qa.quantized_flash_attention if quant else ops.flash_attention
     plain = qa.quantized_attention_reference if quant else ops.mha_reference
     decode = T * G <= attn.DECODE_ROWS
-    phase = ("decode" if T == 1 else "prefill") + (
-        "+window" if kw.get("sliding_window") else "")
+    phase = _phase(T, **kw)
     before = entry.launches[phase]
     combined = attn.combine_partials.launches["decode" if T == 1
                                               else "prefill"]
@@ -549,7 +555,7 @@ def _paged_check(gen, kind, B, T, G, D, page, q_off, kv_len, window=None,
     qo = torch.tensor(q_off, dtype=torch.int32, device="cuda")
     kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
     kw = dict(sliding_window=window, sm_scale=sm_scale)
-    phase = "decode" if T == 1 else "prefill"
+    phase = _phase(T, **kw)
     before = entry.launches[phase]
     if quant:
         args = (q, arena[0], arena[1], scales[0], scales[1], table, qo, kl)
@@ -651,11 +657,12 @@ def _hopper_paged_inputs(gen, B, T, G, D, page, q_off, kv_len, Hkv=2,
     return q, arena[0], arena[1], table, qo, kl
 
 
-def _hopper_paged_check(kind, args, window=None, ref_args=None):
+def _hopper_paged_check(kind, args, window=None, ref_args=None, **opts):
     """The entry point once against the plain version (on ``ref_args``
     where given), with its launch counted under its phase and, for a split
     decode, once under the combine; int8 (rows 5 and 7) where ``args`` carry
-    the scale pools. Returns the output."""
+    the scale pools; ``opts``: the other options (``window_kind``,
+    ``logit_softcap``, ``sinks``, ``sm_scale``). Returns the output."""
     quant = len(args) == 8
     entry = (HOPPER_INT8 if quant else HOPPER_PAGED)[kind][0]
     plain = (pa.quantized_paged_attention_reference if quant
@@ -663,14 +670,16 @@ def _hopper_paged_check(kind, args, window=None, ref_args=None):
     q, k_pool = args[0], args[1]
     T = q.shape[1]
     split = pa.takes_split(T, q.shape[2] // k_pool.shape[1])
-    phase = "decode" if T == 1 else "prefill"
+    phase = _phase(T, sliding_window=window, **opts)
+    combined_phase = "decode" if T == 1 else "prefill"
     before = entry.launches[phase]
-    combined = attn.combine_partials.launches[phase]
-    out = entry(*args, sliding_window=window)
-    ref = plain(*(ref_args or args), sliding_window=window)
+    combined = attn.combine_partials.launches[combined_phase]
+    out = entry(*args, sliding_window=window, **opts)
+    ref = plain(*(ref_args or args), sliding_window=window, **opts)
     torch.cuda.synchronize()
     assert entry.launches[phase] == before + 1
-    assert attn.combine_partials.launches[phase] == combined + int(split)
+    assert (attn.combine_partials.launches[combined_phase]
+            == combined + int(split))
     assert torch.isfinite(out.float()).all()
     torch.testing.assert_close(out.float(), ref.float(), atol=ATOL,
                                rtol=2.0**-7)
@@ -793,6 +802,71 @@ def test_paged_hopper_gives_row_1_on_consecutive_pages(gen, kind, T,
     paged = HOPPER_PAGED[kind][0](q, *pools, table, qo, kl,
                                   sliding_window=window)
     assert torch.equal(paged, dense)
+
+
+# the options of Gemma-2 (softcap, window), GPT-OSS (sinks, window) and
+# Llama-4 (chunks), each over the paged body (prefill) and the paged split
+# (decode), on bf16 and int8 arenas. The scores of these inputs are about
+# N(0, 1), which a cap of 20-50 barely moves (by about s^3 / (3 cap^2)): at
+# PAGED_CAP the plain version with and without the cap lie at least
+# CAP_MOVES times the check's tolerance apart, so that a kernel that
+# dropped the cap fails.
+PAGED_CAP = 2.0
+CAP_MOVES = 4
+PAGED_OPTIONS = {
+    "softcap_window": dict(window=300, logit_softcap=PAGED_CAP),
+    "sinks_window": dict(window=100, sinks=True),
+    "chunked": dict(window=200, window_kind="chunked"),
+    "sinks_softcap": dict(logit_softcap=PAGED_CAP, sinks=True),
+}
+
+
+def _paged_option_inputs(gen, quant, B, T, G, D, page, q_off, kv_len):
+    make = _int8_paged_inputs if quant else _hopper_paged_inputs
+    return make(gen, B, T, G, D, page, q_off, kv_len)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("opt", sorted(PAGED_OPTIONS))
+@pytest.mark.parametrize("kind, D", [("grid", 96), ("grid", 256),
+                                     ("stream", 64), ("stream", 128),
+                                     ("stream", 256)])
+def test_paged_hopper_options_match_plain(gen, kind, D, opt, quant):
+    """Each option through the paged body (a prefill over a prefix, a
+    ragged second row) and the paged split (a ragged decode, one row at its
+    first key) against the plain version; with the cap, the plain version
+    without it lies far outside the check's tolerance."""
+    kw = dict(PAGED_OPTIONS[opt])
+    window = kw.pop("window", None)
+    G = 4
+    if kw.get("sinks"):
+        kw["sinks"] = torch.randn(G * 2, generator=gen, device="cuda") * 3
+    for T, q_off, kv_len in ((60, [700, 0], [760, 45]),
+                             (1, [900, 255, 0], [901, 256, 1])):
+        args = _paged_option_inputs(gen, quant, len(q_off), T, G, D, 64,
+                                    q_off, kv_len)
+        out = _hopper_paged_check(kind, args, window=window, **kw)
+        if kw.get("logit_softcap"):
+            plain = (pa.quantized_paged_attention_reference if quant
+                     else pa.paged_attention_reference)
+            uncapped = plain(*args, sliding_window=window,
+                             **dict(kw, logit_softcap=None)).float()
+            excess = ((uncapped - out.float()).abs()
+                      - 2.0**-7 * out.float().abs()).max().item()
+            assert excess >= CAP_MOVES * ATOL
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("T", [1, 40], ids=["decode", "prefill"])
+@pytest.mark.parametrize("kind", sorted(HOPPER_PAGED))
+def test_paged_hopper_chunk_boundary_inside_a_page(gen, kind, T, quant):
+    """Chunks of 24 keys over pages of 16: a chunk starts inside a page, so
+    the piece that holds a block's first visible key is read whole and its
+    earlier keys masked; a row at a chunk's first key sees that key alone
+    where the chunk starts it."""
+    args = _paged_option_inputs(gen, quant, 3, T, 8, 64, 16,
+                                [120, 48, 200 - T], [120 + T, 48 + T, 200])
+    _hopper_paged_check(kind, args, window=24, window_kind="chunked")
 
 
 # ------ rows 5 and 7 on Hopper: the int8 paged body and the int8 split ---

@@ -154,36 +154,20 @@ def test_rotary_variants_match_jax():
                                    rtol=1e-5)
 
 
-@pytest.mark.parametrize("trait", [dict(n_experts=4), dict(qk_norm=True),
-                                   dict(qk_l2_norm=True),
-                                   dict(post_norms=True),
-                                   dict(rope_local_theta=10000.0)])
-def test_unported_traits_raise(trait):
-    """Every forward, and ``init_params``, refuses each trait still to be
-    ported. The attention patterns are no longer among them: a window, a
-    per-layer pattern, chunks, the softcap and sinks run on the dense
-    forwards (``tests/test_torch_quantized_model.py``)."""
-    cfg = tl.LlamaConfig.tiny(n_layers=1, **trait)
-    for paged in (False, True):
-        with pytest.raises(NotImplementedError, match="module item 6"):
-            tl.check_supported(cfg, paged=paged)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.init_params(cfg, device="cpu")
-    params = tl.init_params(tl.LlamaConfig.tiny(n_layers=1), device="cpu")
-    tok = torch.zeros((1, 2), dtype=torch.long)
-    zero = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.forward(params, cfg, tok, zero,
-                   tl.new_kv_cache(cfg, 1, 8, device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.forward_quantized(
-            params, cfg, tok, zero,
-            tl.new_quantized_kv_cache(cfg, 1, 8, device="cpu"))
-    for ok in (dict(sliding_window=16), dict(attn_sinks=True),
-               dict(attn_logit_softcap=30.0),
-               dict(sliding_window=16, local_attention_kind="chunked",
-                    sliding_window_pattern=2)):
-        tl.check_supported(tl.LlamaConfig.tiny(n_layers=1, **ok))
+PRESETS = sorted(
+    name for name, fn in vars(jl.LlamaConfig).items()
+    if isinstance(fn, staticmethod) and name not in ("tiny", "from_hf"))
+
+
+@pytest.mark.parametrize("name", PRESETS)
+def test_every_preset_is_served(name):
+    """Every ``LlamaConfig`` preset of the JAX package is a port config that
+    the dense and the paged forwards take (no trait refused), with the same
+    fields."""
+    tcfg = getattr(tl.LlamaConfig, name)()
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(
+        getattr(jl.LlamaConfig, name)())
+    tl.check_supported(tcfg)
 
 
 @pytest.mark.parametrize("trait", [

@@ -262,21 +262,14 @@ def test_options_left_out_raise(quant):
 
     with pytest.raises(ValueError, match="module item 16"):
         run(mesh=object())
-    with pytest.raises(NotImplementedError, match="module item 5"):
-        run(sliding_window=8, local_attention_kind="chunked")
-    with pytest.raises(NotImplementedError, match="module item 6"):
-        run(sliding_window=8, sliding_window_pattern=2)
-    with pytest.raises(NotImplementedError, match="module item 5"):
-        run(attn_logit_softcap=30.0)
-    with pytest.raises(NotImplementedError, match="module item 5"):
-        run(attn_sinks=True)
+    with pytest.raises(ValueError, match="moe_style"):
+        run(n_experts=4, moe_style="expert_choice")
     assert run(sliding_window=8)[0].shape == (1, 2, 512)
 
 
 def test_phi3_is_served_by_the_paged_path_only():
     cfg = tl.LlamaConfig.phi3_mini_4k()
     assert cfg.head_dim == 96 and not tp._streams(cfg)
-    tl.check_supported(cfg, paged=True)
     # the dense forwards run its window as well by now; what stays with the
     # paged path is the choice of kernel by head dim
     tl.check_supported(cfg)

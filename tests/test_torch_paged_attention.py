@@ -150,17 +150,73 @@ def test_cpu_path_counts_no_kernel_launch():
         assert sum(entry.launches.values()) == before
 
 
-@pytest.mark.parametrize("kw, match", [
-    (dict(sliding_window=8, window_kind="chunked"), "window_kind"),
-    (dict(logit_softcap=30.0), "logit_softcap"),
-    (dict(sinks=torch.zeros(4)), "sinks"),
-], ids=["chunked", "softcap", "sinks"])
+# the options of Gemma-2 (softcap), GPT-OSS (sinks) and Llama-4 (chunks of
+# 24 keys over pages of 16: a chunk boundary inside a page)
+OPTIONS = {
+    "softcap": lambda H: dict(logit_softcap=2.0, sliding_window=24),
+    "sinks": lambda H: dict(sinks=np.linspace(-1.0, 2.0, H).astype(
+        np.float32), sliding_window=24),
+    "chunked": lambda H: dict(sliding_window=24, window_kind="chunked"),
+}
+
+
+def _option_kw(option, to):
+    kw = OPTIONS[option](G * HKV)
+    if "sinks" in kw:
+        kw["sinks"] = to(kw["sinks"])
+    return kw
+
+
+@pytest.mark.parametrize("option", sorted(OPTIONS))
 @pytest.mark.parametrize("name", sorted(KERNELS))
-def test_options_left_out_raise(name, kw, match):
-    arrays = _inputs("decode", "fragmented", 64, KERNELS[name][1])
-    with pytest.raises(NotImplementedError,
-                       match=f"{match}.*ROADMAP, module item 5"):
-        _port(name, arrays, **kw)
+def test_options_match_jax_reference(name, option):
+    """Each option against the JAX reference, over the 40-token prefill
+    over a prefix (the scores softcapped before the mask; the sinks joined
+    to the normalization; 24-key chunks, whose boundaries fall inside the
+    16-key pages)."""
+    quant = KERNELS[name][1]
+    arrays = _inputs("prefill_over_prefix", "fragmented", 64, quant, seed=4)
+    jref = (jpa.quantized_paged_attention_reference if quant
+            else jpa.paged_attention_reference)
+    ref = jref(*[jnp.asarray(a) for a in arrays],
+               **_option_kw(option, jnp.asarray))
+    np.testing.assert_allclose(
+        _port(name, arrays, **_option_kw(option, torch.from_numpy)),
+        np.asarray(ref), atol=ATOL_REF, rtol=ATOL_REF)
+
+
+@pytest.mark.parametrize("option", sorted(OPTIONS))
+@pytest.mark.parametrize("name", ["paged_attention",
+                                  "quantized_paged_attention"])
+def test_options_match_jax_pallas_interpret(name, option):
+    """Each option against the one-page-per-step Pallas kernels (rows 4 and
+    5) in interpret mode, at D 96 over the ragged batch."""
+    jkernel, quant = KERNELS[name]
+    arrays = _inputs("ragged", "fragmented", 96, quant, seed=5)
+    out = jkernel(*[jnp.asarray(a) for a in arrays], block_q=16,
+                  interpret=True, **_option_kw(option, jnp.asarray))
+    np.testing.assert_allclose(
+        _port(name, arrays, **_option_kw(option, torch.from_numpy)),
+        np.asarray(out), atol=ATOL_INTERPRET, rtol=ATOL_INTERPRET)
+
+
+@pytest.mark.parametrize("option", sorted(OPTIONS))
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_split_options_match_jax_reference(quant, option):
+    """The paged split decode's plain split-then-combine with each option
+    (the window and softcap on the scores, the sinks at the combine) equals
+    the JAX reference at a decode step."""
+    arrays = _inputs("decode", "fragmented", 64, quant, seed=6)
+    jref = (jpa.quantized_paged_attention_reference if quant
+            else jpa.paged_attention_reference)
+    ref = jref(*[jnp.asarray(a) for a in arrays],
+               **_option_kw(option, jnp.asarray))
+    split = (tpa.quantized_paged_split_attention_reference if quant
+             else tpa.paged_split_attention_reference)
+    out = split(*[torch.from_numpy(a) for a in arrays],
+                **_option_kw(option, torch.from_numpy))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL_REF,
+                               rtol=ATOL_REF)
 
 
 def test_cuda_wrapper_refuses_what_the_kernels_do_not_take():
