@@ -32,14 +32,18 @@ Phases, in order; any failure exits non-zero:
    row 11's symbols and its fused entry's blob) and the six MLA
    latent-attention entry points (dense, paged one page per step, paged
    streamed; bf16 and int8 latents) at DeepSeek-V2-Lite's shapes and at
-   128 heads, V2/V3's, and the latent split decode's combine alone;
+   128 heads, V2/V3's, and the latent split decode's combine alone; then
+   rows 1, 3, 4-7 and 8-10 at the shape of a ``spec_lookahead`` 4
+   verification, T 5 a row over four rows of different kv_len with random
+   K/V past each (``verify_cases``);
 3. the dense main path at full width, tinyllama-1.1B with random weights
    from a seeded generator: full prefill of CTX + SUFFIX = 16384 tokens,
    store of the CTX prefix into the "cuda" cache tier, retrieve (15872
    hits), inject, suffix prefill; the reuse logits must agree with the full
    prefill's; TTFT full and reuse (best of 3 after a warm-up); one
    ``torch.profiler`` window over each (device idle share, the kernels
-   that take the time);
+   that take the time), the full prefill's device time also by events
+   around it queued behind a spin of the card;
 4. dense serving: a ``ServingEngine`` answers four waves of greedy prompts;
    a repeated wave must hit the cache and give the same tokens, and a
    suffix prefilled over an injected prefix must agree with an engine
@@ -82,18 +86,26 @@ Phases, in order; any failure exits non-zero:
    (quantize, CDF, one range-encoder launch for both halves, row 12, and
    its copy pass); every container must equal the host C++ coder's, the
    card's quantizer and CDF the CPU's (the encode's parts:
-   ``python -m lmcache_tpu_torch.tools.store_split``). A fresh
-   pipelined instance B under a ``ServingEngine`` serves the 16384-token
-   prompt: groups of 16 still-coded chunks, one launch a group of row 11's
-   fused entry (decode and dequantization into the blob), inject, suffix
-   prefill; every group's symbols (decoded again on the card) must equal
-   the host C++ decode and its blob those symbols dequantized, the slot
-   the KV of ``retrieve()`` with the host decoder. TTFT remote (best of 3
-   and median, each request a new suffix) beside phase 3's TTFT full, the
-   stage split of bench.py:470-526, a ``torch.profiler`` window of one
-   request, and a ``PagedServingEngine`` wave over the same server whose
-   pages must equal the dense slot (``phase_remote``); 9b: codec throughput
-   at bench.py's reference geometry (``phase_codec_throughput``);
+   ``python -m lmcache_tpu_torch.tools.store_split``), and the containers
+   fetched through the native transport must equal those fetched through
+   the Python client. Then, per transport (the Python socket client, then
+   the native one), a fresh pipelined instance B under a
+   ``ServingEngine`` serves the 16384-token prompt: groups of 16
+   still-coded chunks uploaded from pinned memory, one launch a group of
+   row 11's fused entry (decode and dequantization into the blob), inject,
+   suffix prefill; every group's symbols (decoded again on the card) must
+   equal the host C++ decode and its blob those symbols dequantized, the
+   slot the KV of ``retrieve()`` with the host decoder, and the KV
+   injected through the two transports must be bit-equal. Per transport:
+   TTFT remote (best of 3 and median, each request a new suffix) beside
+   phase 3's TTFT full, a ``torch.profiler`` window of one request (its
+   pageable and pinned host-to-device copies; the group uploads must be
+   pinned), the overlap of the groups' device work with the host's fetch
+   and parse (``grouped_stream_overlap``, which decides on a second
+   stream) and the stage split of bench.py:470-526; then a
+   ``PagedServingEngine`` wave over the same server whose pages must equal
+   the dense slot (``phase_remote``); 9b: codec throughput at bench.py's
+   reference geometry (``phase_codec_throughput``);
 10. MLA, DeepSeek-V2-Lite at full width and depth (27 layers, 16 heads,
    latent 576, 64 routed + 2 shared experts; random bf16 weights from a
    seeded generator, 31.4 GB; ``phase_mla``): 10a the bench shape through
@@ -152,7 +164,22 @@ Phases, in order; any failure exits non-zero:
    4096 on alternate layers, softcap 50), two prompts of about 6000
    tokens over a bf16 and an int8 arena, held as phase 6 holds Phi-3
    (``phase_gemma2``);
-7. the launch counts of phases 3 to 13, read per phase with every count
+14. the decode options of the four engines (``phase_decode_options``;
+   14a after 12a on tinyllama-1.1B at full depth, the dense native and
+   int8 and the paged bf16 and int8 engines; 14b at the end of phase 10 on
+   DeepSeek-V2-Lite's weights at full width cut to 3 layers, the MLA dense
+   and paged engines): four requests of 211-320 tokens, 17 new tokens
+   each. Sequential greedy with ``logprobs=5`` gives the golden tokens,
+   its logprobs held to the fp32 plain witness (the forward with the
+   plain attention and an fp32 LM head) within ``TOP1_MARGIN`` of the
+   witness logits' rms; ``decode_block`` 4 must give the tokens of
+   ``decode_block`` 1 bit for bit with at most one host sync a block
+   (decode tok/s, host and device ms a step for each); ``spec_lookahead``
+   4 with the n-gram proposer and with an oracle that proposes the golden
+   continuation (proposed, accepted, verification forwards) must give the
+   golden tokens, or differ first where the witness puts the two tokens
+   within ``TIE_STEPS`` bf16 steps;
+7. the launch counts of phases 3 to 14, read per phase with every count
    set to 0 just before it (prefill and decode, each > 0 where the phase
    runs them; "+window", "+softcap" and "+sinks" mark launches under those
    options; the coders count "store" and "retrieve" launches);
@@ -168,7 +195,9 @@ Phases, in order; any failure exits non-zero:
    options included) also with the L2 cache flushed before each launch,
    and by events around calls queued behind a spin of the card
    (``queued_ms``, warm and L2-cold): a time that the host cannot lengthen
-   and that does not rest on the profiler's records. No PyTorch call computes
+   and that does not rest on the profiler's records; every case of rows 1,
+   3 and 8-10 and both combines also queued (warm), and the verification
+   shapes of phase 2 all of these ways. No PyTorch call computes
    a range coder: the coders' rows (row 12 and its copy pass at tinyllama's
    store, phase 9b's geometry and V2-Lite's latent store; row 11's two
    entries at a retrieve group of each) carry the host C++ coder's time at
@@ -213,6 +242,9 @@ from lmcache_tpu_torch.ops import range_encode as re_
 from lmcache_tpu_torch.serving import (MLAPagedServingEngine,
                                        MLAServingEngine, PagedServingEngine,
                                        Request, SamplingParams, ServingEngine)
+from lmcache_tpu_torch.serving import engine as engine_mod
+from lmcache_tpu_torch.storage.connector.lm_connector import \
+    LMCServerConnector
 from lmcache_tpu_torch.storage.serde import cachegen_serde as cgs
 from lmcache_tpu_torch.tools import bench_prefill_mfu as bench_mfu
 
@@ -739,6 +771,14 @@ def phase_kernels():
             worst[case["kernel"]],
             hold_against_plain(case["kernel"], case["name"], out, ref))
         del args, out, ref
+    ver_gen = torch.Generator(device="cuda").manual_seed(14)
+    for family, case in verify_cases():
+        kernel, call, plain, _, _ = verify_call(family, case, ver_gen)
+        out, ref = call(), plain()
+        torch.cuda.synchronize()
+        worst[kernel] = max(worst[kernel], hold_against_plain(
+            kernel, case["name"], out, ref))
+        del call, plain, out, ref
     return worst
 
 
@@ -1710,6 +1750,95 @@ def latent_library(case, args, kw, iters):
     return pre_ms, cuda_ms(call, iters=iters), backends
 
 
+# ------------------------- the verification shape of spec_lookahead ---
+
+# a verification forward: T = SPEC_K + 1 a row over four rows of different
+# kv_len (the pool of phase 4's engine with the horizon SPEC_K + 1 past
+# S); every row's K/V past its kv_len is random (live garbage), as the
+# rejected proposals of earlier verifications leave it
+VERIFY_T = 5
+VERIFY_S = 2048 + 64 + VERIFY_T
+VERIFY_OFF = [2080, 1500, 700, 31]
+
+
+def verify_cases():
+    """(family, case) at the verification shape for kernel rows 1, 3 (the
+    dense cases' format), 4-7 (paged: tinyllama D 64, the streaming rows 6
+    and 7, whose 40 rows a block take the body; Phi-3 D 96, rows 4 and 5,
+    whose 5 rows take the split) and 8-10 (latent: V2-Lite, 80 rows: row
+    10's split, row 8's body and row 9's page steps), bf16 and int8."""
+    off = dict(window=None, kind="sliding", softcap=None, sinks=False,
+               sm_scale=None, pool_rows=None, slot=None)
+    tiny = dict(H=32, Hkv=4, D=64)
+    kv_len = [o + VERIFY_T for o in VERIFY_OFF]
+    cases = [("dense", dict(off, name="tinyllama verification, T 5 x 4 rows",
+                            kernel=k, B=4, T=VERIFY_T, S=VERIFY_S,
+                            q_off=VERIFY_OFF, kv_len=kv_len, **tiny))
+             for k in ("flash_attention", "quantized_flash_attention")]
+    shapes = [
+        dict(name="tinyllama verification, T 5 x 4 rows", B=4, T=VERIFY_T,
+             q_off=VERIFY_OFF, NP=-(-VERIFY_S // PAGE), H=32, Hkv=4, D=64,
+             window=None),
+        dict(name="phi3 verification, T 5 x 4 rows", B=4, T=VERIFY_T,
+             q_off=[3010, 2990, 1200, 40], NP=NP_PHI3, H=32, Hkv=32, D=96,
+             window=PHI3_WINDOW)]
+    for quant in (False, True):
+        for shape in shapes:
+            kernel = (("quantized_" if quant else "") + "paged_attention"
+                      + ("_dma" if shape["D"] == 64 else ""))
+            cases.append(("paged", dict(
+                {**PAGED_OFF, **shape}, kernel=kernel, quant=quant,
+                kv_len=[o + VERIFY_T for o in shape["q_off"]],
+                table="fragmented", idle=[])))
+    mla_off = [2060, 1500, 700, 31]
+    for quant in (False, True):
+        pre = "quantized_" if quant else ""
+        base = dict(H=MLA_CFG.n_heads, idle=[], B=4, T=VERIFY_T,
+                    q_off=mla_off, kv_len=[o + VERIFY_T for o in mla_off],
+                    quant=quant, name="v2-lite verification, T 5 x 4 rows")
+        cases.append(("latent", dict(base, S=MLA_SERVE_SEQ + VERIFY_T,
+                                     paged=False,
+                                     kernel=pre + "latent_flash_attention")))
+        for kernel in ("paged_latent_attention_dma",
+                       "paged_latent_attention"):
+            cases.append(("latent", dict(base, NP=NP_MLA, paged=True,
+                                         kernel=pre + kernel)))
+    return cases
+
+
+def verify_call(family, case, gen):
+    """(kernel, the call, its plain version, its library call (ms) or None,
+    (bound ms, bound by)) of a verification case, on inputs drawn from
+    ``gen``."""
+    if family == "dense":
+        q, kv, qo, kl, kw = make_dense_inputs(case, gen)
+
+        def library(iters):
+            deq, sdpa = dense_library(case, q, kv, qo, kl, iters)
+            return None if sdpa is None else (deq or 0.0) + sdpa
+        return (case["kernel"], lambda: dense_call(case, q, kv, qo, kl, kw),
+                lambda: dense_plain(case, q, kv, qo, kl, kw), library,
+                dense_bound(case))
+    if family == "paged":
+        args, kw = make_paged_inputs(case, gen)
+        entry, plain = KERNELS[case["kernel"]][0], paged_plain(case)
+
+        def library(iters):
+            gather, sdpa = paged_library(case, args, iters)
+            return None if sdpa is None else gather + sdpa
+        return (case["kernel"], lambda: entry(*args, **kw),
+                lambda: plain(*args, **kw), library, paged_bound(case))
+    args, kw = make_latent_inputs(case, gen)
+    entry = KERNELS[case["kernel"]][0]
+
+    def library(iters):
+        pre, sdpa, _ = latent_library(case, args, kw, iters)
+        return (pre or 0.0) + sdpa
+    return (case["kernel"], lambda: entry(*args, **kw),
+            lambda: latent_plain(case, args, kw), library,
+            latent_bound(case, args))
+
+
 # ---------------------------------------------------------------- phase 3 ---
 
 def phase_main_path(cfg, params):
@@ -1766,17 +1895,32 @@ def phase_main_path(cfg, params):
         f"ratio {t_full / t_reuse:.2f}x (best of 3 after a warm-up)")
     profile = [profile_window("full prefill", lambda: prefill_full()),
                profile_window("reuse request", prefill_reuse)]
+    # the full prefill's window checked against CUDA events (its 900-odd
+    # launches overflow the launch queue behind a spin, so not queued): the
+    # span from an event before its first launch to one after its last,
+    # which bounds its device time from above, against the profiler's sum
+    # of kernel times, which loses records where it undercounts
+    prof = profile[0]
+    span_ms, host_ms = event_span_ms(lambda: prefill_full())
+    log(f"  full prefill window: device {prof['device_ms']} ms by the "
+        f"profiler, at most {span_ms:.3f} ms by events (their span); idle "
+        f"share {prof.get('idle_share')} by the profiler, at least "
+        f"{1 - span_ms / host_ms:.4f} by events over {host_ms:.3f} ms of "
+        f"host time (no profiler)")
+    prof["events_span_ms"], prof["events_host_ms"] = span_ms, host_ms
     engine.close()
     return {"ttft_full_ms": t_full, "ttft_reuse_ms": t_reuse,
             "speedup": t_full / t_reuse, "profile": profile}
 
 
-def profile_window(name, fn, top=5, watch=None):
+def profile_window(name, fn, top=5, watch=None, copies=False):
     """One warm run of ``fn`` under ``torch.profiler``: host time, summed
     kernel time, device idle share (1 - kernel / host time; one stream, so
     kernels do not overlap) and the kernels that took the most time, and
     those whose name matches the regular expression ``watch`` wherever they
-    rank. Host time includes the profiler's own overhead."""
+    rank; with ``copies``, the host-to-device copies from pageable and from
+    pinned memory (count, ms). Host time includes the profiler's own
+    overhead."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1806,8 +1950,18 @@ def profile_window(name, fn, top=5, watch=None):
                if watch and re.search(watch, k)]
     for ms, count, key in watched:
         log(f"    watched: {ms:10.3f} ms x{count:<5d} {key[:90]}")
+    h2d = {}
+    for ms, count, key in by_time:
+        m = re.search(r"HtoD \((Pageable|Pinned)", key)
+        if m:
+            c, t = h2d.get(m.group(1).lower(), (0, 0.0))
+            h2d[m.group(1).lower()] = (c + count, t + ms)
+    if copies:
+        log("    host -> device copies: " + ", ".join(
+            f"{kind} x{c} {t:.3f} ms" for kind, (c, t) in sorted(h2d.items()))
+            if h2d else "    host -> device copies: none recorded")
     return {"window": name, "host_ms": host_ms, "device_ms": device_ms,
-            "idle_share": idle,
+            "idle_share": idle, "h2d": h2d,
             "top": [{"kernel": k, "ms": ms, "count": c}
                     for ms, c, k in by_time[:top]],
             "watched": [{"kernel": k, "ms": ms, "count": c}
@@ -2275,13 +2429,16 @@ def paged_engine(cfg, params, engine_cls=PagedServingEngine, routing=None,
     return eng
 
 
-def plain_first_logits(cfg, params, prompts):
+def plain_first_logits(cfg, params, prompts, kv_dtype="native",
+                       every=False):
     """The first-token logits of each prompt through the dense forward
-    with the plain attention (the kernels' plain version, fp32 inside),
-    one prompt a call, with the LM head in fp32: the final norm's fp32
-    output times the fp32 head weights (the engines round the norm's output
-    and the logits to bf16). Where two kernel paths put different tokens
-    first, this says how far apart the two tokens' logits lie in fp32."""
+    with the plain attention (the kernels' plain version, fp32 inside;
+    over an int8 pool for ``kv_dtype="int8"``), one prompt a call, with the
+    LM head in fp32: the final norm's fp32 output times the fp32 head
+    weights (the engines round the norm's output and the logits to bf16).
+    Where two kernel paths put different tokens first, this says how far
+    apart the two tokens' logits lie in fp32. With ``every``, the logits
+    at every position of each prompt ([T, V])."""
 
     def lm_logits_fp32(x, params, cfg):
         x32 = x.float()
@@ -2302,11 +2459,13 @@ def plain_first_logits(cfg, params, prompts):
     try:
         for p in prompts:
             toks = torch.as_tensor(np.asarray(p), device="cuda").long()[None]
-            logits, _ = llama.forward(
-                params, cfg, toks, zero,
-                llama.new_kv_cache(cfg, 1, toks.shape[1]),
-                last_logit_only=True, use_kernel=False)
-            out.append(logits[0, -1])
+            fwd, new = ((llama.forward_quantized,
+                         llama.new_quantized_kv_cache) if kv_dtype == "int8"
+                        else (llama.forward, llama.new_kv_cache))
+            logits, _ = fwd(params, cfg, toks, zero,
+                            new(cfg, 1, toks.shape[1]),
+                            last_logit_only=not every, use_kernel=False)
+            out.append(logits[0] if every else logits[0, -1])
     finally:
         llama._lm_logits = bf16_head
     return out
@@ -2951,13 +3110,27 @@ def start_cache_server():
             time.sleep(0.05)
 
 
-def remote_tier(url, cfg, **kw):
-    return LMCacheEngine(
+TRANSPORTS = ("python", "native")  # phase 9's order: the native one last
+
+
+def remote_tier(url, cfg, transport="native", **kw):
+    """A remote CacheGen tier over the cache server at ``url``, talking
+    through the native transport (the connector's default) or the Python
+    socket client (``use_native=False``)."""
+    tier = LMCacheEngine(
         LMCacheEngineConfig(local_device=None, remote_url=url,
                             remote_serde="cachegen", chunk_size=REMOTE_CHUNK,
                             **kw),
         LMCacheEngineMetadata(model_name=REMOTE_MODEL, world_size=1,
                               worker_id=0, fmt="vllm", dtype=cfg.dtype))
+    if transport == "python":
+        host, port = url.split("://")[1].rsplit(":", 1)
+        tier.engine_.connection.close()
+        tier.engine_.connection = LMCServerConnector(host, int(port),
+                                                     use_native=False)
+    if (tier.engine_.connection.native is None) != (transport == "python"):
+        raise SystemExit(f"remote tier: not on the {transport} transport")
+    return tier
 
 
 def remote_store(url, cfg, tokens_np, prefix):
@@ -2984,8 +3157,16 @@ def remote_store(url, cfg, tokens_np, prefix):
     launches = read_launch_counts()
     keys = [a._make_key(h, "vllm")
             for h in prefix_chunk_hashes(tokens_np[:CTX], REMOTE_CHUNK)]
-    wire = [a.engine_.connection.get(k.to_string()) for k in keys]
+    wire = [bytes(a.engine_.connection.get(k.to_string())) for k in keys]
     a.close()
+    py = remote_tier(url, cfg, transport="python")
+    same_py = sum(py.engine_.connection.get(k.to_string()) == w
+                  for k, w in zip(keys, wire))
+    py.close()
+    log(f"  the containers fetched through the native transport equal those "
+        f"fetched through the Python client: {same_py} of {len(wire)}")
+    if same_py != len(wire):
+        raise SystemExit("remote store: the transports fetch other bytes")
     host = cgs.CacheGenSerializer(
         LMCacheEngineConfig(local_device=None, remote_url="lm://localhost:1",
                             cachegen_device_encode="off"),
@@ -3089,15 +3270,16 @@ def fused_decodes_exact(groups):
     return checks
 
 
-def remote_reuse_gate(url, cfg, params, tokens_np, full_logits):
-    """Instance B (pipelined) serves the CTX + SUFFIX prompt: grouped
-    inject (row 11's fused entry, one launch a group), then the suffix
-    prefill. Gates: the cached prefix; every group's symbols, decoded again
-    on the card, equal the host C++ decode of its containers, and its blob
-    those symbols dequantized; the slot equals retrieve() with the host
-    decoder injected into a second slot. Returns the engine (its slot is
-    read by the paged wave)."""
-    b = remote_tier(url, cfg, pipelined_backend=True)
+def remote_reuse_gate(url, cfg, params, tokens_np, full_logits, transport):
+    """Instance B (pipelined, on ``transport``) serves the CTX + SUFFIX
+    prompt: grouped inject (row 11's fused entry, one launch a group), then
+    the suffix prefill. Gates: the cached prefix; every group's symbols,
+    decoded again on the card, equal the host C++ decode of its containers,
+    and its blob those symbols dequantized; the slot equals retrieve() with
+    the host decoder injected into a second slot. Returns the engine and
+    the request's slot (read by the paged wave and across transports)."""
+    log(f"  -- {transport} transport")
+    b = remote_tier(url, cfg, transport, pipelined_backend=True)
     eng = ServingEngine(cfg, params, max_batch=2, max_seq=CTX + SUFFIX + 8,
                         cache_engine=b)
     kept = {}
@@ -3115,7 +3297,7 @@ def remote_reuse_gate(url, cfg, params, tokens_np, full_logits):
     checks = fused_decodes_exact(groups)
     same_symbols = [c[0] for c in checks]
     same_blobs = [c[1] for c in checks]
-    off = remote_tier(url, cfg, cachegen_device_decode="off")
+    off = remote_tier(url, cfg, transport, cachegen_device_decode="off")
     blob, mask = off.retrieve(tokens_np[:CTX], return_tuple=False)
     off.close()
     other = 1 - req.slot
@@ -3138,19 +3320,22 @@ def remote_reuse_gate(url, cfg, params, tokens_np, full_logits):
             and int(mask.sum()) == CTX
             and bool(torch.isfinite(logits).all())):
         raise SystemExit("remote reuse: a gate failed")
-    return eng, {"cached_prefix_len": req.cached_prefix_len,
+    return eng, req.slot, {"cached_prefix_len": req.cached_prefix_len,
                  "reuse_rel_l2": rel,
                  "same_top1": int(logits.argmax()) == int(
                      full_logits.argmax())}
 
 
-def remote_stage_split(url, cfg, params, tokens, tokens_np):
+def remote_stage_split(url, cfg, params, tokens, tokens_np, transport):
     """bench.py:470-526's stages, one measured pass each, over the 62
-    containers in the engine's groups of 16: mexist, fetch, parse, then for
-    every group the host concat + upload, row 11's fused decode and
-    dequantization (the blob), the host C++ decode of the same group, the
-    inject; then the suffix prefill over the injected slot."""
-    ce = remote_tier(url, cfg)
+    containers in the engine's groups of 16: mexist, fetch (through
+    ``transport``), parse, then for every group the upload (the tables and
+    payload concatenated into pinned staging buffers and copied without
+    blocking, as ``finish_host_chunks`` does, timed to the copies' end), row
+    11's fused decode and dequantization (the blob), the host C++ decode of
+    the same group, the inject; then the suffix prefill over the injected
+    slot."""
+    ce = remote_tier(url, cfg, transport)
     backend = ce.engine_
     keys = [ce._make_key(h, "vllm")
             for h in prefix_chunk_hashes(tokens_np[:CTX], REMOTE_CHUNK)]
@@ -3170,29 +3355,36 @@ def remote_stage_split(url, cfg, params, tokens, tokens_np):
               "inject_ms"):
         st[k] = 0.0
     up_bytes = 0
+    dev = torch.device("cuda", torch.cuda.current_device())
     for g0 in range(0, STORE_CHUNKS, GROUP_CHUNKS):
         group = hcs[g0:g0 + GROUP_CHUNKS]
         c0 = group[0]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         lens = np.concatenate([c.lens.reshape(-1) for c in group])
-        cdf = np.concatenate([c.cdf.reshape(-1, 33) for c in group])
-        maxes = np.stack([c.maxes for c in group])
-        payload = np.concatenate([np.frombuffer(c.payload, np.uint8)
-                                  for c in group])
-        offsets = np.zeros(len(lens) + 1, np.int64)
-        np.cumsum(lens, out=offsets[1:])
-        d_pay = torch.from_numpy(payload).cuda()
-        d_offs = torch.from_numpy(offsets).cuda()
-        d_cdf = torch.from_numpy(cdf.view(np.int16)).cuda()
-        d_max = torch.from_numpy(maxes).cuda()
+        cdf = cgs.staging((len(lens), 33), torch.int16, dev)
+        np.concatenate([c.cdf.reshape(-1, 33) for c in group],
+                       out=cdf.numpy().view(np.uint16))
+        maxes = cgs.staging((len(group), *c0.maxes.shape), torch.float32,
+                            dev)
+        np.stack([c.maxes for c in group], out=maxes.numpy())
+        payload = cgs.staging((sum(len(c.payload) for c in group),),
+                              torch.uint8, dev)
+        np.concatenate([np.frombuffer(c.payload, np.uint8) for c in group],
+                       out=payload.numpy())
+        offsets = cgs.staging((len(lens) + 1,), torch.int64, dev)
+        offsets[0] = 0
+        np.cumsum(lens, out=offsets.numpy()[1:])
+        d_pay, d_offs, d_cdf, d_max = (cgs.upload(t, dev) for t in (
+            payload, offsets, cdf, maxes))
         half = torch.from_numpy(np.stack([
             c0.key_bins.astype(np.int32) // 2 - 1,
             c0.value_bins.astype(np.int32) // 2 - 1]).astype(
                 np.float32)).cuda()
         torch.cuda.synchronize()
         st["upload_ms"] += (time.perf_counter() - t0) * 1e3
-        up_bytes += payload.nbytes + cdf.nbytes + offsets.nbytes + maxes.nbytes
+        up_bytes += (payload.numel() + cdf.numel() * 2 + offsets.numel() * 8
+                     + maxes.numel() * 4)
         t0 = time.perf_counter()
         blob = rd.decode_to_blob(
             d_pay, d_offs, d_cdf, d_max, half, nchunks=len(group), L=c0.L,
@@ -3202,7 +3394,8 @@ def remote_stage_split(url, cfg, params, tokens, tokens_np):
         torch.cuda.synchronize()
         st["decode_dequant_ms"] += (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
-        range_coder.decode_streams(payload, lens, c0.g * c0.T, cdf)
+        range_coder.decode_streams(payload.numpy(), lens, c0.g * c0.T,
+                                   cdf.numpy().view(np.uint16))
         st["host_decode_ms"] += (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
         eng._inject(blob, 0, g0 * REMOTE_CHUNK)
@@ -3214,11 +3407,106 @@ def remote_stage_split(url, cfg, params, tokens, tokens_np):
                   eng._slot_view(0), last_logit_only=True)
     torch.cuda.synchronize()
     st["suffix_prefill_ms"] = (time.perf_counter() - t0) * 1e3
-    log("  stages (one pass each, ms; groups of 16 summed): " + ", ".join(
-        f"{k[:-3]} {v:.2f}" for k, v in st.items())
-        + f"; host -> device {up_bytes / 1e6:.3f} MB")
+    log(f"  stages, {transport} transport (one pass each, ms; groups of 16 "
+        f"summed): " + ", ".join(f"{k[:-3]} {v:.2f}" for k, v in st.items())
+        + f"; host -> device {up_bytes / 1e6:.3f} MB, pinned")
     st["host_to_device_bytes"] = up_bytes
     return st
+
+
+@contextmanager
+def counting_uploads():
+    """Within the block, the host-to-device uploads of ``finish_host_chunks``
+    (the grouped inject's tables and payloads), counted by whether their
+    host buffer is pinned: a count the profiler cannot lose (late in a long
+    run its windows drop records)."""
+    seen, upload = Counter(pinned=0, pageable=0), cgs.upload
+
+    def counted(host, device):
+        seen["pinned" if host.is_pinned() else "pageable"] += 1
+        return upload(host, device)
+
+    cgs.upload = counted
+    try:
+        yield seen
+    finally:
+        cgs.upload = upload
+
+
+def grouped_stream_overlap(eng, serve):
+    """How much of the grouped inject's device work (each group's upload
+    and fused decode, and its inject) runs while the host still fetches and
+    parses later groups, in one ``serve()``d request: events recorded around
+    each group's work on the one stream, placed on the host's clock by an
+    event recorded on the idle card at the start. Returns the numbers and
+    whether the card waited on the host with work it could overlap (the
+    case for a second stream)."""
+    marks, done = [], {}
+    finish, inject, grouped = (eng._finish_group, eng._inject,
+                               eng._grouped_stream)
+
+    def timed(fn, kind):
+        def call(*args):
+            issue = time.perf_counter()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            marks.append((kind, issue, start, end))
+            return out
+        return call
+
+    def grouped_and_mark(*args):
+        out = grouped(*args)
+        done["host"] = time.perf_counter()
+        return out
+
+    eng._finish_group = timed(finish, "decode")
+    eng._inject = timed(inject, "inject")
+    eng._grouped_stream = grouped_and_mark
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    try:
+        serve()
+    finally:
+        eng._finish_group, eng._inject, eng._grouped_stream = (
+            finish, inject, grouped)
+    torch.cuda.synchronize()
+    rows = [(kind, issue, t0 + e0.elapsed_time(s) / 1e3,
+             t0 + e0.elapsed_time(e) / 1e3) for kind, issue, s, e in marks]
+    t_host = done["host"]
+    work = sum(e - s for _, _, s, e in rows)
+    hidden = sum(max(0.0, min(e, t_host) - s) for _, _, s, e in rows)
+    waited = sum(max(0.0, s - issue) for _, issue, s, _ in rows)
+    tail = max(0.0, max(e for _, _, _, e in rows) - t_host)
+    span = t_host - t0
+    out = {"groups": sum(k == "decode" for k, *_ in rows),
+           "host_stream_ms": span * 1e3, "device_work_ms": work * 1e3,
+           "hidden_share": hidden / work if work else None,
+           "queue_wait_ms": waited * 1e3, "tail_ms": tail * 1e3,
+           "card_idle_share": 1 - work / span if span else None}
+    # a second stream could overlap only group work that waited in the one
+    # stream's queue or ran on after the host had issued the last group
+    out["second_stream"] = (out["queue_wait_ms"] + out["tail_ms"]
+                            > 0.05 * out["host_stream_ms"])
+    log(f"  overlap of the grouped inject ({out['groups']} groups): the host "
+        f"fetched, parsed and issued for {out['host_stream_ms']:.2f} ms; the "
+        f"groups' device work (upload, fused decode, inject; the spans "
+        f"between events around each call, so with the host's "
+        f"concatenation inside them) {out['device_work_ms']:.3f} ms, of which "
+        f"{100 * (out['hidden_share'] or 0):.1f} % ran before the host had "
+        f"issued the last group and {out['tail_ms']:.3f} ms after; the work "
+        f"waited {out['queue_wait_ms']:.3f} ms in the stream's queue; the "
+        f"card idle at least {100 * (out['card_idle_share'] or 0):.1f} % "
+        f"of the host's stream. Second stream for decode + inject: "
+        + ("worth adding (group work waited in the queue or ran on after "
+           "the host)" if out["second_stream"] else
+           "not added (the card waits on the host's fetch and parse, not "
+           "on queued work)"))
+    return out
 
 
 def phase_remote(cfg, params, ttft_full_ms):
@@ -3242,14 +3530,25 @@ def phase_remote(cfg, params, ttft_full_ms):
         launches["remote store"], out["store"] = remote_store(
             url, cfg, tokens_np, prefix)
         del cache, prefix
-        dense, out["gate"] = remote_reuse_gate(url, cfg, params, tokens_np,
-                                               full_logits)
+        gates, slot_kv = {}, {}
+        for transport in TRANSPORTS:
+            dense, slot, gates[transport] = remote_reuse_gate(
+                url, cfg, params, tokens_np, full_logits, transport)
+            slot_kv[transport] = dense.kv_pool[:, :, slot, :, :CTX]
+            if transport != TRANSPORTS[-1]:
+                dense.cache_engine.close()
+                del dense
+        same_kv = same_bits(*slot_kv.values())
+        log(f"  the KV injected through the two transports is bit-equal: "
+            f"{same_kv}")
+        if not same_kv:
+            raise SystemExit("remote reuse: the transports inject other KV")
+        del slot_kv
+        out["gate"] = gates["native"]
+        out["gate_python"] = gates["python"]
 
         # timed: one engine as a user runs it (max_batch 1), each request a
-        # new 512-token question on the stored document
-        b = remote_tier(url, cfg, pipelined_backend=True)
-        eng = ServingEngine(cfg, params, max_batch=1, max_seq=S + 8,
-                            cache_engine=b)
+        # new 512-token question on the stored document, per transport
         rng = np.random.default_rng(9)
         sp = SamplingParams(max_new_tokens=1)
 
@@ -3257,33 +3556,61 @@ def phase_remote(cfg, params, ttft_full_ms):
             return np.concatenate([tokens_np[:CTX], rng.integers(
                 0, cfg.vocab_size, SUFFIX, dtype=np.int32)])
 
-        def serve():
-            [r] = eng.generate([question()], sp)
-            torch.cuda.synchronize()
-            b.engine_.flush()  # the store-back of the new suffix
-            if r.cached_prefix_len != CTX:
-                raise SystemExit(f"remote reuse: {r.cached_prefix_len} "
-                                 f"cached, not {CTX}")
-            return r.ttft_s * 1e3
+        out["transports"] = {}
+        for transport in TRANSPORTS:
+            b = remote_tier(url, cfg, transport, pipelined_backend=True)
+            eng = ServingEngine(cfg, params, max_batch=1, max_seq=S + 8,
+                                cache_engine=b)
 
-        serve()  # warm-up
-        reset_launch_counts()
-        ttft = sorted(serve() for _ in range(3))
-        launches["remote reuse"] = read_launch_counts()
-        log(f"  TTFT remote {ttft[0]:.2f} ms best of 3, median {ttft[1]:.2f} "
-            f"ms (each request a new suffix); TTFT full {ttft_full_ms:.2f} ms "
-            f"(phase 3): ratio {ttft_full_ms / ttft[0]:.3f}x; launches of the "
-            f"three requests {launches['remote reuse']}")
-        out["ttft_remote_ms"], out["ttft_remote_median_ms"] = ttft[0], ttft[1]
+            def serve():
+                [r] = eng.generate([question()], sp)
+                torch.cuda.synchronize()
+                b.engine_.flush()  # the store-back of the new suffix
+                if r.cached_prefix_len != CTX:
+                    raise SystemExit(f"remote reuse: {r.cached_prefix_len} "
+                                     f"cached, not {CTX}")
+                return r.ttft_s * 1e3
+
+            serve()  # warm-up
+            reset_launch_counts()
+            ttft = sorted(serve() for _ in range(3))
+            key = ("remote reuse" if transport == "native"
+                   else f"remote reuse {transport}")
+            launches[key] = read_launch_counts()
+            log(f"  TTFT remote, {transport} transport: {ttft[0]:.2f} ms "
+                f"best of 3, median {ttft[1]:.2f} ms (each request a new "
+                f"suffix); TTFT full {ttft_full_ms:.2f} ms (phase 3): ratio "
+                f"{ttft_full_ms / ttft[0]:.3f}x; launches of the three "
+                f"requests {launches[key]}")
+            res = {"ttft_remote_ms": ttft[0], "ttft_remote_median_ms": ttft[1],
+                   "ttft_remote_all_ms": ttft}
+            with counting_uploads() as uploads:
+                res["profile"] = profile_window(
+                    f"remote reuse request, {transport} transport (fetch, "
+                    f"grouped decode + inject, suffix)",
+                    lambda: eng.generate([question()], sp), copies=True)
+            groups = -(-STORE_CHUNKS // GROUP_CHUNKS)
+            res["group_uploads"] = dict(uploads)
+            log(f"  the profiled request's group uploads (counted where they "
+                f"are issued): {dict(uploads)}, 5 a group for its {groups} "
+                f"groups")
+            if (uploads["pinned"] != 5 * groups or uploads["pageable"]
+                    or not res["profile"].get("h2d", {}).get("pinned")):
+                raise SystemExit("remote reuse: the group uploads are not "
+                                 "all pinned")
+            b.engine_.flush()
+            res["overlap"] = grouped_stream_overlap(eng, serve)
+            b.engine_.flush()
+            b.close()
+            del eng
+            res["stages"] = remote_stage_split(url, cfg, params, tokens,
+                                               tokens_np, transport)
+            out["transports"][transport] = res
+        native = out["transports"]["native"]
+        out["ttft_remote_ms"] = native["ttft_remote_ms"]
+        out["ttft_remote_median_ms"] = native["ttft_remote_median_ms"]
         out["ttft_full_ms"] = ttft_full_ms
-        out["profile"] = profile_window(
-            "remote reuse request (fetch, grouped decode + inject, suffix)",
-            lambda: eng.generate([question()], sp))
-        b.engine_.flush()
-        b.close()
-        del eng
-        out["stages"] = remote_stage_split(url, cfg, params, tokens,
-                                           tokens_np)
+        out["profile"], out["stages"] = native["profile"], native["stages"]
 
         # the paged engine over the same server (page 64, chunk 256)
         tier = remote_tier(url, cfg, pipelined_backend=True)
@@ -3303,7 +3630,8 @@ def phase_remote(cfg, params, ttft_full_ms):
         launches["remote paged"] = read_launch_counts()
         tier.close()
         pages = peng._read_pages(written)[:, :, :CTX]
-        same = torch.equal(pages, llama.cache_to_blob(dense.kv_pool, 0, CTX))
+        same = torch.equal(pages, llama.cache_to_blob(dense.kv_pool, slot,
+                                                      CTX))
         log(f"  paged: {n_pages} pages injected in groups; the first {CTX} "
             f"tokens of the pages equal the dense slot's KV: {same}; "
             f"launches {launches['remote paged']}")
@@ -3717,9 +4045,335 @@ def phase_mla(kv_wire_bytes, reps=2):
                  (MLAPagedServingEngine, {"page_size": PAGE,
                                           "num_pages": NP_BLEND})])
     launches.update(blend_launches)
+    decode_launches, out["decode_options"] = mla_decode_options(cfg, params)
+    launches.update(decode_launches)
     del params
     torch.cuda.empty_cache()
     return launches, out
+
+
+# ------------------------------------------ phase 14: the decode options ---
+
+SPEC_K = 4  # proposals a verification forward checks: T = 5 a row
+DECODE_NEW = 17  # tokens a request decodes: 1 at prefill, then 4 blocks of 4
+DECODE_BLOCK = 4
+DECODE_LOGPROBS = 5
+DECODE_SEQ = 512  # max_seq of the phase's engines (4 slots)
+MLA_DECODE_LAYERS = 3  # V2-Lite's depth here: its dense layer and two MoE
+# the paged engines' arena: four slots of DECODE_SEQ + a verification's
+# horizon, and spare pages
+DECODE_PAGES = 4 * -(-(DECODE_SEQ + SPEC_K + 1) // PAGE) + 8
+
+
+def decode_prompts(vocab):
+    """Four prompts of four lengths, so that a verification forward runs
+    T = 5 a row over rows of four kv_len: two repeat a motif (the n-gram
+    proposer fires on them), two are random."""
+    rng = np.random.default_rng(14)
+    return [np.tile(rng.integers(0, vocab, 32, dtype=np.int32), 10),
+            np.tile(rng.integers(0, vocab, 24, dtype=np.int32), 13)[:301],
+            rng.integers(0, vocab, 257, dtype=np.int32),
+            rng.integers(0, vocab, 211, dtype=np.int32)]
+
+
+def witness_logits(cfg, params, seqs, kv_dtype="native"):
+    """fp32 logits at every position of each sequence, from the plain
+    witness: the forward with the kernels' plain attention (fp32 inside;
+    over an int8 pool for ``kv_dtype="int8"``) and the LM head in fp32 (the
+    engines round the final norm's output and the logits to bf16). A llama
+    config runs ``llama.forward``, an MLA config ``mla.forward`` with
+    ``latent_attention_reference`` bound as its attention."""
+    zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+    out = []
+    if isinstance(cfg, mla.MLAConfig):
+        def head32(x, params, cfg, last_logit_only):
+            x32 = x.float()
+            h = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True)
+                                  + cfg.norm_eps)
+            return (h * params["final_norm"].float()) @ params[
+                "lm_head"].float()
+
+        saved = mla.latent_flash_attention, mla._logits
+        mla.latent_flash_attention = la.latent_attention_reference
+        mla._logits = head32
+        try:
+            for s in seqs:
+                toks = torch.as_tensor(np.asarray(s), device="cuda")
+                logits, _ = mla.forward(
+                    params, cfg, toks.long()[None], zero,
+                    mla.new_latent_cache(cfg, 1, len(s)))
+                out.append(logits[0])
+        finally:
+            mla.latent_flash_attention, mla._logits = saved
+        return out
+    return plain_first_logits(cfg, params, seqs, kv_dtype=kv_dtype,
+                              every=True)
+
+
+def _tie_steps(w, a, b):
+    """How many bf16 steps, at the larger magnitude, the witness logits
+    ``w`` put tokens ``a`` and ``b`` apart."""
+    x, y = w[a], w[b]
+    return ((x - y).abs() / _bf16_step(torch.maximum(x.abs(), y.abs()))
+            ).item()
+
+
+def tokens_agree(name, reqs, golden, prompts, witness):
+    """Each request's tokens equal the sequential run's, or do up to a
+    first differing token that the fp32 witness (its logits over the
+    sequential run's sequence) puts near the sequential token: within
+    TIE_STEPS bf16 steps (phase 5's rule, for two computations of the same
+    shapes) or within TOP1_MARGIN of the witness logits' rms (phase 6d's
+    rule for tokens computed in other shapes, which phase 10 applies too: a
+    verification forward runs its projections over K + 1 rows a request
+    and its attention through the kernels' body where a single step takes
+    the key split, so its logits differ from a step's by more than the last
+    rounding). Each gap is printed in both units."""
+    ok, notes = True, []
+    for i, (r, want) in enumerate(zip(reqs, golden)):
+        got = r.output_tokens
+        n = next((j for j, (x, y) in enumerate(zip(got, want)) if x != y),
+                 None)
+        if n is None:
+            if len(got) != len(want):
+                ok = False
+                notes.append(f"request {i}: {len(got)} tokens, not "
+                             f"{len(want)}")
+            continue
+        w = witness[i][len(prompts[i]) + n - 1]
+        steps = _tie_steps(w, got[n], want[n])
+        margin = ((w[got[n]] - w[want[n]]).abs()
+                  / w.square().mean().sqrt()).item()
+        tie = steps <= TIE_STEPS or margin <= TOP1_MARGIN
+        ok &= tie
+        notes.append(f"request {i}: token {n} differs ({got[n]} against "
+                     f"{want[n]}); the fp32 witness puts them {steps:.4f} "
+                     f"bf16 steps apart (at most {TIE_STEPS} for one "
+                     f"shape), {margin:.4f} of its logits' rms (at most "
+                     f"{TOP1_MARGIN} for other shapes): "
+                     f"{'a near tie' if tie else 'not a near tie'}")
+    log(f"  {name}: tokens equal the sequential run's "
+        f"{'; '.join(notes) if notes else 'in every request'} "
+        f"{'ok' if ok else 'FAILED'}")
+    return ok
+
+
+def logprobs_agree(name, reqs, prompts, witness):
+    """Every recorded logprob (the sampled token's and each of the top
+    ``DECODE_LOGPROBS``) within TOP1_MARGIN of the witness logits' rms of
+    the witness's own log-softmax at that id, the ids distinct and in
+    descending order, and the witness's best token among them."""
+    worst, ok = 0.0, True
+    for i, r in enumerate(reqs):
+        for n, rec in enumerate(r.logprobs):
+            w = witness[i][len(prompts[i]) + n - 1]
+            lp = torch.log_softmax(w, dim=-1)
+            tol = TOP1_MARGIN * w.square().mean().sqrt().item()
+            ids = [t for t, _ in rec["top"]] + [rec["token"]]
+            vals = [v for _, v in rec["top"]] + [rec["logprob"]]
+            err = max(abs(v - lp[t].item()) for t, v in zip(ids, vals))
+            worst = max(worst, err / tol)
+            top = ids[:-1]
+            ok &= (err <= tol and len(set(top)) == DECODE_LOGPROBS
+                   and vals[:-1] == sorted(vals[:-1], reverse=True)
+                   and int(w.argmax()) in top)
+    log(f"  {name}: logprobs of {sum(len(r.logprobs) for r in reqs)} "
+        f"tokens and their top {DECODE_LOGPROBS} against the fp32 witness: "
+        f"largest error {worst:.3f} of the tolerance ({TOP1_MARGIN} of the "
+        f"witness logits' rms) {'ok' if ok else 'FAILED'}")
+    return ok, worst
+
+
+def timed_decode(eng, prompts, sp):
+    """Serve ``prompts``: the prefills first, then the decode calls alone,
+    timed (each ends in the tokens' copy to the host). Returns (requests,
+    decode tokens/s, host ms a call)."""
+    reqs = [eng.add_request(Request(p, sp)) for p in prompts]
+    while eng.waiting or eng.prefilling:
+        eng.step()
+    n0, calls = sum(len(r.output_tokens) for r in reqs), 0
+    t0 = time.perf_counter()
+    while eng.running:
+        eng._decode_all()
+        calls += 1
+    secs = time.perf_counter() - t0
+    toks = sum(len(r.output_tokens) for r in reqs) - n0
+    return reqs, toks / secs, 1e3 * secs / calls
+
+
+def count_syncs(fn):
+    """(fn's result, the host syncs it issued): CUDA's synchronizing calls
+    flagged by ``torch.cuda.set_sync_debug_mode``."""
+    import warnings
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def decode_options(name, make, cfg, params, prompts, kv_dtype="native"):
+    """One engine kind through the three options: sequential greedy with
+    ``logprobs`` (the golden tokens, held to the fp32 witness), the same
+    without logprobs timed at ``decode_block`` 1 and DECODE_BLOCK (tokens
+    bit-equal; host syncs inside one block counted), ``spec_lookahead``
+    SPEC_K with the n-gram proposer and with an oracle that proposes the
+    golden continuation (tokens held to the golden ones by the tie rule).
+    Returns (ok, the numbers)."""
+    log(f"  -- {name}")
+    res, ok = {}, True
+    golden_reqs = make().generate(prompts, SamplingParams(
+        max_new_tokens=DECODE_NEW, logprobs=DECODE_LOGPROBS))
+    golden = [r.output_tokens for r in golden_reqs]
+    with uncounted():
+        witness = witness_logits(cfg, params, [
+            np.concatenate([p, g[:-1]]) for p, g in zip(prompts, golden)],
+            kv_dtype)
+    lp_ok, res["logprob_worst_of_tol"] = logprobs_agree(
+        f"{name}, logprobs={DECODE_LOGPROBS}", golden_reqs, prompts, witness)
+    ok &= lp_ok
+
+    sp = SamplingParams(max_new_tokens=DECODE_NEW)
+    timed = {}
+    for block in (1, DECODE_BLOCK):
+        eng = make(decode_block=block)
+        reqs, tok_s, call_ms = timed_decode(eng, prompts, sp)
+        timed[block] = [r.output_tokens for r in reqs]
+        # one more call of each, profiled (device time) and with its host
+        # syncs counted, on two fresh requests brought to decode
+        for p in prompts[:2]:
+            eng.add_request(Request(p, SamplingParams(max_new_tokens=12)))
+        while eng.waiting or eng.prefilling:
+            eng.step()
+        _, syncs = count_syncs(eng._decode_all)
+        prof = profile_window(
+            f"{name}, one decode call at decode_block {block} (2 of 4 rows "
+            f"live)", eng._decode_all)
+        eng.run()
+        res[f"decode_block_{block}"] = {
+            "tok_s": tok_s, "host_ms_per_call": call_ms,
+            "host_ms_per_step": call_ms / block,
+            "device_ms_per_step": (None if prof["device_ms"] is None
+                                   else prof["device_ms"] / block),
+            "syncs_per_call": syncs, "profile": prof}
+        log(f"  {name}, decode_block {block}: {tok_s:.1f} tok/s, "
+            f"{call_ms:.3f} ms a call of {block} step(s) (host), "
+            f"{call_ms / block:.3f} ms a step; device "
+            f"{res[f'decode_block_{block}']['device_ms_per_step']} ms a step "
+            f"(profiled); host syncs in a call {syncs}")
+        del eng
+    same = timed[1] == timed[DECODE_BLOCK] == golden
+    syncs = res[f"decode_block_{DECODE_BLOCK}"]["syncs_per_call"]
+    log(f"  {name}: decode_block {DECODE_BLOCK} tokens bit-equal to "
+        f"decode_block 1 and to the logprobs run: {same}; host syncs inside "
+        f"a block: {syncs} (at most 1: the tokens' copy at its end) "
+        f"{'ok' if same and syncs <= 1 else 'FAILED'}")
+    ok &= same and syncs <= 1
+
+    gold = {p.tobytes(): np.asarray(g, np.int32)
+            for p, g in zip(prompts, golden)}
+    lens = sorted({len(p) for p in prompts})
+
+    def oracle(tokens, ngram, k):
+        for n in lens:
+            g = gold.get(np.asarray(tokens[:n], np.int32).tobytes())
+            if g is not None and len(tokens) >= n:
+                m = len(tokens) - n
+                return g[m:m + k]
+        return np.zeros(0, np.int32)
+
+    for label, proposer in (("n-gram", None), ("oracle", oracle)):
+        eng = make(spec_lookahead=SPEC_K)
+        forwards = []
+        spec_forward = eng._spec_forward
+        eng._spec_forward = lambda inp, start: forwards.append(1) or (
+            spec_forward(inp, start))
+        saved = engine_mod._ngram_propose
+        if proposer is not None:
+            engine_mod._ngram_propose = proposer
+        try:
+            reqs = eng.generate(prompts, sp)
+        finally:
+            engine_mod._ngram_propose = saved
+        prop = sum(r.spec_proposed for r in reqs)
+        acc = sum(r.spec_accepted for r in reqs)
+        log(f"  {name}, spec_lookahead {SPEC_K}, {label} proposer: "
+            f"{len(forwards)} verification forwards for "
+            f"{sum(len(r.output_tokens) - 1 for r in reqs)} decoded tokens; "
+            f"proposed {prop}, accepted {acc}")
+        ok &= tokens_agree(f"{name}, spec {label}", reqs, golden, prompts,
+                           witness)
+        if label == "oracle":
+            ok &= acc > 0
+        res[f"spec_{label}"] = {"forwards": len(forwards), "proposed": prop,
+                                "accepted": acc}
+        del eng
+    return ok, res
+
+
+def phase_decode_options(cfg, params):
+    """Phase 14, tinyllama-1.1B at full depth: the dense native and int8
+    engines and the paged bf16 and int8 engines. Returns (launch counts by
+    engine, the numbers)."""
+    prompts = decode_prompts(cfg.vocab_size)
+    log(f"== phase 14: decode_block, spec_lookahead and logprobs, "
+        f"tinyllama-1.1B, four requests of {[len(p) for p in prompts]} "
+        f"tokens, {DECODE_NEW} new tokens each")
+    kinds = [("dense native", ServingEngine, {}, "native"),
+             ("dense int8", ServingEngine, {"kv_dtype": "int8"}, "int8"),
+             ("paged bf16", PagedServingEngine,
+              {"page_size": PAGE, "num_pages": DECODE_PAGES}, "native"),
+             ("paged int8", PagedServingEngine,
+              {"page_size": PAGE, "num_pages": DECODE_PAGES,
+               "kv_dtype": "int8"}, "int8")]
+    return decode_option_kinds(cfg, params, prompts, kinds, "tinyllama")
+
+
+def decode_option_kinds(cfg, params, prompts, kinds, model):
+    """:func:`decode_options` for each (name, engine class, options, pool
+    dtype) of ``kinds``, each with the counts at 0 before it and read just
+    after. Returns (launch counts by engine, the numbers); exits when a
+    gate failed."""
+    launches, out, ok = {}, {}, True
+    for name, cls, kw, kv_dtype in kinds:
+        def make(**opts):
+            # every prompt prefilled in the first step, so that the
+            # requests decode in step and a block holds no spent row
+            return cls(cfg, params, max_batch=4, max_seq=DECODE_SEQ,
+                       prefill_chunk=512, prefill_token_budget=4 * 512,
+                       **kw, **opts)
+        reset_launch_counts()
+        k_ok, out[name] = decode_options(f"{model} {name}", make, cfg,
+                                         params, prompts, kv_dtype)
+        launches[f"decode options {model} {name}"] = read_launch_counts()
+        ok &= k_ok
+        torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit(f"decode options, {model}: a gate failed")
+    return launches, out
+
+
+def mla_decode_options(cfg, params):
+    """Phase 14 on DeepSeek-V2-Lite's weights at full width, cut to
+    MLA_DECODE_LAYERS layers (views of phase 10's): the MLA dense and paged
+    engines over native latents."""
+    kd = cfg.first_k_dense_replace
+    short = dataclasses.replace(cfg, n_layers=MLA_DECODE_LAYERS)
+    sliced = dict(params)
+    sliced["dense_layers"] = {k: v[:kd] for k, v in
+                              params["dense_layers"].items()}
+    sliced["moe_layers"] = {k: v[:MLA_DECODE_LAYERS - kd] for k, v in
+                            params["moe_layers"].items()}
+    prompts = decode_prompts(cfg.vocab_size)
+    log(f"  -- 14b: DeepSeek-V2-Lite at full width, {MLA_DECODE_LAYERS} of "
+        f"{cfg.n_layers} layers")
+    kinds = [("MLA dense", MLAServingEngine, {}, "native"),
+             ("MLA paged", MLAPagedServingEngine,
+              {"page_size": PAGE, "num_pages": DECODE_PAGES}, "native")]
+    return decode_option_kinds(short, sliced, prompts, kinds, "v2-lite")
 
 
 # ------------------------------------ phase 11: row 13, the ablation tool ---
@@ -4353,6 +5007,22 @@ def cuda_ms_cold(fn, iters):
     return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
+def event_span_ms(fn):
+    """(ms from an event recorded before ``fn``'s first launch to one
+    recorded after its last, host ms of the call to its synchronize), one
+    warm call on an idle card."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+
 def queued_ms(fn, iters, flush=None):
     """Mean device time of one call of ``fn`` in ms, each of ``iters``
     calls between its own two events, all of them queued while the card
@@ -4456,16 +5126,19 @@ def phase_yardstick():
         row = {"shape": name, "ms": ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": bound_ms,
                "bound_by": bound_by}
-        extra = ""
+        # the kernels alone: events around calls queued behind a spin
+        row["queued_ms"] = queued_ms(lambda: ops.flash_attention(
+            q, k, v, qo, kl, kv_head_major=True), iters=50 if decode else 10)
+        extra = f" (queued {row['queued_ms']:.4f} ms)"
         if decode:
             # the split decode's two kernels alone, and SDPA's
             row["kernel_ms"] = kernel_ms(lambda: ops.flash_attention(
                 q, k, v, qo, kl, kv_head_major=True), iters=50)
             row["library_kernel_ms"] = kernel_ms(
                 lambda: sdpa(qh, k, v, enable_gqa=True, **mask_kw), iters=50)
-            extra = (f" (device time of the kernels alone: "
-                     f"{row['kernel_ms']} ms, SDPA's "
-                     f"{row['library_kernel_ms']} ms)")
+            extra += (f" (device time of the kernels alone: "
+                      f"{row['kernel_ms']} ms, SDPA's "
+                      f"{row['library_kernel_ms']} ms)")
         log(f"  flash_attention | {name}: kernel {ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, SDPA "
             f"{library_ms:.4f} ms{extra}")
@@ -4480,14 +5153,16 @@ def phase_yardstick():
         bound_ms, bound_by = combine_bound(part_o, part_ml, T, G)
         row = {"shape": name, "ms": ms, "plain_ms": plain_ms,
                "library_ms": None, "bound_ms": bound_ms,
-               "bound_by": bound_by}
-        dev = ""
+               "bound_by": bound_by,
+               "queued_ms": queued_ms(lambda: attn.combine_partials(
+                   part_o, part_ml, T, G), iters=50)}
+        dev = f" (queued {row['queued_ms']:.4f} ms)"
         if paged:
             # the paged split decode's combine alone, without the gaps in
             # which the card waits for the host
             row["kernel_ms"] = kernel_ms(lambda: attn.combine_partials(
                 part_o, part_ml, T, G), iters=50)
-            dev = f" (device time {row['kernel_ms']})"
+            dev += f" (device time {row['kernel_ms']})"
         rows["combine_partials"].append(row)
         log(f"  combine_partials | {name}: kernel {ms:.4f} ms{dev}, bound "
             f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
@@ -4518,6 +5193,9 @@ def phase_yardstick():
                 iters=iters)
             row["ms_again"] = cuda_ms(
                 lambda: dense_call(case, q, kv, qo, kl, kw), iters=iters)
+        row["queued_ms"] = queued_ms(
+            lambda: dense_call(case, q, kv, qo, kl, kw),
+            iters=50 if case["T"] == 1 else 10)
         if case["T"] == 1:
             # the split decode's two kernels alone, without the gaps in
             # which the card waits for the host
@@ -4529,6 +5207,7 @@ def phase_yardstick():
         extra = (f", flash_attention {row['flash_attention_ms']:.4f} ms, "
                  f"again {row['ms_again']:.4f} ms"
                  if "ms_again" in row else "")
+        extra += f" (queued {row['queued_ms']:.4f} ms)"
         if "kernel_ms" in row:
             extra += f" (device time of the kernels alone {row['kernel_ms']})"
         log(f"  {case['kernel']} | {case['name']}: kernel {ms:.4f} ms"
@@ -4561,6 +5240,8 @@ def phase_yardstick():
                "library_prepare_ms": pre_ms, "library_sdpa_ms": sdpa_ms,
                "sdpa_backends": backends, "bound_ms": bound_ms,
                "bound_by": bound_by}
+        row["queued_ms"] = queued_ms(lambda: entry(*args, **kw),
+                                     iters=50 if decode else 5)
         if decode:
             # the kernels alone (row 10: the split and the combine)
             row["kernel_ms"] = kernel_ms(lambda: entry(*args, **kw),
@@ -4569,8 +5250,9 @@ def phase_yardstick():
         lib = (f"{prep} {pre_ms:.4f} ms + " if pre_ms is not None else "") + (
             f"SDPA {sdpa_ms:.4f} ms (backends that take it: "
             f"{', '.join(backends)})")
-        dev = (f" (device time {row['kernel_ms']})" if "kernel_ms" in row
-               else "")
+        dev = f" (queued {row['queued_ms']:.4f} ms)" + (
+            f" (device time {row['kernel_ms']})" if "kernel_ms" in row
+            else "")
         log(f"  {case['kernel']} | {case['name']}: kernel {ms:.4f} ms{dev}, "
             f"bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
             f"library {lib}")
@@ -4583,21 +5265,48 @@ def phase_yardstick():
                      iters=200)
         dev_ms = kernel_ms(lambda: pla.combine_partials(part_o, part_ml, T,
                                                         H), iters=50)
+        q_ms = queued_ms(lambda: pla.combine_partials(part_o, part_ml, T, H),
+                         iters=50)
         plain_ms = cuda_ms(lambda: pla.combine_partials_reference(
             part_o, part_ml, T, H), iters=20)
         bound_ms, bound_by = combine_bound(part_o[:, None], part_ml[:, None],
                                            T, H)
         rows["latent_combine_partials"].append({
             "shape": case["name"], "ms": ms, "kernel_ms": dev_ms,
-            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
-            "bound_by": bound_by})
+            "queued_ms": q_ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by})
         log(f"  latent_combine_partials | {case['name']}: kernel {ms:.4f} ms "
-            f"(device time {dev_ms}), bound {bound_ms:.4f} ms ({bound_by}), "
-            f"plain {plain_ms:.4f} ms, library none (no single call)")
+            f"(device time {dev_ms}, queued {q_ms:.4f} ms), bound "
+            f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
+            f"library none (no single call)")
         del part_o, part_ml
     opt_gen = torch.Generator(device="cuda").manual_seed(13)
     for case in paged_option_cases():
         rows[case["kernel"]].append(time_paged(case, opt_gen, flush))
+    ver_gen = torch.Generator(device="cuda").manual_seed(14)
+    for family, case in verify_cases():
+        if family == "paged":
+            rows[case["kernel"]].append(time_paged(case, ver_gen, flush))
+            continue
+        kernel, call, plain, library, (bound_ms, bound_by) = verify_call(
+            family, case, ver_gen)
+        row = {"shape": case["name"], "ms": cuda_ms(call, iters=200),
+               "cold_ms": cuda_ms_cold(call, iters=50),
+               "plain_ms": cuda_ms(plain, iters=3, warmup=1),
+               "library_ms": library(200), "bound_ms": bound_ms,
+               "bound_by": bound_by,
+               "queued_ms": queued_ms(call, iters=50),
+               "queued_cold_ms": queued_ms(call, iters=50, flush=flush)}
+        lib = ("none (no single call)" if row["library_ms"] is None
+               else f"{row['library_ms']:.4f} ms")
+        log(f"  {kernel} | {case['name']}: kernel {row['ms']:.4f} ms (L2 "
+            f"flushed before each launch: {row['cold_ms']:.4f} ms; the "
+            f"kernels alone, queued {row['queued_ms']:.4f} ms, queued with "
+            f"the L2 flushed {row['queued_cold_ms']:.4f} ms), bound "
+            f"{bound_ms:.4f} ms ({bound_by}), plain {row['plain_ms']:.4f} "
+            f"ms, library {lib}")
+        rows[kernel].append(row)
+        del call, plain, library
     return rows
 
 
@@ -4706,6 +5415,8 @@ def main():
                  (PagedServingEngine, {"page_size": PAGE,
                                        "num_pages": NP_BLEND})])
     launches.update(blend_launches)
+    decode_launches, decode_out = phase_decode_options(cfg, params)
+    launches.update(decode_launches)
     del params
     torch.cuda.empty_cache()
     remote["codec_throughput"] = phase_codec_throughput()
@@ -4811,6 +5522,21 @@ def main():
                                   ("prefill", "decode")),
                                  ("combine_partials", ("decode",))],
     }
+    expected["remote reuse python"] = expected["remote reuse"]
+    both = ("prefill", "decode")
+    for name, kernel, combine in (
+            ("tinyllama dense native", "flash_attention", "combine_partials"),
+            ("tinyllama dense int8", "quantized_flash_attention",
+             "combine_partials"),
+            ("tinyllama paged bf16", "paged_attention_dma",
+             "combine_partials"),
+            ("tinyllama paged int8", "quantized_paged_attention_dma",
+             "combine_partials"),
+            ("v2-lite MLA dense", "latent_flash_attention", None),
+            ("v2-lite MLA paged", "paged_latent_attention_dma",
+             "latent_combine_partials")):
+        expected[f"decode options {name}"] = [(kernel, both)] + (
+            [(combine, ("decode",))] if combine else [])
     gemma2 = llama.LlamaConfig.gemma2_9b()
     for arena, kernel in (("bf16", "paged_attention_dma"),
                           ("int8", "quantized_paged_attention_dma")):
@@ -4862,6 +5588,7 @@ def main():
               "qwen3_moe": qwen_out, "presets": preset_out,
               "gemma2_paged_profiles": gemma2_profiles,
               "ablation": ablation, "blend": blend_out,
+              "decode_options": decode_out,
               "int8_paged_build": int8_paged,
               "paged_softcap_build": paged_softcap, "card": card}
     print(json.dumps(record), flush=True)

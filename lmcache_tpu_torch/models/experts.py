@@ -36,7 +36,10 @@ def dispatch(hf: torch.Tensor, topi: torch.Tensor, n_experts: int,
     N, k = topi.shape
     E = n_experts
     flat = topi.reshape(-1)
-    counts = torch.bincount(flat, minlength=E)
+    # counted and repeated without reading anything back to the host (CUDA's
+    # bincount and repeat_interleave size their outputs by a host sync)
+    counts = torch.zeros(E, dtype=torch.long, device=flat.device)
+    counts.scatter_add_(0, flat, torch.ones_like(flat))
     # a token's k experts are distinct, so no block holds more than N rows:
     # a decode step pads to EXPERT_ROWS without reading the counts back
     M = EXPERT_ROWS if N <= EXPERT_ROWS else (
@@ -48,7 +51,7 @@ def dispatch(hf: torch.Tensor, topi: torch.Tensor, n_experts: int,
     row[order] = torch.arange(N * k, device=flat.device) - first[flat[order]]
     slot = flat * M + row
     x = hf.new_zeros((E * M, hf.shape[1]))
-    rows = hf.repeat_interleave(k, dim=0)
+    rows = hf[:, None].expand(N, k, hf.shape[1]).reshape(N * k, -1)
     if scale is not None:
         rows = (rows.float() * scale.reshape(-1, 1)).to(hf.dtype)
     x[slot] = rows

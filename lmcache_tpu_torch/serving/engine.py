@@ -35,13 +35,26 @@ Port of ``lmcache_tpu/serving/engine.py::ServingEngine`` (the dense path):
   decoding starts at once. Healed KV is approximate, so it is never stored
   back under the exact prefix hashes.
 
+- multi-token decode, as in the JAX engine: ``decode_block > 1`` runs that
+  many decode steps with sampling on the device and one device-to-host copy
+  of the ``[B, decode_block]`` tokens (stops are applied on the host after
+  the block; the tokens past a stop are dropped); ``spec_lookahead = K``
+  verifies K prompt-lookup proposals (``_ngram_propose`` over the last
+  ``spec_ngram`` tokens) of each greedy request in one ``K + 1``-token
+  forward and keeps the accepted ones, exactly the tokens sequential greedy
+  decode gives. The two are mutually exclusive. A batch holding a
+  ``logprobs`` request takes the single step, and a batch with no greedy
+  request takes the single step instead of the verification;
+- ``SamplingParams.logprobs = n`` records each sampled token's logprob and
+  the top ``n`` alternatives (``Request.logprobs``).
+
 Greedy decoding gives the JAX engine's tokens. Sampled decoding draws from a
 ``torch.Generator`` per request (seeded from ``SamplingParams.seed``, else
-from the engine's own generator): reproducible within the port, not equal
-to ``jax.random``'s draws.
+from the engine's own generator), one draw a token whatever the decode mode:
+reproducible within the port, not equal to ``jax.random``'s draws.
 
-Not ported yet (ROADMAP, module item 7): ``decode_block > 1``,
-``spec_lookahead``, ``mesh`` and ``logprobs``; each raises ``ValueError``.
+``mesh`` is not ported yet (ROADMAP, module item 16) and raises
+``ValueError``.
 """
 
 import time
@@ -56,12 +69,30 @@ from lmcache_tpu_torch.logging_utils import init_logger
 from lmcache_tpu_torch.models import llama
 from lmcache_tpu_torch.serving.request import (Request, RequestState,
                                                SamplingParams)
-from lmcache_tpu_torch.storage.serde.cachegen_serde import finish_host_chunks
+from lmcache_tpu_torch.storage.serde.cachegen_serde import (
+    finish_host_chunks, staging, upload)
 from lmcache_tpu_torch.utils import resolve_device
 
 logger = init_logger(__name__)
 
-_NOT_PORTED = "not ported yet (ROADMAP, module item 7)"
+
+def _ngram_propose(tokens: np.ndarray, ngram: int, k: int) -> np.ndarray:
+    """Prompt-lookup speculation: if the last ``ngram`` tokens occurred
+    earlier in the sequence, propose the ``k`` tokens that followed their
+    most recent occurrence (the JAX engine's ``_ngram_propose``)."""
+    t = np.asarray(tokens, np.int32).reshape(-1)
+    n = min(ngram, len(t) - 1)
+    if n <= 0 or len(t) < n + 2:
+        return t[:0]
+    tail = t[-n:]
+    # candidate windows strictly before the tail's own position
+    body = t[:len(t) - 1]
+    win = np.lib.stride_tricks.sliding_window_view(body, n)
+    hits = np.nonzero((win == tail).all(axis=1))[0]
+    if hits.size == 0:
+        return t[:0]
+    j = int(hits[-1]) + n  # position right after the latest match
+    return t[j:j + k]
 
 
 def _sampling_mode(requests) -> str:
@@ -117,8 +148,22 @@ def _sample_tokens(logits, temps, generators, topks, topps, *,
                 pcut = torch.min(torch.where(keep, sorted_k, float("inf")))
                 lg = torch.where(lg < pcut, float("-inf"), lg)
         probs = torch.softmax(lg / max(t, 1e-6), dim=-1)
-        toks[i] = torch.multinomial(probs, 1, generator=generators[i])[0]
+        # torch.multinomial's one-sample draw, argmax(p / q) with q ~ Exp(1)
+        # from the row's generator, without its checks that read the
+        # probabilities back to the host
+        q = torch.empty_like(probs).exponential_(1, generator=generators[i])
+        toks[i] = torch.argmax(probs / q)
     return toks
+
+
+def _token_logprobs(logits, toks, n: int):
+    """The sampled tokens' logprobs and the top-``n`` alternatives (ids and
+    logprobs, best first), as the JAX engine's ``_token_logprobs``: logits
+    [B, V] raw, toks [B]."""
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    chosen = lp.gather(-1, toks.reshape(-1, 1).to(lp.device).long())[:, 0]
+    top_lp, top_id = torch.topk(lp, n, dim=-1)
+    return chosen, top_id, top_lp
 
 
 class ServingEngine:
@@ -142,16 +187,19 @@ class ServingEngine:
         admission_window: int = 8,
         max_admission_bypass: int = 64,
         spec_lookahead: int = 0,
+        spec_ngram: int = 3,
         mesh=None,
         blend_recompute_ratio: float = 0.15,
     ):
-        for name, unported in (("decode_block > 1", decode_block > 1),
-                               ("spec_lookahead", bool(spec_lookahead)),
-                               ("mesh", mesh is not None)):
-            if unported:
-                raise ValueError(f"{name} is {_NOT_PORTED}")
+        if mesh is not None:
+            raise ValueError(
+                "mesh is not ported yet (ROADMAP, module item 16)")
         if kv_dtype not in ("native", "int8"):
             raise ValueError(f"Invalid kv_dtype: {kv_dtype}")
+        if spec_lookahead and decode_block > 1:
+            raise ValueError(
+                "spec_lookahead and decode_block > 1 are mutually "
+                "exclusive multi-token mechanisms")
         self._check_config(cfg)
         self.cfg = cfg
         self.params = params
@@ -165,8 +213,12 @@ class ServingEngine:
         # completes (TTFT time) instead of at request completion
         self.eager_store = eager_store
         self.kv_dtype = kv_dtype
+        self.spec_lookahead = spec_lookahead
+        self.spec_ngram = spec_ngram
+        self.decode_block = decode_block
         # pool slack past S: parked idle-row writes land here (the batched
-        # decode step writes every row)
+        # decode step writes every row), and so do the writes of a block or
+        # a verification past a request's last token
         self._write_horizon = max(decode_block, spec_lookahead + 1)
         self.kv_pool = self._alloc_pool()
         self._forward = (llama.forward_quantized if kv_dtype == "int8"
@@ -232,8 +284,6 @@ class ServingEngine:
     # -- public API ---------------------------------------------------------
 
     def add_request(self, req: Request) -> Request:
-        if req.sampling.logprobs > 0:
-            raise ValueError(f"logprobs is {_NOT_PORTED}")
         total = req.num_prompt_tokens + req.sampling.max_new_tokens
         if total > self.S:
             raise ValueError(
@@ -323,6 +373,23 @@ class ServingEngine:
                                   [self._slot_gens[req.slot]], [s.top_k],
                                   [s.top_p], mode=_sampling_mode([req]))[0])
 
+    def _record_row_logprobs(self, req: Request, logits_row, tok: int):
+        """Attach the sampled token's logprob and the top-n alternatives to
+        the request (nothing unless ``sampling.logprobs > 0``); logits_row
+        is the [V] raw logits the token was sampled from."""
+        n = req.sampling.logprobs
+        if n <= 0:
+            return
+        chosen, ids, lps = _token_logprobs(logits_row[None],
+                                           torch.tensor([tok]), n)
+        if req.logprobs is None:
+            req.logprobs = []
+        req.logprobs.append({
+            "token": int(tok),
+            "logprob": float(chosen[0]),
+            "top": list(zip(ids[0].tolist(), lps[0].tolist())),
+        })
+
     def _begin_admit(self, req: Request) -> None:
         """Assign a slot, inject the cached prefix, and enqueue the
         request for incremental prefill. Resumed (preempted) requests
@@ -387,7 +454,9 @@ class ServingEngine:
                                     self._read_slot(req.slot, np_),
                                     blocking=False)
         self._assign_slot_generator(req)
-        req.output_tokens.append(self._sample_row(logits, req))
+        tok = self._sample_row(logits, req)
+        req.output_tokens.append(tok)
+        self._record_row_logprobs(req, logits, tok)
         if req.ttft_s is None:
             req.ttft_s = time.perf_counter() - req.arrival_s
         self.running.append(req)
@@ -429,11 +498,15 @@ class ServingEngine:
     def _finish_group(self, group) -> torch.Tensor:
         """A token-consecutive group of pending chunks as ONE blob on the
         engine's device: host chunks in one range-decode + dequantize
-        batch, host tensors in one upload."""
+        batch, host tensors concatenated into one staging buffer (pinned for
+        the card) and uploaded without blocking the host."""
         if hasattr(group[0], "to_blob"):
             return finish_host_chunks(group, device=self.device)
-        blob = group[0] if len(group) == 1 else torch.cat(group, dim=2)
-        return blob.to(self.device)
+        shape = list(group[0].shape)
+        shape[2] = sum(t.shape[2] for t in group)
+        host = staging(shape, group[0].dtype, self.device)
+        torch.cat(group, dim=2, out=host)
+        return upload(host, self.device)
 
     def _grouped_stream(self, stream, limit: int, align: int, inject_at):
         """Walk a ``retrieve_stream`` and inject what it yields: chunks on
@@ -441,9 +514,10 @@ class ServingEngine:
         ``inject_group_chunks`` (:meth:`_finish_group`). The decode of group
         k+1 is issued before group k is injected, so the device's queue
         holds decode(k) decode(k+1) inject(k) decode(k+2) inject(k+1) ...
-        This fixes the order of issue only: the upload of each group is
-        synchronous from pageable host memory, so the host does not run
-        ahead of the card while it uploads. Each chunk is
+        Each group's payload and tables are uploaded from pinned host memory
+        without blocking, so the host goes on to fetch and parse group k+2
+        while the card decodes and injects the groups before it, on the one
+        stream. Each chunk is
         cut to ``limit`` tokens and to a multiple of ``align``. Returns the
         position just past the last injected token (None if none)."""
         pending, pending_pos, pending_key = [], 0, None
@@ -512,7 +586,9 @@ class ServingEngine:
                                  - info["recomputed_tokens"])
         self._inject_blend(req, kv_blob)
         self._assign_slot_generator(req)
-        req.output_tokens.append(self._sample_row(logits, req))
+        tok = self._sample_row(logits, req)
+        req.output_tokens.append(tok)
+        self._record_row_logprobs(req, logits, tok)
         req.ttft_s = time.perf_counter() - req.arrival_s
         self.running.append(req)
         self._maybe_finish(req)
@@ -521,11 +597,32 @@ class ServingEngine:
         """Write a blended prompt's wire blob into the request's slot."""
         self._inject(blob, req.slot, 0)
 
-    def _decode_all(self) -> None:
-        """One batched decode step for every slot (idle rows parked)."""
+    # -- decode ---------------------------------------------------------------
+
+    def _prepare_decode(self) -> None:
+        """Hook run before each decode step (paged: grow the running
+        requests' pages to the step's write horizon, preempting if the arena
+        is full)."""
+
+    def _step_context(self) -> tuple:
+        """What the batched forward takes after the pool, uploaded once for
+        a step or a whole block (paged: the page tables)."""
+        return ()
+
+    def _batch_forward(self, tokens, start, ctx) -> torch.Tensor:
+        """The batched forward over every slot: tokens [B, T] and start [B]
+        on the device; returns logits [B, T, V]. The KV of the tokens is
+        written at ``start`` in place."""
+        logits, _ = self._forward(self.params, self.cfg, tokens, start,
+                                  self.kv_pool, *ctx)
+        return logits
+
+    def _gather_rows(self):
+        """Per-slot decode inputs: the newest token [B, 1] and the next
+        write position [B] (after n sampled tokens the pool holds prompt +
+        n - 1 of them; idle and prefilling rows park at S), and the sampling
+        parameters."""
         last = np.zeros((self.B, 1), np.int64)
-        # the next write of a running request is at prompt + n - 1 after n
-        # sampled tokens; idle / prefilling rows park at S
         start = np.full(self.B, self.S, np.int32)
         temps = [0.0] * self.B
         topks = [0] * self.B
@@ -536,15 +633,120 @@ class ServingEngine:
             temps[r.slot] = r.sampling.temperature
             topks[r.slot] = r.sampling.top_k
             topps[r.slot] = r.sampling.top_p
-        logits, _ = self._forward(self.params, self.cfg,
-                                  torch.as_tensor(last, device=self.device),
-                                  torch.as_tensor(start, device=self.device),
-                                  self.kv_pool)
-        toks = _sample_tokens(logits[:, 0], temps, self._slot_gens, topks,
-                              topps,
+        return last, start, temps, topks, topps
+
+    def _device(self, a) -> torch.Tensor:
+        """A host array's copy on the engine's device: to the card from
+        pinned memory, queued without blocking the host."""
+        t = torch.as_tensor(a)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _decode_all(self) -> None:
+        """One decode step for every running request: a verification
+        (``spec_lookahead``), a block of ``decode_block`` steps, or one
+        batched step (idle rows parked)."""
+        self._prepare_decode()
+        if not self.running:  # every running request was preempted
+            return
+        # a logprobs request needs each step's [B, V] logits on the host;
+        # the block and the verification sample on the device
+        need_lp = any(r.sampling.logprobs > 0 for r in self.running)
+        if (self.spec_lookahead and not need_lp and any(
+                r.sampling.temperature == 0.0 for r in self.running)):
+            # only greedy requests verify exactly; an all-sampled batch
+            # takes the one-token step instead of a K+1-token forward
+            self._decode_speculative()
+            return
+        if self.decode_block > 1 and not need_lp:
+            self._decode_block()
+            return
+        last, start, temps, topks, topps = self._gather_rows()
+        logits = self._batch_forward(self._device(last), self._device(start),
+                                     self._step_context())[:, 0]
+        toks = _sample_tokens(logits, temps, self._slot_gens, topks, topps,
                               mode=_sampling_mode(self.running)).tolist()
         for r in list(self.running):
-            r.output_tokens.append(int(toks[r.slot]))
+            tok = toks[r.slot]
+            r.output_tokens.append(tok)
+            if need_lp:
+                self._record_row_logprobs(r, logits[r.slot], tok)
+            self._maybe_finish(r)
+
+    def _decode_block(self) -> None:
+        """``decode_block`` decode steps with the sampling on the device: no
+        host sync between steps (each step's tokens feed the next on the
+        device, the positions advance there), then one device-to-host copy
+        of the ``[B, decode_block]`` tokens. A request that stops mid-block
+        drops the tokens past its stop; their KV writes lie past its last
+        token, where the next occupant of the slot writes first."""
+        last, start, temps, topks, topps = self._gather_rows()
+        mode = _sampling_mode(self.running)
+        ctx = self._step_context()
+        tok, pos = self._device(last), self._device(start)
+        steps = []
+        for j in range(self.decode_block):
+            logits = self._batch_forward(tok, pos + j, ctx)[:, 0]
+            nxt = _sample_tokens(logits, temps, self._slot_gens, topks,
+                                 topps, mode=mode)
+            steps.append(nxt)
+            tok = nxt[:, None]
+        toks = torch.stack(steps, dim=1).tolist()  # [B, decode_block]
+        for r in list(self.running):
+            for t in toks[r.slot]:
+                r.output_tokens.append(t)
+                if r.is_finished(self.eos_token_id):
+                    break
+            self._maybe_finish(r)
+
+    def _spec_forward(self, inp: np.ndarray, start: np.ndarray):
+        """The verification forward: inp [B, K + 1] (the newest token and
+        the proposals) written at start [B]; logits [B, K + 1, V]."""
+        return self._batch_forward(self._device(inp), self._device(start),
+                                   self._step_context())
+
+    def _decode_speculative(self) -> None:
+        """Prompt-lookup speculative decode: ONE verification forward gives
+        1 + the accepted proposals for each greedy request.
+
+        The inputs are [newest sampled token, proposal_1..K]; the forward
+        writes their KV at start..start+K and returns logits for every
+        position. Proposal j is accepted while it equals the model's own
+        greedy prediction at position j - 1, so the accepted tokens (and
+        their KV, already written) are what sequential decode gives; the
+        rejected positions hold KV past the request's last token, which the
+        next step overwrites before any query can attend it. Sampled rows
+        propose nothing and take one token from the first position's
+        logits, one draw of their generator as in a single step."""
+        K = self.spec_lookahead
+        last, start, temps, topks, topps = self._gather_rows()
+        inp = np.zeros((self.B, K + 1), np.int64)
+        inp[:, 0] = last[:, 0]
+        n_prop = np.zeros(self.B, np.int64)
+        for r in self.running:
+            if r.sampling.temperature == 0.0:  # exact verification: greedy
+                prop = _ngram_propose(r.all_tokens, self.spec_ngram, K)
+                inp[r.slot, 1:1 + len(prop)] = prop
+                n_prop[r.slot] = len(prop)
+        logits = self._spec_forward(inp, start)
+        toks0 = _sample_tokens(logits[:, 0], temps, self._slot_gens, topks,
+                               topps, mode=_sampling_mode(self.running))
+        greedy = torch.argmax(logits, dim=-1)  # [B, K + 1]
+        toks0, greedy = toks0.tolist(), greedy.tolist()
+        for r in list(self.running):
+            b = r.slot
+            emitted = [toks0[b]]
+            j = 1
+            while j <= n_prop[b] and inp[b, j] == emitted[-1]:
+                emitted.append(greedy[b][j])
+                j += 1
+            r.spec_proposed += int(n_prop[b])
+            r.spec_accepted += j - 1
+            for tok in emitted:
+                r.output_tokens.append(tok)
+                if r.is_finished(self.eos_token_id):
+                    break
             self._maybe_finish(r)
 
     def _maybe_finish(self, req: Request) -> None:

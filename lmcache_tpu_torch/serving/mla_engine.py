@@ -14,8 +14,9 @@ dequantizes what it stores, so the wire stays the model-dtype latent).
 
 CacheBlend ``context_chunks`` requests are healed by
 :class:`lmcache_tpu_torch.blend_mla.MLACacheBlender` and injected as latent
-wire blobs. Inherited refusals: ``decode_block > 1``, ``spec_lookahead``,
-``mesh``, ``logprobs`` (ROADMAP, module item 7).
+wire blobs. ``decode_block > 1``, ``spec_lookahead`` (the verification is
+a ``K + 1``-token ``mla.forward`` over every slot) and ``logprobs`` are the
+scheduler's; ``mesh`` is refused there (ROADMAP, module item 16).
 """
 
 import torch

@@ -15,9 +15,10 @@ logical width ``[L, 1, T, 1, r + p]``, so the pad is added on inject
 
 CacheBlend ``context_chunks`` requests are healed by
 :class:`lmcache_tpu_torch.blend_mla.MLACacheBlender` and scattered onto
-whole pages as the dense-KV paged engine does. Inherited refusals:
-``decode_block > 1``, ``spec_lookahead``, ``logprobs`` (ROADMAP, module item
-7), ``mesh`` (item 16).
+whole pages as the dense-KV paged engine does. ``decode_block > 1``,
+``spec_lookahead`` (the verification is a ``K + 1``-token
+``mla.forward_paged`` through the page tables) and ``logprobs`` are the
+scheduler's; ``mesh`` is refused there (ROADMAP, module item 16).
 """
 
 from typing import List

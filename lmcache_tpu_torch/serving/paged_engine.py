@@ -27,9 +27,12 @@ written as whole pages with one scatter; chunks off the engine's device
 (CacheGen host chunks from the remote tier) are decoded and scattered in
 groups, as in the dense engine.
 
-Not ported yet, each raises ``ValueError``: ``decode_block > 1``,
-``spec_lookahead`` and ``logprobs`` (ROADMAP, module item 7) and ``mesh``
-(module item 16).
+``decode_block > 1``, ``spec_lookahead`` and ``logprobs`` are the dense
+engine's (:class:`ServingEngine`), run through the page tables, which are
+uploaded once for a block; decode pages grow to the step's write horizon
+(``K + 1`` positions for a verification, ``decode_block`` for a block)
+before it runs. ``mesh`` is not ported yet (ROADMAP, module item 16) and
+raises ``ValueError``.
 """
 
 from typing import Dict, List, Optional
@@ -47,8 +50,7 @@ from lmcache_tpu_torch.models.paged import (PageAllocator, forward_paged,
                                             new_quantized_paged_pool,
                                             pages_needed)
 from lmcache_tpu_torch.ops.quantized_attention import quantize_tokens
-from lmcache_tpu_torch.serving.engine import (ServingEngine, _sample_tokens,
-                                              _sampling_mode)
+from lmcache_tpu_torch.serving.engine import ServingEngine
 from lmcache_tpu_torch.serving.request import Request, RequestState
 
 logger = init_logger(__name__)
@@ -75,6 +77,7 @@ class PagedServingEngine(ServingEngine):
         prefill_chunk: int = 512,
         kv_dtype: str = "native",  # "native" | "int8" (half-size arena)
         spec_lookahead: int = 0,
+        spec_ngram: int = 3,
         prefill_token_budget: Optional[int] = None,
         admission_window: int = 8,
         max_admission_bypass: int = 64,
@@ -101,6 +104,7 @@ class PagedServingEngine(ServingEngine):
                          admission_window=admission_window,
                          max_admission_bypass=max_admission_bypass,
                          spec_lookahead=spec_lookahead,
+                         spec_ngram=spec_ngram,
                          blend_recompute_ratio=blend_recompute_ratio)
         self._forward = (forward_paged_quantized
                          if kv_dtype == "int8" else forward_paged)
@@ -316,7 +320,8 @@ class PagedServingEngine(ServingEngine):
 
     def _ensure_decode_pages(self) -> None:
         """Before a decode step, grow every running request's page list to
-        cover the token the step will write; when the arena cannot satisfy
+        cover the tokens the step will write (a block's or a verification's
+        too, up to the request's last token); when the arena cannot satisfy
         a growth, preempt victims until it can."""
         db = self._write_horizon
         for r in list(self.running):
@@ -393,35 +398,12 @@ class PagedServingEngine(ServingEngine):
             blob = torch.nn.functional.pad(blob, (0, 0, 0, 0, 0, pad))
         self._inject_pages(blob, pages[:n_pages])
 
-    def _decode_all(self) -> None:
-        """One batched decode step over every slot through the page
-        tables; idle rows park at position S, whose page-table row is all
-        null pages."""
+    def _prepare_decode(self) -> None:
         self._ensure_decode_pages()
-        if not self.running:  # every running request was preempted
-            return
-        last = np.zeros((self.B, 1), np.int64)
-        start = np.full(self.B, self.S, np.int32)
-        temps = [0.0] * self.B
-        topks = [0] * self.B
-        topps = [1.0] * self.B
-        for r in self.running:
-            last[r.slot, 0] = r.output_tokens[-1]
-            start[r.slot] = r.num_prompt_tokens + len(r.output_tokens) - 1
-            temps[r.slot] = r.sampling.temperature
-            topks[r.slot] = r.sampling.top_k
-            topps[r.slot] = r.sampling.top_p
-        logits, _ = self._forward(
-            self.params, self.cfg,
-            torch.as_tensor(last, device=self.device),
-            torch.as_tensor(start, device=self.device), self.kv_pool,
-            self._tables(self.page_tables))
-        toks = _sample_tokens(logits[:, 0], temps, self._slot_gens, topks,
-                              topps,
-                              mode=_sampling_mode(self.running)).tolist()
-        for r in list(self.running):
-            r.output_tokens.append(int(toks[r.slot]))
-            self._maybe_finish(r)
+
+    def _step_context(self) -> tuple:
+        """The page tables of every slot (idle rows: all null pages)."""
+        return (self._device(self.page_tables),)
 
     def _store_back(self, req: Request) -> None:
         super()._store_back(req)  # skips blend requests

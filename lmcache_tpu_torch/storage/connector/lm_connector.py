@@ -1,12 +1,17 @@
 """TCP client for the cache server (:mod:`lmcache_tpu_torch.server`).
 
-Port of ``lmcache_tpu/storage/connector/lm_connector.py`` with the
-pure-Python socket client only: a blocking socket with lock-serialized
-request/response over the framed protocol of
-:mod:`lmcache_tpu_torch.protocol`. PUT waits for the server's ack, so a
-completed ``set`` means the data is held by the server. The native C++
-transport of the JAX package (``lmcache_tpu/net``) is not ported yet
-(ROADMAP, module item 8).
+Port of ``lmcache_tpu/storage/connector/lm_connector.py``: the framed
+protocol of :mod:`lmcache_tpu_torch.protocol` over two clients. With
+``use_native=True`` (the default) EXIST, GET and PUT run through the C++
+transport of :mod:`lmcache_tpu_torch.net`, whose GET lands in a ``numpy``
+buffer handed on as a ``memoryview``, which the parsers read without a
+copy; LIST, PING and MEXIST stay on
+the pure-Python socket client, a blocking socket with lock-serialized
+request/response. Unlike the JAX connector, which falls back to Python with
+a warning, a native transport that cannot be built or connect raises;
+``use_native=False`` selects the Python client for every command. PUT waits
+for the server's ack, so a completed ``set`` means the data is held by the
+server.
 """
 
 import socket
@@ -14,6 +19,7 @@ import threading
 from typing import List, Optional
 
 from lmcache_tpu_torch.logging_utils import init_logger
+from lmcache_tpu_torch.net import NativeSocketClient
 from lmcache_tpu_torch.protocol import (RESPONSE_HEADER_SIZE, Code, Command,
                                         RequestHeader, ResponseHeader)
 from lmcache_tpu_torch.storage.connector.base_connector import RemoteConnector
@@ -36,13 +42,21 @@ def recv_exact(sock: socket.socket, n: int) -> bytes:
 
 class LMCServerConnector(RemoteConnector):
 
-    def __init__(self, host: str, port: int, timeout: float = 30.0):
+    def __init__(self, host: str, port: int, timeout: float = 30.0,
+                 use_native: bool = True):
         self.host = host
         self.port = port
         self.timeout = timeout
         self.lock = threading.Lock()
         self.socket: Optional[socket.socket] = None
         self._connect()
+        self.native: Optional[NativeSocketClient] = None
+        if use_native:
+            try:
+                self.native = NativeSocketClient(host, port)
+            except BaseException:
+                self.close()
+                raise
 
     def _connect(self) -> None:
         s = socket.create_connection((self.host, self.port),
@@ -75,14 +89,23 @@ class LMCServerConnector(RemoteConnector):
                 return self._exchange(req, payload)
 
     def exists(self, key: str) -> bool:
+        if self.native is not None:
+            return self.native.exists(key)
         code, _ = self._request(Command.EXIST, key)
         return code == Code.OK
 
-    def get(self, key: str) -> Optional[bytes]:
+    def get(self, key: str):
+        """The stored bytes (a ``memoryview`` of the receive buffer on the
+        native transport, ``bytes`` on the Python one), or None."""
+        if self.native is not None:
+            return self.native.get(key)
         code, body = self._request(Command.GET, key)
         return body if code == Code.OK else None
 
     def set(self, key: str, obj: bytes) -> None:
+        if self.native is not None:
+            self.native.set(key, obj)
+            return
         code, _ = self._request(Command.PUT, key, obj)
         if code != Code.OK:
             raise RuntimeError(f"Remote PUT failed for key {key}")
@@ -114,6 +137,9 @@ class LMCServerConnector(RemoteConnector):
             return False
 
     def close(self) -> None:
+        if getattr(self, "native", None) is not None:
+            self.native.close()
+            self.native = None
         if self.socket is not None:
             try:
                 self.socket.close()

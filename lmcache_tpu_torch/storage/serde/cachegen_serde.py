@@ -401,34 +401,56 @@ def finish_host_chunks(chunks: List[CacheGenHostChunk],
 
     nchunks = len(chunks)
     n_symbols = g * T
-    lens = np.concatenate([np.asarray(c.lens).reshape(-1) for c in chunks])
-    cdf = np.concatenate(
-        [np.asarray(c.cdf).reshape(-1, _MAX_BINS + 1) for c in chunks])
-    maxes = np.stack([np.asarray(c.maxes) for c in chunks])
-    halfs = np.stack([
-        (np.asarray(first.key_bins, np.int32) // 2 - 1),
-        (np.asarray(first.value_bins, np.int32) // 2 - 1),
-    ])[:N].astype(np.float32)  # [N, L]
-    payload = np.concatenate(
-        [np.frombuffer(c.payload, np.uint8) for c in chunks])
-
     geo = dict(nchunks=nchunks, L=L, H=H, D=D, T=T, g=g, N=N,
                tok_start=chunks[0].tok_start,
                tok_stop=(nchunks - 1) * T + chunks[-1].tok_stop)
-    maxes_d = torch.from_numpy(maxes).to(device)
-    halfs_d = torch.from_numpy(halfs).to(device)
+    # each table is concatenated once, straight into its staging buffer
+    # (pinned where the upload goes to the card), and uploaded without
+    # blocking the host
+    maxes = staging((nchunks, N, L, T), torch.float32, device)
+    np.stack([np.asarray(c.maxes) for c in chunks], out=maxes.numpy())
+    halfs = staging((N, L), torch.float32, device)
+    halfs.numpy()[:] = np.stack([
+        (np.asarray(first.key_bins, np.int32) // 2 - 1),
+        (np.asarray(first.value_bins, np.int32) // 2 - 1),
+    ])[:N]
+    maxes_d, halfs_d = upload(maxes, device), upload(halfs, device)
+    lens = np.concatenate([np.asarray(c.lens).reshape(-1) for c in chunks])
+    cdf = staging((len(lens), _MAX_BINS + 1), torch.int16, device)
+    np.concatenate([np.asarray(c.cdf).reshape(-1, _MAX_BINS + 1)
+                    for c in chunks], out=cdf.numpy().view(np.uint16))
+    payload = staging((sum(len(c.payload) for c in chunks),), torch.uint8,
+                      device)
+    np.concatenate([np.frombuffer(c.payload, np.uint8) for c in chunks],
+                   out=payload.numpy())
     if mode == "off":
         sym = torch.from_numpy(range_coder.decode_streams(
-            payload, lens, n_symbols, cdf)).to(device)
+            payload.numpy(), lens, n_symbols,
+            cdf.numpy().view(np.uint16))).to(device)
         return symbols_to_blob(sym, maxes_d, halfs_d, fmt=first.fmt,
                                dtype=first.dtype, **geo)
-    offsets = np.zeros(len(lens) + 1, np.int64)
-    np.cumsum(lens, out=offsets[1:])
+    offsets = staging((len(lens) + 1,), torch.int64, device)
+    offsets[0] = 0
+    np.cumsum(lens, out=offsets.numpy()[1:])
     return range_decode.decode_to_blob(
-        torch.from_numpy(payload).to(device),
-        torch.from_numpy(offsets).to(device),
-        torch.from_numpy(cdf.view(np.int16)).to(device), maxes_d, halfs_d,
+        upload(payload, device), upload(offsets, device),
+        upload(cdf, device), maxes_d, halfs_d,
         hf=first.fmt == "huggingface", dtype=torch_dtype(first.dtype), **geo)
+
+
+def staging(shape, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A host buffer to fill and then :func:`upload` to ``device``: pinned,
+    from PyTorch's caching host allocator, when ``device`` is the card (the
+    allocator keeps the block until the copy that reads it has finished),
+    else ordinary memory."""
+    return torch.empty(shape, dtype=dtype,
+                       pin_memory=device.type == "cuda")
+
+
+def upload(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``host`` on ``device``; from a pinned buffer the copy is queued on
+    the current stream and the host goes on at once."""
+    return host.to(device, non_blocking=host.is_pinned())
 
 
 def finish_mixed_chunks(chunks: List[CacheGenHostChunk],

@@ -55,7 +55,7 @@ def encode_array(blob) -> bytes:
     return header + shape + name + payload
 
 
-def decode_array(bs: bytes) -> torch.Tensor:
+def decode_array(bs) -> torch.Tensor:
     magic, version, flags, ndim, dlen, nbytes = _HDR.unpack_from(bs, 0)
     if magic != MAGIC:
         raise ValueError("Not an LMTC container")
@@ -71,7 +71,10 @@ def decode_array(bs: bytes) -> torch.Tensor:
     if len(bs) - off != nbytes:
         raise ValueError(f"Corrupt LMTC container: {len(bs) - off} payload "
                          f"bytes, header says {nbytes}")
-    raw = torch.from_numpy(np.frombuffer(bs, np.uint8, nbytes, off).copy())
+    raw = np.frombuffer(bs, np.uint8, nbytes, off)
+    if not raw.flags.writeable:  # bytes (a native GET's buffer is taken)
+        raw = raw.copy()
+    raw = torch.from_numpy(raw)
     return raw.view(dtype).reshape(shape)
 
 

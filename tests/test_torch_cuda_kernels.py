@@ -1941,3 +1941,68 @@ def test_prefill_variants_refuse_what_they_do_not_take(gen):
     with pytest.raises(ValueError, match="head dim"):
         pv.pipelined_attention(q[..., :96], k[..., :96], v[..., :96], qo,
                                kl, **kw)
+
+
+# the verification shape of spec_lookahead: T = 5 a row over four rows of
+# different kv_len, the K/V past each kv_len random (what the rejected
+# proposals of earlier verifications leave there)
+
+VERIFY_B, VERIFY_T = 4, 5
+VERIFY_OFF = [2080, 1500, 700, 31]
+VERIFY_LEN = [o + VERIFY_T for o in VERIFY_OFF]
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("G, D", [(8, 64), (1, 96), (4, 128)])
+def test_dense_kernels_at_the_verification_shape(gen, G, D, quant):
+    """Rows 1 and 3: 40 rows a block at tinyllama's G 8 (the body), 5 at
+    G 1 (the key split)."""
+    _dense_check(gen, quant, VERIFY_B, VERIFY_T, G, D, 2117, VERIFY_OFF,
+                 VERIFY_LEN)
+
+
+@pytest.mark.parametrize("kind, G, D", [
+    (k, G, D) for k in sorted(PAGED) for G, D in ((8, 64), (1, 96))
+    if D in PAGED[k][2]])
+def test_paged_kernels_at_the_verification_shape(gen, kind, G, D):
+    """Rows 4-7 over pages of 64 (Phi-3's window at D 96)."""
+    _paged_check(gen, kind, VERIFY_B, VERIFY_T, G, D, 64, VERIFY_OFF,
+                 VERIFY_LEN, window=2047 if D == 96 else None)
+
+
+@pytest.mark.parametrize("kind", ["dense_bf16", "dense_int8"]
+                         + sorted(PAGED_LATENT))
+def test_latent_kernels_at_the_verification_shape(gen, kind):
+    """Rows 8-10 at DeepSeek-V2-Lite's latent (80 rows: row 10's key
+    split), the paged arena in pages of 64."""
+    H, C, rank, _ = LATENT_GEOMETRY["v2_lite"]
+    kw = dict(rank=rank, scale=LATENT_SCALE)
+    qo = torch.tensor(VERIFY_OFF, dtype=torch.int32, device="cuda")
+    kl = torch.tensor(VERIFY_LEN, dtype=torch.int32, device="cuda")
+    if kind.startswith("dense"):
+        quant = kind == "dense_int8"
+        q = torch.randn((VERIFY_B, VERIFY_T, H, C), generator=gen,
+                        device="cuda").bfloat16()
+        rows, scale = _latent_rows(gen, (VERIFY_B, 2117, C), quant)
+        entry = (la.quantized_latent_flash_attention if quant
+                 else la.latent_flash_attention)
+        before = entry.launches["prefill"]
+        if quant:
+            out = entry(q, rows, scale, qo, kl, **kw)
+            ref = la.quantized_latent_attention_reference(
+                q, rows, scale, qo, kl, zero_dead_rows=True, **kw)
+        else:
+            out = entry(q, rows, qo, kl, **kw)
+            ref = la.latent_attention_reference(q, rows, qo, kl,
+                                                zero_dead_rows=True, **kw)
+    else:
+        entry, quant = PAGED_LATENT[kind]
+        q, arena, scales, table, P = _paged_latent_inputs(
+            gen, quant, "v2_lite", VERIFY_B, VERIFY_T, 64, VERIFY_LEN)
+        before = entry.launches["prefill"]
+        out = _paged_latent_call(entry, quant, q, arena, scales, table, qo,
+                                 kl, **kw)
+        ref = _paged_latent_plain(quant, q, arena, scales,
+                                  table.clamp(0, P - 1), qo, kl, **kw)
+    assert entry.launches["prefill"] == before + 1
+    _assert_latent_close(out, ref, kl)

@@ -35,7 +35,7 @@ def test_import_leaves_jax_and_lmcache_tpu_out():
             "lmcache_tpu_torch.ops.range_encode, "
             "lmcache_tpu_torch.storage.serde.cachegen_serde, "
             "lmcache_tpu_torch.storage.serde.raw_serde, "
-            "lmcache_tpu_torch.storage.connector, "
+            "lmcache_tpu_torch.storage.connector, lmcache_tpu_torch.net, "
             "lmcache_tpu_torch.storage.remote_backend, "
             "lmcache_tpu_torch.protocol, lmcache_tpu_torch.server, "
             "lmcache_tpu_torch.server.storage, "

@@ -205,9 +205,6 @@ def test_unsupported_modes_raise(sides):
         engine(kv_dtype="int4")
     with pytest.raises(ValueError, match="item 16"):
         engine(mesh=object())
-    for kw in (dict(decode_block=4), dict(spec_lookahead=4)):
-        with pytest.raises(ValueError, match="not ported yet"):
-            engine(**kw)
     ce = tpkg.LMCacheEngine(
         tpkg.LMCacheEngineConfig(local_device="cpu", chunk_size=24),
         tpkg.LMCacheEngineMetadata(model_name="m", world_size=1, worker_id=0,

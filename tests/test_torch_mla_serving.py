@@ -138,11 +138,9 @@ def test_unsupported_modes_raise(sides):
     with pytest.raises(ValueError, match="kv_dtype"):
         tserving.MLAServingEngine(cfg, params, max_seq=64, kv_dtype="int4",
                                   device="cpu")
-    for kw in (dict(decode_block=4), dict(spec_lookahead=4),
-               dict(mesh=object())):
-        with pytest.raises(ValueError, match="not ported yet"):
-            tserving.MLAServingEngine(cfg, params, max_seq=64, device="cpu",
-                                      **kw)
+    with pytest.raises(ValueError, match="not ported yet"):
+        tserving.MLAServingEngine(cfg, params, max_seq=64, device="cpu",
+                                  mesh=object())
     eng = tserving.MLAServingEngine(cfg, params, max_seq=64, device="cpu")
     req = tserving.Request(_prompt(cfg.vocab_size, 8, 0),
                            tserving.SamplingParams(max_new_tokens=2))

@@ -322,9 +322,8 @@ def test_read_pages_is_a_copy_and_inject_round_trips(sides):
                                    atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("kw, item", [
-    (dict(decode_block=4), "item 7"), (dict(spec_lookahead=2), "item 7"),
-    (dict(mesh=object()), "item 16")], ids=["decode_block", "spec", "mesh"])
+@pytest.mark.parametrize("kw, item", [(dict(mesh=object()), "item 16")],
+                         ids=["mesh"])
 def test_unported_options_raise(sides, kw, item):
     t = sides[1]
     with pytest.raises(ValueError, match=f"not ported yet.*{item}"):
@@ -343,9 +342,6 @@ def test_unported_requests_and_chunks_raise(sides):
     with pytest.raises(ValueError, match="need a cache_engine"):
         no_tier.run()
     eng = t.paged(max_batch=1, max_seq=64, num_pages=8)
-    with pytest.raises(ValueError, match="not ported yet.*item 7"):
-        eng.add_request(t.Request(np.arange(4, dtype=np.int32),
-                                  t.Sampling(logprobs=2)))
 
     class HostChunkTier:  # hands back neither a tensor nor a host chunk
         chunk_size = CHUNK

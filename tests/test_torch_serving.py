@@ -154,13 +154,11 @@ def test_eager_store_publishes_at_prefill_complete(model):
     ce.close()
 
 
-@pytest.mark.parametrize("kw", [dict(kv_dtype="int8", decode_block=4),
-                                dict(decode_block=4),
-                                dict(spec_lookahead=2), dict(mesh=object())],
-                         ids=["int8", "decode_block", "spec", "mesh"])
+@pytest.mark.parametrize("kw", [dict(mesh=object())], ids=["mesh"])
 def test_unported_options_raise(model, kw):
-    """The int8 pool itself is ported; with it, as without it, the other
-    options go on raising."""
+    """``mesh`` goes on raising (decode_block, spec_lookahead and logprobs
+    are held by tests/test_torch_decode_options.py), as does an unknown
+    kv_dtype."""
     _, _, tcfg, tparams = model
     with pytest.raises(ValueError, match="not ported yet"):
         ServingEngine(tcfg, tparams, device="cpu", **kw)
