@@ -9,11 +9,13 @@ Phases, in order; any failure exits non-zero:
    per source, all at once) and print the build time and nvcc's report
    (registers and spills of every kernel), and the number of ``HGMMA``
    (wgmma) and ``UTMALDG`` (TMA load) instructions in the libraries of the
-   Hopper bodies, kernel rows 1-10 (``cuobjdump -sass``), each of which must
-   be above 0; then, per instantiation, the registers, spills, ``HGMMA``
-   and ``UTMALDG`` of rows 5 and 7's int8 paged body and split (the body's
-   four and the split's registers must be above 0), and of the softcap
-   variants of rows 4-7's body and split;
+   Hopper bodies, kernel rows 1-10 and 13 (``cuobjdump -sass``), each of
+   which must be above 0, and ptxas's notes on wgmma; then, per
+   instantiation, the registers, spills, ``HGMMA`` and ``UTMALDG`` of rows
+   5 and 7's int8 paged body and split (the body's four and the split's
+   registers must be above 0), of the softcap variants of rows 4-7's body
+   and split, and of row 13's 14 variant instantiations (each with
+   registers, wgmma and TMA);
 2. hold each kernel against its plain PyTorch version on the card, in
    bf16, at the shapes the paths below give it: ``flash_attention`` (plain
    and with each option: sliding and chunked window, softcap, sinks,
@@ -133,8 +135,14 @@ Phases, in order; any failure exits non-zero:
    logical blocks 256 x 1024): the six variants (``full``, ``mxu_only``,
    ``no_mask``, ``pair``, ``pair_no_mask``, ``pipelined``) run once as the
    path, each held against its plain version and, where it computes row 1's
-   function, against row 1; each timed beside its bound, its plain version,
-   row 1 and SDPA (``phase_ablation``; run right after phase 2);
+   function, against row 1; each timed (by events back to back, and queued
+   behind a spin) beside its bound, its plain version, row 1 and SDPA, and
+   the Hopper body's time split three ways: the softmax's share
+   (``full`` - ``mxu_only``), the mask's (``full`` - ``no_mask`` scaled to
+   ``full``'s work) and what the overlap of ``pipelined`` buys at equal
+   tiles (``pair`` - ``pipelined``), beside ``full`` - ``pipelined``, which
+   at D 128 also holds 128-key tiles against 64 (``phase_ablation``; run
+   right after phase 2);
 12. CacheBlend on a RAG-shaped prompt (8 documents of 1024 tokens and a
    128-token question, T 8320; ``phase_blend``): 12a tinyllama-1.1B after
    phase 9, 12b DeepSeek-V2-Lite at the end of phase 10 on its weights. The
@@ -455,15 +463,15 @@ INT8_PAGED = {"body": re.compile(r"flash_sm90_fwdILi(\d+)ELi\d+ELb0EaLb1EE"),
 
 def sass_counts(libs):
     """The wgmma (``HGMMA``) and TMA load (``UTMALDG``) instructions in the
-    built libraries of rows 1-10, the Hopper bodies, and per function of
-    rows 5 and 7's int8 paged instantiations; exits where a library's count
-    is 0. Returns {library: {function: {op: count}}}."""
+    built libraries of rows 1-10 and 13, the Hopper bodies, and per
+    function; exits where a library's count is 0. Returns {library:
+    {function: {op: count}}}."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     per_function = {}
     for name in ("flash_attention", "flash_stream_attention",
                  "quantized_flash_attention", "paged_attention",
                  "paged_stream_attention", "latent_attention",
-                 "paged_latent_attention"):
+                 "paged_latent_attention", "prefill_variants"):
         sass = subprocess.run([tool, "-sass", str(libs[name])],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
@@ -483,15 +491,25 @@ def sass_counts(libs):
 
 
 def ptxas_report(text):
-    """{function: {"registers": n, "spill_bytes": m}} from nvcc's
-    ``-Xptxas -v`` report of one library."""
+    """{function: {"registers": n, "spill_bytes": m, "wgmma_serialized": 0
+    or 1}} from nvcc's ``-Xptxas -v`` report of one library (functions by
+    their mangled names); ``wgmma_serialized`` where ptxas notes that it
+    serialized the function's wgmma (C7512)."""
     out, cur = {}, None
     for line in text.splitlines():
+        m = re.search(r"wgmma\.mma_async instructions are serialized .*"
+                      r"function '([\w$]+)'", line)
+        if m:
+            out.setdefault(m.group(1), {"registers": 0, "spill_bytes": 0,
+                                        "wgmma_serialized": 0})
+            out[m.group(1)]["wgmma_serialized"] = 1
+            continue
         m = re.search(r"(?:Compiling entry function '|Function properties "
                       r"for )([\w$]+)", line)
         if m:
-            cur = out.setdefault(m.group(1),
-                                 {"registers": 0, "spill_bytes": 0})
+            cur = out.setdefault(m.group(1), {"registers": 0,
+                                              "spill_bytes": 0,
+                                              "wgmma_serialized": 0})
             continue
         if cur is None:
             continue
@@ -533,6 +551,46 @@ def int8_paged_report(sass):
                             and not (counts["HGMMA"] and counts["UTMALDG"]))):
                     raise SystemExit(f"{lib}: the int8 paged {kind} at D {D} "
                                      f"has no registers, wgmma or TMA")
+    return rows
+
+
+# row 13's instantiations (mangled): variant_sm90_fwd<D, mode, schedule>
+VARIANT_BODY = re.compile(r"variant_sm90_fwdILi(\d+)ELi(\d)ELi(\d)EE")
+VARIANT_MODES = ("full", "no_mask", "mxu_only")
+VARIANT_SCHEDULES = ("step", "pair", "pipelined")
+
+
+def variant_report(sass):
+    """Registers, spills, HGMMA and UTMALDG of each instantiation of row
+    13's template (``prefill_variants.cu``: D 64 and 128, three modes by
+    two schedules and ``pipelined``); exits where one of the 14 was not
+    built, reports no registers, or lacks wgmma or TMA. Returns the rows
+    it logged."""
+    lib = "prefill_variants"
+    built = lib in _build.build_logs
+    regs = ptxas_report(_build.build_logs.get(lib, ""))
+    found = {f: c for f, c in sass[lib].items() if VARIANT_BODY.search(f)}
+    if len(found) != 14:
+        raise SystemExit(f"{lib}: {len(found)} variant instantiations built,"
+                         f" not 14")
+    rows = []
+    for fname, counts in sorted(found.items()):
+        D, mode, sched = (int(g) for g in VARIANT_BODY.search(fname).groups())
+        report = regs.get(fname, {"registers": 0, "spill_bytes": 0,
+                                  "wgmma_serialized": 0})
+        row = dict(library=lib, D=D, mode=VARIANT_MODES[mode],
+                   schedule=VARIANT_SCHEDULES[sched], **report, **counts)
+        rows.append(row)
+        log(f"  {lib} D {D} {row['mode']} {row['schedule']}: "
+            f"{report['registers']} registers, {report['spill_bytes']} "
+            f"spill bytes, {counts['HGMMA']} HGMMA, {counts['UTMALDG']} "
+            f"UTMALDG"
+            + (", wgmma serialized (ptxas)" if report["wgmma_serialized"]
+               else ""))
+        if ((built and report["registers"] <= 0)
+                or not (counts["HGMMA"] and counts["UTMALDG"])):
+            raise SystemExit(f"{lib}: D {D} {row['mode']} {row['schedule']} "
+                             f"has no registers, wgmma or TMA")
     return rows
 
 
@@ -4387,9 +4445,10 @@ def phase_ablation():
     alone), the variants of row 1's function also against row 1; then each
     variant is timed beside its bound, its plain version and one library
     call (SDPA with the flash backend for row 1's function, SDPA over the
-    live blocks' mask for ``no_mask``, none for ``mxu_only``). Returns
-    (launch counts, {kernel: rows}, {kernel: worst max abs error}, the
-    phase's numbers)."""
+    live blocks' mask for ``no_mask``, none for ``mxu_only``), by events
+    back to back and queued behind a spin (``queued_ms``); then the split
+    of the body's time, by queued times. Returns (launch counts, {kernel:
+    rows}, {kernel: worst max abs error}, the phase's numbers)."""
     geo = bench_mfu.geometry(False)
     bq, bk, G, S = geo["bq"], geo["bk"], geo["G"], geo["S"]
     log(f"== phase 11: row 13, the prefill ablation variants (B {geo['B']}, "
@@ -4405,8 +4464,12 @@ def phase_ablation():
     rows = {"variant_attention": [], "pipelined_attention": []}
     t_row1 = cuda_ms(lambda: bench_mfu.row1(x), iters=5)
     t_sdpa = cuda_ms(bench_mfu.sdpa_flash(x, G), iters=5)
-    log(f"  row 1 flash_attention {t_row1:.4f} ms, SDPA (flash backend, K/V "
-        f"expanded over the heads) {t_sdpa:.4f} ms")
+    q_row1 = queued_ms(lambda: bench_mfu.row1(x), iters=5)
+    q_sdpa = queued_ms(bench_mfu.sdpa_flash(x, G), iters=5)
+    log(f"  row 1 flash_attention {t_row1:.4f} ms (queued {q_row1:.4f}), "
+        f"SDPA (flash backend, K/V expanded over the heads) {t_sdpa:.4f} ms "
+        f"(queued {q_sdpa:.4f})")
+    queued, work = {}, {}
     for variant in bench_mfu.VARIANTS:
         name, mode = variant[0], variant[1]
         kernel = ("pipelined_attention" if variant[3]
@@ -4437,6 +4500,9 @@ def phase_ablation():
         flops, nbytes = bench_mfu.work(variant, geo, qo, kl, bq, bk)
         bound_ms, bound_by = bench_mfu.bound_ms(flops, nbytes)
         ms = cuda_ms(lambda: bench_mfu.call(variant, x, bq, bk), iters=5)
+        queued[name] = queued_ms(lambda: bench_mfu.call(variant, x, bq, bk),
+                                 iters=5)
+        work[name] = flops
         plain_ms = cuda_ms(lambda: bench_mfu.plain(variant, x, bq, bk),
                            iters=1, warmup=1)
         library_ms, library = None, "none (no single call)"
@@ -4445,7 +4511,8 @@ def phase_ablation():
         elif mode == "no_mask":
             library_ms = ablation_sdpa_live_blocks(x, G, bq, bk)
             library = "SDPA over the live blocks' mask"
-        row = {"shape": name, "ms": ms, "plain_ms": plain_ms,
+        row = {"shape": name, "ms": ms, "queued_ms": queued[name],
+               "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": library_ms, "flops": flops,
                "tflops": flops / ms / 1e9,
@@ -4455,12 +4522,48 @@ def phase_ablation():
         rows[kernel].append(row)
         log(f"  {kernel} | {name}: kernel {ms:.4f} ms "
             f"({row['tflops']:.1f} TFLOP/s, {100 * row['peak_share']:.2f} % "
-            f"of peak), bound {bound_ms:.4f} ms ({bound_by}), plain "
-            f"{plain_ms:.4f} ms, library {library}"
+            f"of peak), queued {queued[name]:.4f} ms, bound {bound_ms:.4f} "
+            f"ms ({bound_by}), plain {plain_ms:.4f} ms, library {library}"
             + (f" {library_ms:.4f} ms" if library_ms is not None else ""))
     del outs, x
     torch.cuda.empty_cache()
-    return launches, rows, worst, {"row1_ms": t_row1, "sdpa_ms": t_sdpa}
+    split = ablation_split(queued, work, q_row1, geo["D"])
+    return launches, rows, worst, dict(
+        row1_ms=t_row1, sdpa_ms=t_sdpa, row1_queued_ms=q_row1,
+        sdpa_queued_ms=q_sdpa, variants_queued_ms=queued, split=split)
+
+
+def ablation_split(queued, work, row1_ms, D):
+    """The Hopper body's time split by the variants' queued times: the
+    softmax's share (``full`` - ``mxu_only``), the mask's (``full`` -
+    ``no_mask`` with no_mask's time scaled to ``full``'s work: it computes
+    every key of its live blocks), and what the overlap buys at equal tiles
+    (``pair`` - ``pipelined``: both hold two score tiles, only
+    ``pipelined`` issues the next tile's product before this tile's
+    softmax); with ``full`` - ``pipelined``, which at D 128 also holds the
+    two-tile schedules' 64-key tiles against ``full``'s 128, and ``full``
+    against row 1."""
+    full = queued["full"]
+    bn_two = 128 if D == 64 else 64  # prefill_variants.cu, VariantGeometry
+    split = {
+        "softmax_ms": full - queued["mxu_only"],
+        "mask_ms": full - queued["no_mask"] * work["full"] / work["no_mask"],
+        "overlap_ms": queued["pair"] - queued["pipelined"],
+        "full_minus_pipelined_ms": full - queued["pipelined"],
+        "full_minus_pair_ms": full - queued["pair"],
+        "tile_keys": {"full": 128, "pair": bn_two, "pipelined": bn_two},
+        "full_over_row1": full / row1_ms,
+    }
+    log(f"  split of full's {full:.4f} ms (queued): softmax (full - "
+        f"mxu_only) {split['softmax_ms']:.4f} ms, mask (full - no_mask x "
+        f"{work['full'] / work['no_mask']:.4f} of its work) "
+        f"{split['mask_ms']:.4f} ms, overlap at equal {bn_two}-key tiles "
+        f"(pair - pipelined) {split['overlap_ms']:.4f} ms; full (128-key "
+        f"tiles) - pipelined ({bn_two}) "
+        f"{split['full_minus_pipelined_ms']:.4f} ms, full - pair ({bn_two}) "
+        f"{split['full_minus_pair_ms']:.4f} ms; full / row 1 "
+        f"{split['full_over_row1']:.4f}")
+    return split
 
 
 def ablation_sdpa_live_blocks(x, G, bq, bk):
@@ -5373,11 +5476,13 @@ def main():
     log(f"  built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(w in line for w in ("registers", "spill", "error",
+                                       "wgmma")):
                 log(f"  nvcc {name}: {line.strip()}")
     sass = sass_counts(libs)
     int8_paged = int8_paged_report(sass)
     paged_softcap = paged_softcap_report(sass)
+    variant_build = variant_report(sass)
 
     max_abs = phase_kernels()
     launches = {}
@@ -5590,7 +5695,8 @@ def main():
               "ablation": ablation, "blend": blend_out,
               "decode_options": decode_out,
               "int8_paged_build": int8_paged,
-              "paged_softcap_build": paged_softcap, "card": card}
+              "paged_softcap_build": paged_softcap,
+              "variant_build": variant_build, "card": card}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

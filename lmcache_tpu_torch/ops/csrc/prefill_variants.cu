@@ -1,5 +1,5 @@
 // The prefill ablation variants of row 1's attention body, for Hopper
-// (sm_90a).
+// (sm_90a), built on that body (flash_sm90.cuh).
 //
 // Replaces the two TPU kernels of tools/bench_prefill_mfu.py:
 // variant_kernel (pallas_call in build, modes full / mxu_only / no_mask and
@@ -21,324 +21,595 @@
 //   pair      two key tiles a step, both QK products before either softmax
 //             update (the wrapper refuses an odd count of key blocks, which
 //             the TPU kernel's grid leaves the last of unvisited);
-//   pipelined full's function: step j issues tile j's QK product into one
-//             of two score buffers, then runs tile j - 1's softmax and PV
-//             from the other (V lags K by one tile), and a drain step
-//             flushes the last tile.
+//   pipelined full's function, each tile's QK product issued before the
+//             previous tile's softmax and PV.
 //
-// The physical tiles are the WMMA body's (flash_common.cuh): BM = 64
-// (token, head-in-group) rows of one KV head, flattened token-major (the
-// group size divides 64, so a block lies in one logical query block), key
-// tiles of BN = 64, 4 warps, WMMA bf16 16x16x16 with fp32 accumulation, the
-// scores and the output accumulator in shared memory. The logical blocks
-// only decide which 64-key tiles are visited and what is masked; the TPU's
-// 256 x 1024 VMEM blocks are not copied.
+// Design: the Hopper body of rows 1-7 (flash_sm90.cuh, whose device
+// functions this file calls and whose kernel it leaves as it is). A block
+// holds ROWS = 128 (token, head-in-group) rows of one (sequence, KV head),
+// flattened token-major; a TMA producer warp keeps a ring of K/V tiles of
+// BN keys (128; 64 in the two-tile schedules at D 128) full through
+// mbarriers; two consumer warpgroups of 64 rows run S = Q K^T and
+// O += P V as wgmma with S, P and O in registers, the online softmax in the
+// log2 domain (softmax_tile). Shared memory holds Q and the ring only. One
+// kernel template, variant_sm90_fwd<D, MODE, SCHEDULE>:
+//   MODE      FULL: row 1's consumer loop without its options (no window,
+//             softcap, sinks or int8), over the tiles row 1 visits (the
+//             function does not depend on the blocks); NO_MASK: the
+//             softmax with no select, but on the one tile that straddles
+//             the consumer's live limit when bk is not a multiple of BN;
+//             MXU_ONLY: O += bf16(scale * S) V with no max and no exponent
+//             (the same select on the straddling tile), O divided by the
+//             live logical blocks at the end.
+//   SCHEDULE  STEP: row 1's, a tile at a time: QK, wait, softmax, PV, wait;
+//             2 stages. PAIR: both QK products of two tiles, one commit and
+//             one wait, then the two tiles' softmax updates and PVs in
+//             order (the TPU kernel's sub(0), sub(1)); an odd tile count
+//             leaves the last tile alone. PIPELINED: step g issues tile
+//             g + 1's QK product and commits it without waiting, runs tile
+//             g's softmax on its own score registers beside that product,
+//             issues tile g's PV and then waits once for both (what the
+//             next step needs: its scores and O); a drain step finishes the
+//             last tile. Tile g's stage is released after its PV, so V lags
+//             K by one tile and a consumer holds two stages: PAIR and
+//             PIPELINED take 4 stages to keep loads in flight, and 64-key
+//             tiles at D 128 (VariantGeometry).
+// The logical blocks only decide the keys a consumer visits and masks. A
+// consumer's 64 rows lie in one logical query block (the group size
+// divides 64 and bq is a multiple of 64); the block's two consumers need
+// not (G 1 and bq 64: 128 tokens), so each computes its own live-key limit,
+// the producer loads up to the larger, and a consumer skips the tiles past
+// its own but still waits for them and arrives on their empty barrier, as
+// row 1's consumer does. V's rows at and past the block's limit are zeroed
+// in the last tile before its PV (TMA loads whole boxes).
+// No wgmma is in flight across a branch: the mask is chosen before a
+// pipelined step issues its product.
 //
 // Bound on an H100: the tool's shape (S 8192, H 32, D 128) does
 // 0.5 * S^2 * H * D * 4 = 550 GFLOP causally (more for the unmasked modes,
 // which take every live block whole) on 168 MB, far above the card's ~295
-// FLOP/byte ridge, so every variant is bound by its tensor-core operations.
-// This is a simple kernel: the products go through shared memory, and
-// wgmma / TMA are left to a later revision.
+// FLOP/byte ridge, so every variant is bound by its tensor-core operations,
+// which wgmma is the one way to reach.
 
-#include "flash_common.cuh"
+#include "flash_sm90.cuh"
 
 namespace lmc {
+namespace sm90 {
 
 enum VariantMode { FULL = 0, NO_MASK = 1, MXU_ONLY = 2 };
+enum VariantSchedule { STEP = 0, PAIR = 1, PIPELINED = 2 };
 
-// Shared memory of a variant: row 1's layout with STAGES K/V tile pairs
-// (two for pair, one otherwise), then a second score buffer where the
-// variant keeps two (pair, pipelined).
-template <int D, int STAGES, bool TWO_SCORES>
-struct VariantSmem {
-  using L = FlashSmem<D>;
-  static constexpr int S2_OFF = L::KV_OFF + STAGES * 2 * L::TILE;
-  static constexpr int BYTES = S2_OFF + (TWO_SCORES ? BM * L::LDS * 4 : 0);
+constexpr int LOGICAL = 64;  // bq and bk come in multiples of it
+
+// A variant's tiles, ring and registers. Q's panels and layout are the
+// body's (Geometry<D>). PAIR and PIPELINED keep two score tiles live
+// beside O: at D 128 and 128 keys that is 64 + 64 + 64 fp32 a thread, past
+// what the consumers' 232 registers hold (ptxas serializes their wgmma,
+// and PIPELINED spills, also at 240 registers), so they take 64-key tiles
+// there; at D 64 O is half as wide and 128 keys fit.
+template <int D_, int SCHEDULE>
+struct VariantGeometry {
+  static constexpr int D = D_;
+  using Gm = Geometry<D>;
+  static_assert(Gm::PW == 64 && D <= 128, "D 64 or 128 only");
+  static constexpr int BN = D == 64 || SCHEDULE == STEP ? 128 : 64;
+  static constexpr int PW = Gm::PW, SWB = Gm::SWB, PANELS = Gm::PANELS;
+  static constexpr int T_PANEL = BN * SWB;
+  static constexpr int TILE = BN * D * 2;  // one K or V tile
+  static constexpr int STAGE = 2 * TILE;
+  static constexpr int FIXED = Gm::ALIGN + CONSUMERS * Gm::Q_WG;
+  static constexpr int MAX_STAGES = (SMEM_LIMIT - FIXED) / (STAGE + 16);
+  // STEP: row 1's two stages; PAIR and PIPELINED hold two tiles and keep
+  // one more load in flight
+  static constexpr int STAGES =
+      SCHEDULE == STEP ? 2 : (MAX_STAGES < 4 ? MAX_STAGES : 4);
+  static_assert(STAGES >= (SCHEDULE == STEP ? 2 : 3), "too few stages");
+  static constexpr int BYTES = FIXED + STAGES * (STAGE + 16);
+  // setmaxnreg: row 1's split of the block's launch allocation (232 / 40)
+  static constexpr int CONSUMER_REGS = Gm::CONSUMER_REGS;
+  static constexpr int PRODUCER_REGS = Gm::PRODUCER_REGS;
 };
 
-// One K or V tile: keys [k0, k0 + BN) of `base` (row stride `stride`),
-// zero at and past kend.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* base,
-                                          long long stride, int k0,
-                                          int kend) {
-  constexpr int LDQ = FlashSmem<D>::LDQ;
-  for (int i = threadIdx.x; i < BN * (D / 8); i += THREADS) {
-    const int row = i / (D / 8);
-    const int c = (i % (D / 8)) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (k0 + row < kend) {
-      val = *reinterpret_cast<const uint4*>(base + (k0 + row) * stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + row * LDQ + c) = val;
-  }
-}
-
-// Online-softmax update of one row over the tile at k0 (flash_softmax
-// without int8 scales and softcap); MASK: the causal mask and kv_len, else
-// every key of the tile counts.
-template <int D, bool MASK>
-__device__ __forceinline__ void variant_softmax(const float* Ss, bf16* Ps,
-                                                float* Os, const FlashArgs& a,
-                                                FlashRow& w, int k0) {
-  using L = FlashSmem<D>;
-  constexpr int NC = BN / 2;
-  const float* srow = Ss + w.row * L::LDS + w.half;
-  bf16* prow = Ps + w.row * L::LDP + w.half;
-  float* orow = Os + w.row * L::LDO;
-  const int kfirst = k0 + w.half;
-  float sv[NC];
-  float mx = NEG_INF;
-#pragma unroll
-  for (int i = 0; i < NC; ++i) {
-    const float s = srow[2 * i] * a.scale;
-    sv[i] = (!MASK || kfirst + 2 * i <= w.qlim) ? s : NEG_INF;
-    mx = fmaxf(mx, sv[i]);
-  }
-  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-  const float m_new = fmaxf(w.m, mx);
-  const float alpha = expf(w.m - m_new);
-  float sum = 0.f;
-#pragma unroll
-  for (int i = 0; i < NC; ++i) {
-    const float p = sv[i] > 0.5f * NEG_INF ? expf(sv[i] - m_new) : 0.f;
-    sum += p;
-    prow[2 * i] = __float2bfloat16(p);
-  }
-  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-  w.l = alpha * w.l + sum;
-  w.m = m_new;
-  for (int d = w.half; d < D; d += 2) orow[d] *= alpha;
-  __syncwarp();
-}
-
-// mxu_only: P = bf16(scale * S), no max, no exponent, O not rescaled.
-template <int D>
-__device__ __forceinline__ void variant_scaled_scores(const float* Ss,
-                                                      bf16* Ps,
-                                                      const FlashArgs& a,
-                                                      const FlashRow& w) {
-  using L = FlashSmem<D>;
-  const float* srow = Ss + w.row * L::LDS + w.half;
-  bf16* prow = Ps + w.row * L::LDP + w.half;
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) {
-    prow[2 * i] = __float2bfloat16(srow[2 * i] * a.scale);
-  }
-  __syncwarp();
-}
-
-// One tile's update after its scores are in Ss: the mode's P, then O += PV.
-template <int D, int MODE>
-__device__ __forceinline__ void variant_update(const float* Ss, bf16* Ps,
-                                               const bf16* Vs, float* Os,
-                                               const FlashArgs& a,
-                                               FlashRow& w, int k0) {
-  if (MODE == MXU_ONLY) {
-    variant_scaled_scores<D>(Ss, Ps, a, w);
-  } else {
-    variant_softmax<D, MODE == FULL>(Ss, Ps, Os, a, w, k0);
-  }
-  flash_pv<D>(Ps, Vs, Os);
-}
-
-// What the logical blocks leave a block of rows: the end of its key walk
-// and the number of live key blocks (mxu_only's divisor).
+// The keys [0, kend) a consumer visits, whose first row is fw, and the
+// live key blocks of its logical query block (MXU_ONLY's divisor).
 struct VariantRange {
   int kend, nlive;
 };
 
+template <int MODE>
 __device__ __forceinline__ VariantRange variant_range(const FlashArgs& a,
-                                                      const FlashBlock& r,
-                                                      int mode, int bq,
-                                                      int bk, int nkb) {
-  const int iq = (r.f0 / a.G) / bq;
-  const int qpos_max = r.qoff + (iq + 1) * bq - 1;
+                                                      const Block& blk,
+                                                      int fw, int bq, int bk,
+                                                      int nkb) {
+  const int iq = fw / a.G / bq;
+  const int qpos_max = blk.qoff + (iq + 1) * bq - 1;
   VariantRange v;
   v.nlive = max(0, min(qpos_max / bk + 1, nkb));
-  // unmasked modes take every key of the live blocks (the wrapper makes
-  // S a multiple of bk for them); full stops at the causal limit
-  v.kend = mode == FULL ? min(r.kend, v.nlive * bk) : min(v.nlive * bk, a.S);
+  if (MODE == FULL) {
+    // row 1's causal limit, which lies inside the live blocks
+    const int t_last = min((fw + 63) / a.G, a.T - 1);
+    v.kend = max(0, min(blk.qoff + t_last + 1, blk.klen));
+  } else {
+    // every key of the live blocks, past the diagonal and kv_len too
+    v.kend = min(v.nlive * bk, a.S);
+  }
   return v;
 }
 
-// The variant kernels: one key tile a step, or two (PAIR).
-template <int D, int MODE, bool PAIR>
-__global__ void __launch_bounds__(THREADS)
-    variant_fwd(const FlashArgs a, int bq, int bk, int nkb) {
-  using L = FlashSmem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::Q_OFF);
-  float* S0 = reinterpret_cast<float*>(smem + L::S_OFF);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L::P_OFF);
-  float* Os = reinterpret_cast<float*>(smem + L::O_OFF);
-  bf16* K0 = reinterpret_cast<bf16*>(smem + L::KV_OFF);
-  bf16* V0 = K0 + L::TILE / 2;
-  bf16* K1 = V0 + L::TILE / 2;  // PAIR only
-  bf16* V1 = K1 + L::TILE / 2;
-  float* S1 = reinterpret_cast<float*>(
-      smem + VariantSmem<D, 2, true>::S2_OFF);  // PAIR only
+// The ring of a block: the stages' addresses and barriers; a consumer
+// takes each tile with acquire (in order, once) and gives it back with
+// release.
+template <class VG>
+struct VariantRing {
+  static constexpr int KV_OFF = CONSUMERS * Geometry<VG::D>::Q_WG;
+  static constexpr int BAR_OFF = KV_OFF + VG::STAGES * VG::STAGE;
+  uint32_t base;
+  unsigned char* gbase;
 
-  const FlashBlock r = flash_block(a);
-  FlashRow w = flash_row(a, r);
-  const VariantRange vr = variant_range(a, r, MODE, bq, bk, nkb);
-  const bf16* kbase = static_cast<const bf16*>(a.k) + r.bkv * a.kb +
-                      blockIdx.y * a.kh;
-  const bf16* vbase = static_cast<const bf16*>(a.v) + r.bkv * a.vb +
-                      blockIdx.y * a.vh;
-  const bool warp_live = r.f0 + (threadIdx.x / 32) * 16 < r.rows;
-
-  flash_load_q<D>(Qs, a, r);
-  float* orow = Os + w.row * L::LDO;
-  for (int d = w.half; d < D; d += 2) orow[d] = 0.f;
-
-  for (int k0 = 0; k0 < vr.kend; k0 += PAIR ? 2 * BN : BN) {
-    const bool two = PAIR && k0 + BN < vr.kend;
-    __syncthreads();  // the previous tiles are no longer read
-    flash_load_tiles<D>(K0, V0, kbase, vbase, a.ks, a.vs, k0, vr.kend);
-    if (two) {
-      flash_load_tiles<D>(K1, V1, kbase, vbase, a.ks, a.vs, k0 + BN,
-                          vr.kend);
-    }
-    __syncthreads();
-    if (!warp_live) continue;  // warp-uniform; block barriers stay matched
-    flash_scores<D>(Qs, K0, S0);
-    if (two) flash_scores<D>(Qs, K1, S1);  // both products first
-    variant_update<D, MODE>(S0, Ps, V0, Os, a, w, k0);
-    if (two) variant_update<D, MODE>(S1, Ps, V1, Os, a, w, k0 + BN);
+  __device__ __forceinline__ uint32_t k_tile(int g) const {
+    return base + KV_OFF + (g % VG::STAGES) * VG::STAGE;
   }
-  if (MODE == MXU_ONLY) {
-    w.m = 0.f;
-    w.l = static_cast<float>(vr.nlive);  // out = acc / live blocks
+  __device__ __forceinline__ uint32_t v_tile(int g) const {
+    return k_tile(g) + VG::TILE;
   }
-  flash_write<D>(Os, a, r, w);
-}
+  __device__ __forceinline__ uint32_t full(int s) const {
+    return base + BAR_OFF + 8 * s;
+  }
+  __device__ __forceinline__ uint32_t empty(int s) const {
+    return base + BAR_OFF + 8 * (VG::STAGES + s);
+  }
 
-// full's function as a software pipeline over the key tiles.
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-    pipelined_fwd(const FlashArgs a, int bq, int bk, int nkb) {
-  using L = FlashSmem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::Q_OFF);
-  float* Sbuf[2] = {
-      reinterpret_cast<float*>(smem + L::S_OFF),
-      reinterpret_cast<float*>(smem + VariantSmem<D, 1, true>::S2_OFF)};
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L::P_OFF);
-  float* Os = reinterpret_cast<float*>(smem + L::O_OFF);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::KV_OFF);
-  bf16* Vs = Ks + L::TILE / 2;
-
-  const FlashBlock r = flash_block(a);
-  FlashRow w = flash_row(a, r);
-  const VariantRange vr = variant_range(a, r, FULL, bq, bk, nkb);
-  const bf16* kbase = static_cast<const bf16*>(a.k) + r.bkv * a.kb +
-                      blockIdx.y * a.kh;
-  const bf16* vbase = static_cast<const bf16*>(a.v) + r.bkv * a.vb +
-                      blockIdx.y * a.vh;
-  const bool warp_live = r.f0 + (threadIdx.x / 32) * 16 < r.rows;
-
-  flash_load_q<D>(Qs, a, r);
-  float* orow = Os + w.row * L::LDO;
-  for (int d = w.half; d < D; d += 2) orow[d] = 0.f;
-
-  const int ntiles = (vr.kend + BN - 1) / BN;
-  for (int j = 0; j <= ntiles; ++j) {  // j == ntiles: the drain step
-    __syncthreads();
-    if (j < ntiles) load_tile<D>(Ks, kbase, a.ks, j * BN, vr.kend);
-    if (j > 0) load_tile<D>(Vs, vbase, a.vs, (j - 1) * BN, vr.kend);
-    __syncthreads();
-    if (!warp_live) continue;
-    if (j < ntiles) flash_scores<D>(Qs, Ks, Sbuf[j & 1]);  // into the stash
-    if (j > 0) {
-      variant_update<D, FULL>(Sbuf[(j - 1) & 1], Ps, Vs, Os, a, w,
-                              (j - 1) * BN);
+  // Wait for tile g; in the tile that reaches past the block's limit kend
+  // the live consumers zero V's rows at and past it (0 * NaN is NaN) and
+  // meet at named barrier 3 before either reads the tile.
+  __device__ __forceinline__ void acquire(int g, const Block& blk, int w,
+                                          int tid) const {
+    constexpr int BN = VG::BN, SWB = VG::SWB;
+    mbar_wait(full(g % VG::STAGES), (g / VG::STAGES) & 1);
+    const int k0 = g * BN;
+    if (k0 + BN > blk.kend) {
+      constexpr int CHUNKS = VG::PANELS * SWB / 16;
+      const int first = blk.kend - k0;
+      unsigned char* vs = gbase + (v_tile(g) - base);
+      for (int i = w * WG + tid; i < (BN - first) * CHUNKS;
+           i += WG * blk.nlive) {
+        const int row = first + i / CHUNKS;
+        const int c = i % CHUNKS;
+        *reinterpret_cast<uint4*>(vs + (c / (SWB / 16)) * VG::T_PANEL +
+                                  row * SWB + (c % (SWB / 16)) * 16) =
+            make_uint4(0, 0, 0, 0);
+      }
+      fence_async_smem();
+      named_sync(3, WG * blk.nlive);
     }
   }
-  flash_write<D>(Os, a, r, w);
+
+  __device__ __forceinline__ void release(int g, int lane) const {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(g % VG::STAGES));
+  }
+};
+
+// S = Q K^T of the K tile at kaddr into sc: issued, not committed
+template <class VG>
+__device__ __forceinline__ void issue_qk(float (&sc)[VG::BN / 2],
+                                         uint32_t qw, uint32_t kaddr) {
+  using Gm = Geometry<VG::D>;
+#pragma unroll
+  for (int kk = 0; kk < VG::D / 16; ++kk) {
+    const int p = kk * 16 / Gm::PW;
+    const int within = (kk * 16 % Gm::PW) * 2;
+    const uint64_t da = smem_desc(qw + p * Gm::Q_PANEL + within, 16,
+                                  8 * Gm::SWB, Gm::LAYOUT);
+    const uint64_t db = smem_desc(kaddr + p * VG::T_PANEL + within, 16,
+                                  8 * Gm::SWB, Gm::LAYOUT);
+    if constexpr (VG::BN == 128) {
+      wgmma_ss_n128(sc, da, db, kk > 0);
+    } else {
+      wgmma_ss_n64(sc, da, db, kk > 0);
+    }
+  }
 }
 
-template <typename Kernel>
-cudaError_t variant_launch(Kernel kernel, int bytes, std::atomic<int>* raised,
-                           const FlashArgs& a, int B, int Hkv, int bq, int bk,
-                           int nkb, cudaStream_t stream) {
-  cudaError_t err = raise_smem_limit(kernel, bytes, raised);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.T * a.G + BM - 1) / BM, Hkv, B);
-  kernel<<<grid, THREADS, bytes, stream>>>(a, bq, bk, nkb);
-  return cudaGetLastError();
+template <class VG>
+using Acc = float[VG::PANELS][VG::PW / 2];  // O, D / 2 fp32 a thread
+template <class VG>
+using Frags = uint32_t[VG::BN / 16][4];  // P as wgmma's A fragments
+
+// One tile's update of the thread's two rows from its scores in sc: the
+// mode's P as wgmma's A fragments in pa (16 keys each: the accumulator
+// layout of two 8-key groups is the A layout of one 16-key step) and, for
+// the softmax modes, m, l and O rescaled. MASK: keys past qlim give 0.
+template <class VG, int MODE, bool MASK>
+__device__ __forceinline__ void variant_update(
+    float (&sc)[VG::BN / 2], Frags<VG>& pa, Acc<VG>& o, float (&m)[2],
+    float (&l)[2], const FlashArgs& a, int k0, int lane,
+    const int (&qlim)[2], const int (&wlo)[2]) {
+  constexpr int BN = VG::BN;
+  if constexpr (MODE == MXU_ONLY) {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      const int kpos = k0 + (i >> 2) * 8 + 2 * (lane & 3) + (i & 1);
+      sc[i] = MASK && kpos > qlim[(i >> 1) & 1] ? 0.f : sc[i] * a.scale;
+    }
+  } else {
+    float alpha[2];
+    softmax_tile<BN, MASK, false>(sc, m, l, alpha, a, k0, lane, qlim, wlo);
+#pragma unroll
+    for (int p = 0; p < VG::PANELS; ++p) {
+#pragma unroll
+      for (int i = 0; i < VG::PW / 2; ++i) o[p][i] *= alpha[(i >> 1) & 1];
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+    }
+  }
 }
 
-template <int D, int MODE, bool PAIR>
+// O += P V of the V tile at vaddr, committed and waited for (with every
+// group committed before it)
+template <class VG>
+__device__ __forceinline__ void pv_and_wait(Acc<VG>& o, const Frags<VG>& pa,
+                                            uint32_t vaddr) {
+  constexpr int SWB = VG::SWB;
+  wgmma_fence();
+#pragma unroll
+  for (int p = 0; p < VG::PANELS; ++p) reg_fence(o[p]);
+#pragma unroll
+  for (int kk = 0; kk < VG::BN / 16; ++kk) {
+#pragma unroll
+    for (int p = 0; p < VG::PANELS; ++p) {
+      const uint64_t db =
+          smem_desc(vaddr + p * VG::T_PANEL + kk * 16 * SWB, 8 * SWB,
+                    8 * SWB, Geometry<VG::D>::LAYOUT);
+      wgmma_rs_n64(o[p], pa[kk], db);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+#pragma unroll
+  for (int p = 0; p < VG::PANELS; ++p) reg_fence(o[p]);
+}
+
+// A tile's update and PV from its scores in sc (no product in flight)
+template <class VG, int MODE, bool MASK>
+__device__ __forceinline__ void update_and_pv(
+    float (&sc)[VG::BN / 2], Acc<VG>& o, float (&m)[2], float (&l)[2],
+    const FlashArgs& a, int k0, int lane, const int (&qlim)[2],
+    const int (&wlo)[2], uint32_t vaddr) {
+  Frags<VG> pa;
+  variant_update<VG, MODE, MASK>(sc, pa, o, m, l, a, k0, lane, qlim, wlo);
+  pv_and_wait<VG>(o, pa, vaddr);
+}
+
+// The same where `mask` (a tile that reaches past a row's limit) selects
+// the masked update: a branch, so never with a product in flight
+template <class VG, int MODE>
+__device__ __forceinline__ void update_and_pv(
+    bool mask, float (&sc)[VG::BN / 2], Acc<VG>& o, float (&m)[2],
+    float (&l)[2], const FlashArgs& a, int k0, int lane,
+    const int (&qlim)[2], const int (&wlo)[2], uint32_t vaddr) {
+  if (mask) {
+    update_and_pv<VG, MODE, true>(sc, o, m, l, a, k0, lane, qlim, wlo, vaddr);
+  } else {
+    update_and_pv<VG, MODE, false>(sc, o, m, l, a, k0, lane, qlim, wlo,
+                                   vaddr);
+  }
+}
+
+// PIPELINED's step with a next tile: tile g + 1's QK product into nxt
+// beside tile g's update from cur, then tile g's PV and one wait for both
+template <class VG, int MODE, bool MASK>
+__device__ __forceinline__ void pipelined_step(
+    float (&cur)[VG::BN / 2], float (&nxt)[VG::BN / 2], Acc<VG>& o,
+    float (&m)[2], float (&l)[2], const FlashArgs& a, int k0, int lane,
+    const int (&qlim)[2], const int (&wlo)[2], uint32_t qw, uint32_t k_next,
+    uint32_t vaddr) {
+  wgmma_fence();
+  issue_qk<VG>(nxt, qw, k_next);
+  wgmma_commit();
+  update_and_pv<VG, MODE, MASK>(cur, o, m, l, a, k0, lane, qlim, wlo, vaddr);
+  reg_fence(nxt);
+}
+
+template <int D, int MODE, int SCHEDULE>
+__global__ void __launch_bounds__(THREADS, 1)
+    variant_sm90_fwd(const FlashArgs a,
+                     __grid_constant__ const CUtensorMap kmap,
+                     __grid_constant__ const CUtensorMap vmap,
+                     const TmaOrder ord, int bq, int bk, int nkb) {
+  using VG = VariantGeometry<D, SCHEDULE>;
+  using Gm = Geometry<D>;
+  constexpr int BN = VG::BN, PW = VG::PW, PANELS = VG::PANELS;
+  constexpr int STAGES = VG::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  // 1024-aligned base: generic pointer and shared address
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + Gm::ALIGN - 1) & ~uint32_t(Gm::ALIGN - 1);
+  const VariantRing<VG> ring{base, smem_raw + (base - raw)};
+
+  // no window (the entry refuses one): the tiles start at key 0
+  Block blk = block_of<D, bf16>(a);
+  if (MODE != FULL) {
+    blk.kend = 0;
+    for (int w = 0; w < blk.nlive; ++w) {
+      blk.kend = max(blk.kend, variant_range<MODE>(a, blk, blk.f0 + 64 * w,
+                                                   bq, bk, nkb).kend);
+    }
+  }
+  blk.tiles = (blk.kend + BN - 1) / BN;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(ring.full(s), 1);  // the TMA's transaction
+      mbar_init(ring.empty(s), 4 * blk.nlive);  // each consumer warp's lane 0
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS * WG) {
+    // ---- producer: one thread keeps the ring full (flash_sm90_fwd's
+    // dense loop)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        VG::PRODUCER_REGS));
+    if (threadIdx.x == CONSUMERS * WG) {
+      for (int g = 0; g < blk.tiles; ++g) {
+        const int s = g % STAGES;
+        if (g >= STAGES) mbar_wait(ring.empty(s), ((g / STAGES) - 1) & 1);
+        mbar_expect_tx(ring.full(s), VG::STAGE);
+        const int k0 = g * BN;
+#pragma unroll
+        for (int p = 0; p < PANELS; ++p) {
+          tma_load_panel(&kmap, ord.k, ring.k_tile(g) + p * VG::T_PANEL,
+                         ring.full(s), p * PW, k0, blockIdx.y, blk.bkv);
+          tma_load_panel(&vmap, ord.v, ring.v_tile(g) + p * VG::T_PANEL,
+                         ring.full(s), p * PW, k0, blockIdx.y, blk.bkv);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: 64 rows each
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      VG::CONSUMER_REGS));
+  const int w = threadIdx.x / WG;
+  if (w >= blk.nlive) return;  // no live row
+  const int tid = threadIdx.x % WG;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int fw = blk.f0 + 64 * w;
+  const uint32_t qw = base + w * Gm::Q_WG;
+  load_q<D>(ring.gbase + w * Gm::Q_WG, a, fw, blk.rows, tid);
+  fence_async_smem();
+  named_sync(1 + w, WG);
+
+  const VariantRange vr = variant_range<MODE>(a, blk, fw, bq, bk, nkb);
+  const int ntc = (vr.kend + BN - 1) / BN;  // the tiles this consumer takes
+  // FULL: each row's causal limit (-1 for a row past the last); the
+  // unmasked modes: the consumer's live limit, for the straddling tile
+  int qlim[2];
+  const int wlo[2] = {-0x40000000, -0x40000000};
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int f = fw + warp * 16 + lane / 4 + 8 * j;
+    qlim[j] = MODE != FULL ? vr.kend - 1
+              : f < blk.rows ? min(blk.qoff + f / a.G, blk.klen - 1)
+                             : -1;
+  }
+  // a tile needs the mask where it reaches past the first row's causal
+  // limit (FULL, as row 1) or past the live limit
+  const int open_end = MODE == FULL
+                           ? min(blk.qoff + fw / a.G, blk.klen - 1) + 1
+                           : vr.kend;
+
+  Acc<VG> o;
+#pragma unroll
+  for (int p = 0; p < PANELS; ++p) {
+#pragma unroll
+    for (int i = 0; i < PW / 2; ++i) o[p][i] = 0.f;
+  }
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};
+  float sc[BN / 2];
+
+  // a tile the STEP way (row 1's): QK, wait, the update, PV, wait
+  auto step = [&](int g) {
+    const int k0 = g * BN;
+    wgmma_fence();
+    issue_qk<VG>(sc, qw, ring.k_tile(g));
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(sc);
+    update_and_pv<VG, MODE>(k0 + BN > open_end, sc, o, m, l, a, k0, lane,
+                            qlim, wlo, ring.v_tile(g));
+  };
+
+  if constexpr (SCHEDULE == STEP) {
+    for (int g = 0; g < blk.tiles; ++g) {
+      ring.acquire(g, blk, w, tid);
+      if (g < ntc) step(g);
+      ring.release(g, lane);
+    }
+  } else if constexpr (SCHEDULE == PAIR) {
+    for (int g = 0; g < blk.tiles; g += 2) {
+      const bool two = g + 1 < blk.tiles;
+      ring.acquire(g, blk, w, tid);
+      if (two) ring.acquire(g + 1, blk, w, tid);
+      if (g + 1 < ntc) {
+        // both products, one wait, then the two updates in order
+        const int k0 = g * BN, k1 = k0 + BN;
+        float sb[BN / 2];
+        wgmma_fence();
+        issue_qk<VG>(sc, qw, ring.k_tile(g));
+        issue_qk<VG>(sb, qw, ring.k_tile(g + 1));
+        wgmma_commit();
+        wgmma_wait_all();
+        reg_fence(sc);
+        reg_fence(sb);
+        update_and_pv<VG, MODE>(k0 + BN > open_end, sc, o, m, l, a, k0,
+                                lane, qlim, wlo, ring.v_tile(g));
+        update_and_pv<VG, MODE>(k1 + BN > open_end, sb, o, m, l, a, k1,
+                                lane, qlim, wlo, ring.v_tile(g + 1));
+      } else if (g < ntc) {
+        step(g);  // the lone last tile
+      }
+      ring.release(g, lane);
+      if (two) ring.release(g + 1, lane);
+    }
+  } else {
+    float sb[BN / 2];
+    // step g with tile g's scores in cur: issue g + 1's into nxt first
+    // (the mask chosen before the product is issued), or drain the last
+    auto pipe = [&](float (&cur)[BN / 2], float (&nxt)[BN / 2], int g) {
+      const int k0 = g * BN;
+      const bool mask = k0 + BN > open_end;
+      if (g + 1 < ntc) {
+        ring.acquire(g + 1, blk, w, tid);
+        if (mask) {
+          pipelined_step<VG, MODE, true>(cur, nxt, o, m, l, a, k0, lane, qlim,
+                                         wlo, qw, ring.k_tile(g + 1),
+                                         ring.v_tile(g));
+        } else {
+          pipelined_step<VG, MODE, false>(cur, nxt, o, m, l, a, k0, lane,
+                                          qlim, wlo, qw, ring.k_tile(g + 1),
+                                          ring.v_tile(g));
+        }
+      } else {
+        update_and_pv<VG, MODE>(mask, cur, o, m, l, a, k0, lane, qlim, wlo,
+                                ring.v_tile(g));
+      }
+      ring.release(g, lane);  // V of tile g read: its stage is free
+    };
+    if (ntc > 0) {
+      ring.acquire(0, blk, w, tid);
+      wgmma_fence();
+      issue_qk<VG>(sc, qw, ring.k_tile(0));
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(sc);
+    }
+    for (int g = 0; g < ntc; g += 2) {
+      pipe(sc, sb, g);
+      if (g + 1 < ntc) pipe(sb, sc, g + 1);
+    }
+    // the tiles past this consumer's limit, which the other one takes
+    for (int g = ntc; g < blk.tiles; ++g) {
+      ring.acquire(g, blk, w, tid);
+      ring.release(g, lane);
+    }
+  }
+
+  // normalize and write; MXU_ONLY: the sums over the live blocks. With no
+  // live key m = -1e30 and l = 0, so the row gives 0.
+  if (MODE == MXU_ONLY) l[0] = l[1] = static_cast<float>(vr.nlive);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int f = fw + warp * 16 + lane / 4 + 8 * j;
+    if (f >= blk.rows) continue;
+    const int head = blockIdx.y * a.G + f % a.G;
+    const float inv = l[j] > 0.f ? 1.f / l[j] : 0.f;
+    bf16* dst = static_cast<bf16*>(a.out) + blockIdx.z * a.ob +
+                (f / a.G) * a.ot + static_cast<long long>(head) * a.oh;
+#pragma unroll
+    for (int p = 0; p < PANELS; ++p) {
+#pragma unroll
+      for (int c = 0; c < PW / 8; ++c) {
+        const int i = 4 * c + 2 * j;
+        *reinterpret_cast<__nv_bfloat162*>(dst + p * PW + c * 8 +
+                                           2 * (lane & 3)) =
+            __floats2bfloat162_rn(o[p][i] * inv, o[p][i + 1] * inv);
+      }
+    }
+  }
+}
+
+// Encode the launch's K and V maps (dense pool, B rows, boxes of BN keys)
+// and launch the variant on `stream`.
+template <int D, int MODE, int SCHEDULE>
 cudaError_t launch_variant(const FlashArgs& a, int B, int Hkv, int bq, int bk,
-                           int nkb, cudaStream_t s) {
-  constexpr int bytes = VariantSmem<D, PAIR ? 2 : 1, PAIR>::BYTES;
-  static_assert(bytes <= SMEM_LIMIT, "tiles do not fit shared memory");
+                           int nkb, cudaStream_t stream) {
+  using VG = VariantGeometry<D, SCHEDULE>;
+  constexpr int bytes = VG::BYTES;
+  static_assert(bytes <= SMEM_LIMIT, "the ring does not fit shared memory");
   static std::atomic<int> raised[64];
-  return variant_launch(variant_fwd<D, MODE, PAIR>, bytes, raised, a, B, Hkv,
-                        bq, bk, nkb, s);
-}
-
-template <int D>
-cudaError_t launch_pipelined(const FlashArgs& a, int B, int Hkv, int bq,
-                             int bk, int nkb, cudaStream_t s) {
-  constexpr int bytes = VariantSmem<D, 1, true>::BYTES;
-  static_assert(bytes <= SMEM_LIMIT, "tiles do not fit shared memory");
-  static std::atomic<int> raised[64];
-  return variant_launch(pipelined_fwd<D>, bytes, raised, a, B, Hkv, bq, bk,
-                        nkb, s);
+  cudaError_t err =
+      raise_smem_limit(variant_sm90_fwd<D, MODE, SCHEDULE>, bytes, raised);
+  if (err != cudaSuccess) return err;
+  CUtensorMap kmap, vmap;
+  TmaOrder ord;
+  const auto rows = static_cast<unsigned long long>(B);
+  if (!encode_kv_map<D, bf16>(&kmap, ord.k, a.k, a.ks, a.kh, a.kb, a.S, Hkv,
+                              rows, VG::BN) ||
+      !encode_kv_map<D, bf16>(&vmap, ord.v, a.v, a.vs, a.vh, a.vb, a.S, Hkv,
+                              rows, VG::BN)) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid((a.T * a.G + ROWS - 1) / ROWS, Hkv, B);
+  variant_sm90_fwd<D, MODE, SCHEDULE>
+      <<<grid, THREADS, bytes, stream>>>(a, kmap, vmap, ord, bq, bk, nkb);
+  return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t variant_dispatch(const FlashArgs& a, int B, int Hkv, int mode,
                              int pair, int pipelined, int bq, int bk, int nkb,
                              cudaStream_t s) {
-  if (pipelined) return launch_pipelined<D>(a, B, Hkv, bq, bk, nkb, s);
+  if (pipelined) {
+    return launch_variant<D, FULL, PIPELINED>(a, B, Hkv, bq, bk, nkb, s);
+  }
   switch (mode * 2 + (pair ? 1 : 0)) {
     case FULL * 2:
-      return launch_variant<D, FULL, false>(a, B, Hkv, bq, bk, nkb, s);
+      return launch_variant<D, FULL, STEP>(a, B, Hkv, bq, bk, nkb, s);
     case FULL * 2 + 1:
-      return launch_variant<D, FULL, true>(a, B, Hkv, bq, bk, nkb, s);
+      return launch_variant<D, FULL, PAIR>(a, B, Hkv, bq, bk, nkb, s);
     case NO_MASK * 2:
-      return launch_variant<D, NO_MASK, false>(a, B, Hkv, bq, bk, nkb, s);
+      return launch_variant<D, NO_MASK, STEP>(a, B, Hkv, bq, bk, nkb, s);
     case NO_MASK * 2 + 1:
-      return launch_variant<D, NO_MASK, true>(a, B, Hkv, bq, bk, nkb, s);
+      return launch_variant<D, NO_MASK, PAIR>(a, B, Hkv, bq, bk, nkb, s);
     case MXU_ONLY * 2:
-      return launch_variant<D, MXU_ONLY, false>(a, B, Hkv, bq, bk, nkb, s);
+      return launch_variant<D, MXU_ONLY, STEP>(a, B, Hkv, bq, bk, nkb, s);
     case MXU_ONLY * 2 + 1:
-      return launch_variant<D, MXU_ONLY, true>(a, B, Hkv, bq, bk, nkb, s);
+      return launch_variant<D, MXU_ONLY, PAIR>(a, B, Hkv, bq, bk, nkb, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+}  // namespace sm90
 }  // namespace lmc
 
 // Plain C entry point, bound with ctypes: row 1's argument block (q and out
-// strides of the head-major [B, H, Tp, D] tensors as [B, Tp, H, D] views),
-// the sizes it does not hold, the variant (mode 0 full, 1 no_mask,
-// 2 mxu_only; pair; pipelined), the logical blocks bq and bk, the number of
-// key blocks visited, the stream; returns a cudaError_t (0 on success).
+// strides of the head-major [B, H, Tp, D] tensors as [B, Tp, H, D] views;
+// no window, softcap, sinks or kv_slot), the sizes it does not hold, the
+// variant (mode 0 full, 1 no_mask, 2 mxu_only; pair; pipelined), the logical
+// blocks bq and bk, the number of key blocks visited, the stream; returns a
+// cudaError_t (0 on success).
 extern "C" int lmc_prefill_variant(const lmc::FlashArgs* a, int B, int H,
                                    int Hkv, int D, int mode, int pair,
                                    int pipelined, int bq, int bk, int nkb,
                                    void* stream) {
+  using namespace lmc::sm90;
   if (lmc::flash_bad_sizes(a, B, H, Hkv) || mode < 0 || mode > 2 ||
-      bq <= 0 || bk <= 0 || bq % lmc::BM != 0 || bk % lmc::BN != 0 ||
-      lmc::BM % a->G != 0 || a->T % bq != 0 || nkb < 0 ||
-      (pipelined && (mode != lmc::FULL || pair))) {
+      bq <= 0 || bk <= 0 || bq % LOGICAL != 0 || bk % LOGICAL != 0 ||
+      LOGICAL % a->G != 0 || a->T % bq != 0 || nkb < 0 ||
+      (pipelined && (mode != FULL || pair)) || a->window > 0 ||
+      a->softcap > 0.f || a->sinks != nullptr || a->kv_slot != nullptr) {
     return cudaErrorInvalidValue;
   }
   if (B == 0 || a->T == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return lmc::variant_dispatch<64>(*a, B, Hkv, mode, pair, pipelined, bq,
-                                       bk, nkb, s);
+      return variant_dispatch<64>(*a, B, Hkv, mode, pair, pipelined, bq, bk,
+                                  nkb, s);
     case 128:
-      return lmc::variant_dispatch<128>(*a, B, Hkv, mode, pair, pipelined,
-                                        bq, bk, nkb, s);
+      return variant_dispatch<128>(*a, B, Hkv, mode, pair, pipelined, bq, bk,
+                                   nkb, s);
     default:
       return cudaErrorInvalidValue;
   }

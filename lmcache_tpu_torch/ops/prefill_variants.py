@@ -30,9 +30,14 @@ The unmasked modes read every key of a live block, so they need ``S`` to be
 a multiple of ``bk``.
 
 On CUDA tensors the entry points launch the hand-written Hopper kernels of
-``csrc/prefill_variants.cu`` (bf16, D 64 or 128, a group size that divides
-64, ``bq`` and ``bk`` multiples of 64) and raise on what they do not take;
-on CPU tensors they compute the plain versions, :func:`variant_reference`.
+``csrc/prefill_variants.cu`` and raise on what they do not take: one
+template on row 1's body (``csrc/flash_sm90.cuh``: a TMA ring of key
+tiles, two ``wgmma`` consumer warpgroups of 64 query rows with S, P and O
+in registers) with a schedule a variant (row 1's tile at a time; two tiles'
+QK products before either update for ``pair``; the next tile's QK product
+beside this tile's softmax for ``pipelined``); bf16, D 64 or 128, a group
+size that divides 64, ``bq`` and ``bk`` multiples of 64. On CPU tensors
+they compute the plain versions, :func:`variant_reference`.
 ``variant_attention.launches`` and ``pipelined_attention.launches`` count
 kernel launches by variant name (``full``, ``no_mask``, ``mxu_only``,
 ``pair``, ``pair_no_mask``, ``pair_mxu_only``; ``pipelined``).
@@ -48,7 +53,11 @@ from lmcache_tpu_torch.ops.attention import (FlashArgs, _check_cuda_args,
                                              fill_args)
 
 MODES = ("full", "no_mask", "mxu_only")  # the kernel's mode numbers
-TILE = 64  # the kernel's physical query rows and keys per tile
+# bq and bk come in multiples of a consumer warpgroup's 64 query rows
+# (which then lie in one logical query block); a key block may end
+# inside one of the kernel's key tiles (64 or 128 keys), which is then
+# masked
+TILE = 64
 _entry = None
 
 

@@ -16,7 +16,7 @@ computes the function it computes on the TPU:
 - ``pair``, ``pair_no_mask``: two key tiles a step, both QK products
   before either softmax update;
 - ``pipelined``: tile j + 1's QK product issued before tile j's softmax
-  and PV, which run from a score stash.
+  and PV, which run beside it from tile j's score registers.
 
 For each it prints the time (CUDA events, best of several runs), the
 TFLOP/s and the share of the card's dense bf16 peak for the work its live

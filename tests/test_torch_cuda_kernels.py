@@ -1878,10 +1878,14 @@ VARIANT_SCENARIOS = {
 
 
 def _variant_inputs(gen, geom, scen):
-    from lmcache_tpu_torch.ops import prefill_variants as pv
     B, Hkv, G, D, S = VARIANT_GEOMETRY[geom]
     q_off, kv_len, bq, bk = VARIANT_SCENARIOS[scen]
-    q_off, kv_len = q_off[:B], (kv_len or [S] * B)[:B]
+    return _variant_case(gen, B, Hkv, G, D, S, q_off[:B],
+                         (kv_len or [S] * B)[:B], bq, bk)
+
+
+def _variant_case(gen, B, Hkv, G, D, S, q_off, kv_len, bq, bk):
+    from lmcache_tpu_torch.ops import prefill_variants as pv
     Tp = -(-S // bq) * bq
     q = torch.randn((B, Hkv * G, Tp, D), generator=gen,
                     device="cuda").bfloat16()
@@ -1892,32 +1896,32 @@ def _variant_inputs(gen, geom, scen):
     return pv, (q, k, v, qo, kl), dict(bq=bq, bk=bk)
 
 
-@pytest.mark.parametrize("variant", ["full", "no_mask", "mxu_only", "pair",
-                                     "pair_no_mask", "pair_mxu_only",
-                                     "pipelined"])
-@pytest.mark.parametrize("scen", sorted(VARIANT_SCENARIOS))
-@pytest.mark.parametrize("geom", sorted(VARIANT_GEOMETRY))
-def test_prefill_variant_matches_plain(gen, geom, scen, variant):
-    """Each variant against its plain version: the bf16 gate of row 1 for
-    the softmax variants; mxu_only's unnormalized sums (values of order 10)
-    by relative L2 within 1e-2."""
-    pv, args, kw = _variant_inputs(gen, geom, scen)
-    S, bk = args[1].shape[2], kw["bk"]
+def _variant_entry(pv, variant):
+    """(mode, pair, entry point, wrapper that counts) of a variant name."""
     mode = {"pair": "full", "pipelined": "full"}.get(
         variant, variant.replace("pair_", ""))
     pair = variant.startswith("pair")
+    if variant == "pipelined":
+        return mode, pair, pv.pipelined_attention, pv.pipelined_attention
+    return mode, pair, (lambda *a, **k: pv.variant_attention(
+        *a, mode=mode, pair=pair, **k)), pv.variant_attention
+
+
+def _hold_variant(pv, args, kw, variant):
+    """One launch of the variant held against its plain version: the bf16
+    gate of row 1 for the softmax variants; mxu_only's unnormalized sums
+    by relative L2 within 1e-2. Returns the output, or None where the
+    wrapper refuses the case as it should."""
+    S, bk = args[1].shape[2], kw["bk"]
+    mode, pair, entry, wrapper = _variant_entry(pv, variant)
     if mode != "full" and S % bk:
         with pytest.raises(ValueError, match="multiple of bk"):
             pv.variant_attention(*args, mode=mode, pair=pair, **kw)
-        return
+        return None
     if pair and (-(-S // bk)) % 2:
         with pytest.raises(ValueError, match="odd number of key blocks"):
             pv.variant_attention(*args, mode=mode, pair=True, **kw)
-        return
-    entry = pv.pipelined_attention if variant == "pipelined" else (
-        lambda *a, **k: pv.variant_attention(*a, mode=mode, pair=pair, **k))
-    wrapper = (pv.pipelined_attention if variant == "pipelined"
-               else pv.variant_attention)
+        return None
     before = wrapper.launches[variant]
     out = entry(*args, **kw)
     ref = pv.variant_reference(*args, mode=mode, pair=pair, **kw)
@@ -1929,6 +1933,66 @@ def test_prefill_variant_matches_plain(gen, geom, scen, variant):
     if mode != "mxu_only":
         torch.testing.assert_close(out.float(), ref.float(), atol=ATOL,
                                    rtol=2.0**-7)
+    return out
+
+
+VARIANTS = ["full", "no_mask", "mxu_only", "pair", "pair_no_mask",
+            "pair_mxu_only", "pipelined"]
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("scen", sorted(VARIANT_SCENARIOS))
+@pytest.mark.parametrize("geom", sorted(VARIANT_GEOMETRY))
+def test_prefill_variant_matches_plain(gen, geom, scen, variant):
+    """Each variant against its plain version: the bf16 gate of row 1 for
+    the softmax variants; mxu_only's unnormalized sums (values of order 10)
+    by relative L2 within 1e-2."""
+    pv, args, kw = _variant_inputs(gen, geom, scen)
+    _hold_variant(pv, args, kw, variant)
+
+
+@pytest.mark.parametrize("bk", [64, 192])
+@pytest.mark.parametrize("variant", ["no_mask", "mxu_only", "pair_no_mask",
+                                     "full"])
+def test_prefill_variant_consumers_in_two_query_blocks(gen, variant, bk):
+    """G 1 at bq 64: a block's 128 rows are two logical query blocks, so
+    its two consumers visit different keys (the unmasked modes every key
+    of their own live blocks; at bk 192 the live limit ends inside a
+    128-key tile)."""
+    pv, args, kw = _variant_case(gen, 2, 2, 1, 128, 384, [0, 40],
+                                 [384, 300], 64, bk)
+    assert _hold_variant(pv, args, kw, variant) is not None
+
+
+@pytest.mark.parametrize("D, S", [(64, 128), (64, 256), (64, 384),
+                                  (64, 192), (128, 64), (128, 128),
+                                  (128, 192), (128, 256)])
+@pytest.mark.parametrize("variant", ["pair", "pair_no_mask", "pipelined"])
+def test_prefill_variant_one_two_and_three_tiles(gen, variant, D, S):
+    """Sequences of one, two, three and four key tiles (128 keys at D 64,
+    64 at D 128; one and a half at D 64, S 192): pipelined's drain step
+    alone and after one or more steps; pair's two tiles, and its lone last
+    tile where the causal limit leaves an odd count. pair over an odd count
+    of key blocks of 64 is refused."""
+    pv, args, kw = _variant_case(gen, 2, 2, 4, D, S, [0, S // 2],
+                                 [S, S - 50], 64, 64)
+    _hold_variant(pv, args, kw, variant)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("geom, scen", [("d64_group8", "wide_blocks"),
+                                        ("tool_small", "causal")])
+def test_prefill_variant_bits_repeat(gen, geom, scen, variant):
+    """Two launches of each variant give the same bits (no float atomics,
+    a fixed order of every sum): at D 64, where every schedule takes
+    128-key tiles, and at D 128, where pair and pipelined take 64-key tiles
+    in a ring of four stages."""
+    pv, args, kw = _variant_inputs(gen, geom, scen)
+    _, _, entry, _ = _variant_entry(pv, variant)
+    first = entry(*args, **kw)
+    second = entry(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_prefill_variants_refuse_what_they_do_not_take(gen):
