@@ -187,7 +187,30 @@ Phases, in order; any failure exits non-zero:
    continuation (proposed, accepted, verification forwards) must give the
    golden tokens, or differ first where the witness puts the two tokens
    within ``TIE_STEPS`` bf16 steps;
-7. the launch counts of phases 3 to 14, read per phase with every count
+15. the codec quality gate of ``tools/eval_quality.py`` on the in-repo
+   trained checkpoints, through ``lmcache_tpu_torch.tools.eval_quality`` in
+   bf16 at ctx 8192 + cont 64 (bench.py:772's geometry; after phase 16):
+   the dense checkpoint (D 64, 4 query heads over 2 KV heads: row 1) and
+   the MLA one (latent 128 + 32, 4 heads: row 8), each through a CacheGen
+   round trip of its context's KV (rows 12 and 11), must pass the JAX
+   tool's gates (KL <= 0.05, confident top-1 >= 0.99, perplexity delta <
+   0.1); the dense sweep (default bins, then 16, 8, 4 and 2) must move the
+   KL past the default row's (at 2 bins the dequantization is 0 / 0, a NaN
+   KL, in both packages); rows 12 and 11 on the trained dense blob must
+   give the host C++ coder's container and blob (``phase_quality``);
+16. the disk and hybrid tiers under the dense ``ServingEngine`` on
+   tinyllama-1.1B at the bench shape (after phase 14a): engine A stores the
+   CTX prefix on a disk tier in a fresh temporary directory, engine B over
+   the same directory (its key index replayed) serves the prompt with the
+   device tier's 15872 hits, tokens, first-token logits and injected KV bit
+   for bit; TTFT reuse from disk beside the device tier's and the disk's
+   get time a chunk; then the hybrid tier ("cuda" in front of the cache
+   server, CacheGen): one instance writes through, a fresh one prefetches
+   at start (row 11 a chunk) and a fresh one with prefetch 0 fills on its
+   first request, each injecting the remote path's decode of the same
+   containers bit for bit, the local tier holding every chunk after; the
+   TTFT of each (``phase_tiers``);
+7. the launch counts of phases 3 to 16, read per phase with every count
    set to 0 just before it (prefill and decode, each > 0 where the phase
    runs them; "+window", "+softcap" and "+sinks" mark launches under those
    options; the coders count "store" and "retrieve" launches);
@@ -220,10 +243,12 @@ when CUDA is unavailable or the package is missing.
 import dataclasses
 import gc
 import json
+import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from contextlib import contextmanager
@@ -233,7 +258,7 @@ import torch
 
 from lmcache_tpu_torch import (LMCacheEngine, LMCacheEngineConfig,
                                LMCacheEngineMetadata)
-from lmcache_tpu_torch import blend, blend_mla, kv, ops
+from lmcache_tpu_torch import blend, blend_mla, kv, metrics, ops
 from lmcache_tpu_torch.chunks import prefix_chunk_hashes
 from lmcache_tpu_torch.codec import CacheGenConfig, range_coder
 from lmcache_tpu_torch.models import experts, llama, mla, paged
@@ -255,6 +280,8 @@ from lmcache_tpu_torch.storage.connector.lm_connector import \
     LMCServerConnector
 from lmcache_tpu_torch.storage.serde import cachegen_serde as cgs
 from lmcache_tpu_torch.tools import bench_prefill_mfu as bench_mfu
+from lmcache_tpu_torch.tools import eval_quality, quality_common
+from lmcache_tpu_torch.utils import resolve_device
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 FLOP/s
 PEAK_BYTES_S = 3.35e12
@@ -631,6 +658,10 @@ def paged_softcap_report(sass):
 # ---------------------------------------------------------------- phase 2 ---
 
 SERVE_S = 2048 + 64 + 1  # phase 4's pool: max_seq + one parking position
+# phase 15: bench.py:772's geometry of the codec quality gate; its forwards
+# run over a pool of QUALITY_S tokens
+QUALITY_CTX, QUALITY_CONT = 8192, 64
+QUALITY_S = QUALITY_CTX + QUALITY_CONT
 
 
 def attention_cases():
@@ -658,6 +689,18 @@ def attention_cases():
          [4096]),
         ("llama-2-7b decode", 4, 1, 32, 32, 128, 4097,
          [4095, 2000, 700, 4096], [4096, 2001, 701, 4097]),
+    ]
+
+
+def quality_attention_cases():
+    """:func:`attention_cases`' tuples at phase 15's trained dense checkpoint
+    (H 4 over H_kv 2, D 64): the context's prefill and the continuation's
+    over it."""
+    return [
+        ("quality-8l context prefill", 1, QUALITY_CTX, 4, 2, 64, QUALITY_S,
+         [0], [QUALITY_CTX]),
+        ("quality-8l continuation", 1, QUALITY_CONT, 4, 2, 64, QUALITY_S,
+         [QUALITY_CTX], [QUALITY_S]),
     ]
 
 
@@ -753,7 +796,8 @@ def phase_kernels():
     log("== phase 2: kernels vs plain versions (bf16, on the card)")
     gen = torch.Generator(device="cuda").manual_seed(1)
     worst = {name: 0.0 for name in KERNELS}
-    for case in attention_cases():
+
+    def hold_attention(case, gen):
         q, k, v, qo, kl = make_attention_inputs(case, gen)
         out = ops.flash_attention(q, k, v, qo, kl, kv_head_major=True)
         ref = plain_attention(q, k, v, qo, kl)
@@ -761,7 +805,19 @@ def phase_kernels():
         worst["flash_attention"] = max(
             worst["flash_attention"],
             hold_against_plain("flash_attention", case[0], out, ref))
-        del q, k, v, out, ref
+
+    def hold_latent(case, gen):
+        args, kw = make_latent_inputs(case, gen)
+        out = KERNELS[case["kernel"]][0](*args, **kw)
+        ref = latent_plain(case, args, kw)
+        torch.cuda.synchronize()
+        worst[case["kernel"]] = max(
+            worst[case["kernel"]],
+            hold_against_plain(case["kernel"], case["name"], out, ref))
+
+    for case in attention_cases():
+        hold_attention(case, gen)
+
     def hold_combine(name, part_o, part_ml, T, G):
         out = attn.combine_partials(part_o, part_ml, T, G)
         ref = attn.combine_partials_reference(part_o, part_ml, T, G)
@@ -799,14 +855,7 @@ def phase_kernels():
         for kernel, err in hold_coder_against_plain(case, 100 + i).items():
             worst[kernel] = max(worst[kernel], err)
     for case in latent_cases():
-        args, kw = make_latent_inputs(case, gen)
-        out = KERNELS[case["kernel"]][0](*args, **kw)
-        ref = latent_plain(case, args, kw)
-        torch.cuda.synchronize()
-        worst[case["kernel"]] = max(
-            worst[case["kernel"]],
-            hold_against_plain(case["kernel"], case["name"], out, ref))
-        del args, out, ref
+        hold_latent(case, gen)
     for case in latent_combine_cases():
         part_o, part_ml, T, H = make_latent_combine_inputs(case, gen)
         out = pla.combine_partials(part_o, part_ml, T, H)
@@ -837,6 +886,13 @@ def phase_kernels():
         worst[kernel] = max(worst[kernel], hold_against_plain(
             kernel, case["name"], out, ref))
         del call, plain, out, ref
+    # phase 15's shapes of rows 1 and 8, from a generator of their own so
+    # that every earlier case draws the same numbers as before
+    quality_gen = torch.Generator(device="cuda").manual_seed(16)
+    for case in quality_attention_cases():
+        hold_attention(case, quality_gen)
+    for case in quality_latent_cases():
+        hold_latent(case, quality_gen)
     return worst
 
 
@@ -1592,16 +1648,19 @@ MLA_SERVE_SEQ = 2048 + 64  # phases 10b and 10c: max_seq of the engines
 NP_MLA = -(-(MLA_SERVE_SEQ + 1) // PAGE)
 MLA_C, MLA_CP = MLA_CFG.latent_dim, mla.latent_pad_dim(MLA_CFG)
 MLA_R = MLA_CFG.kv_lora_rank
+# a latent case's geometry (:func:`latent_cases`' keys H, C, R and scale)
+MLA_GEOMETRY = dict(H=MLA_CFG.n_heads, C=MLA_C, R=MLA_R,
+                    scale=MLA_CFG.sm_scale)
 
 
 def latent_cases():
     """The shapes phase 10 gives kernel rows 8-10 at DeepSeek-V2-Lite (H 16,
     C 576, rank 512), for the bf16 and the int8 latents, and decode with
     H 128, the geometry of DeepSeek-V2 and V3 (whose weights do not fit one
-    card). Keys: kernel, B, T, H, q_off, kv_len; S (dense rows) or NP (page
-    slots; ``idle`` rows point every slot at the null page 0, as the
-    engine's parked decode rows do). The first case of a kernel is the one
-    its path gives it first."""
+    card). Keys: kernel, B, T, H, C, R (rank), scale, q_off, kv_len; S
+    (dense rows) or NP (page slots; ``idle`` rows point every slot at the
+    null page 0, as the engine's parked decode rows do). The first case of
+    a kernel is the one its path gives it first."""
     S16 = CTX + SUFFIX
     parked = [2064, 2060, 2070, MLA_SERVE_SEQ]
     ragged = [16383, 9000, 3000, 0]
@@ -1624,12 +1683,13 @@ def latent_cases():
         ("v2/v3 heads (H 128) decode 16k, fragmented pages",
          dict(B=4, T=1, NP=257, q_off=ragged, H=MLA_HEADS_V3)),
     ]
+    base = dict(MLA_GEOMETRY, idle=[])
     cases = []
     for quant in (False, True):
         pre = "quantized_" if quant else ""
         for name, shape in dense:
-            cases.append(dict(dict(H=MLA_CFG.n_heads, idle=[]), **shape,
-                              name=name, quant=quant, paged=False,
+            cases.append(dict(base, **shape, name=name, quant=quant,
+                              paged=False,
                               kernel=pre + "latent_flash_attention"))
         # row 10 on every paged shape; row 9 where phase 10d gives it work
         for name, shape in paged:
@@ -1637,11 +1697,31 @@ def latent_cases():
                            "paged_latent_attention"):
                 if kernel == "paged_latent_attention" and "16k" in name:
                     continue
-                cases.append(dict(dict(H=MLA_CFG.n_heads, idle=[]), **shape,
-                                  name=name, quant=quant, paged=True,
-                                  kernel=pre + kernel))
+                cases.append(dict(base, **shape, name=name, quant=quant,
+                                  paged=True, kernel=pre + kernel))
     for case in cases:
         case["kv_len"] = [o + case["T"] for o in case["q_off"]]
+    return cases
+
+
+def quality_latent_cases():
+    """Row 8 at phase 15's trained MLA checkpoint (H 4, C 160 = 128 + 32,
+    rank 128), bf16 and int8 latents: the context's prefill, the
+    continuation's over it and a decode at the end of its pool."""
+    qcfg = quality_common.quality_mla_config()
+    base = dict(B=1, S=QUALITY_S, H=qcfg.n_heads, C=qcfg.latent_dim,
+                R=qcfg.kv_lora_rank, scale=qcfg.sm_scale, idle=[],
+                paged=False)
+    cases = []
+    for quant in (False, True):
+        for name, T, q_off in (
+                ("quality-mla context prefill", QUALITY_CTX, 0),
+                ("quality-mla continuation", QUALITY_CONT, QUALITY_CTX),
+                ("quality-mla decode", 1, QUALITY_S - 1)):
+            cases.append(dict(base, name=name, T=T, q_off=[q_off],
+                              kv_len=[q_off + T], quant=quant,
+                              kernel=("quantized_" if quant else "")
+                              + "latent_flash_attention"))
     return cases
 
 
@@ -1651,13 +1731,13 @@ def make_latent_inputs(case, gen):
     (zero pad) with a fragmented page table; int8 latents with scales of
     unit-size tokens."""
     dev = "cuda"
-    B, T, H = case["B"], case["T"], case["H"]
-    q = torch.randn((B, T, H, MLA_C), generator=gen, device=dev).bfloat16()
+    B, T, H, C = case["B"], case["T"], case["H"], case["C"]
+    q = torch.randn((B, T, H, C), generator=gen, device=dev).bfloat16()
     if case["paged"]:
         P = B * case["NP"] + 1
         shape = (P, PAGE, MLA_CP)
     else:
-        shape = (B, case["S"], MLA_C)
+        shape = (B, case["S"], C)
     if case["quant"]:
         rows = torch.randint(-127, 128, shape, generator=gen, device=dev,
                              dtype=torch.int32).to(torch.int8)
@@ -1667,10 +1747,10 @@ def make_latent_inputs(case, gen):
     else:
         lat = (torch.randn(shape, generator=gen, device=dev).bfloat16(),)
     if case["paged"]:
-        lat[0][..., MLA_C:] = 0  # the lane pad, as the model writes it
+        lat[0][..., C:] = 0  # the lane pad, as the model writes it
     qo = torch.tensor(case["q_off"], dtype=torch.int32, device=dev)
     kl = torch.tensor(case["kv_len"], dtype=torch.int32, device=dev)
-    kw = dict(rank=MLA_R, scale=MLA_CFG.sm_scale)
+    kw = dict(rank=case["R"], scale=case["scale"])
     if not case["paged"]:
         return (q, *lat, qo, kl), kw
     ids = torch.randperm(P - 1, generator=gen, device=dev) + 1
@@ -1733,9 +1813,10 @@ def latent_bound(case, args):
                         for k in range(n))
         else:
             rows.update((b, k) for k in range(n))
-    flops = 2.0 * H * (MLA_C + MLA_R) * pairs
-    per_row = MLA_C + 4 if case["quant"] else 2 * MLA_C
-    nbytes = (2 * B * T * H * (MLA_C + MLA_R) + len(rows) * per_row)
+    C, R = case["C"], case["R"]
+    flops = 2.0 * H * (C + R) * pairs
+    per_row = C + 4 if case["quant"] else 2 * C
+    nbytes = (2 * B * T * H * (C + R) + len(rows) * per_row)
     if case["paged"]:
         nbytes += 4 * sum(-(-kl // PAGE) for kl in case["kv_len"])
     t_flops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
@@ -1768,16 +1849,16 @@ def latent_library(case, args, kw, iters):
     too. Returns (gather or dequantize ms or None, SDPA ms, the SDPA
     backends that take these shapes)."""
     q, qo, kl = args[0], args[-2], args[-1]
-    B, T, H = case["B"], case["T"], case["H"]
+    B, T, H, C, R = case["B"], case["T"], case["H"], case["C"], case["R"]
     if case["paged"]:
         n_live = -(-max(case["kv_len"]) // PAGE)
         ids = args[-3][:, :n_live].long()
 
         def dense():
-            x = args[1][ids][..., :MLA_C]  # [B, n, page, C]
+            x = args[1][ids][..., :C]  # [B, n, page, C]
             if case["quant"]:
                 x = (x.float() * args[2][ids][..., None]).bfloat16()
-            return x.reshape(B, n_live * PAGE, MLA_C)
+            return x.reshape(B, n_live * PAGE, C)
     elif case["quant"]:
         def dense():
             return (args[1].float() * args[2][..., None]).bfloat16()
@@ -1788,8 +1869,8 @@ def latent_library(case, args, kw, iters):
               if case["paged"] or case["quant"] else None)
     lat = dense()
     S = lat.shape[1]
-    k = lat[:, None].expand(B, H, S, MLA_C)
-    v = lat[:, None, :, :MLA_R].expand(B, H, S, MLA_R)
+    k = lat[:, None].expand(B, H, S, C)
+    v = lat[:, None, :, :R].expand(B, H, S, R)
     qh = q.transpose(1, 2).contiguous()
     if T == S and case["q_off"] == [0] * B:
         mask_kw = {"is_causal": True}
@@ -1851,7 +1932,7 @@ def verify_cases():
     mla_off = [2060, 1500, 700, 31]
     for quant in (False, True):
         pre = "quantized_" if quant else ""
-        base = dict(H=MLA_CFG.n_heads, idle=[], B=4, T=VERIFY_T,
+        base = dict(MLA_GEOMETRY, idle=[], B=4, T=VERIFY_T,
                     q_off=mla_off, kv_len=[o + VERIFY_T for o in mla_off],
                     quant=quant, name="v2-lite verification, T 5 x 4 rows")
         cases.append(("latent", dict(base, S=MLA_SERVE_SEQ + VERIFY_T,
@@ -3171,7 +3252,8 @@ def start_cache_server():
 TRANSPORTS = ("python", "native")  # phase 9's order: the native one last
 
 
-def remote_tier(url, cfg, transport="native", **kw):
+def remote_tier(url, cfg, transport="native", model_name=REMOTE_MODEL,
+                **kw):
     """A remote CacheGen tier over the cache server at ``url``, talking
     through the native transport (the connector's default) or the Python
     socket client (``use_native=False``)."""
@@ -3179,7 +3261,7 @@ def remote_tier(url, cfg, transport="native", **kw):
         LMCacheEngineConfig(local_device=None, remote_url=url,
                             remote_serde="cachegen", chunk_size=REMOTE_CHUNK,
                             **kw),
-        LMCacheEngineMetadata(model_name=REMOTE_MODEL, world_size=1,
+        LMCacheEngineMetadata(model_name=model_name, world_size=1,
                               worker_id=0, fmt="vllm", dtype=cfg.dtype))
     if transport == "python":
         host, port = url.split("://")[1].rsplit(":", 1)
@@ -5202,7 +5284,8 @@ def phase_yardstick():
     gen = torch.Generator(device="cuda").manual_seed(1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {name: [] for name in KERNELS}
-    for case in attention_cases():
+
+    def time_attention(case, gen):
         name, B, T, H, Hkv, D, S, q_off, kv_len = case
         q, k, v, qo, kl = make_attention_inputs(case, gen)
         decode = T == 1
@@ -5246,7 +5329,9 @@ def phase_yardstick():
             f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, SDPA "
             f"{library_ms:.4f} ms{extra}")
         rows["flash_attention"].append(row)
-        del q, k, v, qh, mask_kw
+
+    for case in attention_cases():
+        time_attention(case, gen)
 
     def time_combine(name, paged, part_o, part_ml, T, G):
         ms = cuda_ms(lambda: attn.combine_partials(part_o, part_ml, T, G),
@@ -5328,7 +5413,7 @@ def phase_yardstick():
     skip_former_coder_draws(gen)
     rows.update(coder_yardstick(sm_clock_hz()))
 
-    for case in latent_cases():
+    def time_latent(case, gen):
         args, kw = make_latent_inputs(case, gen)
         entry = KERNELS[case["kernel"]][0]
         decode = case["T"] == 1
@@ -5360,7 +5445,9 @@ def phase_yardstick():
             f"bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
             f"library {lib}")
         rows[case["kernel"]].append(row)
-        del args
+
+    for case in latent_cases():
+        time_latent(case, gen)
 
     for case in latent_combine_cases():
         part_o, part_ml, T, H = make_latent_combine_inputs(case, gen)
@@ -5410,6 +5497,12 @@ def phase_yardstick():
             f"ms, library {lib}")
         rows[kernel].append(row)
         del call, plain, library
+    # phase 15's shapes of rows 1 and 8, drawn as in phase 2
+    quality_gen = torch.Generator(device="cuda").manual_seed(16)
+    for case in quality_attention_cases():
+        time_attention(case, quality_gen)
+    for case in quality_latent_cases():
+        time_latent(case, quality_gen)
     return rows
 
 
@@ -5457,6 +5550,283 @@ def paged_library(case, args, iters):
             cuda_ms(lambda: sdpa(qh, k, v, attn_mask=mask, enable_gqa=True,
                                  scale=case["sm_scale"]),
                     iters=iters))
+
+
+# --------------------------------------------------------------- phase 15 ---
+
+def gate_line(r, ratio):
+    return (f"compression {r[ratio]}x, KL {r['logit_kl']}, top-1 "
+            f"{r['top1_agreement']}, confident top-1 "
+            f"{r['confident_top1_agreement']}, ppl exact {r['ppl_exact']} "
+            f"codec {r['ppl_codec']} delta {r['ppl_delta']}; pass "
+            f"{r['pass']}")
+
+
+def quality_codec_exact(dev):
+    """The trained dense model's exact context blob through rows 12 and 11
+    against the host C++ coder: the containers must be byte-equal and the
+    decoded blobs bit-equal (trained KV's symbol statistics differ from
+    random KV's)."""
+    cfg = quality_common.quality_config("bfloat16")
+    params = quality_common.load_params(cfg, device=dev)
+    tokens = quality_common.make_eval_tokens(
+        np.random.default_rng(0), QUALITY_CTX + QUALITY_CONT)
+    with uncounted():
+        blob = eval_quality.context_blob(llama, cfg, params, tokens,
+                                         QUALITY_CTX, dev)
+        name = "lmcache-tpu/quality-8l"
+        card = eval_quality.codec_round_trip(blob, name, dev)
+        host = eval_quality.codec_round_trip(blob, name, dev, coder="off")
+        torch.cuda.synchronize()
+    return card[0] == host[0] and same_bits(card[1], host[1])
+
+
+def phase_quality():
+    """Phase 15: the codec quality gate of ``tools/eval_quality.py`` on the
+    in-repo trained checkpoints, through the port's eval tool on the card in
+    bf16; the dense sweep's 4-bin row must exceed the default row's KL and
+    its 2-bin row (whose KL is NaN) the default row's perplexity delta.
+    Returns (launch counts, the numbers)."""
+    log(f"== phase 15: codec quality gate, the trained checkpoints, ctx "
+        f"{QUALITY_CTX} + cont {QUALITY_CONT}, bf16")
+    dev = resolve_device("cuda")
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    dense = eval_quality.evaluate("trained", QUALITY_CTX, QUALITY_CONT)
+    latent = eval_quality.evaluate_mla(QUALITY_CTX, QUALITY_CONT,
+                                       trained=True)
+    rows = eval_quality.sweep("trained", QUALITY_CTX, QUALITY_CONT, 0)
+    launches = {"quality gate": read_launch_counts()}
+    gate_s = time.perf_counter() - t0
+    log(f"  dense (D 64, G 2): {gate_line(dense, 'compression_x')}")
+    log(f"  MLA (latent {latent['latent_dim']}, against bf16 latents): "
+        f"{gate_line(latent, 'compression_vs_bf16_x')}")
+    log(f"  sweep, dense (bins: compression, KL, ppl delta): " + "; ".join(
+        f"{r['bins']}: {r['compression_x']}x, {r['logit_kl']}, "
+        f"{r['ppl_delta']}" for r in rows))
+    exact = quality_codec_exact(dev)
+    log(f"  rows 12 and 11 on the trained dense blob: containers and decoded "
+        f"blob equal to the host C++ coder's: {exact}; the gate and the sweep "
+        f"{gate_s:.1f} s; launches {launches['quality gate']}")
+    for r in (dense, latent):
+        if not (r["pass"] and r["logit_kl"] <= eval_quality.KL_GATE
+                and r["confident_top1_agreement"]
+                >= eval_quality.CONFIDENT_TOP1_GATE
+                and r["ppl_delta"] < eval_quality.PPL_DELTA_GATE):
+            raise SystemExit(f"quality gate: {r['model']} fails")
+    # at 2 bins the quantizer's half step (bins // 2 - 1) is 0 and the
+    # dequantization (s - half) * max / half gives 0 / 0 in both packages:
+    # the decoded cache is NaN, its KL NaN and its perplexity the capped
+    # exp(700). So the 2-bin row is held by its perplexity delta, and the
+    # KL check is carried by the 4-bin row, the fewest bins with a finite KL
+    if not (rows[-2]["logit_kl"] > rows[0]["logit_kl"]
+            and rows[-1]["ppl_delta"] > rows[0]["ppl_delta"]):
+        raise SystemExit("quality gate: fewer bins do not move the KL and "
+                         "the perplexity past the default schedule's")
+    if not exact:
+        raise SystemExit("quality gate: the coder kernels differ from the "
+                         "host coder on trained KV")
+    # strict JSON has no NaN: the 2-bin row's KL is written as null
+    rows = [{k: None if isinstance(v, float) and v != v else v
+             for k, v in r.items()} for r in rows]
+    return launches, {"dense": dense, "mla": latent, "sweep": rows,
+                      "coders_exact": exact, "seconds": gate_s}
+
+
+# --------------------------------------------------------------- phase 16 ---
+
+TIER_MODEL = "tinyllama-1.1b-tiers"
+
+
+def tier_engine(cfg, params, tier_cfg, **meta):
+    """A ``ServingEngine`` (max_batch 1) over a cache engine of
+    ``tier_cfg`` that keeps each request's first-token logits."""
+    tier = LMCacheEngine(tier_cfg, LMCacheEngineMetadata(
+        model_name=meta.get("model_name", TIER_MODEL), world_size=1,
+        worker_id=0, fmt="vllm", dtype=cfg.dtype))
+    eng = ServingEngine(cfg, params, max_batch=1, max_seq=CTX + SUFFIX + 8,
+                        cache_engine=tier)
+    eng.kept = {}
+    finish = eng._finish_prefill
+
+    def finish_and_keep(req, logits):
+        eng.kept[req.request_id] = logits.float().clone()
+        finish(req, logits)
+
+    eng._finish_prefill = finish_and_keep
+    return eng
+
+
+def tier_serve(eng, prompt):
+    """(request, first-token logits, ms from the call to a
+    ``torch.cuda.synchronize()`` after it) of one prompt; the tier is
+    flushed after the clock stops."""
+    t0 = time.perf_counter()
+    [r] = eng.generate([prompt], SamplingParams(max_new_tokens=1))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    eng.cache_engine.engine_.flush()
+    return r, eng.kept.pop(r.request_id), ms
+
+
+def tier_ttft(eng, vocab, seed, reps=3):
+    """TTFT in ms of requests on the stored CTX prefix, each with a new
+    suffix drawn from ``seed`` (host clock to ``torch.cuda.synchronize()``),
+    after a warm-up: (best, all). Each call takes its own seed: a tier that
+    writes through to a shared store keeps the suffixes' chunks."""
+    rng = np.random.default_rng(seed)
+    prefix = np.random.default_rng(0).integers(0, vocab, CTX + SUFFIX,
+                                               dtype=np.int32)[:CTX]
+    times = []
+    for i in range(reps + 1):
+        prompt = np.concatenate([prefix, rng.integers(0, vocab, SUFFIX,
+                                                      dtype=np.int32)])
+        torch.cuda.synchronize()
+        r, _, ms = tier_serve(eng, prompt)
+        if r.cached_prefix_len != CTX:
+            raise SystemExit(f"tiers: {r.cached_prefix_len} cached, not "
+                             f"{CTX}")
+        if i:
+            times.append(ms)
+    return min(times), times
+
+
+def disk_get_seconds():
+    snap = metrics.snapshot()
+    key = 'lmcache_tier_get_seconds_{}{{tier="disk"}}'
+    return snap.get(key.format("sum"), 0.0), snap.get(key.format("count"), 0)
+
+
+def phase_tiers(cfg, params):
+    """Phase 16: the disk and hybrid tiers under ``ServingEngine`` at the
+    bench shape, held bit for bit to the device tier and to the remote
+    path's decode. Returns (launch counts, the numbers)."""
+    log(f"== phase 16: the disk and hybrid tiers, tinyllama-1.1B, CTX {CTX} "
+        f"+ SUFFIX {SUFFIX}")
+    tokens_np = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                  CTX + SUFFIX,
+                                                  dtype=np.int32)
+    launches, out = {}, {}
+    device = tier_engine(cfg, params, LMCacheEngineConfig(local_device="cuda"))
+    tier_serve(device, tokens_np[:CTX])  # the store-back of the prefix
+    ref, ref_logits, _ = tier_serve(device, tokens_np)
+    ref_kv = llama.cache_to_blob(device.kv_pool, ref.slot, CTX).clone()
+
+    # the disk tier: engine A stores, a fresh engine B replays the index
+    path = tempfile.mkdtemp(prefix="lmc-disk-")
+    try:
+        disk_cfg = LMCacheEngineConfig(local_device=path)
+        a = tier_engine(cfg, params, disk_cfg)
+        tier_serve(a, tokens_np[:CTX])  # non-blocking store-back to disk
+        a.cache_engine.close()
+        del a
+        b = tier_engine(cfg, params, disk_cfg)
+        reset_launch_counts()
+        r, logits, _ = tier_serve(b, tokens_np)
+        launches["disk reuse"] = read_launch_counts()
+        same = (r.cached_prefix_len == ref.cached_prefix_len == CTX
+                and r.output_tokens == ref.output_tokens
+                and same_bits(logits, ref_logits)
+                and same_bits(llama.cache_to_blob(b.kv_pool, r.slot, CTX),
+                              ref_kv))
+        files = len([f for f in os.listdir(path) if f.endswith(".lmtc")])
+        log(f"  disk: {files} chunk files; engine B after the restart: "
+            f"{r.cached_prefix_len} hits; its tokens, first-token logits and "
+            f"injected KV bit-equal to the device tier's reuse: {same}; "
+            f"launches {launches['disk reuse']}")
+        if not same:
+            raise SystemExit("disk tier: reuse differs from the device "
+                             "tier's")
+        s0, n0 = disk_get_seconds()
+        disk_best, disk_all = tier_ttft(b, cfg.vocab_size, 16)
+        s1, n1 = disk_get_seconds()
+        dev_best, dev_all = tier_ttft(device, cfg.vocab_size, 17)
+        log(f"  TTFT reuse from disk {disk_best:.2f} ms (best of 3 after a "
+            f"warm-up; all {[round(t, 2) for t in disk_all]}; the reads warm "
+            f"in the page cache), device tier {dev_best:.2f} ms (all "
+            f"{[round(t, 2) for t in dev_all]}); disk get "
+            f"{(s1 - s0) / max(n1 - n0, 1) * 1e3:.3f} ms a chunk over "
+            f"{n1 - n0} gets (lmcache_tier_get_seconds)")
+        out["disk"] = {"ttft_reuse_ms": disk_best, "ttft_all_ms": disk_all,
+                       "device_ttft_reuse_ms": dev_best,
+                       "device_ttft_all_ms": dev_all,
+                       "get_ms_per_chunk": (s1 - s0) / max(n1 - n0, 1) * 1e3,
+                       "chunk_files": files}
+        b.cache_engine.close()
+        del b
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    device.cache_engine.close()
+    del device
+
+    # the hybrid tier: the device tier in front of the cache server
+    proc, url = start_cache_server()
+    try:
+        def hybrid(**kw):
+            return tier_engine(cfg, params, LMCacheEngineConfig(
+                local_device="cuda", remote_url=url, remote_serde="cachegen",
+                chunk_size=REMOTE_CHUNK, **kw))
+
+        w = hybrid()
+        tier_serve(w, tokens_np[:CTX])  # write-through store-back
+        w.cache_engine.close()
+        del w
+        remote = remote_tier(url, cfg, model_name=TIER_MODEL)
+        with uncounted():
+            want, mask = remote.retrieve(tokens_np[:CTX], return_tuple=False)
+            torch.cuda.synchronize()
+        remote.close()
+        keys = [remote._make_key(h, "vllm")
+                for h in prefix_chunk_hashes(tokens_np[:CTX], REMOTE_CHUNK)]
+        res = {}
+        for seed, kind, kw in (
+                (18, "prefetch", {"hybrid_prefetch_chunks": 1024}),
+                (19, "fill", {"hybrid_prefetch_chunks": 0})):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            eng = hybrid(**kw)
+            torch.cuda.synchronize()  # the prefetch's row-11 decodes
+            start_ms = (time.perf_counter() - t0) * 1e3
+            local = eng.cache_engine.engine_.local
+            warm = sum(local.contains(k) for k in keys)
+            # a suffix of its own: the instance before wrote its suffixes'
+            # chunks through to the server
+            prompt = np.concatenate([tokens_np[:CTX], np.random.default_rng(
+                seed + 100).integers(0, cfg.vocab_size, SUFFIX,
+                                     dtype=np.int32)])
+            r, _, first_ms = tier_serve(eng, prompt)
+            launches[f"hybrid {kind}"] = read_launch_counts()
+            held = sum(local.contains(k) for k in keys)
+            same = (r.cached_prefix_len == CTX and int(mask.sum()) == CTX
+                    and same_bits(llama.cache_to_blob(eng.kv_pool, r.slot,
+                                                      CTX), want))
+            best, every = tier_ttft(eng, cfg.vocab_size, seed)
+            log(f"  hybrid, {kind}: start {start_ms:.2f} ms with {warm} of "
+                f"{len(keys)} chunks in the local tier; TTFT of its first "
+                f"request {first_ms:.2f} ms, {r.cached_prefix_len} "
+                f"hits, its injected KV bit-equal to the remote path's decode "
+                f"of the same containers: {same}; then {held} of {len(keys)} "
+                f"in the local tier; TTFT {best:.2f} ms (best of 3 after a "
+                f"warm-up; all {[round(t, 2) for t in every]}); launches "
+                f"{launches[f'hybrid {kind}']}")
+            if not same or held != len(keys) or (
+                    kind == "prefetch" and warm != len(keys)):
+                raise SystemExit(f"hybrid tier, {kind}: a gate failed")
+            res[kind] = {"start_ms": start_ms, "warm_chunks": warm,
+                         "first_request_ms": first_ms, "ttft_ms": best,
+                         "ttft_all_ms": every}
+            eng.cache_engine.close()
+            del eng
+        out["hybrid"] = res
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=10)
+    torch.cuda.empty_cache()
+    return launches, out
 
 
 def main():
@@ -5522,6 +5892,10 @@ def main():
     launches.update(blend_launches)
     decode_launches, decode_out = phase_decode_options(cfg, params)
     launches.update(decode_launches)
+    tier_launches, tier_out = phase_tiers(cfg, params)
+    launches.update(tier_launches)
+    quality_launches, quality_out = phase_quality()
+    launches.update(quality_launches)
     del params
     torch.cuda.empty_cache()
     remote["codec_throughput"] = phase_codec_throughput()
@@ -5628,6 +6002,15 @@ def main():
                                  ("combine_partials", ("decode",))],
     }
     expected["remote reuse python"] = expected["remote reuse"]
+    expected["quality gate"] = [
+        ("flash_attention", ("prefill",)),
+        ("latent_flash_attention", ("prefill",)),
+        ("range_encode", ("store",)), ("range_encode_compact", ("store",)),
+        ("range_decode", ("retrieve",))]
+    expected["disk reuse"] = ("flash_attention", ("prefill",))
+    expected["hybrid prefetch"] = [("range_decode", ("retrieve",)),
+                                   ("flash_attention", ("prefill",))]
+    expected["hybrid fill"] = expected["hybrid prefetch"]
     both = ("prefill", "decode")
     for name, kernel, combine in (
             ("tinyllama dense native", "flash_attention", "combine_partials"),
@@ -5693,7 +6076,8 @@ def main():
               "qwen3_moe": qwen_out, "presets": preset_out,
               "gemma2_paged_profiles": gemma2_profiles,
               "ablation": ablation, "blend": blend_out,
-              "decode_options": decode_out,
+              "decode_options": decode_out, "quality": quality_out,
+              "tiers": tier_out,
               "int8_paged_build": int8_paged,
               "paged_softcap_build": paged_softcap,
               "variant_build": variant_build, "card": card}

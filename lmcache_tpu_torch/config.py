@@ -1,16 +1,18 @@
 """Configuration for the port's cache engine.
 
-A copy of ``lmcache_tpu/config.py`` for the tiers this package has: an
-immutable engine config (how to cache) separate from the engine metadata
-(identity of the deployment, baked into every cache key).
+A copy of ``lmcache_tpu/config.py``: an immutable engine config (how to
+cache) separate from the engine metadata (identity of the deployment, baked
+into every cache key).
 
 ``local_device`` is ``"cuda"`` (KV chunks held in GPU memory as torch
-tensors), ``"cpu"`` (host DRAM) or None. ``remote_url`` names a cache server
-(``lm://host:port``; :mod:`lmcache_tpu_torch.server`), written through the
-serde ``remote_serde`` (``"raw"`` or ``"cachegen"``). One of the two tiers
-is configured: the disk tier (a path as ``local_device``) and the hybrid
-tier (both) are not ported yet and raise ``NotImplementedError`` (ROADMAP,
-module item 8).
+tensors), ``"cpu"`` (host DRAM), a directory (the disk tier: one raw
+container a chunk) or None. ``remote_url`` names a cache server
+(``lm://host:port``; :mod:`lmcache_tpu_torch.server`) or a redis store
+(``redis://``, ``redis-sentinel://``), written through the serde
+``remote_serde`` (``"raw"``, ``"raw_zstd"``, ``"safetensors"`` or
+``"cachegen"``). With both, the tier is the hybrid one: the local tier in
+front of the remote one, warmed at start by a bounded prefetch
+(``hybrid_prefetch_*``).
 
 CacheGen's range coding runs where ``cachegen_device_encode`` (store) and
 ``cachegen_device_decode`` (retrieve) say: ``"auto"`` runs the Hopper
@@ -57,9 +59,10 @@ class LMCacheEngineMetadata:
 @dataclass(frozen=True)
 class LMCacheEngineConfig:
     chunk_size: int = 256
-    local_device: Optional[str] = "cuda"  # "cuda" | "cpu" | None
-    remote_url: Optional[str] = None  # "lm://host:port"
-    remote_serde: Optional[str] = "raw"  # "raw" | "cachegen"
+    local_device: Optional[str] = "cuda"  # "cuda" | "cpu" | disk path | None
+    remote_url: Optional[str] = None  # "<proto>://host:port"
+    # "raw" | "raw_zstd" | "safetensors" | "cachegen"
+    remote_serde: Optional[str] = "raw"
     pipelined_backend: bool = False
     save_decode_cache: bool = False
     # Max bytes held by the in-memory local tier before LRU eviction
@@ -71,16 +74,16 @@ class LMCacheEngineConfig:
     # CacheBlend: fraction of tokens to recompute when blending non-prefix
     # chunks (see lmcache_tpu_torch/blend.py)
     blend_recompute_ratio: float = 0.15
+    # the hybrid tier's startup prefetch (as the JAX package's): at most
+    # this many chunks, newest first (None = unbounded, 0 = none), and at
+    # most ``hybrid_prefetch_bytes`` bytes (and ``local_capacity_bytes``);
+    # the rest fills on first use. ``hybrid_prefetch_async`` runs it on a
+    # thread (``backend.wait_prefetch()`` joins it)
+    hybrid_prefetch_chunks: Optional[int] = 1024
+    hybrid_prefetch_bytes: Optional[int] = None
+    hybrid_prefetch_async: bool = False
 
     def __post_init__(self):
-        if self.local_device not in ("cuda", "cpu", None):
-            raise NotImplementedError(
-                f"local_device {self.local_device!r}: the disk tier is not "
-                f"ported yet (ROADMAP, module item 8)")
-        if self.local_device is not None and self.remote_url is not None:
-            raise NotImplementedError(
-                "local_device with remote_url: the hybrid tier is not "
-                "ported yet (ROADMAP, module item 8)")
         if self.local_device is None and self.remote_url is None:
             raise ValueError("need one of local_device and remote_url")
         for name in ("cachegen_device_decode", "cachegen_device_encode"):
@@ -159,6 +162,9 @@ class LMCacheEngineConfig:
             cachegen_device_encode=raw.get("cachegen_device_encode", "auto"),
             remote_device=raw.get("remote_device", "cuda"),
             blend_recompute_ratio=raw.get("blend_recompute_ratio", 0.15),
+            hybrid_prefetch_chunks=raw.get("hybrid_prefetch_chunks", 1024),
+            hybrid_prefetch_bytes=raw.get("hybrid_prefetch_bytes", None),
+            hybrid_prefetch_async=raw.get("hybrid_prefetch_async", False),
         )
 
 

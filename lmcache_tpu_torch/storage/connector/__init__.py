@@ -4,8 +4,8 @@ lmcache/storage_backend/connector/__init__.py:16-102). URL grammar:
 
     <connector_type>://<host>:<port>[,<host>:<port>...]
 
-types: ``lm`` (the cache server). ``redis`` and ``redis-sentinel`` are not
-ported yet (ROADMAP, module item 8) and raise ``NotImplementedError``.
+types: ``lm`` (the cache server), ``redis`` and ``redis-sentinel`` (these
+need the ``redis`` package; :mod:`.redis_connector`).
 """
 
 import re
@@ -51,16 +51,24 @@ def parse_remote_url(url: str) -> ParsedRemoteURL:
 
 def CreateConnector(url: str) -> RemoteConnector:
     parsed = parse_remote_url(url)
-    if parsed.connector_type in ("redis", "redis-sentinel"):
-        raise NotImplementedError(
-            f"{parsed.connector_type}:// is not ported yet (ROADMAP, module "
-            f"item 8)")
-    if parsed.connector_type != "lm":
+    hosts = parsed.hosts_and_ports
+    if len(hosts) > 1 and parsed.connector_type != "redis-sentinel":
+        raise ValueError(
+            f"Multiple hosts not supported for {parsed.connector_type}://")
+
+    connector: RemoteConnector
+    if parsed.connector_type == "lm":
+        connector = LMCServerConnector(*hosts[0])
+    elif parsed.connector_type == "redis":
+        from lmcache_tpu_torch.storage.connector.redis_connector import \
+            RedisConnector
+        connector = RedisConnector(*hosts[0])
+    elif parsed.connector_type == "redis-sentinel":
+        from lmcache_tpu_torch.storage.connector.redis_connector import \
+            RedisSentinelConnector
+        connector = RedisSentinelConnector(hosts)
+    else:
         raise ValueError(f"Invalid connector type: {parsed.connector_type}")
-    if len(parsed.hosts_and_ports) > 1:
-        raise ValueError("Multiple hosts not supported for lm://")
-    connector: RemoteConnector = LMCServerConnector(
-        *parsed.hosts_and_ports[0])
     if GlobalConfig.is_debug():
         return RemoteConnectorDebugWrapper(connector)
     return connector

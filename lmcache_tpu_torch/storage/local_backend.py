@@ -1,28 +1,36 @@
-"""Local in-memory cache tier: GPU memory ("cuda") or host DRAM ("cpu").
+"""Local cache tiers: GPU memory ("cuda"), host DRAM ("cpu") and disk.
 
-Port of ``lmcache_tpu.storage.local_backend.LMCLocalBackend``: an LRU dict
-of KV chunk tensors under an optional byte budget, with non-blocking puts
-finished by a single-worker executor. The disk tier comes with a later
-slice (ROADMAP, module item 8).
+Port of ``lmcache_tpu/storage/local_backend.py``: ``LMCLocalBackend``, an
+LRU dict of KV chunk tensors under an optional byte budget, and
+``LMCLocalDiskBackend``, one raw container (``storage/serde/raw_serde.py``)
+a chunk in a directory whose append-only key index is replayed on restart.
+Both finish non-blocking puts on a single-worker executor.
 
 Unlike JAX arrays, the tensors handed to :meth:`LMCLocalBackend.put` may be
 views of a pool that the caller updates in place and reuses. Every put
 therefore stores a private contiguous copy, taken on the caller's thread and
 CUDA stream before ``put`` returns; a non-blocking put leaves only the
-cross-device transfer (if any) and the bookkeeping to the worker.
+cross-device transfer (if any) and the bookkeeping to the worker. The disk
+tier's non-blocking put copies a CUDA blob into pinned host memory on the
+caller's stream; its worker waits for that copy before it writes the file.
 """
 
+import hashlib
+import os
 import threading
 import time
 from collections import OrderedDict
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from lmcache_tpu_torch import metrics
 from lmcache_tpu_torch.logging_utils import init_logger
 from lmcache_tpu_torch.storage.abstract_backend import LMCBackendInterface
+from lmcache_tpu_torch.storage.serde.raw_serde import (decode_array,
+                                                       encode_array)
 from lmcache_tpu_torch.utils import (CacheEngineKey, _lmcache_trace_annotate,
                                      nbytes_of, resolve_device)
 
@@ -146,6 +154,141 @@ class LMCLocalBackend(LMCBackendInterface):
 
     def flush(self) -> None:
         """Wait for all in-flight non-blocking puts."""
+        with self._pending_lock:
+            pending, self._pending = self._pending, []
+        for f in pending:
+            f.result()
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        self.flush()
+        self._executor.shutdown(wait=True)
+
+
+def _host_snapshot(blob: torch.Tensor):
+    """A private host copy of ``blob`` and, for a CUDA blob, an event
+    recorded after it: the copy into pinned memory is queued on the
+    caller's stream without blocking, so the caller may overwrite ``blob``
+    at once and the reader waits on the event."""
+    out = torch.empty(blob.shape, dtype=blob.dtype, pin_memory=blob.is_cuda)
+    out.copy_(blob, non_blocking=blob.is_cuda)
+    ready = None
+    if blob.is_cuda:
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(blob.device))
+    return out, ready
+
+
+def _read_exactly(f, buf: memoryview, key) -> None:
+    """Fill ``buf`` from the unbuffered file ``f``: a read may return fewer
+    bytes than asked (network and FUSE file systems, reads over 2 GiB), so
+    it loops, and raises if the file ends first (truncated under the
+    reader)."""
+    done = 0
+    while done < len(buf):
+        n = f.readinto(buf[done:])
+        if not n:
+            raise OSError(f"disk tier: the file of {key} ended after {done} "
+                          f"of {len(buf)} bytes")
+        done += n
+
+
+class LMCLocalDiskBackend(LMCBackendInterface):
+    """Disk tier: one raw container file a chunk in ``path``.
+
+    Files are named by a sha256 of the key string, so model names with any
+    characters cannot collide. Every new key is appended to ``keys.idx``;
+    a backend opened on the directory again replays it and keeps the keys
+    whose file exists (restart recovery). ``get`` returns a CPU tensor: the
+    consumer moves it to its device.
+    """
+
+    _INDEX = "keys.idx"
+
+    def __init__(self, path: str):
+        self.path = path
+        os.makedirs(path, exist_ok=True)
+        self.lock = threading.Lock()
+        self.existing_keys = set()
+        self._executor = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="lmc-disk-put")
+        self._pending: List[Future] = []
+        self._pending_lock = threading.Lock()
+        self._closed = False
+        index_path = os.path.join(path, self._INDEX)
+        if os.path.exists(index_path):
+            with open(index_path, "r") as f:
+                for line in f:
+                    key_str = line.strip()
+                    if not key_str:
+                        continue
+                    try:
+                        key = CacheEngineKey.from_string(key_str)
+                    except ValueError:
+                        logger.warning("Skipping bad index line %r", key_str)
+                        continue
+                    if os.path.exists(self._key_to_path(key)):
+                        self.existing_keys.add(key)
+
+    def _key_to_path(self, key: CacheEngineKey) -> str:
+        digest = hashlib.sha256(
+            key.to_string().encode("utf-8")).hexdigest()[:40]
+        return os.path.join(self.path, digest + ".lmtc")
+
+    def contains(self, key: CacheEngineKey) -> bool:
+        with self.lock:
+            return key in self.existing_keys
+
+    @_lmcache_trace_annotate
+    def put(self, key: CacheEngineKey, blob, blocking: bool = True) -> None:
+        """Write ``blob`` (a tensor or numpy array) to its file. With
+        ``blocking=False`` the caller may overwrite ``blob`` as soon as this
+        returns (:func:`_host_snapshot`)."""
+        t0 = time.perf_counter()
+        blob = torch.as_tensor(blob)
+        if blocking:
+            self._write(key, blob, None, t0)
+            return
+        snap, ready = _host_snapshot(blob)
+        with self._pending_lock:
+            self._pending = [f for f in self._pending if not f.done()]
+            self._pending.append(
+                self._executor.submit(self._write, key, snap, ready, t0))
+
+    def _write(self, key: CacheEngineKey, blob: torch.Tensor, ready,
+               t0: float) -> None:
+        if ready is not None:
+            ready.synchronize()
+        data = encode_array(blob)
+        path = self._key_to_path(key)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            f.write(data)
+        os.replace(tmp, path)  # atomic publish
+        with self.lock:
+            if key not in self.existing_keys:
+                with open(os.path.join(self.path, self._INDEX), "a") as f:
+                    f.write(key.to_string() + "\n")
+            self.existing_keys.add(key)
+        metrics.observe("lmcache_tier_put_seconds",
+                        time.perf_counter() - t0, labels={"tier": "disk"})
+
+    @_lmcache_trace_annotate
+    def get(self, key: CacheEngineKey):
+        if not self.contains(key):
+            return None
+        t0 = time.perf_counter()
+        with open(self._key_to_path(key), "rb", buffering=0) as f:
+            data = np.empty(os.fstat(f.fileno()).st_size, np.uint8)
+            _read_exactly(f, memoryview(data), key)
+        blob = decode_array(data)
+        metrics.observe("lmcache_tier_get_seconds",
+                        time.perf_counter() - t0, labels={"tier": "disk"})
+        return blob
+
+    def flush(self) -> None:
         with self._pending_lock:
             pending, self._pending = self._pending, []
         for f in pending:

@@ -3,11 +3,12 @@ reference: lmcache/storage_backend/serde/__init__.py:19-41).
 
 Supported serde names:
 - ``raw`` (alias ``fast``): lossless self-describing binary container
+- ``raw_zstd``: the same container with a zstd-compressed payload (needs
+  ``zstandard``)
+- ``safetensors`` (alias ``safetensor``): the safetensors container (needs
+  ``safetensors``)
 - ``cachegen``: lossy CacheGen codec (quantization, then range coding on the
   card or with the host C++ coder)
-
-``raw_zstd`` and ``safetensors`` are not ported yet (ROADMAP, module item
-8) and raise ``NotImplementedError``.
 """
 
 from typing import Tuple
@@ -16,6 +17,8 @@ from lmcache_tpu_torch.config import (GlobalConfig, LMCacheEngineConfig,
                                       LMCacheEngineMetadata)
 from lmcache_tpu_torch.storage.serde.raw_serde import (RawDeserializer,
                                                        RawSerializer)
+from lmcache_tpu_torch.storage.serde.safe_serde import (SafeDeserializer,
+                                                        SafeSerializer)
 from lmcache_tpu_torch.storage.serde.serde import (Deserializer,
                                                    DeserializerDebugWrapper,
                                                    Serializer,
@@ -38,10 +41,10 @@ def CreateSerde(
 
     if serde_type in ("raw", "fast"):
         s, d = RawSerializer(), RawDeserializer()
-    elif serde_type in ("raw_zstd", "safetensors", "safetensor"):
-        raise NotImplementedError(
-            f"serde {serde_type!r} is not ported yet (ROADMAP, module item "
-            f"8)")
+    elif serde_type == "raw_zstd":
+        s, d = RawSerializer(compress_level=3), RawDeserializer()
+    elif serde_type in ("safetensors", "safetensor"):
+        s, d = SafeSerializer(), SafeDeserializer()
     elif serde_type == "cachegen":
         from lmcache_tpu_torch.storage.serde.cachegen_serde import (
             CacheGenDeserializer, CacheGenSerializer)

@@ -8,19 +8,23 @@ Container layout (little endian):
 
     magic   4s   b"LMTC"
     version u8   = 1
-    flags   u8   bit0: zstd-compressed payload (not ported: raises)
+    flags   u8   bit0: zstd-compressed payload
     ndim    u8
     dlen    u8   length of dtype-name string
     nbytes  u64  payload byte length (uncompressed)
     shape   u64 * ndim
     dtype   dlen ascii bytes (numpy dtype name, e.g. "bfloat16")
-    payload raw array bytes
+    payload raw array bytes (zstd-framed where bit 0 is set)
 
 A decoded blob is a CPU tensor (the JAX package returns a numpy array): the
-consumer moves it to its device.
+consumer moves it to its device. ``compress_level`` (the ``raw_zstd``
+serde) compresses the payload with ``zstandard``, which is imported where it
+is used: without it, encoding or decoding such a container raises
+``ImportError``.
 """
 
 import struct
+from typing import Optional
 
 import numpy as np
 import torch
@@ -31,7 +35,15 @@ MAGIC = b"LMTC"
 VERSION = 1
 _HDR = struct.Struct("<4sBBBBQ")
 _FLAG_ZSTD = 1
-_ZSTD = "raw_zstd is not ported yet (ROADMAP, module item 8)"
+
+
+def _zstandard():
+    try:
+        import zstandard
+    except ImportError as e:
+        raise ImportError("the raw_zstd serde needs the zstandard package "
+                          "(pip install zstandard)") from e
+    return zstandard
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -46,11 +58,16 @@ def torch_dtype(name: str) -> torch.dtype:
     return dtype
 
 
-def encode_array(blob) -> bytes:
+def encode_array(blob, compress_level: Optional[int] = None) -> bytes:
     t = torch.as_tensor(blob).detach().contiguous().cpu()
     name = dtype_name(t.dtype).encode("ascii")
     payload = t.reshape(-1).view(torch.uint8).numpy().tobytes()
-    header = _HDR.pack(MAGIC, VERSION, 0, t.dim(), len(name), len(payload))
+    nbytes, flags = len(payload), 0
+    if compress_level is not None:
+        payload = _zstandard().ZstdCompressor(
+            level=compress_level).compress(payload)
+        flags |= _FLAG_ZSTD
+    header = _HDR.pack(MAGIC, VERSION, flags, t.dim(), len(name), nbytes)
     shape = struct.pack(f"<{t.dim()}Q", *t.shape)
     return header + shape + name + payload
 
@@ -61,27 +78,34 @@ def decode_array(bs) -> torch.Tensor:
         raise ValueError("Not an LMTC container")
     if version != VERSION:
         raise ValueError(f"Unsupported container version {version}")
-    if flags & _FLAG_ZSTD:
-        raise NotImplementedError(_ZSTD)
     off = _HDR.size
     shape = struct.unpack_from(f"<{ndim}Q", bs, off)
     off += 8 * ndim
     dtype = torch_dtype(bytes(bs[off:off + dlen]).decode("ascii"))
     off += dlen
-    if len(bs) - off != nbytes:
-        raise ValueError(f"Corrupt LMTC container: {len(bs) - off} payload "
+    if flags & _FLAG_ZSTD:
+        raw = np.frombuffer(_zstandard().ZstdDecompressor().decompress(
+            memoryview(bs)[off:], max_output_size=nbytes), np.uint8).copy()
+    else:
+        raw = np.frombuffer(bs, np.uint8, offset=off)
+        # bytes are copied (a native GET's or a file's buffer is taken), and
+        # so is a payload that does not start at a multiple of its item size
+        if not raw.flags.writeable or off % dtype.itemsize:
+            raw = raw.copy()
+    if len(raw) != nbytes:
+        raise ValueError(f"Corrupt LMTC container: {len(raw)} payload "
                          f"bytes, header says {nbytes}")
-    raw = np.frombuffer(bs, np.uint8, nbytes, off)
-    if not raw.flags.writeable:  # bytes (a native GET's buffer is taken)
-        raw = raw.copy()
     raw = torch.from_numpy(raw)
     return raw.view(dtype).reshape(shape)
 
 
 class RawSerializer(Serializer):
 
+    def __init__(self, compress_level: Optional[int] = None):
+        self.compress_level = compress_level
+
     def to_bytes(self, blob) -> bytes:
-        return encode_array(blob)
+        return encode_array(blob, self.compress_level)
 
 
 class RawDeserializer(Deserializer):

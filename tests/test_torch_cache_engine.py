@@ -136,12 +136,18 @@ def test_nonblocking_put_snapshots_the_callers_tensor():
     t.close()
 
 
-def test_unported_tiers_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpkg.LMCacheEngineConfig(local_device="/tmp/kv")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpkg.LMCacheEngineConfig(local_device="cpu",
-                                 remote_url="lm://localhost:65000")
+def test_disk_and_hybrid_configs_build(tmp_path):
+    """The configs that the port refused before (a disk path as
+    ``local_device``; a local tier with ``remote_url``) build, with the JAX
+    package's prefetch defaults."""
+    disk = tpkg.LMCacheEngineConfig(local_device=str(tmp_path / "kv"))
+    hybrid = tpkg.LMCacheEngineConfig(local_device="cpu",
+                                      remote_url="lm://localhost:65000")
+    want = jpkg.LMCacheEngineConfig(local_device="cpu",
+                                    remote_url="lm://localhost:65000")
+    assert disk.local_device == str(tmp_path / "kv")
+    for name in PREFETCH_FIELDS:
+        assert getattr(hybrid, name) == getattr(want, name), name
 
 
 def test_builder_keeps_one_engine_per_instance_id():
@@ -192,27 +198,21 @@ EXAMPLES = sorted((Path(__file__).resolve().parents[1] / "examples"
 SHARED_FIELDS = ("chunk_size", "remote_url", "remote_serde",
                  "pipelined_backend", "save_decode_cache",
                  "local_capacity_bytes", "blend_recompute_ratio",
-                 "cachegen_device_decode", "cachegen_device_encode")
+                 "cachegen_device_decode", "cachegen_device_encode",
+                 "hybrid_prefetch_chunks", "hybrid_prefetch_bytes",
+                 "hybrid_prefetch_async")
+PREFETCH_FIELDS = SHARED_FIELDS[-3:]
 
 
 @pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.name)
 def test_example_configs_load_as_in_the_jax_package(path):
-    """Every example YAML: the tiers the port has load with the JAX
-    package's fields ("tpu" read as "cuda"); the disk tier (file://
-    stripped) and the hybrid tier raise the port's refusal, module item
-    8."""
+    """Every example YAML loads with the JAX package's fields, the hybrid
+    prefetch fields among them ("tpu" read as "cuda"; a disk tier's
+    file:// stripped)."""
     want = jpkg.LMCacheEngineConfig.from_file(str(path))
     jdev = want.local_device
     if jdev is not None and jdev not in ("cpu", "tpu"):
         assert f"file://{jdev}" in path.read_text()
-        with pytest.raises(NotImplementedError,
-                           match=f"local_device '{jdev}': the disk tier"):
-            tpkg.LMCacheEngineConfig.from_file(str(path))
-        return
-    if jdev is not None and want.remote_url is not None:
-        with pytest.raises(NotImplementedError, match="the hybrid tier"):
-            tpkg.LMCacheEngineConfig.from_file(str(path))
-        return
     got = tpkg.LMCacheEngineConfig.from_file(str(path))
     assert got.local_device == {"tpu": "cuda"}.get(jdev, jdev)
     for name in SHARED_FIELDS:
@@ -244,6 +244,7 @@ def test_config_file_refuses_what_jax_refuses(tmp_path, text, match):
 @pytest.mark.parametrize("backend,local,remote", [
     ("cpu", "cpu", None),
     ("lm://localhost:65432", None, "lm://localhost:65432"),
+    ("file:///tmp/kv", "/tmp/kv", None),
 ])
 def test_from_legacy_matches_the_jax_package(backend, local, remote):
     want = jpkg.LMCacheEngineConfig.from_legacy(chunk_size=64,
@@ -253,9 +254,8 @@ def test_from_legacy_matches_the_jax_package(backend, local, remote):
     assert (got.local_device, got.remote_url) == (local, remote)
     for name in SHARED_FIELDS:
         assert getattr(got, name) == getattr(want, name), name
+    assert want.local_device == local
     assert tpkg.LMCacheEngineConfig.from_legacy().local_device == "cuda"
-    with pytest.raises(NotImplementedError, match="'/tmp/kv': the disk"):
-        tpkg.LMCacheEngineConfig.from_legacy(backend="file:///tmp/kv")
     for pkg in (jpkg, tpkg):
         with pytest.raises(ValueError, match="Invalid backend spec"):
             pkg.LMCacheEngineConfig.from_legacy(backend="nvme0")

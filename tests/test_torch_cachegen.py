@@ -207,16 +207,26 @@ def test_raw_container_equals_the_jax_container(dtype):
                           jx.view(np.uint8))
 
 
-def test_raw_zstd_and_safetensors_are_not_ported():
+def test_raw_zstd_and_safetensors_round_trip():
+    """The serdes that the port refused before: each container decodes in
+    the other package, and the JAX package's zstd container in the port's
+    raw decoder."""
+    from lmcache_tpu.storage.serde import CreateSerde as JSerde
     from lmcache_tpu_torch.storage.serde import CreateSerde
     cfg = LMCacheEngineConfig(local_device=None,
                               remote_url="lm://localhost:1",
                               remote_device="cpu")
     meta = LMCacheEngineMetadata(model_name=MODEL, world_size=1, worker_id=0,
                                  fmt="vllm")
+    jcfg = JaxConfig(local_device=None, remote_url="lm://localhost:1")
+    jmeta = JaxMeta(model_name=MODEL, world_size=1, worker_id=0, fmt="vllm")
+    x = torch.arange(64, dtype=torch.float32).reshape(2, 2, 2, 2, 4)
     for name in ("raw_zstd", "safetensors"):
-        with pytest.raises(NotImplementedError, match="module item 8"):
-            CreateSerde(name, cfg, meta)
+        s, d = CreateSerde(name, cfg, meta)
+        js, jd = JSerde(name, jcfg, jmeta)
+        assert torch.equal(d.from_bytes(s.to_bytes(x)), x)
+        np.testing.assert_array_equal(jd.from_bytes(s.to_bytes(x)),
+                                      x.numpy())
+        assert torch.equal(d.from_bytes(js.to_bytes(x.numpy())), x)
     zstd = jraw.encode_array(np.zeros(4, np.float32), compress_level=3)
-    with pytest.raises(NotImplementedError, match="module item 8"):
-        traw.decode_array(zstd)
+    assert torch.equal(traw.decode_array(zstd), torch.zeros(4))

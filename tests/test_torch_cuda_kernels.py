@@ -60,7 +60,7 @@ def _check(gen, B, T, H, Hkv, D, S, q_off, kv_len, **kw):
 
 
 @pytest.mark.parametrize("D", [64, 96, 128, 256])
-@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("G", [1, 2, 8])
 @pytest.mark.parametrize("case", [
     (2, 37, 300, [0, 100], [37, 137]),  # ragged T edge, prefix
     (3, 1, 257, [256, 5, 0], [257, 6, 1]),  # decode
@@ -69,6 +69,15 @@ def _check(gen, B, T, H, Hkv, D, S, q_off, kv_len, **kw):
 def test_kernel_matches_plain(gen, case, G, D):
     B, T, S, q_off, kv_len = case
     _check(gen, B, T, 2 * G, 2, D, S, q_off, kv_len)
+
+
+@pytest.mark.parametrize("T, q_off", [(8192, 0), (64, 8192)],
+                         ids=["context", "continuation"])
+def test_kernel_at_the_quality_checkpoint(gen, T, q_off):
+    """Row 1 at the trained dense checkpoint's attention (D 64, 4 query
+    heads over 2 KV heads) and the codec quality gate's shapes at ctx 8192:
+    the context's prefill and the continuation's over it."""
+    _check(gen, 1, T, 4, 2, 64, 8256, [q_off], [q_off + T])
 
 
 def test_sm_scale_and_parked_row(gen):
@@ -379,7 +388,7 @@ QUANT = pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
                                     attn.SPLIT_KEYS + 1, 16384],
                          ids=["empty", "one_key", "one_split",
                               "one_past_a_split", "16k"])
-@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("G", [1, 2, 8])
 @QUANT
 def test_split_decode_edges(gen, kv_len, G, quant):
     """Decode rows at the split edges: no key, one key, exactly one split,
@@ -1413,6 +1422,23 @@ def test_latent_kernel_matches_plain(gen, geom, case, quant):
     B, T, S, q_off, kv_len = LATENT_CASES[case]
     if geom == "v3_heads":
         T = 1  # H = 128 is held at decode, where the path gives it
+    _latent_check(gen, H, C, rank, B, T, S, q_off, kv_len, quant,
+                  LATENT_SCALE)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("T, q_off", [(8192, 0), (64, 8192), (1, 8255)],
+                         ids=["context", "continuation", "decode"])
+def test_latent_kernel_at_the_quality_checkpoint(gen, T, q_off, quant):
+    """Row 8 at the trained MLA checkpoint's latent (C 128 + 32, rank 128,
+    H 4, qk head dim 96) and the codec quality gate's shapes at ctx
+    8192."""
+    _latent_check(gen, 4, 160, 128, 1, T, 8256, [q_off], [q_off + T],
+                  quant, 96**-0.5)
+
+
+def _latent_check(gen, H, C, rank, B, T, S, q_off, kv_len, quant, sm_scale):
+    """Row 8 (bf16 or int8 latents) against its plain version."""
     q = torch.randn((B, T, H, C), generator=gen, device="cuda").bfloat16()
     rows, scale = _latent_rows(gen, (B, S, C), quant)
     qo = torch.tensor(q_off, dtype=torch.int32, device="cuda")
@@ -1421,7 +1447,7 @@ def test_latent_kernel_matches_plain(gen, geom, case, quant):
              else la.latent_flash_attention)
     phase = "decode" if T == 1 else "prefill"
     before = entry.launches[phase]
-    kw = dict(rank=rank, scale=LATENT_SCALE)
+    kw = dict(rank=rank, scale=sm_scale)
     if quant:
         out = entry(q, rows, scale, qo, kl, **kw)
         ref = la.quantized_latent_attention_reference(

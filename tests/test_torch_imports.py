@@ -47,7 +47,12 @@ def test_import_leaves_jax_and_lmcache_tpu_out():
             "lmcache_tpu_torch.blend, lmcache_tpu_torch.blend_mla, "
             "lmcache_tpu_torch.ops.prefill_variants, "
             "lmcache_tpu_torch.tools, "
-            "lmcache_tpu_torch.tools.bench_prefill_mfu; "
+            "lmcache_tpu_torch.tools.bench_prefill_mfu, "
+            "lmcache_tpu_torch.tools.eval_quality, "
+            "lmcache_tpu_torch.tools.quality_common, "
+            "lmcache_tpu_torch.storage.hybrid_backend, "
+            "lmcache_tpu_torch.storage.serde.safe_serde, "
+            "lmcache_tpu_torch.storage.connector.redis_connector; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'lmcache_tpu' "
             "or m.startswith('lmcache_tpu.')]; print(bad)")
@@ -71,7 +76,7 @@ def test_no_jax_or_lmcache_tpu_import(path):
             continue
         for name in names:
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "lmcache_tpu"), (
+            assert root not in ("jax", "jaxlib", "lmcache_tpu", "tools"), (
                 f"{path}:{node.lineno} imports {name}")
 
 
@@ -127,7 +132,7 @@ def _entry_points():
                                            MLAServingEngine,
                                            PagedServingEngine, ServingEngine)
     from lmcache_tpu_torch.storage.local_backend import LMCLocalBackend
-    from lmcache_tpu_torch.tools import bench_prefill_mfu
+    from lmcache_tpu_torch.tools import bench_prefill_mfu, eval_quality
     cfg = llama.LlamaConfig.tiny(n_layers=1)
     mcfg = mla.MLAConfig.tiny(n_layers=1)
     return {
@@ -165,7 +170,30 @@ def _entry_points():
             LMCacheEngineConfig().local_device),
         "cachegen_remote_decoder": lambda: _cachegen_deserializer(),
         "prefill_ablation_tool": lambda: bench_prefill_mfu.run(small=True),
+        "eval_quality_tool": lambda: eval_quality.evaluate("trained", 16, 4),
+        "eval_quality_mla_tool": lambda: eval_quality.evaluate_mla(
+            16, 4, trained=True),
+        "hybrid_tier": lambda: _tier("cuda"),
+        "disk_hybrid_cachegen_tier": lambda: _tier("disk"),
     }
+
+
+def _tier(local):
+    """The hybrid tier over the "cuda" tier, or over the disk tier with the
+    CacheGen serde (whose decoder takes the default remote_device), in
+    front of a redis store (the test suite's fake)."""
+    import tempfile
+
+    from lmcache_tpu_torch import LMCacheEngineConfig, LMCacheEngineMetadata
+    from lmcache_tpu_torch.storage import CreateStorageBackend
+    meta = LMCacheEngineMetadata(model_name="m", world_size=1, worker_id=0,
+                                 fmt="vllm")
+    with tempfile.TemporaryDirectory() as d:
+        cfg = LMCacheEngineConfig(
+            local_device="cuda" if local == "cuda" else d,
+            remote_url="redis://localhost:6379",
+            remote_serde="raw" if local == "cuda" else "cachegen")
+        return CreateStorageBackend(cfg, meta)
 
 
 def _cachegen_deserializer():
@@ -196,7 +224,9 @@ def _cachegen_deserializer():
                                   "latent_pool_from_jax",
                                   "mla_serving_engine",
                                   "mla_paged_serving_engine",
-                                  "prefill_ablation_tool"])
+                                  "prefill_ablation_tool",
+                                  "eval_quality_tool", "eval_quality_mla_tool",
+                                  "hybrid_tier", "disk_hybrid_cachegen_tier"])
 def test_entry_point_without_cuda_raises(name):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
