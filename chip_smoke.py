@@ -210,7 +210,34 @@ Phases, in order; any failure exits non-zero:
    first request, each injecting the remote path's decode of the same
    containers bit for bit, the local tier holding every chunk after; the
    TTFT of each (``phase_tiers``);
-7. the launch counts of phases 3 to 16, read per phase with every count
+17. HuggingFace checkpoints in (after phase 16, ``phase_checkpoints``):
+   phase 3's tinyllama-1.1B weights written by the script's own writer as a
+   HF checkpoint directory (``config.json``, two safetensors shards and
+   their index, HF names, ``[out, in]`` weights) and read back: ``from_hf``
+   must equal ``tinyllama_1_1b()`` field for field, ``load_hf`` every
+   parameter bit for bit, and a prefill of phase 3's tokens from the loaded
+   weights phase 3's first-token logits bit for bit (then a decode step
+   the in-memory weights'); the same for DeepSeek-V2-Lite at 3 layers
+   (dense, MoE, MoE; ``kv_b_proj`` split) with a 2048-token prefill and a
+   decode step; the load time and the host's resident-set growth of each;
+18. the OpenAI-compatible HTTP front (``phase_http``): the port's
+   ``APIServer`` over a ``ServingEngine`` with the loaded tinyllama and a
+   "cuda" tier on 127.0.0.1 (``http.client``): ``/health``,
+   ``/v1/models``, a 2048-token completion, the same prompt streamed, 8
+   concurrent completions, ``n`` 2 with a seed, a stop string, logprobs 2
+   and a three-turn chat; greedy and seeded tokens bit-equal to the engine
+   driven directly in the same cache state, the streamed text the
+   non-streamed text, the logprobs within phase 14's rule against the fp32
+   witness, the chat's cached tokens climbing (the tier flushed between
+   turns); ``usage.ttft_ms`` against the client's time to the first byte;
+19. the engine hook API (``phase_hooks``), an outside loop at tinyllama's
+   full depth: a 4096-token prefill stored through ``lmcache_store_kv``,
+   then for it plus 512 tokens ``lmcache_retrieve_kv``, ``blob_into_cache``
+   and a prefill of ``build_partial_prefill_input``, held to a full prefill
+   by phase 3's gate; the pieces of ``lmcache_retrieve_kv_stream``
+   bit-equal to the retrieved blob, and a stream closed after its first
+   piece leaving the engine usable;
+7. the launch counts of phases 3 to 19, read per phase with every count
    set to 0 just before it (prefill and decode, each > 0 where the phase
    runs them; "+window", "+softcap" and "+sinks" mark launches under those
    options; the coders count "store" and "retrieve" launches);
@@ -2049,7 +2076,8 @@ def phase_main_path(cfg, params):
     prof["events_span_ms"], prof["events_host_ms"] = span_ms, host_ms
     engine.close()
     return {"ttft_full_ms": t_full, "ttft_reuse_ms": t_reuse,
-            "speedup": t_full / t_reuse, "profile": profile}
+            "speedup": t_full / t_reuse, "profile": profile,
+            "full_logits": full_logits}
 
 
 def profile_window(name, fn, top=5, watch=None, copies=False):
@@ -4298,11 +4326,11 @@ def tokens_agree(name, reqs, golden, prompts, witness):
     return ok
 
 
-def logprobs_agree(name, reqs, prompts, witness):
+def logprobs_agree(name, reqs, prompts, witness, k=DECODE_LOGPROBS):
     """Every recorded logprob (the sampled token's and each of the top
-    ``DECODE_LOGPROBS``) within TOP1_MARGIN of the witness logits' rms of
-    the witness's own log-softmax at that id, the ids distinct and in
-    descending order, and the witness's best token among them."""
+    ``k``) within TOP1_MARGIN of the witness logits' rms of the witness's
+    own log-softmax at that id, the ids distinct and in descending order,
+    and the witness's best token among them."""
     worst, ok = 0.0, True
     for i, r in enumerate(reqs):
         for n, rec in enumerate(r.logprobs):
@@ -4314,11 +4342,11 @@ def logprobs_agree(name, reqs, prompts, witness):
             err = max(abs(v - lp[t].item()) for t, v in zip(ids, vals))
             worst = max(worst, err / tol)
             top = ids[:-1]
-            ok &= (err <= tol and len(set(top)) == DECODE_LOGPROBS
+            ok &= (err <= tol and len(set(top)) == k
                    and vals[:-1] == sorted(vals[:-1], reverse=True)
                    and int(w.argmax()) in top)
     log(f"  {name}: logprobs of {sum(len(r.logprobs) for r in reqs)} "
-        f"tokens and their top {DECODE_LOGPROBS} against the fp32 witness: "
+        f"tokens and their top {k} against the fp32 witness: "
         f"largest error {worst:.3f} of the tolerance ({TOP1_MARGIN} of the "
         f"witness logits' rms) {'ok' if ok else 'FAILED'}")
     return ok, worst
@@ -5829,6 +5857,724 @@ def phase_tiers(cfg, params):
     return launches, out
 
 
+# ------------------------------- phase 17: HuggingFace checkpoints in ---
+
+MLA_CHECKPOINT_LAYERS = 3  # V2-Lite's depth here: its dense layer, two MoE
+CHECKPOINT_PROMPT = 2048  # V2-Lite's prefill in phase 17
+ST_DTYPES = {torch.bfloat16: "BF16", torch.float16: "F16",
+             torch.float32: "F32"}
+
+
+def write_safetensors(name, tensors):
+    """One ``.safetensors`` file of ``tensors`` ((name, tensor) pairs, any
+    device), written a tensor at a time: an 8-byte little-endian header
+    length, the JSON header (padded with spaces to 8 bytes), the raw bytes.
+    Returns the bytes written."""
+    header, off = {}, 0
+    for key, t in tensors:
+        n = t.numel() * t.element_size()
+        header[key] = {"dtype": ST_DTYPES[t.dtype], "shape": list(t.shape),
+                       "data_offsets": [off, off + n]}
+        off += n
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(name, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for _, t in tensors:
+            host = t.contiguous().cpu()
+            f.write(memoryview(host.view(torch.uint8).numpy()))
+    return 8 + len(head) + off
+
+
+def write_checkpoint(path, config, tensors):
+    """A HF checkpoint directory: ``config.json`` and ``tensors`` in two
+    safetensors shards with their index. Returns the weights' bytes."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f)
+    half = len(tensors) // 2
+    weight_map, total = {}, 0
+    for i, part in enumerate((tensors[:half], tensors[half:])):
+        fname = f"model-{i + 1:05d}-of-00002.safetensors"
+        total += write_safetensors(os.path.join(path, fname), part)
+        weight_map.update({key: fname for key, _ in part})
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f)
+    return total
+
+
+def hf_llama_checkpoint(cfg, params):
+    """(config.json, tensors) of a dense llama tree in HF's layout: torch
+    Linear weights ``[out, in]``, HF names."""
+    config = {"model_type": "llama", "vocab_size": cfg.vocab_size,
+              "hidden_size": cfg.dim, "intermediate_size": cfg.hidden_dim,
+              "num_hidden_layers": cfg.n_layers,
+              "num_attention_heads": cfg.n_heads,
+              "num_key_value_heads": cfg.n_kv_heads,
+              "max_position_embeddings": cfg.max_seq_len,
+              "rms_norm_eps": cfg.norm_eps, "rope_theta": cfg.rope_theta,
+              "tie_word_embeddings": False, "torch_dtype": cfg.dtype}
+    lp = params["layers"]
+    out = [("model.embed_tokens.weight", params["embed"])]
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        out += [(p + "input_layernorm.weight", lp["attn_norm"][i]),
+                (p + "post_attention_layernorm.weight", lp["mlp_norm"][i])]
+        out += [(p + f"self_attn.{hf}.weight", lp[key][i].T)
+                for key, hf in (("wq", "q_proj"), ("wk", "k_proj"),
+                                ("wv", "v_proj"), ("wo", "o_proj"))]
+        out += [(p + f"mlp.{hf}.weight", lp[key][i].T)
+                for key, hf in (("w_gate", "gate_proj"), ("w_up", "up_proj"),
+                                ("w_down", "down_proj"))]
+    out += [("model.norm.weight", params["final_norm"]),
+            ("lm_head.weight", params["lm_head"].T)]
+    return config, out
+
+
+def hf_mla_checkpoint(cfg, params):
+    """(config.json, tensors) of a DeepSeek-V2 tree (direct q_proj, greedy
+    gate) in HF's layout: ``kv_b_proj`` rebuilt as ``[H * (n + v), r]``
+    from ``w_kb_k`` and ``w_kb_v``, per-expert Linear weights."""
+    config = {"model_type": "deepseek_v2", "vocab_size": cfg.vocab_size,
+              "hidden_size": cfg.dim, "intermediate_size": cfg.hidden_dim,
+              "moe_intermediate_size": cfg.moe_hidden_dim,
+              "num_hidden_layers": cfg.n_layers,
+              "num_attention_heads": cfg.n_heads,
+              "num_key_value_heads": cfg.n_heads,
+              "max_position_embeddings": cfg.max_seq_len,
+              "rms_norm_eps": cfg.norm_eps, "rope_theta": cfg.rope_theta,
+              "q_lora_rank": cfg.q_lora_rank,
+              "kv_lora_rank": cfg.kv_lora_rank,
+              "qk_nope_head_dim": cfg.qk_nope_head_dim,
+              "qk_rope_head_dim": cfg.qk_rope_head_dim,
+              "v_head_dim": cfg.v_head_dim,
+              "first_k_dense_replace": cfg.first_k_dense_replace,
+              "n_routed_experts": cfg.n_routed_experts,
+              "n_shared_experts": cfg.n_shared_experts,
+              "num_experts_per_tok": cfg.n_experts_per_tok,
+              "routed_scaling_factor": cfg.routed_scaling_factor,
+              "topk_method": cfg.topk_method,
+              "norm_topk_prob": cfg.norm_topk_prob,
+              "rope_scaling": {
+                  "type": "yarn", "factor": cfg.rope_scaling_factor,
+                  "beta_fast": cfg.rope_beta_fast,
+                  "beta_slow": cfg.rope_beta_slow,
+                  "mscale": cfg.rope_mscale,
+                  "mscale_all_dim": cfg.rope_mscale_all_dim,
+                  "original_max_position_embeddings":
+                      cfg.rope_original_max_seq},
+              "tie_word_embeddings": False, "torch_dtype": cfg.dtype}
+    H = cfg.n_heads
+    out = [("model.embed_tokens.weight", params["embed"])]
+    kd = cfg.n_dense_layers
+    for i in range(cfg.n_layers):
+        moe = i >= kd
+        lp = params["moe_layers" if moe else "dense_layers"]
+        j = i - kd if moe else i
+        p = f"model.layers.{i}."
+        kb = torch.cat([lp["w_kb_k"][j], lp["w_kb_v"][j].transpose(1, 2)],
+                       dim=1).reshape(-1, cfg.kv_lora_rank)
+        assert kb.shape[0] == H * (cfg.qk_nope_head_dim + cfg.v_head_dim)
+        out += [(p + "input_layernorm.weight", lp["attn_norm"][j]),
+                (p + "post_attention_layernorm.weight", lp["mlp_norm"][j]),
+                (p + "self_attn.q_proj.weight", lp["wq"][j].T),
+                (p + "self_attn.kv_a_proj_with_mqa.weight", lp["wkv_a"][j].T),
+                (p + "self_attn.kv_a_layernorm.weight", lp["kv_a_norm"][j]),
+                (p + "self_attn.kv_b_proj.weight", kb),
+                (p + "self_attn.o_proj.weight", lp["wo"][j].T)]
+        names = (("gate_proj", "gate"), ("up_proj", "up"),
+                 ("down_proj", "down"))
+        if not moe:
+            out += [(p + f"mlp.{hf}.weight", lp["w_" + k][j].T)
+                    for hf, k in names]
+            continue
+        out.append((p + "mlp.gate.weight", lp["router"][j].T))
+        for e in range(cfg.n_routed_experts):
+            out += [(p + f"mlp.experts.{e}.{hf}.weight", lp["e_" + k][j, e].T)
+                    for hf, k in names]
+        out += [(p + f"mlp.shared_experts.{hf}.weight", lp["s_" + k][j].T)
+                for hf, k in names]
+    out += [("model.norm.weight", params["final_norm"]),
+            ("lm_head.weight", params["lm_head"].T)]
+    return config, out
+
+
+def _rss_bytes():
+    """This process's resident set in bytes: (total, anonymous, file)."""
+    kb = {}
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith(("VmRSS:", "RssAnon:", "RssFile:")):
+                name, value = line.split(":")
+                kb[name] = int(value.split()[0])
+    return tuple(kb.get(k, 0) * 1024 for k in ("VmRSS", "RssAnon",
+                                               "RssFile"))
+
+
+def host_memory_during(fn):
+    """(fn's result, seconds, the largest growth of this process's resident
+    set over its size before the call, sampled every 2 ms: total,
+    anonymous and file-backed, and the growth of its peak resident set by
+    ``resource.getrusage``), in bytes."""
+    import resource
+    import threading
+    base, peak = _rss_bytes(), [0, 0, 0]
+    done = threading.Event()
+
+    def sample():
+        while not done.is_set():
+            peak[:] = [max(p, r - b)
+                       for p, r, b in zip(peak, _rss_bytes(), base)]
+            time.sleep(0.002)
+
+    maxrss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        secs = time.perf_counter() - t0
+        done.set()
+        sampler.join()
+    peak[:] = [max(p, r - b) for p, r, b in zip(peak, _rss_bytes(), base)]
+    maxrss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    return out, secs, peak, (maxrss - maxrss0) * 1024
+
+
+def _flat_params(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_params(v, prefix + k + "."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def trees_same_bits(a, b):
+    """The keys of two parameter trees that differ (names, shapes, dtypes
+    or bits)."""
+    fa, fb = _flat_params(a), _flat_params(b)
+    bad = sorted(set(fa) ^ set(fb))
+    bad += [k for k in sorted(set(fa) & set(fb))
+            if not same_bits(fa[k], fb[k])]
+    return bad
+
+
+def load_checkpoint(name, module, cfg_cls, want_cfg, params, path,
+                    hf_writer):
+    """Write ``params`` as a HF checkpoint directory, read it back with
+    ``cfg_cls.from_hf`` and ``module.load_hf(device="cuda")``; gate the
+    config field for field and the parameters bit for bit. Returns (the
+    loaded parameters, the numbers)."""
+    t0 = time.perf_counter()
+    config, tensors = hf_writer(want_cfg, params)
+    nbytes = write_checkpoint(path, config, tensors)
+    del tensors
+    write_s = time.perf_counter() - t0
+    got_cfg = cfg_cls.from_hf(path)
+    same_cfg = dataclasses.asdict(got_cfg) == dataclasses.asdict(want_cfg)
+    (_, loaded), load_s, (rss_peak, anon, mapped), maxrss = (
+        host_memory_during(lambda: module.load_hf(path, device="cuda")))
+    bad = trees_same_bits(loaded, params)
+    log(f"  {name}: checkpoint {nbytes / 1e9:.3f} GB in two safetensors "
+        f"shards written in {write_s:.2f} s; from_hf equals the config field "
+        f"for field: {same_cfg}; load_hf {load_s:.2f} s "
+        f"({nbytes / 1e9 / load_s:.2f} GB/s), host resident set +"
+        f"{rss_peak / 1e6:.1f} MB at its peak (sampled; anonymous +"
+        f"{anon / 1e6:.1f}, file-backed +{mapped / 1e6:.1f}), peak RSS +"
+        f"{maxrss / 1e6:.1f} MB (getrusage); parameters bit-equal to the "
+        f"in-memory tree: {not bad} {bad[:4] if bad else ''}")
+    if not same_cfg or bad:
+        raise SystemExit(f"checkpoints, {name}: the loaded config or "
+                         f"parameters differ")
+    return loaded, {"checkpoint_bytes": nbytes, "write_s": write_s,
+                    "load_s": load_s, "host_rss_peak_growth_bytes": rss_peak,
+                    "host_rss_anon_peak_growth_bytes": anon,
+                    "host_rss_file_peak_growth_bytes": mapped,
+                    "host_maxrss_growth_bytes": maxrss}
+
+
+def prefill_and_step(cfg, params, module, tokens, cache):
+    """The last prompt position's logits of a prefill of ``tokens`` [1, T]
+    and of one decode step of its greedy token, over ``cache``."""
+    zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+    logits, _ = module.forward(params, cfg, tokens, zero, cache,
+                               last_logit_only=True)
+    first = logits[0, -1]
+    nxt = first.argmax().reshape(1, 1)
+    pos = torch.full((1,), tokens.shape[1], dtype=torch.int32, device="cuda")
+    step, _ = module.forward(params, cfg, nxt, pos, cache)
+    return first, step[0, -1]
+
+
+def phase_checkpoints(cfg, params, phase3_logits):
+    """Phase 17: tinyllama-1.1B (phase 3's weights) and DeepSeek-V2-Lite at
+    MLA_CHECKPOINT_LAYERS layers written as HF checkpoint directories and
+    read back through the loaders. Returns (launch counts, the numbers,
+    the loaded tinyllama parameters)."""
+    log("== phase 17: HuggingFace checkpoints in: tinyllama-1.1B (phase 3's "
+        f"weights) and DeepSeek-V2-Lite at {MLA_CHECKPOINT_LAYERS} layers")
+    launches, out = {}, {}
+    root = tempfile.mkdtemp(prefix="lmc-hf-")
+    try:
+        loaded, out["tinyllama"] = load_checkpoint(
+            "tinyllama-1.1B", llama, llama.LlamaConfig, cfg, params,
+            os.path.join(root, "tinyllama"), hf_llama_checkpoint)
+        S = CTX + SUFFIX
+        tokens = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, S, dtype=np.int32), device="cuda").long()[None]
+        reset_launch_counts()
+        cache = llama.new_kv_cache(cfg, 1, S + 1)
+        first, step = prefill_and_step(cfg, loaded, llama, tokens, cache)
+        launches["checkpoint tinyllama"] = read_launch_counts()
+        with uncounted():
+            cache.zero_()
+            _, step_mem = prefill_and_step(cfg, params, llama, tokens, cache)
+        del cache
+        same_first = same_bits(first, phase3_logits)
+        same_step = same_bits(step, step_mem)
+        log(f"  tinyllama-1.1B from the checkpoint: first-token logits of "
+            f"phase 3's {S}-token prefill bit-equal to phase 3's: "
+            f"{same_first}; a decode step bit-equal to the in-memory "
+            f"weights': {same_step}; launches "
+            f"{launches['checkpoint tinyllama']}")
+        if not (same_first and same_step):
+            raise SystemExit("checkpoints: the loaded tinyllama's logits "
+                             "differ")
+
+        mcfg = dataclasses.replace(MLA_CFG, n_layers=MLA_CHECKPOINT_LAYERS)
+        free_device_memory()
+        mparams = mla.init_params(
+            mcfg, generator=torch.Generator(device="cuda").manual_seed(0))
+        mloaded, out["v2_lite"] = load_checkpoint(
+            f"DeepSeek-V2-Lite ({MLA_CHECKPOINT_LAYERS} layers: dense, MoE, "
+            "MoE)", mla, mla.MLAConfig, mcfg, mparams,
+            os.path.join(root, "v2-lite"), hf_mla_checkpoint)
+        mtokens = torch.as_tensor(np.random.default_rng(17).integers(
+            0, mcfg.vocab_size, CHECKPOINT_PROMPT, dtype=np.int32),
+            device="cuda").long()[None]
+        reset_launch_counts()
+        got = prefill_and_step(mcfg, mloaded, mla, mtokens,
+                               mla.new_latent_cache(mcfg, 1,
+                                                    CHECKPOINT_PROMPT + 1))
+        launches["checkpoint v2-lite"] = read_launch_counts()
+        with uncounted():
+            want = prefill_and_step(mcfg, mparams, mla, mtokens,
+                                    mla.new_latent_cache(
+                                        mcfg, 1, CHECKPOINT_PROMPT + 1))
+        same = all(same_bits(a, b) for a, b in zip(got, want))
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        log(f"  DeepSeek-V2-Lite from the checkpoint: a {CHECKPOINT_PROMPT}"
+            f"-token prefill's last logits and a decode step bit-equal to "
+            f"the in-memory weights': {same}, finite {finite}; launches "
+            f"{launches['checkpoint v2-lite']}")
+        if not (same and finite):
+            raise SystemExit("checkpoints: the loaded V2-Lite's logits "
+                             "differ")
+        del mparams, mloaded, got, want
+        free_device_memory()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches, out, loaded
+
+
+# ---------------------------------- phase 18: the OpenAI-compatible front ---
+
+HTTP_PROMPT = 2048  # tokens of the completion prompts
+HTTP_NEW = 16  # tokens a completion decodes
+HTTP_BATCH = 8  # concurrent completions (and the engine's slots)
+HTTP_LOGPROBS = 2
+HTTP_SEQ = HTTP_PROMPT + 64  # max_seq of the engine
+
+
+def http_call(port, method, path, body=None):
+    """(status, parsed JSON body, ms to the whole response) of one request
+    over ``http.client``."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    t0 = time.perf_counter()
+    conn.request(method, path, body=None if body is None else
+                 json.dumps(body), headers={"Content-Type":
+                                            "application/json"})
+    resp = conn.getresponse()
+    data = resp.read()
+    ms = (time.perf_counter() - t0) * 1e3
+    conn.close()
+    ctype = resp.getheader("Content-Type", "")
+    return resp.status, (json.loads(data) if "json" in ctype
+                         else data.decode()), ms
+
+
+def http_stream(port, body):
+    """(the SSE payloads, ms from the request to the first ``data:`` line)
+    of one streamed completion."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    t0 = time.perf_counter()
+    conn.request("POST", "/v1/completions", json.dumps(body),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    events, first_ms = [], None
+    while True:
+        line = resp.readline()
+        if not line:
+            break
+        if line.startswith(b"data: "):
+            if first_ms is None:
+                first_ms = (time.perf_counter() - t0) * 1e3
+            if line.strip() == b"data: [DONE]":
+                break
+            events.append(json.loads(line[6:]))
+    conn.close()
+    return events, first_ms
+
+
+def expected_stop_text(detok, tokens, stop):
+    """The text the server must return for greedy ``tokens`` under the stop
+    string ``stop``: the tokens up to the first at which the text holds it,
+    cut where it begins."""
+    for n in range(1, len(tokens) + 1):
+        text = detok(tokens[:n])
+        i = text.find(stop)
+        if i != -1:
+            return text[:i], n
+    return detok(tokens), len(tokens)
+
+
+def phase_http(cfg, params):
+    """Phase 18: the port's ``APIServer`` over a ``ServingEngine`` with the
+    loaded tinyllama and a "cuda" tier, on 127.0.0.1, driven through
+    ``http.client``. Greedy tokens over HTTP are held bit for bit to the
+    same engine driven directly in the same cache state (a miss: the
+    engine's tier swapped for an empty one, under the server's lock).
+    Returns (launch counts, the numbers)."""
+    from lmcache_tpu_torch.serving.api import APIServer
+    log(f"== phase 18: the OpenAI-compatible HTTP front, tinyllama-1.1B "
+        f"(the loaded checkpoint), {HTTP_PROMPT}-token prompts, "
+        f"{HTTP_BATCH} slots, a \"cuda\" tier")
+    meta = LMCacheEngineMetadata(model_name="tinyllama-1.1b-http",
+                                 world_size=1, worker_id=0, fmt="vllm",
+                                 dtype=cfg.dtype)
+
+    def tier():
+        return LMCacheEngine(LMCacheEngineConfig(local_device="cuda"), meta)
+
+    eng = ServingEngine(cfg, params, max_batch=HTTP_BATCH, max_seq=HTTP_SEQ,
+                        cache_engine=tier())
+    # each token's text carries its leading space, as a BPE vocabulary's
+    # do: a stream's per-token texts concatenate to the whole text
+    srv = APIServer(eng, model_name="tinyllama-1.1b",
+                    tokenizer=lambda s: list(s.encode()),
+                    detokenizer=lambda toks: "".join(f" {t}" for t in toks))
+    detok = srv.detokenizer
+    rng = np.random.default_rng(18)
+
+    def prompt():
+        return rng.integers(0, cfg.vocab_size, HTTP_PROMPT,
+                            dtype=np.int32).tolist()
+
+    def direct(prompts, sps):
+        """The engine driven directly on an empty tier (a miss, as the
+        HTTP request before it was), uncounted, under the server's lock."""
+        with srv._lock, uncounted():
+            kept, eng.cache_engine = eng.cache_engine, tier()
+            try:
+                reqs = [eng.add_request(Request(np.asarray(p, np.int32), sp))
+                        for p, sp in zip(prompts, sps)]
+                eng.run()
+            finally:
+                eng.cache_engine.close()
+                eng.cache_engine = kept
+        return [r.output_tokens for r in reqs]
+
+    def flush():
+        with srv._lock:
+            eng.cache_engine.engine_.flush()
+
+    greedy = SamplingParams(max_new_tokens=HTTP_NEW)
+    srv.start()
+    reset_launch_counts()
+    port = srv.listen("127.0.0.1", 0)
+    ok, out = True, {}
+    try:
+        s1, health, _ = http_call(port, "GET", "/health")
+        s2, models, _ = http_call(port, "GET", "/v1/models")
+        ok &= (s1 == s2 == 200 and health == {"status": "ok"}
+               and models["data"][0]["id"] == "tinyllama-1.1b")
+        log(f"  /health {s1} {health}; /v1/models {s2} "
+            f"{[m['id'] for m in models['data']]}")
+
+        # one completion (a miss), held to the engine driven directly
+        p = prompt()
+        body = {"prompt": p, "max_tokens": HTTP_NEW}
+        st, resp, ms = http_call(port, "POST", "/v1/completions", body)
+        [want] = direct([p], [greedy])
+        got = resp["choices"][0]["tokens"]
+        same = st == 200 and got == want
+        ok &= same
+        flush()
+        log(f"  completion of {HTTP_PROMPT} tokens (a miss): {len(got)} "
+            f"tokens in {ms:.2f} ms, ttft_ms {resp['usage']['ttft_ms']}; "
+            f"bit-equal to the engine driven directly: {same}")
+        out["completion_ms"] = ms
+        out["completion_ttft_ms"] = resp["usage"]["ttft_ms"]
+
+        # the same prompt (a hit), plain and streamed
+        st, hit, _ = http_call(port, "POST", "/v1/completions", body)
+        events, first_ms = http_stream(
+            port, dict(body, stream=True,
+                       stream_options={"include_usage": True}))
+        text = "".join(e["choices"][0]["text"] for e in events
+                       if e["choices"])
+        toks = [e["choices"][0]["token"] for e in events
+                if e["choices"] and "token" in e["choices"][0]]
+        usage = events[-1]["usage"]
+        same = (st == 200 and text == hit["choices"][0]["text"]
+                and toks == hit["choices"][0]["tokens"])
+        hit_cached = hit["usage"]["prompt_tokens_details"]["cached_tokens"]
+        ok &= same and hit_cached == HTTP_PROMPT - 1
+        log(f"  the same prompt again: {hit_cached} "
+            f"cached tokens; streamed text equals the non-streamed text: "
+            f"{same}; stream: usage.ttft_ms {usage['ttft_ms']} against the "
+            f"client's {first_ms:.2f} ms to the first byte of data: the "
+            f"HTTP front's part {first_ms - usage['ttft_ms']:.2f} ms")
+        out["stream"] = {"ttft_ms": usage["ttft_ms"],
+                         "client_first_data_ms": first_ms,
+                         "http_overhead_ms": first_ms - usage["ttft_ms"],
+                         "cached_tokens": usage["prompt_tokens_details"][
+                             "cached_tokens"]}
+        flush()
+
+        # HTTP_BATCH concurrent completions (misses)
+        import threading
+        prompts = [prompt() for _ in range(HTTP_BATCH)]
+        results = [None] * HTTP_BATCH
+
+        def call(i):
+            results[i] = http_call(port, "POST", "/v1/completions",
+                                   {"prompt": prompts[i],
+                                    "max_tokens": HTTP_NEW})
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(HTTP_BATCH)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = (time.perf_counter() - t0) * 1e3
+        wants = direct(prompts, [greedy] * HTTP_BATCH)
+        same = [r[0] == 200 and r[1]["choices"][0]["tokens"] == w
+                for r, w in zip(results, wants)]
+        ok &= all(same)
+        ttfts = [r[1]["usage"]["ttft_ms"] for r in results]
+        log(f"  {HTTP_BATCH} concurrent completions: {wall:.2f} ms wall, "
+            f"ttft_ms {ttfts}; each bit-equal to the engine driven directly: "
+            f"{same}")
+        out["concurrent"] = {"wall_ms": wall, "ttft_ms": ttfts,
+                             "tokens_per_s": HTTP_BATCH * HTTP_NEW
+                             / (wall / 1e3)}
+        flush()
+
+        # n = 2 sampled with a seed: the requests seeded seed and seed + 1
+        q = prompt()
+        sp = dict(max_new_tokens=HTTP_NEW, temperature=0.8, top_k=50)
+        st, resp, _ = http_call(port, "POST", "/v1/completions",
+                                {"prompt": q, "max_tokens": HTTP_NEW,
+                                 "n": 2, "seed": 11, "temperature": 0.8,
+                                 "top_k": 50})
+        wants = direct([q, q], [SamplingParams(seed=s, **sp)
+                                for s in (11, 12)])
+        got = [c["tokens"] for c in resp["choices"]]
+        same = st == 200 and got == wants and got[0] != got[1]
+        ok &= same
+        log(f"  n = 2, seed 11, temperature 0.8: the choices are the "
+            f"engine's requests seeded 11 and 12, bit for bit: {same}")
+        flush()
+
+        # a stop string from the greedy text (the hit's, the same state)
+        ref = hit["choices"][0]["tokens"]
+        stop = " " + str(ref[5])
+        want_text, want_n = expected_stop_text(detok, ref, stop)
+        st, resp, _ = http_call(port, "POST", "/v1/completions",
+                                dict(body, stop=[stop]))
+        c = resp["choices"][0]
+        same = (st == 200 and c["finish_reason"] == "stop"
+                and c["text"] == want_text and c["tokens"] == ref[:want_n])
+        ok &= same
+        log(f"  stop {stop!r}: finish_reason {c['finish_reason']}, "
+            f"{len(c['tokens'])} tokens, the text cut before the stop "
+            f"string: {same}")
+
+        # logprobs against the fp32 witness
+        st, resp, _ = http_call(port, "POST", "/v1/completions",
+                                dict(body, logprobs=HTTP_LOGPROBS))
+        c = resp["choices"][0]
+        lp = c["logprobs"]
+        recs = [{"token": int(t), "logprob": v,
+                 "top": [(int(k), x) for k, x in top.items()]}
+                for t, v, top in zip(lp["tokens"], lp["token_logprobs"],
+                                     lp["top_logprobs"])]
+        from types import SimpleNamespace
+        seq = np.asarray(p + c["tokens"][:-1], np.int32)
+        witness = witness_logits(cfg, params, [seq])
+        lp_ok, worst = logprobs_agree(
+            "logprobs over HTTP", [SimpleNamespace(logprobs=recs)], [p],
+            witness, k=HTTP_LOGPROBS)
+        ok &= st == 200 and lp_ok and c["tokens"] == ref
+        out["logprobs_worst"] = worst
+        flush()
+
+        # a three-turn chat: cached_tokens climbs (flushed between turns)
+        msgs = [{"role": "system", "content": "You answer in numbers. " * 30},
+                {"role": "user", "content": "Count the cached chunks. " * 12}]
+        cached, ttfts = [], []
+        for turn in range(3):
+            st, resp, _ = http_call(port, "POST", "/v1/chat/completions",
+                                    {"messages": msgs,
+                                     "max_tokens": HTTP_NEW})
+            if st != 200:
+                raise SystemExit(f"http: chat turn {turn + 1}: {st} {resp}")
+            cached.append(resp["usage"]["prompt_tokens_details"][
+                "cached_tokens"])
+            ttfts.append(resp["usage"]["ttft_ms"])
+            flush()
+            msgs = msgs + [resp["choices"][0]["message"],
+                           {"role": "user",
+                            "content": f"And turn {turn + 2}? " * 16}]
+        climbs = cached[0] == 0 and 0 < cached[1] < cached[2]
+        ok &= climbs
+        log(f"  three-turn chat: cached_tokens {cached}, climbing: {climbs}; "
+            f"ttft_ms {ttfts}")
+        out["chat"] = {"cached_tokens": cached, "ttft_ms": ttfts}
+        st, text, _ = http_call(port, "GET", "/metrics")
+        ok &= st == 200 and "lmcache_chunks_stored" in text
+    finally:
+        srv.stop()
+    launches = {"http": read_launch_counts()}
+    log(f"  launches {launches['http']}")
+    eng.cache_engine.close()
+    if not ok:
+        raise SystemExit("http: a gate failed")
+    return launches, out
+
+
+# ------------------------------------------ phase 19: the engine hook API ---
+
+HOOK_PROMPT, HOOK_SUFFIX = 4096, 512
+
+
+def phase_hooks(cfg, params):
+    """Phase 19: an outside loop at tinyllama-1.1B's full depth over the
+    hook API: prefill a prompt into its own pool, store the blob, then for
+    the prompt plus a suffix retrieve the prefix through both hooks, inject
+    it and prefill the rest. Returns (launch counts, the numbers)."""
+    from lmcache_tpu_torch import integration as itg
+    log(f"== phase 19: the engine hook API, an outside loop, tinyllama-1.1B, "
+        f"{HOOK_PROMPT} + {HOOK_SUFFIX} tokens")
+    rng = np.random.default_rng(19)
+    prompt = rng.integers(0, cfg.vocab_size, HOOK_PROMPT, dtype=np.int32)
+    tokens = np.concatenate([prompt, rng.integers(
+        0, cfg.vocab_size, HOOK_SUFFIX, dtype=np.int32)])
+    S = len(tokens)
+    zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+    itg.close_lmcache_engine()
+    eng = itg.init_lmcache_engine(
+        "tinyllama-1.1b-hooks", dtype=cfg.dtype,
+        config=LMCacheEngineConfig(local_device="cuda"))
+    out, launches = {}, {}
+    try:
+        reset_launch_counts()
+        cache = llama.new_kv_cache(cfg, 1, S)
+        llama.forward(params, cfg, torch.as_tensor(
+            prompt, device="cuda").long()[None], zero, cache,
+            last_logit_only=True)
+        torch.cuda.synchronize()
+        launches["hooks store"] = read_launch_counts()
+        step = itg.StepInput(tokens=prompt, is_prefill=True)
+        if not itg.lmcache_should_store(step):
+            raise SystemExit("hooks: a prefill step is not stored")
+        t0 = time.perf_counter()
+        itg.lmcache_store_kv(step, llama.cache_to_blob(cache, 0,
+                                                       HOOK_PROMPT))
+        store_ms = (time.perf_counter() - t0) * 1e3
+        eng.engine_.flush()
+        del cache
+
+        def reuse():
+            step = itg.StepInput(tokens=tokens, is_prefill=True)
+            if not itg.lmcache_should_retrieve(step):
+                raise SystemExit("hooks: a prefill step is not retrieved")
+            step = itg.lmcache_retrieve_kv(step)
+            if step.num_computed_tokens != HOOK_PROMPT:
+                raise SystemExit(f"hooks: {step.num_computed_tokens} tokens "
+                                 f"retrieved, not {HOOK_PROMPT}")
+            cache = llama.blob_into_cache(llama.new_kv_cache(cfg, 1, S),
+                                          step.retrieved_kv)
+            rest = itg.build_partial_prefill_input(step)
+            logits, _ = llama.forward(
+                params, cfg, torch.as_tensor(rest, device="cuda").long()[None],
+                torch.full((1,), step.num_computed_tokens, dtype=torch.int32,
+                           device="cuda"), cache, last_logit_only=True)
+            return step, logits[0, -1]
+
+        def full():
+            logits, _ = llama.forward(
+                params, cfg, torch.as_tensor(tokens, device="cuda").long()[
+                    None], zero, llama.new_kv_cache(cfg, 1, S),
+                last_logit_only=True)
+            return logits[0, -1]
+
+        reset_launch_counts()
+        step, reuse_logits = reuse()
+        torch.cuda.synchronize()
+        launches["hooks"] = read_launch_counts()
+        with uncounted():
+            full_logits = full()
+            pieces = list(itg.lmcache_retrieve_kv_stream(
+                itg.StepInput(tokens=tokens, is_prefill=True)))
+            rebuilt = torch.cat([c for _, c in pieces], dim=2)
+            gen = itg.lmcache_retrieve_kv_stream(
+                itg.StepInput(tokens=tokens, is_prefill=True))
+            first_start = next(gen)[0]
+            gen.close()
+            again = itg.lmcache_retrieve_kv(
+                itg.StepInput(tokens=tokens, is_prefill=True))
+            t_reuse = wall_best(lambda: reuse())
+            t_full = wall_best(full)
+        rel = ((reuse_logits - full_logits).norm()
+               / full_logits.norm()).item()
+        same_top = int(reuse_logits.argmax()) == int(full_logits.argmax())
+        stream_same = same_bits(rebuilt, step.retrieved_kv)
+        usable = (first_start == 0 and again.num_computed_tokens
+                  == HOOK_PROMPT and same_bits(again.retrieved_kv,
+                                               step.retrieved_kv))
+        log(f"  stored the {HOOK_PROMPT}-token blob in {store_ms:.2f} ms "
+            f"(non-blocking); retrieved {step.num_computed_tokens} tokens; "
+            f"reuse logits rel_l2 {rel:.3e} (tolerance {REL_L2_REUSE}) same "
+            f"top-1 {same_top}; {len(pieces)} streamed pieces bit-equal to "
+            f"the retrieved blob: {stream_same}; a stream closed after its "
+            f"first piece leaves the engine usable: {usable}; TTFT through "
+            f"the hooks {t_reuse:.2f} ms against a full prefill "
+            f"{t_full:.2f} ms (best of 3 after a warm-up); launches of "
+            f"the outside loop's first prefill {launches['hooks store']}, "
+            f"of the reuse alone {launches['hooks']}")
+        if not (step.num_computed_tokens == HOOK_PROMPT and same_top
+                and rel <= REL_L2_REUSE and stream_same and usable):
+            raise SystemExit("hooks: a gate failed")
+        out = {"retrieved": step.num_computed_tokens, "rel_l2": rel,
+               "pieces": len(pieces), "store_ms": store_ms,
+               "ttft_reuse_ms": t_reuse, "ttft_full_ms": t_full}
+    finally:
+        itg.close_lmcache_engine()
+    return launches, out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5869,6 +6615,7 @@ def main():
     reset_launch_counts()
     ttft = phase_main_path(cfg, params)
     launches["main_path"] = read_launch_counts()
+    phase3_logits = ttft.pop("full_logits")
     reset_launch_counts()
     prompts, dense_logits = phase_serving(cfg, params)
     launches["serving"] = read_launch_counts()
@@ -5894,6 +6641,15 @@ def main():
     launches.update(decode_launches)
     tier_launches, tier_out = phase_tiers(cfg, params)
     launches.update(tier_launches)
+    ckpt_launches, ckpt_out, loaded = phase_checkpoints(cfg, params,
+                                                        phase3_logits)
+    launches.update(ckpt_launches)
+    http_launches, http_out = phase_http(cfg, loaded)
+    launches.update(http_launches)
+    hook_launches, hook_out = phase_hooks(cfg, loaded)
+    launches.update(hook_launches)
+    del loaded, phase3_logits
+    torch.cuda.empty_cache()
     quality_launches, quality_out = phase_quality()
     launches.update(quality_launches)
     del params
@@ -6011,6 +6767,14 @@ def main():
     expected["hybrid prefetch"] = [("range_decode", ("retrieve",)),
                                    ("flash_attention", ("prefill",))]
     expected["hybrid fill"] = expected["hybrid prefetch"]
+    expected["checkpoint tinyllama"] = [("flash_attention",
+                                         ("prefill", "decode")),
+                                        ("combine_partials", ("decode",))]
+    expected["checkpoint v2-lite"] = ("latent_flash_attention",
+                                      ("prefill", "decode"))
+    expected["http"] = expected["checkpoint tinyllama"]
+    expected["hooks store"] = ("flash_attention", ("prefill",))
+    expected["hooks"] = ("flash_attention", ("prefill",))
     both = ("prefill", "decode")
     for name, kernel, combine in (
             ("tinyllama dense native", "flash_attention", "combine_partials"),
@@ -6077,7 +6841,8 @@ def main():
               "gemma2_paged_profiles": gemma2_profiles,
               "ablation": ablation, "blend": blend_out,
               "decode_options": decode_out, "quality": quality_out,
-              "tiers": tier_out,
+              "tiers": tier_out, "checkpoints": ckpt_out, "http": http_out,
+              "hooks": hook_out,
               "int8_paged_build": int8_paged,
               "paged_softcap_build": paged_softcap,
               "variant_build": variant_build, "card": card}

@@ -37,9 +37,10 @@
 
 ``LlamaConfig`` is a copy of the JAX dataclass with its presets, so every
 config of the JAX package can be built here, and every preset runs on the
-dense and the paged forwards. The HuggingFace loaders
-(``LlamaConfig.from_hf``, ``load_hf``) are not ported yet (ROADMAP, module
-item 6b).
+dense and the paged forwards. ``LlamaConfig.from_hf`` and :func:`load_hf`
+read a local HuggingFace checkpoint directory (``config.json`` and the
+safetensors or ``pytorch_model.bin`` files) through
+:mod:`lmcache_tpu_torch.models.hf_checkpoint`, without ``transformers``.
 """
 
 import math
@@ -50,7 +51,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from lmcache_tpu_torch.models import experts
+from lmcache_tpu_torch.models import experts, hf_checkpoint
 from lmcache_tpu_torch.ops.attention import flash_attention, mha_reference
 from lmcache_tpu_torch.ops.quantized_attention import (
     quantize_tokens, quantized_attention_reference, quantized_flash_attention)
@@ -459,6 +460,185 @@ class LlamaConfig:
                            rope_theta=10000.0, max_seq_len=4096,
                            sliding_window=2047)
 
+    @staticmethod
+    def from_hf(model_name: str) -> "LlamaConfig":
+        """Read the architecture from a local HuggingFace checkpoint
+        directory's ``config.json`` (:mod:`hf_checkpoint`: the attributes
+        ``AutoConfig`` would give, without ``transformers``). A multimodal
+        wrapper (Gemma-3, Llama-4) nests the text stack's config; we serve
+        the text stack."""
+        hc = hf_checkpoint.text_config(hf_checkpoint.read_config(model_name))
+
+        def _check_all_sparse(hc):
+            n = (getattr(hc, "num_experts", None)
+                 or getattr(hc, "num_local_experts", None))
+            if n and (getattr(hc, "mlp_only_layers", None)
+                      or getattr(hc, "decoder_sparse_step", 1) != 1):
+                raise NotImplementedError(
+                    "mixed dense/sparse MoE layouts (mlp_only_layers / "
+                    "decoder_sparse_step != 1) are not supported; every "
+                    "layer is modeled as sparse")
+            return n
+        model_type = getattr(hc, "model_type", "")
+        head_dim = getattr(hc, "head_dim", None) or (
+            hc.hidden_size // hc.num_attention_heads)
+        # Llama-4 (iRoPE): chunked local attention, NoPE global layers,
+        # post-rope L2 qk-norm, NoPE query temperature, sigmoid MoE with
+        # a shared expert
+        is_llama4 = model_type == "llama4_text"
+        is_gpt_oss = model_type == "gpt_oss"
+        layer_types = getattr(hc, "layer_types", None)
+        chunked = bool(layer_types and "chunked_attention" in layer_types)
+        window = getattr(hc, "sliding_window", None)
+        if chunked:
+            window = int(hc.attention_chunk_size)
+        nope_global = False
+        no_rope = getattr(hc, "no_rope_layers", None)
+        if is_llama4 and no_rope is not None:
+            # no_rope_layers[i] == 1 means the layer USES rope; rope-on
+            # must coincide with chunked (non-global) layers for the single
+            # is-global flag to drive both
+            want = [t != "full_attention" for t in layer_types]
+            if [bool(r) for r in no_rope] != want:
+                raise NotImplementedError(
+                    "no_rope_layers does not align with layer_types; "
+                    "independent NoPE/global masks are not supported")
+            nope_global = not all(no_rope)
+        if is_llama4:
+            step = getattr(hc, "interleave_moe_layer_step", 1)
+            moe_layers = getattr(hc, "moe_layers", None)
+            if step != 1 or (moe_layers is not None
+                             and len(moe_layers) != hc.num_hidden_layers):
+                raise NotImplementedError(
+                    "mixed dense/MoE llama4 layouts "
+                    "(interleave_moe_layer_step != 1) are not supported")
+        rotary_dim = None
+        factor = getattr(hc, "partial_rotary_factor", 1.0)
+        if factor and factor != 1.0:
+            rotary_dim = int(head_dim * factor)
+        scaling = {}
+        rs = getattr(hc, "rope_scaling", None)
+        if rs:
+            kind = rs.get("rope_type") or rs.get("type")
+            if kind == "default":
+                pass
+            elif kind in ("linear", "llama3", "yarn"):
+                scaling = dict(
+                    rope_scaling_type=kind,
+                    rope_scaling_factor=float(rs.get("factor", 1.0)),
+                    rope_low_freq_factor=float(
+                        rs.get("low_freq_factor", 1.0)),
+                    rope_high_freq_factor=float(
+                        rs.get("high_freq_factor", 4.0)),
+                    rope_beta_fast=float(rs.get("beta_fast", 32.0)),
+                    rope_beta_slow=float(rs.get("beta_slow", 1.0)),
+                    rope_attention_factor=rs.get("attention_factor"),
+                    rope_original_max_seq=rs.get(
+                        "original_max_position_embeddings",
+                        hc.max_position_embeddings),
+                )
+            elif kind == "longrope":
+                # Phi-3 keeps original_max_position_embeddings at the top
+                # level and derives factor from the context ratio; the
+                # factor set is chosen once per deployment (long when the
+                # target context exceeds the pretraining context)
+                orig = int(
+                    getattr(hc, "original_max_position_embeddings", None)
+                    or rs.get("original_max_position_embeddings")
+                    or hc.max_position_embeddings)
+                factor = hc.max_position_embeddings / orig
+                ext = (rs["long_factor"] if hc.max_position_embeddings
+                       > orig else rs["short_factor"])
+                scaling = dict(
+                    rope_scaling_type="longrope",
+                    rope_scaling_factor=float(factor),
+                    rope_attention_factor=rs.get("attention_factor"),
+                    rope_original_max_seq=orig,
+                    rope_freq_factors=tuple(float(f) for f in ext),
+                )
+            else:
+                # silent mispositioning corrupts every cached chunk: fail
+                # loudly on schemes we don't implement
+                raise NotImplementedError(
+                    f"rope_scaling type {kind!r} is not supported")
+        return LlamaConfig(
+            **scaling,
+            vocab_size=hc.vocab_size,
+            dim=hc.hidden_size,
+            n_layers=hc.num_hidden_layers,
+            n_heads=hc.num_attention_heads,
+            n_kv_heads=getattr(hc, "num_key_value_heads",
+                               hc.num_attention_heads),
+            # llama4: the routed experts AND the shared expert are
+            # intermediate_size wide (intermediate_size_mlp is only for
+            # the dense layers refused above)
+            hidden_dim=hc.intermediate_size,
+            norm_eps=hc.rms_norm_eps,
+            rope_theta=getattr(hc, "rope_theta", 10000.0),
+            max_seq_len=hc.max_position_embeddings,
+            attention_bias=bool(
+                getattr(hc, "attention_bias", False)
+                or model_type == "qwen2"),
+            sliding_window=window,
+            local_attention_kind="chunked" if chunked else "sliding",
+            nope_on_global_layers=nope_global,
+            qk_l2_norm=bool(is_llama4 and getattr(hc, "use_qk_norm",
+                                                  False)),
+            attn_temperature_tuning=bool(
+                getattr(hc, "attn_temperature_tuning", False)),
+            attn_floor_scale=float(getattr(hc, "floor_scale", 8192.0)),
+            attn_scale=float(getattr(hc, "attn_scale", 0.1)),
+            moe_style=("llama4" if is_llama4 else
+                       "gpt_oss" if is_gpt_oss else "softmax_topk"),
+            moe_act_limit=float(getattr(hc, "swiglu_limit", 7.0)),
+            attn_sinks=is_gpt_oss,
+            attention_out_bias=bool(
+                is_gpt_oss and getattr(hc, "attention_bias", False)),
+            rotary_dim=rotary_dim,
+            # the glm/glm4 and llama4 families pair adjacent channels
+            rope_interleaved=model_type in ("glm", "glm4",
+                                            "llama4_text"),
+            post_norms=model_type in ("glm4", "gemma2", "gemma3_text",
+                                      "olmo2"),
+            pre_norms=model_type != "olmo2",
+            qk_norm=model_type in ("qwen3", "qwen3_moe", "gemma3_text"),
+            qk_norm_flat=model_type == "olmo2",
+            head_dim_override=(
+                head_dim if head_dim != hc.hidden_size
+                // hc.num_attention_heads else None),
+            # every MoE layer is modeled as sparse (mixed layouts refused
+            # above); qwen3_moe: num_experts, mixtral: num_local_experts
+            n_experts=_check_all_sparse(hc),
+            n_experts_per_tok=getattr(hc, "num_experts_per_tok", 2),
+            moe_hidden_dim=(hc.intermediate_size
+                            if (is_llama4 or is_gpt_oss) else
+                            getattr(hc, "moe_intermediate_size", None)),
+            norm_topk_prob=bool(getattr(hc, "norm_topk_prob", True)),
+            # Gemma family: GeGLU, (1+w) norms, scaled embeddings; gemma2
+            # adds sandwich norms, alternating local/global attention,
+            # softcaps and query_pre_attn_scalar; gemma3 drops the softcaps
+            # and adds qk-norm, layer_types and dual-theta rotary
+            mlp_act=("gelu_tanh"
+                     if model_type in ("gemma", "gemma2", "gemma3_text")
+                     else "silu"),
+            norm_one_offset=model_type in ("gemma", "gemma2",
+                                           "gemma3_text"),
+            embed_scale=model_type in ("gemma", "gemma2", "gemma3_text"),
+            attn_logit_softcap=getattr(hc, "attn_logit_softcapping", None),
+            final_logit_softcap=getattr(hc, "final_logit_softcapping",
+                                        None),
+            query_pre_attn_scalar=getattr(hc, "query_pre_attn_scalar",
+                                          None),
+            sliding_window_pattern=(2 if model_type == "gemma2" else
+                                    getattr(hc, "sliding_window_pattern",
+                                            None)),
+            global_layer_map=(tuple(t == "full_attention"
+                                    for t in hc.layer_types)
+                              if getattr(hc, "layer_types", None)
+                              else None),
+            rope_local_theta=getattr(hc, "rope_local_base_freq", None),
+        )
+
 
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -608,6 +788,158 @@ def params_from_jax(tree_of_numpy: Params, cfg: LlamaConfig,
         return _tensor_from_numpy(x, dt, dev)
 
     return conv(tree_of_numpy)
+
+
+def load_hf(model_name: str, cfg: Optional[LlamaConfig] = None,
+            device="cuda") -> Tuple[LlamaConfig, Params]:
+    """Convert a local HuggingFace llama-family checkpoint directory into
+    the stacked parameters of ``cfg`` (default ``LlamaConfig.from_hf``) on
+    ``device``: the JAX ``load_hf``'s mapping, read from the files without
+    ``transformers`` (:class:`hf_checkpoint.Loader`). Each tensor goes to
+    fp32, then to ``cfg.dtype``, and is stacked per layer on the device one
+    tensor at a time. Returns ``(cfg, params)``."""
+    if cfg is None:
+        cfg = LlamaConfig.from_hf(model_name)
+    check_supported(cfg)
+    ld = hf_checkpoint.Loader(model_name, resolve_device(device),
+                              torch_dtype(cfg))
+    idx = range(cfg.n_layers)
+
+    def stack(fmt):  # torch Linear [out, in] -> x @ W
+        return ld.stack(lambda i: ld.t(fmt.format(i)), idx)
+
+    def stack_vec(fmt):
+        return ld.stack(lambda i: ld.fp32(fmt.format(i)), idx)
+
+    def split(fmt, *parts, read=ld.t):  # a fused tensor, read once a layer
+        return ld.split(lambda i: read(fmt.format(i)), idx, parts)
+
+    if "model.layers.0.self_attn.qkv_proj.weight" in ld:
+        # Phi-3 fuses [q; k; v] into one projection: split the output
+        # columns as HF Phi3Attention slices qkv
+        nq = cfg.n_heads * cfg.head_dim
+        nkv = cfg.n_kv_heads * cfg.head_dim
+        fused = "model.layers.{}.self_attn.qkv_proj.weight"
+        wq, wk, wv = split(fused, lambda f: f[:, :nq],
+                           lambda f: f[:, nq:nq + nkv],
+                           lambda f: f[:, nq + nkv:])
+    else:
+        wq = stack("model.layers.{}.self_attn.q_proj.weight")
+        wk = stack("model.layers.{}.self_attn.k_proj.weight")
+        wv = stack("model.layers.{}.self_attn.v_proj.weight")
+    layers = {
+        "wq": wq,
+        "wk": wk,
+        "wv": wv,
+        "wo": stack("model.layers.{}.self_attn.o_proj.weight"),
+    }
+    if cfg.pre_norms:
+        layers["attn_norm"] = stack_vec(
+            "model.layers.{}.input_layernorm.weight")
+        layers["mlp_norm"] = stack_vec(
+            "model.layers.{}.post_attention_layernorm.weight")
+    if (cfg.n_experts and
+            "model.layers.0.feed_forward.experts.gate_up_proj" in ld):
+        # Llama-4: fused 3-D experts already in x @ W orientation
+        # ([E, dim, 2*mh] gate_up, [E, mh, dim] down), plus the always-on
+        # shared expert and a router Linear
+        mh = cfg.moe_hidden_dim
+        gu = "model.layers.{}.feed_forward.experts.gate_up_proj"
+        layers["router"] = stack(
+            "model.layers.{}.feed_forward.router.weight")
+        layers["e_gate"], layers["e_up"] = split(
+            gu, lambda x: x[..., :mh], lambda x: x[..., mh:], read=ld.fp32)
+        layers["e_down"] = stack_vec(
+            "model.layers.{}.feed_forward.experts.down_proj")
+        for key, hf in (("w_gate", "gate_proj"), ("w_up", "up_proj"),
+                        ("w_down", "down_proj")):
+            layers[key] = stack(
+                "model.layers.{}.feed_forward.shared_expert."
+                + hf + ".weight")
+    elif (cfg.n_experts and
+          "model.layers.0.mlp.experts.gate_up_proj" in ld):
+        # GPT-OSS: fused 3-D experts in x @ W orientation with INTERLEAVED
+        # gate/up columns (gate = [..., ::2]) and biases, plus a biased
+        # router Linear
+        gu = "model.layers.{}.mlp.experts.gate_up_proj"
+        layers["router"] = stack("model.layers.{}.mlp.router.weight")
+        layers["router_b"] = stack_vec("model.layers.{}.mlp.router.bias")
+        gate, up = (lambda x: x[..., 0::2]), (lambda x: x[..., 1::2])
+        layers["e_gate"], layers["e_up"] = split(gu, gate, up, read=ld.fp32)
+        layers["e_bg"], layers["e_bu"] = split(gu + "_bias", gate, up,
+                                               read=ld.fp32)
+        layers["e_down"] = stack_vec(
+            "model.layers.{}.mlp.experts.down_proj")
+        layers["e_bd"] = stack_vec(
+            "model.layers.{}.mlp.experts.down_proj_bias")
+    elif cfg.n_experts:
+        # Qwen3-MoE: mlp.gate (router) + mlp.experts.{e}.{gate,up,down}_proj;
+        # Mixtral: block_sparse_moe.gate + experts.{e}.{w1,w3,w2}
+        if "model.layers.0.block_sparse_moe.gate.weight" in ld:
+            router = "model.layers.{}.block_sparse_moe.gate.weight"
+            names = ("w1", "w3", "w2")  # gate, up, down
+            expert = "model.layers.{}.block_sparse_moe.experts.{}.{}.weight"
+        else:
+            router = "model.layers.{}.mlp.gate.weight"
+            names = ("gate_proj", "up_proj", "down_proj")
+            expert = "model.layers.{}.mlp.experts.{}.{}.weight"
+        layers["router"] = stack(router)
+        for key, hf in zip(("e_gate", "e_up", "e_down"), names):
+            layers[key] = ld.stack2(
+                lambda i, e, hf=hf: ld.t(expert.format(i, e, hf)), idx,
+                cfg.n_experts)
+    elif "model.layers.0.mlp.gate_up_proj.weight" in ld:
+        # the GLM family fuses [gate; up] into one projection: split it
+        fused = "model.layers.{}.mlp.gate_up_proj.weight"
+        layers["w_gate"], layers["w_up"] = split(
+            fused, lambda f: f[:, :cfg.hidden_dim],
+            lambda f: f[:, cfg.hidden_dim:])
+        layers["w_down"] = stack("model.layers.{}.mlp.down_proj.weight")
+    else:
+        layers["w_gate"] = stack("model.layers.{}.mlp.gate_proj.weight")
+        layers["w_up"] = stack("model.layers.{}.mlp.up_proj.weight")
+        layers["w_down"] = stack("model.layers.{}.mlp.down_proj.weight")
+    if cfg.attention_bias:
+        layers["bq"] = stack_vec("model.layers.{}.self_attn.q_proj.bias")
+        layers["bk"] = stack_vec("model.layers.{}.self_attn.k_proj.bias")
+        layers["bv"] = stack_vec("model.layers.{}.self_attn.v_proj.bias")
+    if cfg.attention_out_bias:
+        layers["bo"] = stack_vec("model.layers.{}.self_attn.o_proj.bias")
+    if cfg.post_norms and not cfg.pre_norms:
+        # OLMo-2: the ONLY norms are on the block outputs
+        layers["post_attn_norm"] = stack_vec(
+            "model.layers.{}.post_attention_layernorm.weight")
+        layers["post_mlp_norm"] = stack_vec(
+            "model.layers.{}.post_feedforward_layernorm.weight")
+    elif cfg.post_norms:
+        if "model.layers.0.pre_feedforward_layernorm.weight" in ld:
+            # Gemma-2 sandwich naming: the pre-MLP norm is
+            # pre_feedforward_layernorm and post_attention_layernorm is the
+            # attention OUTPUT norm (not the pre-MLP norm as in llama)
+            layers["mlp_norm"] = stack_vec(
+                "model.layers.{}.pre_feedforward_layernorm.weight")
+            layers["post_attn_norm"] = stack_vec(
+                "model.layers.{}.post_attention_layernorm.weight")
+            layers["post_mlp_norm"] = stack_vec(
+                "model.layers.{}.post_feedforward_layernorm.weight")
+        else:
+            layers["post_attn_norm"] = stack_vec(
+                "model.layers.{}.post_self_attn_layernorm.weight")
+            layers["post_mlp_norm"] = stack_vec(
+                "model.layers.{}.post_mlp_layernorm.weight")
+    if cfg.qk_norm or cfg.qk_norm_flat:
+        layers["q_norm"] = stack_vec("model.layers.{}.self_attn.q_norm.weight")
+        layers["k_norm"] = stack_vec("model.layers.{}.self_attn.k_norm.weight")
+    if cfg.attn_sinks:
+        layers["sinks"] = stack_vec("model.layers.{}.self_attn.sinks")
+    params = {
+        "embed": ld.one(ld.fp32("model.embed_tokens.weight")),
+        "layers": layers,
+        "final_norm": ld.one(ld.fp32("model.norm.weight")),
+        "lm_head": ld.lm_head(),
+    }
+    ld.close()
+    return cfg, params
 
 
 def paged_pool_from_jax(pool_or_dict, device="cuda"):

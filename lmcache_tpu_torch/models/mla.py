@@ -30,19 +30,20 @@ DeepSeek-V2-Lite geometry 576 values a token and layer.
   latent blobs flow through chunking, serde, every tier and the server
   unchanged. The paged arenas' lane pad never reaches the wire.
 
-Not ported yet: ``mesh`` (query heads sharded over a mesh,
-``_shard_latent_attend``; ROADMAP module item 16) and the HuggingFace
-loaders :meth:`MLAConfig.from_hf` and :func:`load_hf` (item 6); each raises.
+:meth:`MLAConfig.from_hf` and :func:`load_hf` read a local HuggingFace
+checkpoint directory through :mod:`lmcache_tpu_torch.models.hf_checkpoint`,
+without ``transformers``. Not ported yet: ``mesh`` (query heads sharded over
+a mesh, ``_shard_latent_attend``; ROADMAP module item 16), which raises.
 """
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from lmcache_tpu_torch.models import experts
+from lmcache_tpu_torch.models import experts, hf_checkpoint
 from lmcache_tpu_torch.models.llama import (_positions, _rms_norm, _rope,
                                             _tensor_from_numpy, torch_dtype)
 from lmcache_tpu_torch.ops.latent_attention import (
@@ -55,8 +56,6 @@ from lmcache_tpu_torch.utils import resolve_device
 Params = Dict[str, Any]
 
 _MESH_NOT_PORTED = "mesh is not ported yet (ROADMAP, module item 16)"
-_HF_NOT_PORTED = ("the HuggingFace loaders are not ported yet (ROADMAP, "
-                  "module item 6)")
 
 
 def _yarn_mscale(scale: float, mscale: float = 1.0) -> float:
@@ -215,9 +214,66 @@ class MLAConfig:
 
     @staticmethod
     def from_hf(model_name: str) -> "MLAConfig":
-        """Read the architecture from a HuggingFace deepseek_v2/v3 config
-        (needs ``transformers``): not ported yet."""
-        raise NotImplementedError(f"MLAConfig.from_hf: {_HF_NOT_PORTED}")
+        """Read the architecture from a local HuggingFace deepseek_v2/v3
+        checkpoint directory's ``config.json`` (:mod:`hf_checkpoint`, no
+        ``transformers``)."""
+        hc = hf_checkpoint.read_config(model_name)
+        model_type = getattr(hc, "model_type", "")
+        if model_type not in ("deepseek_v2", "deepseek_v3"):
+            raise ValueError(f"not an MLA architecture: {model_type!r}")
+        if getattr(hc, "moe_layer_freq", 1) != 1:
+            raise NotImplementedError("moe_layer_freq != 1 not supported")
+        arch = "v3" if model_type == "deepseek_v3" else "v2"
+        scaling = {}
+        rs = getattr(hc, "rope_scaling", None)
+        if rs:
+            kind = rs.get("rope_type") or rs.get("type")
+            if kind not in ("yarn",):
+                raise NotImplementedError(
+                    f"rope_scaling type {kind!r} not supported for MLA")
+            scaling = dict(
+                rope_scaling_type="yarn",
+                rope_scaling_factor=float(rs.get("factor", 1.0)),
+                rope_beta_fast=float(rs.get("beta_fast", 32.0)),
+                rope_beta_slow=float(rs.get("beta_slow", 1.0)),
+                rope_mscale=float(rs.get("mscale", 1.0)),
+                rope_mscale_all_dim=float(rs.get("mscale_all_dim", 0.0)),
+                rope_attention_factor=rs.get("attention_factor"),
+                rope_original_max_seq=rs.get(
+                    "original_max_position_embeddings",
+                    hc.max_position_embeddings),
+            )
+        topk_method = getattr(hc, "topk_method",
+                              "noaux_tc" if arch == "v3" else "greedy")
+        return MLAConfig(
+            **scaling,
+            vocab_size=hc.vocab_size,
+            dim=hc.hidden_size,
+            n_layers=hc.num_hidden_layers,
+            n_heads=hc.num_attention_heads,
+            hidden_dim=hc.intermediate_size,
+            norm_eps=hc.rms_norm_eps,
+            rope_theta=getattr(hc, "rope_theta", 10000.0),
+            max_seq_len=hc.max_position_embeddings,
+            q_lora_rank=getattr(hc, "q_lora_rank", None),
+            kv_lora_rank=hc.kv_lora_rank,
+            qk_nope_head_dim=hc.qk_nope_head_dim,
+            qk_rope_head_dim=hc.qk_rope_head_dim,
+            v_head_dim=hc.v_head_dim,
+            rope_interleaved=bool(getattr(hc, "rope_interleave", True)),
+            arch=arch,
+            n_routed_experts=getattr(hc, "n_routed_experts", None),
+            n_shared_experts=getattr(hc, "n_shared_experts", None),
+            n_experts_per_tok=getattr(hc, "num_experts_per_tok", 6) or 6,
+            moe_hidden_dim=getattr(hc, "moe_intermediate_size", None),
+            first_k_dense_replace=getattr(hc, "first_k_dense_replace", 0),
+            routed_scaling_factor=float(
+                getattr(hc, "routed_scaling_factor", 1.0)),
+            topk_method=topk_method,
+            n_group=getattr(hc, "n_group", None),
+            topk_group=getattr(hc, "topk_group", None),
+            norm_topk_prob=bool(getattr(hc, "norm_topk_prob", False)),
+        )
 
 
 def check_supported(cfg) -> None:
@@ -469,10 +525,102 @@ def params_from_jax(tree_of_numpy: Params, cfg: MLAConfig,
     return conv("", tree_of_numpy)
 
 
-def load_hf(model_name: str, cfg: Optional[MLAConfig] = None):
-    """Convert HuggingFace DeepSeek-V2/V3 weights (needs ``transformers``):
-    not ported yet."""
-    raise NotImplementedError(f"load_hf: {_HF_NOT_PORTED}")
+def load_hf(model_name: str, cfg: Optional[MLAConfig] = None,
+            device="cuda") -> Tuple[MLAConfig, Params]:
+    """Convert a local HuggingFace DeepSeek-V2/V3 checkpoint directory into
+    the two-block stacked parameters of ``cfg`` (default
+    ``MLAConfig.from_hf``) on ``device``, without ``transformers``: each
+    tensor to fp32, then to ``cfg.dtype`` (``router_bias`` stays fp32),
+    stacked per layer on the device one tensor at a time. Returns
+    ``(cfg, params)``."""
+    if cfg is None:
+        cfg = MLAConfig.from_hf(model_name)
+    check_supported(cfg)
+    ld = hf_checkpoint.Loader(model_name, resolve_device(device),
+                              torch_dtype(cfg))
+    H, n, r = cfg.n_heads, cfg.qk_nope_head_dim, cfg.kv_lora_rank
+    v = cfg.v_head_dim
+    t, vec = ld.t, ld.fp32
+
+    def attn_block(idxs):
+        p = "model.layers.{}."
+        out = {
+            "attn_norm": ld.stack(
+                lambda i: vec(p.format(i) + "input_layernorm.weight"), idxs),
+            "mlp_norm": ld.stack(
+                lambda i: vec(p.format(i)
+                              + "post_attention_layernorm.weight"), idxs),
+            "wkv_a": ld.stack(
+                lambda i: t(p.format(i)
+                            + "self_attn.kv_a_proj_with_mqa.weight"), idxs),
+            "kv_a_norm": ld.stack(
+                lambda i: vec(p.format(i)
+                              + "self_attn.kv_a_layernorm.weight"), idxs),
+            "wo": ld.stack(
+                lambda i: t(p.format(i) + "self_attn.o_proj.weight"), idxs),
+        }
+
+        def kb(i):  # kv_b_proj [H*(n+v), r] -> [H, n + v, r]
+            return vec(p.format(i) + "self_attn.kv_b_proj.weight").reshape(
+                H, n + v, r)
+
+        out["w_kb_k"], out["w_kb_v"] = ld.split(
+            kb, idxs, [lambda x: x[:, :n, :],
+                       lambda x: x[:, n:, :].transpose(1, 2)])
+        if cfg.q_lora_rank is None:
+            out["wq"] = ld.stack(
+                lambda i: t(p.format(i) + "self_attn.q_proj.weight"), idxs)
+        else:
+            out["wq_a"] = ld.stack(
+                lambda i: t(p.format(i) + "self_attn.q_a_proj.weight"), idxs)
+            out["q_a_norm"] = ld.stack(
+                lambda i: vec(p.format(i)
+                              + "self_attn.q_a_layernorm.weight"), idxs)
+            out["wq_b"] = ld.stack(
+                lambda i: t(p.format(i) + "self_attn.q_b_proj.weight"), idxs)
+        return out
+
+    kd = cfg.n_dense_layers
+    dense_idx = list(range(kd))
+    moe_idx = list(range(kd, cfg.n_layers))
+    params: Params = {
+        "embed": ld.one(vec("model.embed_tokens.weight")),
+        "final_norm": ld.one(vec("model.norm.weight")),
+        "lm_head": ld.lm_head(),
+    }
+    if dense_idx:
+        dense = attn_block(dense_idx)
+        for key, hf in (("w_gate", "gate_proj"), ("w_up", "up_proj"),
+                        ("w_down", "down_proj")):
+            dense[key] = ld.stack(
+                lambda i, hf=hf: t(f"model.layers.{i}.mlp.{hf}.weight"),
+                dense_idx)
+        params["dense_layers"] = dense
+    if moe_idx:
+        moe = attn_block(moe_idx)
+        moe["router"] = ld.stack(
+            lambda i: t(f"model.layers.{i}.mlp.gate.weight"), moe_idx)
+        bias_name = "model.layers.{}.mlp.gate.e_score_correction_bias"
+        if bias_name.format(moe_idx[0]) in ld:
+            moe["router_bias"] = ld.stack(
+                lambda i: vec(bias_name.format(i)), moe_idx,
+                dtype=torch.float32)
+        for key, hf in (("e_gate", "gate_proj"), ("e_up", "up_proj"),
+                        ("e_down", "down_proj")):
+            moe[key] = ld.stack2(
+                lambda i, e, hf=hf: t(
+                    f"model.layers.{i}.mlp.experts.{e}.{hf}.weight"),
+                moe_idx, cfg.n_routed_experts)
+        if cfg.n_shared_experts:
+            for key, hf in (("s_gate", "gate_proj"), ("s_up", "up_proj"),
+                            ("s_down", "down_proj")):
+                moe[key] = ld.stack(
+                    lambda i, hf=hf: t(
+                        f"model.layers.{i}.mlp.shared_experts.{hf}.weight"),
+                    moe_idx)
+        params["moe_layers"] = moe
+    ld.close()
+    return cfg, params
 
 
 # ---------------------------------------------------------------------------

@@ -52,7 +52,9 @@ def test_import_leaves_jax_and_lmcache_tpu_out():
             "lmcache_tpu_torch.tools.quality_common, "
             "lmcache_tpu_torch.storage.hybrid_backend, "
             "lmcache_tpu_torch.storage.serde.safe_serde, "
-            "lmcache_tpu_torch.storage.connector.redis_connector; "
+            "lmcache_tpu_torch.storage.connector.redis_connector, "
+            "lmcache_tpu_torch.models.hf_checkpoint, "
+            "lmcache_tpu_torch.serving.api, lmcache_tpu_torch.integration; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'lmcache_tpu' "
             "or m.startswith('lmcache_tpu.')]; print(bad)")
@@ -173,9 +175,19 @@ def _entry_points():
         "eval_quality_tool": lambda: eval_quality.evaluate("trained", 16, 4),
         "eval_quality_mla_tool": lambda: eval_quality.evaluate_mla(
             16, 4, trained=True),
+        "hooks_default_tier": lambda: _hooks_engine(),
         "hybrid_tier": lambda: _tier("cuda"),
         "disk_hybrid_cachegen_tier": lambda: _tier("disk"),
     }
+
+
+def _hooks_engine():
+    """The hook API's engine with the default config (the "cuda" tier)."""
+    from lmcache_tpu_torch import integration
+    try:
+        return integration.init_lmcache_engine("m")
+    finally:
+        integration.close_lmcache_engine()
 
 
 def _tier(local):
@@ -226,7 +238,8 @@ def _cachegen_deserializer():
                                   "mla_paged_serving_engine",
                                   "prefill_ablation_tool",
                                   "eval_quality_tool", "eval_quality_mla_tool",
-                                  "hybrid_tier", "disk_hybrid_cachegen_tier"])
+                                  "hybrid_tier", "disk_hybrid_cachegen_tier",
+                                  "hooks_default_tier"])
 def test_entry_point_without_cuda_raises(name):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")

@@ -224,9 +224,9 @@ def test_config_properties_and_presets_match_jax():
 
 def test_unported_parts_raise():
     cfg = tm.MLAConfig.tiny(n_layers=1)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="not a local checkpoint"):
         tm.MLAConfig.from_hf("deepseek-ai/DeepSeek-V2-Lite")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="not a local checkpoint"):
         tm.load_hf("deepseek-ai/DeepSeek-V2-Lite")
     params = tm.init_params(cfg, device="cpu")
     toks = torch.zeros((1, 2), dtype=torch.long)
