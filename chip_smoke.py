@@ -54,9 +54,10 @@ Phases, in order; any failure exits non-zero:
    int8 page arena, tinyllama-1.1B (head dim 64: the streaming kernels),
    four waves: fresh prompts against the dense engine's logits, the same
    prompts served from resident pages, a fresh engine served by retrieve +
-   page injection, and an arena so small that decode growth preempts a
-   request, which resumes and finishes; one ``torch.profiler`` window over
-   a batched decode step (``phase_paged_tinyllama``);
+   page injection, and, with the prompts grown to 3 tokens short of 33
+   pages, an arena so small that decode growth preempts a request, which
+   resumes and finishes; one ``torch.profiler`` window over a batched
+   decode step (``phase_paged_tinyllama``);
 6. paged serving, path B: Phi-3-mini-4k at full width and depth (head dim
    96, sliding window 2047: the one-page-per-step kernels), two prompts of
    about 3000 tokens over a bf16 and then an int8 arena; the logits of the
@@ -237,7 +238,23 @@ Phases, in order; any failure exits non-zero:
    by phase 3's gate; the pieces of ``lmcache_retrieve_kv_stream``
    bit-equal to the retrieved blob, and a stream closed after its first
    piece leaving the engine usable;
-7. the launch counts of phases 3 to 19, read per phase with every count
+20. the examples of ``lmcache_tpu_torch/examples`` through their ``main()``
+   (``phase_examples``): tinyllama-1.1B (DeepSeek-V2-Lite at 3 layers for
+   the MLA one), the three that need a cache server on the script's own;
+   each claim gated: reuse with the same tokens (offline, across two
+   instances, prefill/decode separated, MLA), the generated tokens hit
+   (save_decode_cache), cached tokens climbing over HTTP rounds, the YAML
+   gallery round-tripped bit for bit (CacheGen within ``PSNR_DB``),
+   CacheBlend closer to a full prefill than naive reuse, speculation with
+   greedy tokens in fewer engine steps;
+21. the quality checkpoints' trainer (``phase_training``, fp32, TF32 off):
+   one step on the card against the CPU from each committed checkpoint
+   (loss, gradients, the update), 200 steps of the dense model from seed 0
+   (the loss must fall), 10 steps of the --init finetune at T 8256 under
+   remat (copy accuracy at least 0.99; the peak memory with and without
+   remat), the self-check bands of both checkpoints; no hand kernel may
+   launch;
+7. the launch counts of phases 3 to 21, read per phase with every count
    set to 0 just before it (prefill and decode, each > 0 where the phase
    runs them; "+window", "+softcap" and "+sinks" mark launches under those
    options; the coders count "store" and "retrieve" launches);
@@ -308,6 +325,7 @@ from lmcache_tpu_torch.storage.connector.lm_connector import \
 from lmcache_tpu_torch.storage.serde import cachegen_serde as cgs
 from lmcache_tpu_torch.tools import bench_prefill_mfu as bench_mfu
 from lmcache_tpu_torch.tools import eval_quality, quality_common
+from lmcache_tpu_torch.tools import train_quality_model as train_tool
 from lmcache_tpu_torch.utils import resolve_device
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 FLOP/s
@@ -495,11 +513,13 @@ def kernel_ms(fn, iters):
     return total / 1e3 / iters if total > 0 else None
 
 
-def wall_best(fn, n=3):
+def wall_best(fn, n=3, warm=True):
     """Best host time in ms of ``fn`` (ending in a synchronize) over ``n``
-    runs after one warm-up run."""
-    fn()
-    torch.cuda.synchronize()
+    runs after one warm-up run (``warm=False``: the caller's own runs of
+    ``fn`` were the warm-up)."""
+    if warm:
+        fn()
+        torch.cuda.synchronize()
     best = float("inf")
     for _ in range(n):
         t0 = time.perf_counter()
@@ -2089,8 +2109,9 @@ def profile_window(name, fn, top=5, watch=None, copies=False):
     pinned memory (count, ms). Host time includes the profiler's own
     overhead."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the device's activity only: recording every host op as well cost
+    # seconds a window at a large model's thousands of launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2545,6 +2566,11 @@ def phase_serving(cfg, params, kv_dtype="native", engine_cls=ServingEngine,
 # ---------------------------------------------------------- phases 5, 6 ---
 
 TIGHT_PAGES = 101  # wave 4's arena: 100 usable pages for 3 x 34
+# wave 4's prompts: the waves' prompts extended to 3 tokens short of 33
+# pages, so that decode needs a 34th page at its 4th token; WAVE4_NEW tokens
+# each
+WAVE4_LEN = 33 * PAGE - 3
+WAVE4_NEW = 12
 
 
 def _tier(name, cfg):
@@ -2556,14 +2582,16 @@ def _tier(name, cfg):
 
 def paged_engine(cfg, params, engine_cls=PagedServingEngine, routing=None,
                  **kw):
-    """A PagedServingEngine (page 64, 512-token prefill segments) that keeps
+    """A PagedServingEngine (page 64, 512-token prefill segments unless
+    ``prefill_chunk`` says otherwise) that keeps
     what the checks read: ``prefill_logits[request_id]``, one ``(tokens
     sampled before, logits)`` per completed prefill (the first token; then
     one per resume after a preemption), ``injected_pages``, the number of
     pages written by ``_inject_pages``, ``injected``, its (blob, pages)
     calls, and ``decode_logits``, the logits of every batched decode step
     once ``keep_decode_logits`` is set. A :class:`Routing` watches it."""
-    eng = engine_cls(cfg, params, page_size=PAGE, prefill_chunk=512, **kw)
+    eng = engine_cls(cfg, params, page_size=PAGE,
+                     **{"prefill_chunk": 512, **kw})
     if routing is not None:
         routing.watch(eng)
     eng.prefill_logits = {}
@@ -2700,7 +2728,7 @@ def profile_decode_step(eng, prompts, arena, prefill=False, model="paged"):
 
 def paged_tinyllama_waves(cfg, params, prompts, dense_logits, kv_dtype,
                           engine_cls=PagedServingEngine,
-                          model="tinyllama-1.1b", max_new=32, long_new=96,
+                          model="tinyllama-1.1b", max_new=32,
                           after_wave3=None, near_tie=False, routing=None,
                           profile_prefill=False):
     """The four waves over one arena dtype (``engine_cls`` and ``model``
@@ -2737,12 +2765,13 @@ def paged_tinyllama_waves(cfg, params, prompts, dense_logits, kv_dtype,
                               r.num_prompt_tokens - 1)
                 for r, s in zip(reqs, refs)]
 
-    def replayed(name, want_record, num_pages=256, new=max_new, **over):
-        """A fresh engine's wave routed as ``want_record``."""
+    def replayed(name, want_record, num_pages=256, new=max_new,
+                 wave=prompts, **over):
+        """A fresh engine's wave of ``wave`` routed as ``want_record``."""
         routing.swapped = 0
         again = paged_engine(cfg, params, num_pages=num_pages,
                              **dict(kw, **over))
-        reqs, logits, _, _ = paged_wave(again, name, prompts, new,
+        reqs, logits, _, _ = paged_wave(again, name, wave, new,
                                         force=want_record)
         log(f"  {name}: {routing.swapped} (layer, token) top-k sets "
             f"replaced by the reference's")
@@ -2801,17 +2830,26 @@ def paged_tinyllama_waves(cfg, params, prompts, dense_logits, kv_dtype,
     if not ok:
         failed.append("wave 3 missed the tier or disagrees with wave 1")
 
-    # wave 4: the same prompts with long_new new tokens, so that decode
-    # crosses a page boundary; first on a roomy arena, then on one that
-    # cannot hold three requests of 34 pages. Both engines are fresh, so
-    # both restore the prompts from the tier.
-    eng = paged_engine(cfg, params, num_pages=256, **kw)
+    # wave 4: the prompts extended to WAVE4_LEN tokens, so that decode
+    # crosses a page boundary at its 4th token; first on a roomy arena,
+    # then on one that cannot hold three requests of 34 pages. Both engines
+    # are fresh and restore the first `hit` tokens from the tier; their
+    # segments after it end with the last prompt token alone, so that the
+    # two compute in the same shapes (whatever the roomy one stored back)
+    # and decode the same tokens up to the preemption.
+    ext = np.random.default_rng(4)
+    prompts4 = [np.concatenate([p, ext.integers(0, cfg.vocab_size,
+                                                WAVE4_LEN - len(p))])
+                for p in prompts]
+    kw4 = dict(kw, prefill_chunk=WAVE4_LEN - 1 - hit)
+    long_new = WAVE4_NEW
+    eng = paged_engine(cfg, params, num_pages=256, **kw4)
     eng.keep_decode_logits = True
     ref, l_ref, _, rec_ref = paged_wave(
-        eng, "wave 4 reference (roomy arena)", prompts, long_new)
-    tight = paged_engine(cfg, params, num_pages=TIGHT_PAGES, **kw)
+        eng, "wave 4 reference (roomy arena)", prompts4, long_new)
+    tight = paged_engine(cfg, params, num_pages=TIGHT_PAGES, **kw4)
     w4, l4, _, _ = paged_wave(tight, f"wave 4 (arena of {TIGHT_PAGES - 1} "
-                              f"pages)", prompts, long_new)
+                              f"pages)", prompts4, long_new)
     d4 = _first_diverging(w4, ref)
     log(f"  wave 4: first differing token vs the roomy arena {d4} "
         f"(reported)")
@@ -2860,7 +2898,9 @@ def paged_tinyllama_waves(cfg, params, prompts, dense_logits, kv_dtype,
         again, reqs, _ = replayed("wave 4 again (arena of "
                                   f"{TIGHT_PAGES - 1} pages), routed as the "
                                   f"roomy arena", rec_ref,
-                                  num_pages=TIGHT_PAGES, new=long_new)
+                                  num_pages=TIGHT_PAGES, new=long_new,
+                                  wave=prompts4,
+                                  prefill_chunk=kw4["prefill_chunk"])
         forced = resumes(again, reqs)
         ok = bool(forced) and _logits_agree(
             "wave 4 resumes routed as the roomy arena vs the roomy arena",
@@ -3255,26 +3295,46 @@ def phase_streamed_prefill(cfg, params):
 REMOTE_MODEL = "tinyllama-1.1b-remote"  # the tinyllama CacheGen schedule
 
 
-def start_cache_server():
-    """The port's cache server in a subprocess on a free port; fails the
-    phase if it does not answer within 15 s."""
+def start_cache_server(wait=True):
+    """The port's cache server in a subprocess on a free port: (process,
+    ``lm://`` URL). With ``wait`` it fails the phase unless the server
+    answers within 15 s; without, :func:`await_cache_server` does that
+    later, so that the server starts while other work runs."""
     import socket
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     proc = subprocess.Popen([sys.executable, "-m", "lmcache_tpu_torch.server",
                              "localhost", str(port), "cpu"])
-    deadline = time.time() + 15
+    url = f"lm://localhost:{port}"
+    if wait:
+        await_cache_server(proc, url)
+    return proc, url
+
+
+def await_cache_server(proc, url, timeout=15):
+    import socket
+    port = int(url.rsplit(":", 1)[1])
+    deadline = time.time() + timeout
     while True:
         try:
             socket.create_connection(("localhost", port), timeout=0.5).close()
-            return proc, f"lm://localhost:{port}"
+            return
         except OSError:
             if time.time() > deadline or proc.poll() is not None:
-                proc.kill()
-                proc.wait(timeout=10)
-                raise SystemExit("the cache server did not answer in 15 s")
+                stop_process(proc)
+                raise SystemExit(f"the cache server did not answer in "
+                                 f"{timeout} s")
             time.sleep(0.05)
+
+
+def stop_process(proc):
+    proc.terminate()
+    try:
+        proc.wait(timeout=10)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=10)
 
 
 TRANSPORTS = ("python", "native")  # phase 9's order: the native one last
@@ -3677,9 +3737,9 @@ def grouped_stream_overlap(eng, serve):
     return out
 
 
-def phase_remote(cfg, params, ttft_full_ms):
-    """Phase 9: reuse across engine instances through the cache server.
-    Returns (launch counts by sub-phase, the phase's numbers)."""
+def phase_remote(cfg, params, ttft_full_ms, url):
+    """Phase 9: reuse across engine instances through the cache server at
+    ``url``. Returns (launch counts by sub-phase, the phase's numbers)."""
     log(f"== phase 9: remote CacheGen reuse, tinyllama-1.1B, CTX {CTX} + "
         f"SUFFIX {SUFFIX}, chunks of {REMOTE_CHUNK}, through the port's cache "
         f"server")
@@ -3693,128 +3753,119 @@ def phase_remote(cfg, params, ttft_full_ms):
     full_logits = logits[0, -1].float()
     prefix = llama.cache_to_blob(cache, 0, CTX)
     launches, out = {}, {}
-    proc, url = start_cache_server()
-    try:
-        launches["remote store"], out["store"] = remote_store(
-            url, cfg, tokens_np, prefix)
-        del cache, prefix
-        gates, slot_kv = {}, {}
-        for transport in TRANSPORTS:
-            dense, slot, gates[transport] = remote_reuse_gate(
-                url, cfg, params, tokens_np, full_logits, transport)
-            slot_kv[transport] = dense.kv_pool[:, :, slot, :, :CTX]
-            if transport != TRANSPORTS[-1]:
-                dense.cache_engine.close()
-                del dense
-        same_kv = same_bits(*slot_kv.values())
-        log(f"  the KV injected through the two transports is bit-equal: "
-            f"{same_kv}")
-        if not same_kv:
-            raise SystemExit("remote reuse: the transports inject other KV")
-        del slot_kv
-        out["gate"] = gates["native"]
-        out["gate_python"] = gates["python"]
+    launches["remote store"], out["store"] = remote_store(
+        url, cfg, tokens_np, prefix)
+    del cache, prefix
+    gates, slot_kv = {}, {}
+    for transport in TRANSPORTS:
+        dense, slot, gates[transport] = remote_reuse_gate(
+            url, cfg, params, tokens_np, full_logits, transport)
+        slot_kv[transport] = dense.kv_pool[:, :, slot, :, :CTX]
+        if transport != TRANSPORTS[-1]:
+            dense.cache_engine.close()
+            del dense
+    same_kv = same_bits(*slot_kv.values())
+    log(f"  the KV injected through the two transports is bit-equal: "
+        f"{same_kv}")
+    if not same_kv:
+        raise SystemExit("remote reuse: the transports inject other KV")
+    del slot_kv
+    out["gate"] = gates["native"]
+    out["gate_python"] = gates["python"]
 
-        # timed: one engine as a user runs it (max_batch 1), each request a
-        # new 512-token question on the stored document, per transport
-        rng = np.random.default_rng(9)
-        sp = SamplingParams(max_new_tokens=1)
+    # timed: one engine as a user runs it (max_batch 1), each request a
+    # new 512-token question on the stored document, per transport
+    rng = np.random.default_rng(9)
+    sp = SamplingParams(max_new_tokens=1)
 
-        def question():
-            return np.concatenate([tokens_np[:CTX], rng.integers(
-                0, cfg.vocab_size, SUFFIX, dtype=np.int32)])
+    def question():
+        return np.concatenate([tokens_np[:CTX], rng.integers(
+            0, cfg.vocab_size, SUFFIX, dtype=np.int32)])
 
-        out["transports"] = {}
-        for transport in TRANSPORTS:
-            b = remote_tier(url, cfg, transport, pipelined_backend=True)
-            eng = ServingEngine(cfg, params, max_batch=1, max_seq=S + 8,
-                                cache_engine=b)
+    out["transports"] = {}
+    for transport in TRANSPORTS:
+        b = remote_tier(url, cfg, transport, pipelined_backend=True)
+        eng = ServingEngine(cfg, params, max_batch=1, max_seq=S + 8,
+                            cache_engine=b)
 
-            def serve():
-                [r] = eng.generate([question()], sp)
-                torch.cuda.synchronize()
-                b.engine_.flush()  # the store-back of the new suffix
-                if r.cached_prefix_len != CTX:
-                    raise SystemExit(f"remote reuse: {r.cached_prefix_len} "
-                                     f"cached, not {CTX}")
-                return r.ttft_s * 1e3
+        def serve():
+            [r] = eng.generate([question()], sp)
+            torch.cuda.synchronize()
+            b.engine_.flush()  # the store-back of the new suffix
+            if r.cached_prefix_len != CTX:
+                raise SystemExit(f"remote reuse: {r.cached_prefix_len} "
+                                 f"cached, not {CTX}")
+            return r.ttft_s * 1e3
 
-            serve()  # warm-up
-            reset_launch_counts()
-            ttft = sorted(serve() for _ in range(3))
-            key = ("remote reuse" if transport == "native"
-                   else f"remote reuse {transport}")
-            launches[key] = read_launch_counts()
-            log(f"  TTFT remote, {transport} transport: {ttft[0]:.2f} ms "
-                f"best of 3, median {ttft[1]:.2f} ms (each request a new "
-                f"suffix); TTFT full {ttft_full_ms:.2f} ms (phase 3): ratio "
-                f"{ttft_full_ms / ttft[0]:.3f}x; launches of the three "
-                f"requests {launches[key]}")
-            res = {"ttft_remote_ms": ttft[0], "ttft_remote_median_ms": ttft[1],
-                   "ttft_remote_all_ms": ttft}
-            with counting_uploads() as uploads:
-                res["profile"] = profile_window(
-                    f"remote reuse request, {transport} transport (fetch, "
-                    f"grouped decode + inject, suffix)",
-                    lambda: eng.generate([question()], sp), copies=True)
-            groups = -(-STORE_CHUNKS // GROUP_CHUNKS)
-            res["group_uploads"] = dict(uploads)
-            log(f"  the profiled request's group uploads (counted where they "
-                f"are issued): {dict(uploads)}, 5 a group for its {groups} "
-                f"groups")
-            if (uploads["pinned"] != 5 * groups or uploads["pageable"]
-                    or not res["profile"].get("h2d", {}).get("pinned")):
-                raise SystemExit("remote reuse: the group uploads are not "
-                                 "all pinned")
-            b.engine_.flush()
-            res["overlap"] = grouped_stream_overlap(eng, serve)
-            b.engine_.flush()
-            b.close()
-            del eng
-            res["stages"] = remote_stage_split(url, cfg, params, tokens,
-                                               tokens_np, transport)
-            out["transports"][transport] = res
-        native = out["transports"]["native"]
-        out["ttft_remote_ms"] = native["ttft_remote_ms"]
-        out["ttft_remote_median_ms"] = native["ttft_remote_median_ms"]
-        out["ttft_full_ms"] = ttft_full_ms
-        out["profile"], out["stages"] = native["profile"], native["stages"]
-
-        # the paged engine over the same server (page 64, chunk 256)
-        tier = remote_tier(url, cfg, pipelined_backend=True)
-        peng = paged_engine(cfg, params, max_batch=1, max_seq=S + 8,
-                            num_pages=S // PAGE + 8, cache_engine=tier)
-        written = []
-        inject = peng._inject_pages
-
-        def inject_and_keep(blob, pages):
-            written.extend(pages)
-            inject(blob, pages)
-
-        peng._inject_pages = inject_and_keep
+        serve()  # warm-up
         reset_launch_counts()
-        [r], _, n_pages, _ = paged_wave(
-            peng, "paged wave over the remote tier", [tokens_np], 1)
-        launches["remote paged"] = read_launch_counts()
-        tier.close()
-        pages = peng._read_pages(written)[:, :, :CTX]
-        same = torch.equal(pages, llama.cache_to_blob(dense.kv_pool, slot,
-                                                      CTX))
-        log(f"  paged: {n_pages} pages injected in groups; the first {CTX} "
-            f"tokens of the pages equal the dense slot's KV: {same}; "
-            f"launches {launches['remote paged']}")
-        if not (same and r.cached_prefix_len >= CTX):
-            raise SystemExit("remote paged wave: the pages differ from the "
-                             "dense slot")
-        dense.cache_engine.close()
-        del dense, peng
-    finally:
-        proc.terminate()
-        try:
-            proc.wait(timeout=10)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait(timeout=10)
+        ttft = sorted(serve() for _ in range(3))
+        key = ("remote reuse" if transport == "native"
+               else f"remote reuse {transport}")
+        launches[key] = read_launch_counts()
+        log(f"  TTFT remote, {transport} transport: {ttft[0]:.2f} ms "
+            f"best of 3, median {ttft[1]:.2f} ms (each request a new "
+            f"suffix); TTFT full {ttft_full_ms:.2f} ms (phase 3): ratio "
+            f"{ttft_full_ms / ttft[0]:.3f}x; launches of the three "
+            f"requests {launches[key]}")
+        res = {"ttft_remote_ms": ttft[0], "ttft_remote_median_ms": ttft[1],
+               "ttft_remote_all_ms": ttft}
+        with counting_uploads() as uploads:
+            res["profile"] = profile_window(
+                f"remote reuse request, {transport} transport (fetch, "
+                f"grouped decode + inject, suffix)",
+                lambda: eng.generate([question()], sp), copies=True)
+        groups = -(-STORE_CHUNKS // GROUP_CHUNKS)
+        res["group_uploads"] = dict(uploads)
+        log(f"  the profiled request's group uploads (counted where they "
+            f"are issued): {dict(uploads)}, 5 a group for its {groups} "
+            f"groups")
+        if (uploads["pinned"] != 5 * groups or uploads["pageable"]
+                or not res["profile"].get("h2d", {}).get("pinned")):
+            raise SystemExit("remote reuse: the group uploads are not "
+                             "all pinned")
+        b.engine_.flush()
+        res["overlap"] = grouped_stream_overlap(eng, serve)
+        b.engine_.flush()
+        b.close()
+        del eng
+        res["stages"] = remote_stage_split(url, cfg, params, tokens,
+                                           tokens_np, transport)
+        out["transports"][transport] = res
+    native = out["transports"]["native"]
+    out["ttft_remote_ms"] = native["ttft_remote_ms"]
+    out["ttft_remote_median_ms"] = native["ttft_remote_median_ms"]
+    out["ttft_full_ms"] = ttft_full_ms
+    out["profile"], out["stages"] = native["profile"], native["stages"]
+
+    # the paged engine over the same server (page 64, chunk 256)
+    tier = remote_tier(url, cfg, pipelined_backend=True)
+    peng = paged_engine(cfg, params, max_batch=1, max_seq=S + 8,
+                        num_pages=S // PAGE + 8, cache_engine=tier)
+    written = []
+    inject = peng._inject_pages
+
+    def inject_and_keep(blob, pages):
+        written.extend(pages)
+        inject(blob, pages)
+
+    peng._inject_pages = inject_and_keep
+    reset_launch_counts()
+    [r], _, n_pages, _ = paged_wave(
+        peng, "paged wave over the remote tier", [tokens_np], 1)
+    launches["remote paged"] = read_launch_counts()
+    tier.close()
+    pages = peng._read_pages(written)[:, :, :CTX]
+    same = torch.equal(pages, llama.cache_to_blob(dense.kv_pool, slot,
+                                                  CTX))
+    log(f"  paged: {n_pages} pages injected in groups; the first {CTX} "
+        f"tokens of the pages equal the dense slot's KV: {same}; "
+        f"launches {launches['remote paged']}")
+    if not (same and r.cached_prefix_len >= CTX):
+        raise SystemExit("remote paged wave: the pages differ from the "
+                         "dense slot")
+    dense.cache_engine.close()
+    del dense, peng
     torch.cuda.empty_cache()
     return launches, out
 
@@ -3904,7 +3955,7 @@ def _mla_tier(name):
                               fmt="vllm", dtype=MLA_CFG.dtype))
 
 
-def mla_bench(cfg, params, reps):
+def mla_bench(cfg, params):
     """10a: the bench shape through ``mla.forward``: full prefill of CTX +
     SUFFIX tokens, store of the CTX prefix's latents into the "cuda" tier,
     retrieve, inject, suffix prefill. Returns (the phase's numbers, the
@@ -3952,10 +4003,11 @@ def mla_bench(cfg, params, reps):
             f"reuse vs full prefill ({rule})", [got], [want],
             near_tie=True)):
         raise SystemExit("mla: reuse logits disagree with the full prefill")
-    t_full = wall_best(lambda: prefill_full(), n=reps)
-    t_reuse = wall_best(prefill_reuse, n=reps)
+    # one timed run each; the gate's runs above were the warm-up
+    t_full = wall_best(lambda: prefill_full(), n=1, warm=False)
+    t_reuse = wall_best(prefill_reuse, n=1, warm=False)
     log(f"  TTFT full {t_full:.2f} ms, TTFT reuse {t_reuse:.2f} ms, ratio "
-        f"{t_full / t_reuse:.2f}x (best of {reps} after a warm-up)")
+        f"{t_full / t_reuse:.2f}x (one run after the gate's)")
     profile = [profile_window("mla full prefill", lambda: prefill_full()),
                profile_window("mla reuse request", prefill_reuse)]
     engine.close()
@@ -4022,7 +4074,8 @@ def mla_row9(cfg, params, prompt, kv_dtype):
                          [kept["row 10"]], near_tie=True)
 
 
-def mla_remote(cfg, params, tokens_np, prefix, full_logits, kv_wire_bytes):
+def mla_remote(cfg, params, tokens_np, prefix, full_logits, kv_wire_bytes,
+               url):
     """10e: the latent prefix through the cache server with the CacheGen
     serde (single-stream N = 1 containers, ``CacheGenConfig.for_latent``):
     a store by instance A, every container equal to the host C++ coder's;
@@ -4041,54 +4094,45 @@ def mla_remote(cfg, params, tokens_np, prefix, full_logits, kv_wire_bytes):
             LMCacheEngineMetadata(model_name=name, world_size=1, worker_id=0,
                                   fmt="vllm", dtype=cfg.dtype))
 
-    proc, url = start_cache_server()
-    try:
-        a = tier()
-        torch.cuda.synchronize()
+    a = tier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = a.store(tokens_np[:CTX], prefix, blocking=True)
+    store_ms = (time.perf_counter() - t0) * 1e3
+    keys = [a._make_key(h, "vllm")
+            for h in prefix_chunk_hashes(tokens_np[:CTX], REMOTE_CHUNK)]
+    wire = [a.engine_.connection.get(k.to_string()) for k in keys]
+    a.close()
+    host = cgs.CacheGenSerializer(
+        LMCacheEngineConfig(local_device=None,
+                            remote_url="lm://localhost:1",
+                            cachegen_device_encode="off"),
+        LMCacheEngineMetadata(model_name=name, world_size=1,
+                              worker_id=0, fmt="vllm", dtype=cfg.dtype))
+    ref = host.to_bytes_batch(kv.chunk_blob(prefix, "vllm",
+                                            REMOTE_CHUNK))
+    equal = sum(w == r for w, r in zip(wire, ref))
+    wire_bytes = sum(len(w) for w in wire)
+    raw = prefix.numel() * prefix.element_size()
+
+    b = tier(pipelined_backend=True)
+    eng = MLAServingEngine(cfg, params, max_batch=1,
+                           max_seq=CTX + SUFFIX + 8, cache_engine=b)
+    kept = {}
+    finish = eng._finish_prefill
+
+    def finish_and_keep(req, logits):
+        kept[req.request_id] = logits.float().clone()
+        finish(req, logits)
+
+    eng._finish_prefill = finish_and_keep
+    with keeping_fused_decodes() as groups:
         t0 = time.perf_counter()
-        n = a.store(tokens_np[:CTX], prefix, blocking=True)
-        store_ms = (time.perf_counter() - t0) * 1e3
-        keys = [a._make_key(h, "vllm")
-                for h in prefix_chunk_hashes(tokens_np[:CTX], REMOTE_CHUNK)]
-        wire = [a.engine_.connection.get(k.to_string()) for k in keys]
-        a.close()
-        host = cgs.CacheGenSerializer(
-            LMCacheEngineConfig(local_device=None,
-                                remote_url="lm://localhost:1",
-                                cachegen_device_encode="off"),
-            LMCacheEngineMetadata(model_name=name, world_size=1,
-                                  worker_id=0, fmt="vllm", dtype=cfg.dtype))
-        ref = host.to_bytes_batch(kv.chunk_blob(prefix, "vllm",
-                                                REMOTE_CHUNK))
-        equal = sum(w == r for w, r in zip(wire, ref))
-        wire_bytes = sum(len(w) for w in wire)
-        raw = prefix.numel() * prefix.element_size()
-
-        b = tier(pipelined_backend=True)
-        eng = MLAServingEngine(cfg, params, max_batch=1,
-                               max_seq=CTX + SUFFIX + 8, cache_engine=b)
-        kept = {}
-        finish = eng._finish_prefill
-
-        def finish_and_keep(req, logits):
-            kept[req.request_id] = logits.float().clone()
-            finish(req, logits)
-
-        eng._finish_prefill = finish_and_keep
-        with keeping_fused_decodes() as groups:
-            t0 = time.perf_counter()
-            [req] = eng.generate([tokens_np], SamplingParams(max_new_tokens=1))
-            torch.cuda.synchronize()
-            serve_ms = (time.perf_counter() - t0) * 1e3
-        b.engine_.flush()
-        b.close()
-    finally:
-        proc.terminate()
-        try:
-            proc.wait(timeout=10)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait(timeout=10)
+        [req] = eng.generate([tokens_np], SamplingParams(max_new_tokens=1))
+        torch.cuda.synchronize()
+        serve_ms = (time.perf_counter() - t0) * 1e3
+    b.engine_.flush()
+    b.close()
     checks = fused_decodes_exact(groups)
     same_symbols = [c[0] for c in checks]
     same_blobs = [c[1] for c in checks]
@@ -4119,9 +4163,10 @@ def mla_remote(cfg, params, tokens_np, prefix, full_logits, kv_wire_bytes):
             "same_top1": int(logits.argmax()) == int(full_logits.argmax())}
 
 
-def phase_mla(kv_wire_bytes, reps=2):
+def phase_mla(kv_wire_bytes, url):
     """Phase 10: DeepSeek-V2-Lite at full width and depth with random bf16
-    weights. Returns (launch counts by sub-phase, the phase's numbers)."""
+    weights, 10e through the cache server at ``url``. Returns (launch counts
+    by sub-phase, the phase's numbers)."""
     cfg = MLA_CFG
     log(f"== phase 10: DeepSeek-V2-Lite ({cfg.n_layers} layers, "
         f"{cfg.n_heads} heads, latent {cfg.latent_dim} = "
@@ -4139,8 +4184,7 @@ def phase_mla(kv_wire_bytes, reps=2):
         f"{time.perf_counter() - t0:.1f} s")
     launches, out = {}, {"weights_bytes": n_bytes}
     reset_launch_counts()
-    out["bench"], tokens_np, full_logits, prefix = mla_bench(cfg, params,
-                                                             reps)
+    out["bench"], tokens_np, full_logits, prefix = mla_bench(cfg, params)
     launches["mla bench"] = read_launch_counts()
 
     first = {}
@@ -4181,7 +4225,7 @@ def phase_mla(kv_wire_bytes, reps=2):
             paged_first[arena], profile = paged_tinyllama_waves(
                 cfg, params, prompts, first["native"], kv_dtype,
                 engine_cls=MLAPagedServingEngine, model=MLA_MODEL, max_new=8,
-                long_new=66, after_wave3=injected_equal_dense, near_tie=True,
+                after_wave3=injected_equal_dense, near_tie=True,
                 routing=routing, profile_prefill=True)
         launches[f"mla paged {arena}"] = read_launch_counts()
         out["paged_decode_profiles"].append(profile)
@@ -4203,7 +4247,7 @@ def phase_mla(kv_wire_bytes, reps=2):
 
     reset_launch_counts()
     out["remote"] = mla_remote(cfg, params, tokens_np, prefix, full_logits,
-                               kv_wire_bytes)
+                               kv_wire_bytes, url)
     launches["mla remote"] = read_launch_counts()
     del prefix
     torch.cuda.empty_cache()
@@ -4211,7 +4255,7 @@ def phase_mla(kv_wire_bytes, reps=2):
         cfg, params, True, routing=routing,
         engines=[(MLAServingEngine, {}),
                  (MLAPagedServingEngine, {"page_size": PAGE,
-                                          "num_pages": NP_BLEND})])
+                                          "num_pages": NP_BLEND})], reps=1)
     launches.update(blend_launches)
     decode_launches, out["decode_options"] = mla_decode_options(cfg, params)
     launches.update(decode_launches)
@@ -4711,7 +4755,7 @@ def _rel(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def phase_blend(cfg, params, mla_model, routing=None, engines=()):
+def phase_blend(cfg, params, mla_model, routing=None, engines=(), reps=3):
     """CacheBlend at full width and depth on a RAG-shaped prompt (8
     retrieved documents of 1024 tokens, then a 128-token question; T 8320).
 
@@ -4728,8 +4772,9 @@ def phase_blend(cfg, params, mla_model, routing=None, engines=()):
     of ``engines`` (classes and their kwargs) admits a ``context_chunks``
     request whose first token is the blender's, and decodes. Reported: TTFT
     of the blend request in the first engine against a full prefill of the
-    same T, the tokens recomputed, a ``profile_window`` of one blend
-    admission. Returns (launch counts by engine, the phase's numbers)."""
+    same T (best of ``reps`` runs each), the tokens recomputed, a
+    ``profile_window`` of one blend admission. Returns (launch counts by
+    engine, the phase's numbers)."""
     name = "mla" if mla_model else "dense"
     model = mla if mla_model else llama
     log(f"== phase 12{'b' if mla_model else 'a'}: CacheBlend, "
@@ -4849,11 +4894,12 @@ def phase_blend(cfg, params, mla_model, routing=None, engines=()):
                 eng.run()
                 return r
 
-            times = [admit().ttft_s * 1e3 for _ in range(3)]
+            times = [admit().ttft_s * 1e3 for _ in range(reps)]
             rec["ttft_best_ms"] = min(times)
-            rec["ttft_full_ms"] = wall_best(prefill_full, n=3)
+            rec["ttft_full_ms"] = wall_best(prefill_full, n=reps, warm=False)
             rec["profile"] = profile_window(f"{name} blend admission", admit)
-            log(f"  TTFT blend {rec['ttft_best_ms']:.2f} ms (best of 3) vs "
+            log(f"  TTFT blend {rec['ttft_best_ms']:.2f} ms (best of {reps}) "
+                f"vs "
                 f"full prefill of {BLEND_T} tokens "
                 f"{rec['ttft_full_ms']:.2f} ms: "
                 f"{rec['ttft_full_ms'] / rec['ttft_best_ms']:.2f}x")
@@ -5039,15 +5085,16 @@ def moe_meter():
         stats["ms"] = sum(a.elapsed_time(b) for a, b in stats.pop("events"))
 
 
-def llama_bench(cfg, params, routing, model, reps):
+def llama_bench(cfg, params, routing, model):
     """13b's bench shape: full prefill of CTX + SUFFIX tokens, store of the
     CTX prefix into the "cuda" tier, retrieve, inject, suffix prefill. The
     suffix's expert choices in the reuse request are compared with the full
     prefill's: a request whose routing flipped in some (layer, token) is
     held to ``REL_L2_MOE`` and run again routed as the full prefill, which
     must hold ``REL_L2_REUSE``; else it is held to ``REL_L2_REUSE``. Phase
-    6d's top-1 rule. TTFT full and reuse, a profiler window and the MoE
-    MLP's device time and padded rows over each."""
+    6d's top-1 rule. TTFT full and reuse with the MoE MLP's device time
+    and padded rows over each (one run each after the gate's), and a
+    profiler window over the reuse request."""
     log(f"  -- 13b bench: prefill -> store -> retrieve -> inject -> suffix "
         f"prefill, CTX {CTX} + SUFFIX {SUFFIX}")
     S = CTX + SUFFIX
@@ -5101,10 +5148,6 @@ def llama_bench(cfg, params, routing, model, reps):
     if not ok:
         raise SystemExit(f"{model}: reuse logits disagree with the full "
                          f"prefill")
-    t_full = wall_best(lambda: prefill_full(), n=reps)
-    t_reuse = wall_best(prefill_reuse, n=reps)
-    log(f"  TTFT full {t_full:.2f} ms, TTFT reuse {t_reuse:.2f} ms, ratio "
-        f"{t_full / t_reuse:.2f}x (best of {reps} after a warm-up)")
     meters = []
     for name, fn in (("full prefill", lambda: prefill_full()),
                      ("reuse request", prefill_reuse)):
@@ -5120,9 +5163,12 @@ def llama_bench(cfg, params, routing, model, reps):
         meters.append({"window": name, "wall_ms": wall, "moe_ms": meter["ms"],
                        "block_rows": meter["block_rows"],
                        "pairs": meter["pairs"]})
-    profile = [profile_window(f"{model} full prefill",
-                              lambda: prefill_full(), top=8),
-               profile_window(f"{model} reuse request", prefill_reuse,
+    # the metered runs are the timed ones (the gate's were the warm-up):
+    # their CUDA events add no wait
+    t_full, t_reuse = meters[0]["wall_ms"], meters[1]["wall_ms"]
+    log(f"  TTFT full {t_full:.2f} ms, TTFT reuse {t_reuse:.2f} ms, ratio "
+        f"{t_full / t_reuse:.2f}x (the metered runs, after the gate's)")
+    profile = [profile_window(f"{model} reuse request", prefill_reuse,
                               top=8)]
     engine.close()
     return {"ttft_full_ms": t_full, "ttft_reuse_ms": t_reuse,
@@ -5130,7 +5176,7 @@ def llama_bench(cfg, params, routing, model, reps):
             "moe": meters, "profile": profile}
 
 
-def phase_qwen3_moe(reps=2):
+def phase_qwen3_moe():
     """Phase 13b: Qwen3-30B-A3B at full width and depth (48 layers, 128
     experts, top 8, qk-norm; random bf16 weights from a seeded generator,
     61 GB): the bench shape (:func:`llama_bench`), phase 4's four waves on
@@ -5148,7 +5194,7 @@ def phase_qwen3_moe(reps=2):
     launches, out = {}, {}
     routing = Routing(model="llama")
     reset_launch_counts()
-    out["bench"] = llama_bench(cfg, params, routing, QWEN_MOE_MODEL, reps)
+    out["bench"] = llama_bench(cfg, params, routing, QWEN_MOE_MODEL)
     launches["qwen3-moe bench"] = read_launch_counts()
     first = {}
     for kv_dtype in ("native", "int8"):
@@ -5173,7 +5219,7 @@ def phase_qwen3_moe(reps=2):
         with routing:
             paged_first[arena], profile = paged_tinyllama_waves(
                 cfg, params, prompts, first["native"], kv_dtype,
-                model=QWEN_MOE_MODEL, max_new=8, long_new=66, near_tie=True,
+                model=QWEN_MOE_MODEL, max_new=8, near_tie=True,
                 routing=routing)
         launches[f"qwen3-moe paged {arena}"] = read_launch_counts()
         out["paged_decode_profiles"].append(profile)
@@ -5847,12 +5893,7 @@ def phase_tiers(cfg, params):
             del eng
         out["hybrid"] = res
     finally:
-        proc.terminate()
-        try:
-            proc.wait(timeout=10)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait(timeout=10)
+        stop_process(proc)
     torch.cuda.empty_cache()
     return launches, out
 
@@ -6575,6 +6616,292 @@ def phase_hooks(cfg, params):
     return launches, out
 
 
+# ------------------------------------------- phase 20: the examples ---
+
+def phase_examples(url):
+    """Phase 20: every example of ``lmcache_tpu_torch/examples`` through its
+    ``main()`` on the card (tinyllama-1.1B; DeepSeek-V2-Lite at 3 layers for
+    the MLA one), the three that need a cache server on the shared one at
+    ``url``. Each example raises when its claim fails; the figures it
+    returns are held here too. Returns (launch counts by example, the
+    figures)."""
+    from lmcache_tpu_torch.examples import (
+        disaggregated_prefill, mla_latent_cache, offline_inference,
+        online_session, rag_blend, save_decode_cache, speculative_decode)
+    from lmcache_tpu_torch.examples.share_across_instances import share
+    from lmcache_tpu_torch.examples.storage_backends import round_trip
+    log("== phase 20: the examples (lmcache_tpu_torch/examples) on the card")
+    runs = (("offline_inference", offline_inference.main, {}),
+            ("save_decode_cache", save_decode_cache.main, {}),
+            ("online_session", online_session.main, {}),
+            ("share_across_instances", share.main, {"url": url}),
+            ("disaggregated_prefill", disaggregated_prefill.main,
+             {"url": url}),
+            ("storage_backends", round_trip.main, {"url": url}),
+            ("rag_blend", rag_blend.main, {}),
+            ("speculative_decode", speculative_decode.main, {}),
+            ("mla_latent_cache", mla_latent_cache.main, {}))
+    launches, out = {}, {}
+    for name, main_fn, kw in runs:
+        log(f"  -- {name}")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            out[name] = main_fn("cuda", **kw)
+        except RuntimeError as e:
+            raise SystemExit(f"example {name}: {e}")
+        torch.cuda.synchronize()
+        out[name]["seconds"] = time.perf_counter() - t0
+        launches[f"example {name}"] = read_launch_counts()
+        log(f"  {name}: {out[name]['seconds']:.1f} s; launches "
+            f"{launches[f'example {name}']}")
+        torch.cuda.empty_cache()
+
+    o, sd = out["offline_inference"], out["save_decode_cache"]
+    on, sh = out["online_session"], out["share_across_instances"]
+    dp, st = out["disaggregated_prefill"], out["storage_backends"]
+    rg, sp = out["rag_blend"], out["speculative_decode"]
+    ml = out["mla_latent_cache"]
+    climbs = on["cached_tokens"]
+    gates = {
+        "offline inference: the second request hits, the same tokens":
+            o["cached_prefix_len"][1] > 0 and o["tokens"][0] == o["tokens"][1],
+        "save decode cache: round 2 hits the generated tokens":
+            sd["with"] > sd["prompt"] and sd["with"] > sd["without"],
+        "online session: cached_tokens climbs":
+            all(b > a for a, b in zip(climbs, climbs[1:])),
+        "share across instances: B decodes A's tokens":
+            sh["cached_prefix_len"][1] > 0
+            and sh["tokens"][0] == sh["tokens"][1],
+        "disaggregated prefill: one instance's own tokens":
+            dp["cached_prefix_len"] > 0 and dp["tokens"] == dp["reference"],
+        "storage backends: bit for bit, hybrid_cachegen within the PSNR":
+            all(r["exact"] if n != "hybrid_cachegen.yaml"
+                else r["psnr_db"] >= round_trip.PSNR_DB
+                for n, r in st.items() if n != "seconds"),
+        "CacheBlend: closer to the full prefill than naive reuse":
+            rg["rel_l2"] < rg["rel_l2_naive"],
+        "speculative decode: greedy tokens in fewer engine steps":
+            sp["accepted"] > 0 and sp["steps_spec"] < sp["steps_plain"],
+        "MLA latent cache: the reuse decodes the full prefill's tokens":
+            ml["cached_prefix_len"] > 0 and ml["tokens"][0] == ml["tokens"][1]
+            and ml["bytes_ratio"] == 2 * 8 * 128 / mla_latent_cache.mla_config(
+                "cuda").latent_dim,
+    }
+    for claim, ok in gates.items():
+        log(f"  {claim}: {'ok' if ok else 'FAILED'}")
+    failed = [claim for claim, ok in gates.items() if not ok]
+    if failed:
+        raise SystemExit("phase 20: " + "; ".join(failed))
+    return launches, out
+
+
+# ------------------------------------------- phase 21: training on the card ---
+
+TRAIN_CHECK_LR = 5e-4  # 21a's one update: the --init rate, held constant
+# 21a's rule, the card (fp32, TF32 off) against the CPU on one batch of the
+# committed checkpoints, whose loss is 0.001-0.003: the loss is the log of
+# a probability near 1 (fp32 rounds logits near 16 to 1e-6), each gradient
+# leaf a sum of near-cancelling terms (relative L2; the CPU's fp32 lies
+# 5e-5 from its fp64 there), and AdamW's first update lr x g / (|g| +
+# eps) flips with the sign of the gradient elements smaller than their
+# rounding (6.5e-6 of them between the CPU's fp32 and fp64: a relative L2
+# of the updates of 7e-4)
+TRAIN_LOSS_ATOL = 1e-6
+TRAIN_GRAD_REL_L2 = 2e-3
+TRAIN_UPDATE_REL_L2 = 1e-2
+FROM_SEED_STEPS = 200  # 21b: the first steps of the tool's 5600-step run
+FROM_SEED_RUN = 5600
+FINETUNE_STEPS = 10  # 21c
+LONG_T, LONG_R = 8256, 2048
+COPY_ACC = 0.99  # the JAX checkpoint tests' rule
+
+
+def train_step_against_cpu(family, cfg, path):
+    """21a: one step of ``Trainer`` on the card and on the CPU from the
+    committed checkpoint, on ``make_train_batch(default_rng(0), 4, 256,
+    32)``."""
+    tokens = quality_common.make_train_batch(np.random.default_rng(0), 4,
+                                             256, 32)
+    mask = quality_common.target_mask(256, 32)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        params = quality_common.load_params(cfg, path, device=dev)
+        trainer = train_tool.Trainer(cfg, params,
+                                     lambda count: TRAIN_CHECK_LR)
+        before = [p.detach().to("cpu", copy=True) for _, p in trainer.named]
+        loss, acc = trainer.gradients(tokens, mask)
+        grads = [p.grad.detach().to("cpu", copy=True)
+                 for _, p in trainer.named]
+        trainer.update()
+        update = torch.cat([(p.detach().cpu() - b).flatten() for (_, p), b
+                            in zip(trainer.named, before)])
+        res[dev] = (loss, acc, grads, update)
+    (loss, acc, grads, upd), (loss_c, acc_c, grads_c, upd_c) = (
+        res["cuda"], res["cpu"])
+    grad_rel = max(float((g - w).norm() / w.norm().clamp_min(1e-30))
+                   for g, w in zip(grads, grads_c))
+    upd_rel = float((upd - upd_c).norm() / upd_c.norm())
+    flipped = float((upd * upd_c < 0).float().mean())
+    ok = (abs(loss - loss_c) <= TRAIN_LOSS_ATOL and acc == acc_c
+          and grad_rel <= TRAIN_GRAD_REL_L2
+          and upd_rel <= TRAIN_UPDATE_REL_L2)
+    log(f"  21a {family}: loss {loss:.8f} on the card, {loss_c:.8f} on the "
+        f"CPU (atol {TRAIN_LOSS_ATOL}); accuracy {acc:.4f} / {acc_c:.4f}; "
+        f"worst gradient leaf rel_l2 {grad_rel:.3e} (at most "
+        f"{TRAIN_GRAD_REL_L2}); the updates' rel_l2 {upd_rel:.3e} (at most "
+        f"{TRAIN_UPDATE_REL_L2}), {flipped:.2e} of them of the other sign, "
+        f"max |diff| {float((upd - upd_c).abs().max()):.3e}: "
+        f"{'ok' if ok else 'FAILED'}")
+    return {"loss": loss, "loss_cpu": loss_c, "acc": acc, "acc_cpu": acc_c,
+            "grad_worst_rel_l2": grad_rel, "update_rel_l2": upd_rel,
+            "update_flipped": flipped, "ok": ok}
+
+
+def train_from_seed():
+    """21b: the dense model from seed 0 through the first FROM_SEED_STEPS
+    steps of the tool's run (stage 1 of ``CURRICULUM``, T 256, batch 64);
+    the mean loss of the last 20 steps must lie below the first 20's."""
+    cfg = quality_common.quality_config()
+    params = llama.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+        device="cuda")
+    trainer = train_tool.Trainer(
+        cfg, params, train_tool.warmup_cosine_schedule(2e-3, FROM_SEED_RUN))
+    rng = np.random.default_rng(0)
+    losses, step_s, tokens = [], [], 0
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(FROM_SEED_STEPS):
+        T, R = train_tool.shape_for_step(step, FROM_SEED_RUN,
+                                         train_tool.CURRICULUM)
+        B = train_tool.batch_for(T, 32)
+        batch = quality_common.make_train_batch(rng, B, T, R)
+        t0 = time.perf_counter()
+        loss, _ = trainer.step(batch, quality_common.target_mask(T, R))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss)
+        tokens = B * T
+    steady = sorted(step_s[10:])[len(step_s[10:]) // 2]
+    first, last = np.mean(losses[:20]), np.mean(losses[-20:])
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  21b from seed 0: {FROM_SEED_STEPS} steps of stage 1 (T 256, "
+        f"batch {tokens // 256}): mean loss of the first 20 steps "
+        f"{first:.4f}, of the last 20 {last:.4f}; step {steady * 1e3:.2f} ms "
+        f"(median after 10), {tokens / steady:.0f} tokens/s; peak memory "
+        f"{peak / 2**30:.3f} GiB; {'ok' if last < first else 'FAILED'}")
+    return {"loss_first20": float(first), "loss_last20": float(last),
+            "step_ms": steady * 1e3, "tokens_per_s": tokens / steady,
+            "peak_bytes": peak, "ok": bool(last < first)}
+
+
+def train_long_finetune(family, cfg, path):
+    """21c: the --init finetune from the committed checkpoint at T 8256, R
+    2048 for FINETUNE_STEPS steps under remat (the tool's default schedule
+    of an --init run), then one step's gradients without remat; the copy
+    accuracy of each step's batch and of the held-out band must stay at
+    least COPY_ACC."""
+    params = quality_common.load_params(cfg, path, device="cuda")
+    trainer = train_tool.Trainer(
+        cfg, params, train_tool.warmup_cosine_schedule(
+            5e-4, 1400 if family == "llama" else 1000))
+    B = train_tool.batch_for(LONG_T, 32, family)
+    rng = np.random.default_rng(0)
+    mask = quality_common.target_mask(LONG_T, LONG_R)
+    torch.cuda.reset_peak_memory_stats()
+    accs, step_s = [], []
+    for _ in range(FINETUNE_STEPS):
+        batch = quality_common.make_train_batch(rng, B, LONG_T, LONG_R)
+        t0 = time.perf_counter()
+        _, acc = trainer.step(batch, mask)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        accs.append(acc)
+    peak_remat = torch.cuda.max_memory_allocated()
+    [(_, _, held_loss, held_acc)] = train_tool.evaluate(
+        cfg, params, [(LONG_T, LONG_R)])
+    trainer.opt.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.remat = False
+    try:
+        trainer.gradients(batch, mask)
+        peak_plain = torch.cuda.max_memory_allocated()
+    except torch.cuda.OutOfMemoryError:
+        peak_plain = None
+    trainer.opt.zero_grad(set_to_none=True)
+    del trainer, params
+    torch.cuda.empty_cache()
+    ok = min(accs) >= COPY_ACC and held_acc >= COPY_ACC
+    step = sorted(step_s)[len(step_s) // 2]
+    log(f"  21c {family} --init finetune, {FINETUNE_STEPS} steps at T "
+        f"{LONG_T}, R {LONG_R}, batch {B}: copy accuracy of the steps' "
+        f"batches {min(accs):.4f}..{max(accs):.4f}, held-out {held_acc:.4f} "
+        f"(nll {held_loss:.4f}; at least {COPY_ACC}); step "
+        f"{step * 1e3:.1f} ms (median), {B * LONG_T / step:.0f} tokens/s; "
+        f"peak memory of a step {peak_remat / 2**30:.3f} GiB with remat, "
+        + (f"{peak_plain / 2**30:.3f} GiB without"
+           if peak_plain is not None else "out of memory without")
+        + f"; {'ok' if ok else 'FAILED'}")
+    return {"batch": B, "accs": accs, "held_acc": held_acc,
+            "held_nll": held_loss, "step_ms": step * 1e3,
+            "tokens_per_s": B * LONG_T / step, "peak_bytes_remat": peak_remat,
+            "peak_bytes_no_remat": peak_plain, "ok": ok}
+
+
+def self_check_bands(family, path):
+    """21d: the tool's self-check bands of a committed checkpoint; every
+    band at the trained distances (R <= 2048) at least COPY_ACC, as the JAX
+    checkpoint tests hold them."""
+    rows = train_tool.self_check(family, path, "cuda")
+    ok = all(acc >= COPY_ACC for _, R, _, acc in rows if R <= 2048)
+    for T, R, loss, acc in rows:
+        log(f"  21d {family} eval T={T:5d} R={R:5d}: nll {loss:.4f} "
+            f"(ppl {float(np.exp(loss)):.4f})  copy-acc {acc:.4f}")
+    log(f"  21d {family}: bands at R <= 2048 at least {COPY_ACC}: "
+        f"{'ok' if ok else 'FAILED'}")
+    return {"bands": [{"T": T, "R": R, "nll": loss, "acc": acc}
+                      for T, R, loss, acc in rows], "ok": ok}
+
+
+def phase_training():
+    """Phase 21: the quality checkpoints' trainer
+    (``lmcache_tpu_torch/tools/train_quality_model.py``) on the card at the
+    full quality widths, fp32 with TF32 off: 21a one step against the CPU
+    per family, 21b from seed 0, 21c the long finetune per family, 21d the
+    self-check bands of both committed checkpoints. Training runs the plain
+    attention under autograd, so no hand kernel may launch. Returns (launch
+    counts, the numbers)."""
+    log("== phase 21: training the quality models on the card (fp32, TF32 "
+        "off)")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("phase 21: TF32 is on")
+    families = (("llama", quality_common.quality_config(),
+                 quality_common.CKPT_PATH),
+                ("mla", quality_common.quality_mla_config(),
+                 quality_common.MLA_CKPT_PATH))
+    reset_launch_counts()
+    out = {"step_vs_cpu": {f: train_step_against_cpu(f, c, p)
+                           for f, c, p in families},
+           "from_seed": train_from_seed(),
+           "finetune": {f: train_long_finetune(f, c, p)
+                        for f, c, p in families},
+           "self_check": {f: self_check_bands(f, p) for f, _, p in families}}
+    launches = read_launch_counts()
+    log(f"  hand kernels launched by training: {launches or 'none'}")
+    failed = ([f"21a {f}" for f, r in out["step_vs_cpu"].items()
+               if not r["ok"]]
+              + ([] if out["from_seed"]["ok"] else ["21b"])
+              + [f"21c {f}" for f, r in out["finetune"].items()
+                 if not r["ok"]]
+              + [f"21d {f}" for f, r in out["self_check"].items()
+                 if not r["ok"]]
+              + (["a hand kernel launched"] if launches else []))
+    if failed:
+        raise SystemExit("phase 21: " + ", ".join(failed))
+    return {"training": launches}, out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6585,25 +6912,49 @@ def main():
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
+    # one cache server for phases 9, 10e and 20, started while phase 1
+    # builds
+    server, url = start_cache_server(wait=False)
+    try:
+        return run_phases(card, server, url)
+    finally:
+        stop_process(server)
 
-    log("== phase 1: build")
+
+@contextmanager
+def phase_clock(name, seconds):
+    """Time the phase run while entered (to a synchronize) into
+    ``seconds[name]`` and print it on a line of its own."""
     t0 = time.perf_counter()
-    libs = _build.build()
-    log(f"  built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
-    for name, text in _build.build_logs.items():
-        for line in text.splitlines():
-            if any(w in line for w in ("registers", "spill", "error",
-                                       "wgmma")):
-                log(f"  nvcc {name}: {line.strip()}")
-    sass = sass_counts(libs)
-    int8_paged = int8_paged_report(sass)
-    paged_softcap = paged_softcap_report(sass)
-    variant_build = variant_report(sass)
+    yield
+    torch.cuda.synchronize()
+    seconds[name] = time.perf_counter() - t0
+    log(f"phase {name}: {seconds[name]:.1f} s")
 
-    max_abs = phase_kernels()
+
+def run_phases(card, server, url):
+    seconds = {}
+    log("== phase 1: build")
+    with phase_clock("1", seconds):
+        t0 = time.perf_counter()
+        libs = _build.build()
+        log(f"  built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+        for name, text in _build.build_logs.items():
+            for line in text.splitlines():
+                if any(w in line for w in ("registers", "spill", "error",
+                                           "wgmma")):
+                    log(f"  nvcc {name}: {line.strip()}")
+        sass = sass_counts(libs)
+        int8_paged = int8_paged_report(sass)
+        paged_softcap = paged_softcap_report(sass)
+        variant_build = variant_report(sass)
+
+    with phase_clock("2", seconds):
+        max_abs = phase_kernels()
     launches = {}
-    ablation_launches, ablation_rows, ablation_worst, ablation = (
-        phase_ablation())
+    with phase_clock("11", seconds):
+        ablation_launches, ablation_rows, ablation_worst, ablation = (
+            phase_ablation())
     launches.update(ablation_launches)
     max_abs.update(ablation_worst)
 
@@ -6612,63 +6963,92 @@ def main():
         cfg, generator=torch.Generator(device="cuda").manual_seed(0))
 
     # every path is driven with the counts at 0 and read just after
-    reset_launch_counts()
-    ttft = phase_main_path(cfg, params)
-    launches["main_path"] = read_launch_counts()
+    with phase_clock("3", seconds):
+        reset_launch_counts()
+        ttft = phase_main_path(cfg, params)
+        launches["main_path"] = read_launch_counts()
     phase3_logits = ttft.pop("full_logits")
-    reset_launch_counts()
-    prompts, dense_logits = phase_serving(cfg, params)
-    launches["serving"] = read_launch_counts()
-    paged_launches, decode_profiles = phase_paged_tinyllama(
-        cfg, params, prompts, dense_logits)
+    with phase_clock("4", seconds):
+        reset_launch_counts()
+        prompts, dense_logits = phase_serving(cfg, params)
+        launches["serving"] = read_launch_counts()
+    with phase_clock("5", seconds):
+        paged_launches, decode_profiles = phase_paged_tinyllama(
+            cfg, params, prompts, dense_logits)
     launches.update(paged_launches)
-    int8_launches, int8_bench, dense_decode_profiles = phase_int8_dense(
-        cfg, params, prompts, dense_logits)
+    with phase_clock("6c", seconds):
+        int8_launches, int8_bench, dense_decode_profiles = phase_int8_dense(
+            cfg, params, prompts, dense_logits)
     launches.update(int8_launches)
-    stream_launches, stream_ttft = phase_streamed_prefill(cfg, params)
+    with phase_clock("6e", seconds):
+        stream_launches, stream_ttft = phase_streamed_prefill(cfg, params)
     launches.update(stream_launches)
-    remote_launches, remote = phase_remote(cfg, params, ttft["ttft_full_ms"])
+    await_cache_server(server, url)
+    with phase_clock("9", seconds):
+        remote_launches, remote = phase_remote(cfg, params,
+                                               ttft["ttft_full_ms"], url)
     launches.update(remote_launches)
     del dense_logits
     torch.cuda.empty_cache()
-    blend_launches, blend_out = phase_blend(
-        cfg, params, False,
-        engines=[(ServingEngine, {}), (ServingEngine, {"kv_dtype": "int8"}),
-                 (PagedServingEngine, {"page_size": PAGE,
-                                       "num_pages": NP_BLEND})])
+    with phase_clock("12a", seconds):
+        blend_launches, blend_out = phase_blend(
+            cfg, params, False,
+            engines=[(ServingEngine, {}),
+                     (ServingEngine, {"kv_dtype": "int8"}),
+                     (PagedServingEngine, {"page_size": PAGE,
+                                           "num_pages": NP_BLEND})])
     launches.update(blend_launches)
-    decode_launches, decode_out = phase_decode_options(cfg, params)
+    with phase_clock("14", seconds):
+        decode_launches, decode_out = phase_decode_options(cfg, params)
     launches.update(decode_launches)
-    tier_launches, tier_out = phase_tiers(cfg, params)
+    with phase_clock("16", seconds):
+        tier_launches, tier_out = phase_tiers(cfg, params)
     launches.update(tier_launches)
-    ckpt_launches, ckpt_out, loaded = phase_checkpoints(cfg, params,
-                                                        phase3_logits)
+    with phase_clock("17", seconds):
+        ckpt_launches, ckpt_out, loaded = phase_checkpoints(cfg, params,
+                                                            phase3_logits)
     launches.update(ckpt_launches)
-    http_launches, http_out = phase_http(cfg, loaded)
+    with phase_clock("18", seconds):
+        http_launches, http_out = phase_http(cfg, loaded)
     launches.update(http_launches)
-    hook_launches, hook_out = phase_hooks(cfg, loaded)
+    with phase_clock("19", seconds):
+        hook_launches, hook_out = phase_hooks(cfg, loaded)
     launches.update(hook_launches)
-    del loaded, phase3_logits
+    del loaded, phase3_logits, params
     torch.cuda.empty_cache()
-    quality_launches, quality_out = phase_quality()
+    with phase_clock("20", seconds):
+        example_launches, example_out = phase_examples(url)
+    launches.update(example_launches)
+    with phase_clock("21", seconds):
+        train_launches, train_out = phase_training()
+    launches.update(train_launches)
+    torch.cuda.empty_cache()
+    with phase_clock("15", seconds):
+        quality_launches, quality_out = phase_quality()
     launches.update(quality_launches)
-    del params
     torch.cuda.empty_cache()
-    remote["codec_throughput"] = phase_codec_throughput()
+    with phase_clock("9b", seconds):
+        remote["codec_throughput"] = phase_codec_throughput()
     torch.cuda.empty_cache()
-    phi3_launches, phi3_profiles = phase_paged_phi3()
+    with phase_clock("6", seconds):
+        phi3_launches, phi3_profiles = phase_paged_phi3()
     launches.update(phi3_launches)
-    mistral_launches, mistral_profiles = phase_mistral()
+    with phase_clock("6d", seconds):
+        mistral_launches, mistral_profiles = phase_mistral()
     launches.update(mistral_launches)
     torch.cuda.empty_cache()
-    mla_launches, mla_out = phase_mla(remote["store"]["wire_bytes"])
+    with phase_clock("10", seconds):
+        mla_launches, mla_out = phase_mla(remote["store"]["wire_bytes"], url)
     launches.update(mla_launches)
     torch.cuda.empty_cache()
-    qwen_launches, qwen_out = phase_qwen3_moe()
+    with phase_clock("13b", seconds):
+        qwen_launches, qwen_out = phase_qwen3_moe()
     launches.update(qwen_launches)
-    preset_launches, preset_out = phase_presets()
+    with phase_clock("13a", seconds):
+        preset_launches, preset_out = phase_presets()
     launches.update(preset_launches)
-    gemma2_launches, gemma2_profiles = phase_gemma2()
+    with phase_clock("13c", seconds):
+        gemma2_launches, gemma2_profiles = phase_gemma2()
     launches.update(gemma2_launches)
     reset_launch_counts()
 
@@ -6806,6 +7186,16 @@ def main():
                                  "paged_attention_dma",
                                  "quantized_paged_attention_dma")] + [
             ("combine_partials", ("decode",))]
+    dense_serving = expected["checkpoint tinyllama"]
+    for name in ("offline_inference", "save_decode_cache", "online_session",
+                 "share_across_instances", "disaggregated_prefill",
+                 "speculative_decode"):
+        expected[f"example {name}"] = dense_serving
+    expected["example storage_backends"] = [("range_encode", ("store",)),
+                                            ("range_decode", ("retrieve",))]
+    expected["example rag_blend"] = ("flash_attention", ("prefill",))
+    expected["example mla_latent_cache"] = ("latent_flash_attention",
+                                            ("prefill", "decode"))
     for phase, wanted in expected.items():
         for kernel, kinds in (wanted if isinstance(wanted, list)
                               else [wanted]):
@@ -6813,7 +7203,11 @@ def main():
                 if launches[phase].get(kernel, {}).get(kind, 0) <= 0:
                     raise SystemExit(f"{kernel}: no {kind} launch in {phase}")
 
-    rows = phase_yardstick()
+    if launches["training"]:
+        raise SystemExit(f"training launched {launches['training']}")
+
+    with phase_clock("8", seconds):
+        rows = phase_yardstick()
     rows.update(ablation_rows)
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():
@@ -6842,10 +7236,14 @@ def main():
               "ablation": ablation, "blend": blend_out,
               "decode_options": decode_out, "quality": quality_out,
               "tiers": tier_out, "checkpoints": ckpt_out, "http": http_out,
-              "hooks": hook_out,
+              "hooks": hook_out, "examples": example_out,
+              "training": train_out, "phase_seconds": seconds,
               "int8_paged_build": int8_paged,
               "paged_softcap_build": paged_softcap,
               "variant_build": variant_build, "card": card}
+    log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in seconds.items()))
+    log(card)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

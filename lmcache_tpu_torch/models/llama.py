@@ -15,6 +15,9 @@
   from the cache: the Hopper kernel on CUDA tensors, the plain version on CPU
   tensors. Prefill-with-cached-prefix and decode are one code path with
   different ``T``;
+- :func:`forward_train` is the differentiable step that training runs
+  (``tools/train_quality_model.py``): no pool, the plain attention over the
+  step's own K/V, each layer optionally recomputed in the backward pass;
 - :func:`forward_quantized` is the same step over an int8 pool
   ``{"sym" [L, 2, B, H_kv, S, D] int8, "scale" [L, 2, B, S] fp32}``: the new
   tokens are quantized per (layer, token) and written first, then attention
@@ -50,6 +53,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from lmcache_tpu_torch.models import experts, hf_checkpoint
 from lmcache_tpu_torch.ops.attention import flash_attention, mha_reference
@@ -1458,16 +1462,22 @@ def _layer(x, lp, cfg, kc, vc, positions, start_pos, kv_len, window, g,
            use_kernel):
     """One decoder layer (window ``window``, is-global flag ``g``); writes
     this step's K/V into ``kc``/``vc`` ([B, H_kv, S, D] views of the pool)
-    in place."""
+    in place. Without a pool (``kc`` None: a training step of
+    :func:`forward_train`, every row from position 0) the queries attend
+    over the step's own K/V with the plain attention, which autograd
+    differentiates."""
     B = x.shape[0]
     q, k, v = _qkv_heads(_attn_input(x, lp, cfg), lp, cfg, positions, g)
+    opts = _attention_options(cfg, lp, window)
+    if kc is None:
+        attn = mha_reference(q, k, v, start_pos, kv_len, **opts)
+        return _block(x, attn, lp, cfg)
 
     # scatter [B, T, H, D] into the head-major pool at each row's offset
     rows = torch.arange(B, device=x.device)[:, None]
     kc[rows, :, positions] = k.to(kc.dtype)
     vc[rows, :, positions] = v.to(vc.dtype)
 
-    opts = _attention_options(cfg, lp, window)
     if use_kernel:
         attn = flash_attention(q, kc, vc, start_pos, kv_len,
                                kv_head_major=True, **opts)
@@ -1540,6 +1550,34 @@ def forward(
     if last_logit_only:
         x = x[:, -1:]
     return _lm_logits(x, params, cfg), kv_cache
+
+
+def forward_train(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
+                  *, remat: bool = True) -> torch.Tensor:
+    """The differentiable forward that training runs, the JAX file's
+    ``forward(..., use_pallas=False, remat=remat)`` over a fresh pool: every
+    row starts at position 0, so each layer attends over the step's own K/V
+    (:func:`_layer` without a pool) and no pool is written. With ``remat``
+    each layer runs under ``torch.utils.checkpoint`` and is recomputed in
+    the backward pass, so that one layer's ``[B, H, T, T]`` fp32 scores are
+    live at a time, not every layer's (``jax.checkpoint`` in the JAX file).
+    ``tokens`` int [B, T] on the parameters' device; returns logits
+    [B, T, vocab] fp32."""
+    check_supported(cfg)
+    B, T = tokens.shape
+    dev = params["embed"].device
+    start_pos, positions, kv_len = _positions(
+        torch.zeros(B, dtype=torch.int32, device=dev), T, dev)
+    x = _embed(params, cfg, tokens.to(dev))
+    lps = params["layers"]
+    for li, window, g in _layer_plan(cfg):
+        lp = {name: w[li] for name, w in lps.items()}
+        args = (x, lp, cfg, None, None, positions, start_pos, kv_len, window,
+                g, False)
+        x = (torch.utils.checkpoint.checkpoint(_layer, *args,
+                                               use_reentrant=False)
+             if remat else _layer(*args))
+    return _lm_logits(x, params, cfg)
 
 
 @torch.no_grad()

@@ -26,6 +26,9 @@ DeepSeek-V2-Lite geometry 576 values a token and layer.
   (scattered into padded per-expert blocks, one batched product a weight),
   the same function as the JAX file's every-expert scan, whose unselected
   experts are weighted by exactly 0;
+- :func:`forward_train` is the differentiable step that training runs
+  (``tools/train_quality_model.py``): no pool, the plain attention over the
+  step's own latents, each layer optionally recomputed in the backward pass;
 - :func:`cache_to_blob` emits the wire blob ``[L, 1, T, 1, r + p]``, so
   latent blobs flow through chunking, serde, every tier and the server
   unchanged. The paged arenas' lane pad never reaches the wire.
@@ -42,13 +45,14 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from lmcache_tpu_torch.models import experts, hf_checkpoint
 from lmcache_tpu_torch.models.llama import (_positions, _rms_norm, _rope,
                                             _tensor_from_numpy, torch_dtype)
 from lmcache_tpu_torch.ops.latent_attention import (
-    dequantize_latents, latent_flash_attention, quantize_latents,
-    quantized_latent_flash_attention)
+    dequantize_latents, latent_attention_reference, latent_flash_attention,
+    quantize_latents, quantized_latent_flash_attention)
 from lmcache_tpu_torch.ops.paged_latent_attention import (
     paged_latent_attention_dma, quantized_paged_latent_attention_dma)
 from lmcache_tpu_torch.utils import resolve_device
@@ -669,12 +673,19 @@ def _mla_attention(x, lp, cfg: MLAConfig, cache_l, start_pos, positions,
                    kv_len):
     """Absorbed-latent MLA attention of one layer against ``cache_l`` ([B, S,
     C], or the int8 ``{"sym", "scale"}`` views), into which the new tokens'
-    latents are written first, in place."""
+    latents are written first, in place. Without a pool (``cache_l`` None: a
+    training step of :func:`forward_train`, every row from position 0) the
+    queries attend over the step's own latents with the plain attention,
+    which autograd differentiates."""
     B = x.shape[0]
     r = cfg.kv_lora_rank
     q_full, new_tok = _mla_project(x, lp, cfg, positions)
-    rows = torch.arange(B, device=x.device)[:, None]
     kw = dict(rank=r, scale=cfg.sm_scale)
+    if cache_l is None:
+        ctx = latent_attention_reference(q_full, new_tok, start_pos, kv_len,
+                                         **kw)
+        return _context_out(ctx, lp, cfg, x)
+    rows = torch.arange(B, device=x.device)[:, None]
     if isinstance(cache_l, dict):
         sym, scl = cache_l["sym"], cache_l["scale"]
         n_sym, n_sc = quantize_latents(new_tok)
@@ -768,6 +779,13 @@ def _mlp_residual(x, attn, lp, cfg: MLAConfig, moe: bool):
     return x + _swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
 
 
+def _layer(x, lp, cfg: MLAConfig, cache_l, start_pos, positions, kv_len,
+           moe: bool):
+    """One decoder layer over ``cache_l`` (None: a training step)."""
+    attn = _mla_attention(x, lp, cfg, cache_l, start_pos, positions, kv_len)
+    return _mlp_residual(x, attn, lp, cfg, moe)
+
+
 def _layers(params, cfg: MLAConfig):
     """(layer index, its parameters, whether it is an MoE layer), in order:
     the dense block, then the MoE block."""
@@ -816,10 +834,32 @@ def forward(
     for li, lp, moe in _layers(params, cfg):
         cache_l = ({k: v[li] for k, v in latent_cache.items()} if quant
                    else latent_cache[li])
-        attn = _mla_attention(x, lp, cfg, cache_l, start_pos, positions,
-                              kv_len)
-        x = _mlp_residual(x, attn, lp, cfg, moe)
+        x = _layer(x, lp, cfg, cache_l, start_pos, positions, kv_len, moe)
     return _logits(x, params, cfg, last_logit_only), latent_cache
+
+
+def forward_train(params: Params, cfg: MLAConfig, tokens: torch.Tensor, *,
+                  remat: bool = True) -> torch.Tensor:
+    """The differentiable forward that training runs, the JAX file's
+    ``forward(..., use_pallas=False, remat=remat)`` over a fresh latent
+    pool: every row starts at position 0, so each layer attends over the
+    step's own latents and no pool is written. With ``remat`` each layer is
+    recomputed in the backward pass (``torch.utils.checkpoint``), so that
+    one layer's ``[B, H, T, T]`` fp32 scores are live at a time. ``tokens``
+    int [B, T] on the parameters' device; returns logits [B, T, vocab]
+    fp32."""
+    check_supported(cfg)
+    B, T = tokens.shape
+    dev = params["embed"].device
+    start_pos, positions, kv_len = _positions(
+        torch.zeros(B, dtype=torch.int32, device=dev), T, dev)
+    x = params["embed"][tokens.to(dev).long()]
+    for _, lp, moe in _layers(params, cfg):
+        args = (x, lp, cfg, None, start_pos, positions, kv_len, moe)
+        x = (torch.utils.checkpoint.checkpoint(_layer, *args,
+                                               use_reentrant=False)
+             if remat else _layer(*args))
+    return _logits(x, params, cfg, False)
 
 
 def _mla_attention_paged(x, lp, cfg: MLAConfig, pool_l, table, pidx, poff,

@@ -1,7 +1,8 @@
 """The in-repo trained quality checkpoints and their evaluation corpus.
 
-Port of ``tools/quality_common.py`` (the parts that evaluation needs; the
-training helpers stay with the JAX tool). The two checkpoints are retrieval
+Port of ``tools/quality_common.py``: the configs, the corpus, and the
+checkpoint files that ``tools/eval_quality.py`` reads and
+``tools/train_quality_model.py`` writes. The two checkpoints are retrieval
 models trained on a copy-with-offset corpus: each sequence is
 ``s[t] = s[t - R]`` for ``t >= R`` over a base of ``R`` distinct tokens, so
 a trained model predicts position ``t >= R`` only by retrieving the KV
@@ -15,14 +16,17 @@ breaks the prediction, and the perplexity delta measures it.
 
 Both are float16 npz files of the JAX parameter trees, leaves named by
 their ``"/"``-joined paths. :func:`load_params` rebuilds the tree and
-carries it onto the port's parameters in the config's dtype on ``device``.
-The corpus functions are numpy copies of the JAX tool's, so the tokens of a
-seed are the JAX tool's tokens.
+carries it onto the port's parameters in the config's dtype on ``device``;
+:func:`save_params` writes the port's parameters back in that format, which
+the JAX tool's ``load_params`` reads too. The corpus functions are numpy
+copies of the JAX tool's, so the tokens and batches of a seed are the JAX
+tool's.
 """
 
 import os
 
 import numpy as np
+import torch
 
 from lmcache_tpu_torch.models import llama, mla
 
@@ -69,6 +73,47 @@ def make_eval_tokens(rng: np.random.Generator, total: int) -> np.ndarray:
     """An evaluation sequence with retrieval distance ``total // 2``,
     capped at 2048, the top of the distances the models were trained on."""
     return make_sequence(rng, total, min(total // 2, 2048))
+
+
+def make_train_batch(rng: np.random.Generator, batch: int, total: int,
+                     repeat: int) -> np.ndarray:
+    """[batch, total] independent copy-task rows with one shared
+    ``repeat``."""
+    # argsort of uniform noise = a batch of random permutations
+    base = np.argsort(rng.random((batch, VOCAB)), axis=1)[:, :repeat]
+    reps = -(-total // repeat)
+    return np.tile(base, (1, reps))[:, :total].astype(np.int32)
+
+
+def target_mask(total: int, repeat: int) -> np.ndarray:
+    """[total - 1] bool: the next-token targets that the copy rule
+    determines (``t + 1 >= repeat``). The base segment's targets are iid
+    noise with nothing to learn, so the loss leaves them out."""
+    t = np.arange(total - 1)
+    return (t + 1) >= repeat
+
+
+def flatten(params: dict) -> dict:
+    """{``"/"``-joined key path: tensor} of every leaf of a parameter
+    tree, in key order: the names of the checkpoint files."""
+    flat = {}
+    for key, value in params.items():
+        if isinstance(value, dict):
+            flat.update({f"{key}/{k}": v for k, v in flatten(value).items()})
+        else:
+            flat[key] = value
+    return flat
+
+
+def save_params(params: dict, path: str) -> None:
+    """Write the port's parameters (llama or MLA) as the JAX tool does:
+    each leaf under its :func:`flatten` name, as float16, in one compressed
+    npz at ``path``. :func:`load_tree` and the JAX tool's ``load_params``
+    read it."""
+    flat = {name: t.detach().to("cpu", torch.float32).numpy().astype(
+        np.float16) for name, t in flatten(params).items()}
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez_compressed(path, **flat)
 
 
 def load_tree(path: str = CKPT_PATH) -> dict:

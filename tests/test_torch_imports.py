@@ -54,7 +54,21 @@ def test_import_leaves_jax_and_lmcache_tpu_out():
             "lmcache_tpu_torch.storage.serde.safe_serde, "
             "lmcache_tpu_torch.storage.connector.redis_connector, "
             "lmcache_tpu_torch.models.hf_checkpoint, "
-            "lmcache_tpu_torch.serving.api, lmcache_tpu_torch.integration; "
+            "lmcache_tpu_torch.serving.api, lmcache_tpu_torch.integration, "
+            "lmcache_tpu_torch.tools.train_quality_model, "
+            "lmcache_tpu_torch.examples, "
+            "lmcache_tpu_torch.examples.offline_inference, "
+            "lmcache_tpu_torch.examples.save_decode_cache, "
+            "lmcache_tpu_torch.examples.demo_tokenizer, "
+            "lmcache_tpu_torch.examples.online_session, "
+            "lmcache_tpu_torch.examples.chat_client, "
+            "lmcache_tpu_torch.examples.frontend.serve, "
+            "lmcache_tpu_torch.examples.share_across_instances.share, "
+            "lmcache_tpu_torch.examples.disaggregated_prefill, "
+            "lmcache_tpu_torch.examples.storage_backends.round_trip, "
+            "lmcache_tpu_torch.examples.rag_blend, "
+            "lmcache_tpu_torch.examples.speculative_decode, "
+            "lmcache_tpu_torch.examples.mla_latent_cache; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'lmcache_tpu' "
             "or m.startswith('lmcache_tpu.')]; print(bad)")
@@ -78,7 +92,8 @@ def test_no_jax_or_lmcache_tpu_import(path):
             continue
         for name in names:
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "lmcache_tpu", "tools"), (
+            assert root not in ("jax", "jaxlib", "lmcache_tpu", "tools",
+                                "examples", "optax"), (
                 f"{path}:{node.lineno} imports {name}")
 
 
@@ -134,7 +149,14 @@ def _entry_points():
                                            MLAServingEngine,
                                            PagedServingEngine, ServingEngine)
     from lmcache_tpu_torch.storage.local_backend import LMCLocalBackend
-    from lmcache_tpu_torch.tools import bench_prefill_mfu, eval_quality
+    from lmcache_tpu_torch.tools import (bench_prefill_mfu, eval_quality,
+                                         train_quality_model)
+    from lmcache_tpu_torch import examples
+    from lmcache_tpu_torch.examples import (
+        disaggregated_prefill, mla_latent_cache, offline_inference,
+        online_session, rag_blend, save_decode_cache, speculative_decode)
+    from lmcache_tpu_torch.examples.share_across_instances import share
+    from lmcache_tpu_torch.examples.storage_backends import round_trip
     cfg = llama.LlamaConfig.tiny(n_layers=1)
     mcfg = mla.MLAConfig.tiny(n_layers=1)
     return {
@@ -178,6 +200,20 @@ def _entry_points():
         "hooks_default_tier": lambda: _hooks_engine(),
         "hybrid_tier": lambda: _tier("cuda"),
         "disk_hybrid_cachegen_tier": lambda: _tier("disk"),
+        "train_quality_tool": lambda: train_quality_model.main(
+            ["--out", "unwritten.npz"]),
+        "train_quality_self_check": lambda: train_quality_model.self_check(
+            "llama", None, bands=((256, 32),)),
+        "examples_dense_model": lambda: examples.dense_model("cuda"),
+        "offline_inference_example": offline_inference.main,
+        "save_decode_cache_example": save_decode_cache.main,
+        "online_session_example": online_session.main,
+        "share_across_instances_example": share.main,
+        "disaggregated_prefill_example": disaggregated_prefill.main,
+        "storage_backends_example": round_trip.main,
+        "rag_blend_example": rag_blend.main,
+        "speculative_decode_example": speculative_decode.main,
+        "mla_latent_cache_example": mla_latent_cache.main,
     }
 
 
@@ -239,7 +275,18 @@ def _cachegen_deserializer():
                                   "prefill_ablation_tool",
                                   "eval_quality_tool", "eval_quality_mla_tool",
                                   "hybrid_tier", "disk_hybrid_cachegen_tier",
-                                  "hooks_default_tier"])
+                                  "hooks_default_tier", "train_quality_tool",
+                                  "train_quality_self_check",
+                                  "examples_dense_model",
+                                  "offline_inference_example",
+                                  "save_decode_cache_example",
+                                  "online_session_example",
+                                  "share_across_instances_example",
+                                  "disaggregated_prefill_example",
+                                  "storage_backends_example",
+                                  "rag_blend_example",
+                                  "speculative_decode_example",
+                                  "mla_latent_cache_example"])
 def test_entry_point_without_cuda_raises(name):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
