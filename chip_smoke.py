@@ -254,7 +254,22 @@ Phases, in order; any failure exits non-zero:
    remat (copy accuracy at least 0.99; the peak memory with and without
    remat), the self-check bands of both checkpoints; no hand kernel may
    launch;
-7. the launch counts of phases 3 to 21, read per phase with every count
+22. parallelism on one card (``phase_parallel_kernels``,
+   ``phase_parallel_engines``; after phase 19): 22a each rank's launches of
+   rows 1 and 3-10 at full width on its contiguous head slices (tinyllama
+   at "model" 2 and 4, Llama-3-8B's attention at 8, DeepSeek-V2-Lite's
+   latent attention at 2, 4 and 16; a 512-token segment over 16k keys and
+   a decode), put back together along the head axis: rows 1 and 3-7 must
+   give the unsharded launch's bits, rows 8-10 their tolerance against the
+   plain version (each shard's route printed), every launch held against
+   its plain version; 22b the distributed path on a one-rank NCCL group:
+   the dense engine (with a "cuda" tier, each prompt twice), the paged
+   engine, a CacheBlend request and both MLA engines (V2-Lite at 3 layers)
+   with ``mesh=`` must give the tokens of the same engine without a mesh
+   bit for bit, and ``forward_ring`` at T 4096 must hold ``forward``'s
+   logits by phase 3's rule; NCCL across several ranks is not run here
+   (one GPU; ``lmcache_tpu_torch/tools/mesh_check.py`` runs it on four);
+7. the launch counts of phases 3 to 22, read per phase with every count
    set to 0 just before it (prefill and decode, each > 0 where the phase
    runs them; "+window", "+softcap" and "+sinks" mark launches under those
    options; the coders count "store" and "retrieve" launches);
@@ -5061,11 +5076,11 @@ def moe_meter():
     stats = {"events": [], "block_rows": 0, "pairs": 0}
     moe, dispatch = llama._moe_mlp, experts.dispatch
 
-    def timed_moe(h, lp, cfg):
+    def timed_moe(h, lp, cfg, *tp):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        y = moe(h, lp, cfg)
+        y = moe(h, lp, cfg, *tp)
         end.record()
         stats["events"].append((start, end))
         return y
@@ -6902,6 +6917,390 @@ def phase_training():
     return {"training": launches}, out
 
 
+# phase 22: the ranks' launches at full width (22a) and the distributed path
+# on a one-rank NCCL group (22b)
+TP_CTX, TP_SEG = 16384, 512  # the prefill segment's context and length
+TP_DECODE_OFF = [16383, 9000]  # a decode step of two rows
+# (name, H, H_kv, D, the "model" sizes): tinyllama-1.1B, Llama-3-8B
+TP_GEOMETRIES = (("tinyllama-1.1B", 32, 4, 64, (2, 4)),
+                 ("llama-3-8B", 32, 8, 128, (8,)))
+TP_MLA_SIZES = (2, 4, 16)  # DeepSeek-V2-Lite's 16 query heads
+TP_NEW = 8  # tokens each 22b request decodes
+TP_RING_T = 4096  # forward_ring's prompt
+TP_BLEND_DOC = 1024  # each of the 22b CacheBlend request's three chunks
+
+
+def rank_launches(call, args, head_dims, tp):
+    """Each of ``tp`` ranks' launch of ``call`` on its contiguous slice of
+    every head axis (``head_dims[i]`` the head axis of ``args[i]``, None
+    where the argument is whole on every rank), the outputs put back
+    together along the output's head axis (2)."""
+    from lmcache_tpu_torch.parallel.mesh import take_slice
+    outs = []
+    for r in range(tp):
+        local = [a if d is None else take_slice(a, d, r, tp).contiguous()
+                 for a, d in zip(args, head_dims)]
+        outs.append(call(*local))
+    return torch.cat(outs, dim=2)
+
+
+def tp_dense_inputs(H, Hkv, D, shape, gen):
+    """(bf16 args, int8 args, paged bf16 args, paged int8 args, plain
+    references) of rows 1, 3, 4-7 at one shape: the 512-token segment over
+    a 16k context, or a decode step; the arenas hold the same K/V as the
+    dense pools, page by page."""
+    dev = "cuda"
+    B, T, q_off = ((1, TP_SEG, [TP_CTX - TP_SEG]) if shape == "prefill"
+                   else (2, 1, TP_DECODE_OFF))
+    S = TP_CTX
+    kv_len = [o + T for o in q_off]
+    q = torch.randn((B, T, H, D), generator=gen, device=dev).bfloat16()
+    kv = torch.randn((2, B, Hkv, S, D), generator=gen, device=dev).bfloat16()
+    sym = torch.randint(-127, 128, (2, B, Hkv, S, D), generator=gen,
+                        device=dev, dtype=torch.int32).to(torch.int8)
+    scale = torch.rand((2, B, S), generator=gen, device=dev) * 0.02 + 0.02
+    qo = torch.tensor(q_off, dtype=torch.int32, device=dev)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    NP = S // PAGE
+    ids = torch.randperm(B * NP, generator=gen, device=dev) + 1
+    table = ids.reshape(B, NP).to(torch.int32).contiguous()
+
+    def arena(x, fill):
+        # [B, H, S, D] (or scales [B, S]) onto pages [P, H, page, D]
+        P = B * NP + 1
+        if x.dim() == 2:
+            out = torch.full((P, PAGE), fill, dtype=x.dtype, device=dev)
+            out[table.long()] = x.reshape(B, NP, PAGE)
+            return out
+        out = torch.zeros((P, x.shape[1], PAGE, x.shape[3]), dtype=x.dtype,
+                          device=dev)
+        out[table.long()] = x.reshape(B, x.shape[1], NP, PAGE,
+                                      x.shape[3]).transpose(1, 2)
+        return out
+
+    dense = (q, kv[0], kv[1], qo, kl)
+    quant = (q, sym[0], sym[1], scale[0], scale[1], qo, kl)
+    paged_ = (q, arena(kv[0], 0), arena(kv[1], 0), table, qo, kl)
+    paged_q = (q, arena(sym[0], 0), arena(sym[1], 0), arena(scale[0], 1.0),
+               arena(scale[1], 1.0), table, qo, kl)
+    with uncounted():
+        ref = plain_attention(q, kv[0], kv[1], qo, kl)
+        kt, vt = sym[0].transpose(1, 2), sym[1].transpose(1, 2)
+        ref_q = torch.cat([qa.quantized_attention_reference(
+            q[:, t:t + 1024], kt, vt, scale[0], scale[1], qo + t, kl,
+            zero_dead_rows=True) for t in range(0, T, 1024)], dim=1)
+    return dense, quant, paged_, paged_q, ref, ref_q
+
+
+def tp_latent_inputs(shape, gen):
+    """(dense bf16, dense int8, paged bf16, paged int8) args of rows 8-10
+    at DeepSeek-V2-Lite's latent geometry and one shape, and the plain
+    references of the bf16 and the int8 latents."""
+    dev = "cuda"
+    B, T, q_off = ((1, TP_SEG, [TP_CTX - TP_SEG]) if shape == "prefill"
+                   else (2, 1, TP_DECODE_OFF))
+    S, H, C = TP_CTX, MLA_CFG.n_heads, MLA_C
+    kl = torch.tensor([o + T for o in q_off], dtype=torch.int32, device=dev)
+    qo = torch.tensor(q_off, dtype=torch.int32, device=dev)
+    q = torch.randn((B, T, H, C), generator=gen, device=dev).bfloat16()
+    lat = torch.randn((B, S, C), generator=gen, device=dev).bfloat16()
+    sym = torch.randint(-127, 128, (B, S, C), generator=gen, device=dev,
+                        dtype=torch.int32).to(torch.int8)
+    scl = torch.rand((B, S), generator=gen, device=dev) * 0.02 + 0.02
+    NP = S // PAGE
+    ids = torch.randperm(B * NP, generator=gen, device=dev) + 1
+    table = ids.reshape(B, NP).to(torch.int32).contiguous()
+    P = B * NP + 1
+    a_lat = torch.zeros((P, PAGE, MLA_CP), dtype=torch.bfloat16, device=dev)
+    a_lat[table.long(), :, :C] = lat.reshape(B, NP, PAGE, C)
+    a_sym = torch.zeros((P, PAGE, MLA_CP), dtype=torch.int8, device=dev)
+    a_sym[table.long(), :, :C] = sym.reshape(B, NP, PAGE, C)
+    a_scl = torch.ones((P, PAGE), device=dev)
+    a_scl[table.long()] = scl.reshape(B, NP, PAGE)
+    kw = dict(rank=MLA_R, scale=MLA_CFG.sm_scale)
+    with uncounted():
+        ref = torch.cat([la.latent_attention_reference(
+            q[:, t:t + 1024], lat, qo + t, kl, zero_dead_rows=True, **kw)
+            for t in range(0, T, 1024)], dim=1)
+        ref_q = torch.cat([la.quantized_latent_attention_reference(
+            q[:, t:t + 1024], sym, scl, qo + t, kl, zero_dead_rows=True,
+            **kw) for t in range(0, T, 1024)], dim=1)
+    return ((q, lat, qo, kl), (q, sym, scl, qo, kl),
+            (q, a_lat, table, qo, kl), (q, a_sym, a_scl, table, qo, kl),
+            ref, ref_q, kw)
+
+
+def latent_route(name, T, H):
+    """The route of a latent launch of T tokens and H heads: row 10 runs
+    its key split at T * H <= SPLIT_ROWS rows, rows 8 and 9 their body;
+    every body takes (token, head) rows in blocks of 64, token-major."""
+    if name.startswith(("paged_latent_attention_dma",
+                        "quantized_paged_latent_attention_dma")) \
+            and pla.takes_split(T, H):
+        return (f"key split of {pla.split_keys(T, H)} keys over {T * H} "
+                "rows, then the combine")
+    return f"body, {T * H} (token, head) rows, {64 // min(H, 64)} tokens a block"
+
+
+def phase_parallel_kernels(max_abs):
+    """Phase 22a: each rank's launches of rows 1, 3-10 at full width, as
+    that rank holds its inputs: contiguous head slices of q and of the
+    pools or arenas (kv heads on "model"), the latents whole; the outputs
+    put back together along the head axis. Rows 1 and 3-7 must give the
+    unsharded launch's bits (heads are independent and each rank keeps the
+    query group); rows 8-10 must hold their tolerance against the plain
+    version, their route printed per shard. Every launch is held against
+    the plain version as phase 2 holds it. Returns the launch counts."""
+    log("== phase 22a: the ranks' launches at full width (rows 1, 3-10)")
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    reset_launch_counts()
+    head_axes = {"flash_attention": (2, 1, 1, None, None),
+                 "quantized_flash_attention": (2, 1, 1, None, None, None,
+                                               None),
+                 "paged_attention": (2, 1, 1, None, None, None),
+                 "paged_attention_dma": (2, 1, 1, None, None, None),
+                 "quantized_paged_attention": (2, 1, 1, None, None, None,
+                                               None, None),
+                 "quantized_paged_attention_dma": (2, 1, 1, None, None, None,
+                                                   None, None)}
+    for geo, H, Hkv, D, sizes in TP_GEOMETRIES:
+        for shape in ("prefill", "decode"):
+            dense, quant, paged_, paged_q, ref, ref_q = tp_dense_inputs(
+                H, Hkv, D, shape, gen)
+            calls = {
+                "flash_attention": (lambda *a: ops.flash_attention(
+                    *a, kv_head_major=True), dense, ref),
+                "quantized_flash_attention": (
+                    lambda *a: qa.quantized_flash_attention(
+                        *a, kv_head_major=True), quant, ref_q),
+                "paged_attention": (pa.paged_attention, paged_, ref),
+                "paged_attention_dma": (pa.paged_attention_dma, paged_, ref),
+                "quantized_paged_attention": (pa.quantized_paged_attention,
+                                              paged_q, ref_q),
+                "quantized_paged_attention_dma": (
+                    pa.quantized_paged_attention_dma, paged_q, ref_q)}
+            for name, (call, args, plain) in calls.items():
+                with uncounted():
+                    whole = call(*args)
+                for tp in sizes:
+                    got = rank_launches(call, args, head_axes[name], tp)
+                    case = (f"{geo} {shape}, tp {tp}: {H // tp} heads over "
+                            f"{Hkv // tp} kv heads a rank")
+                    err = hold_against_plain(name, case, got, plain)
+                    max_abs[name] = max(max_abs.get(name, 0.0), err)
+                    if not same_bits(got, whole):
+                        raise SystemExit(f"{name} at {case}: the ranks' "
+                                         "launches differ from the "
+                                         "unsharded launch's bits")
+                    log(f"    bit-equal to the unsharded launch")
+            del dense, quant, paged_, paged_q, ref, ref_q
+    H = MLA_CFG.n_heads
+    for shape in ("prefill", "decode"):
+        (dense, quant, paged_, paged_q, ref, ref_q,
+         kw) = tp_latent_inputs(shape, gen)
+        T = dense[0].shape[1]
+        calls = {
+            "latent_flash_attention": (la.latent_flash_attention, dense, ref,
+                                       (2, None, None, None)),
+            "quantized_latent_flash_attention": (
+                la.quantized_latent_flash_attention, quant, ref_q,
+                (2, None, None, None, None)),
+            "paged_latent_attention": (pla.paged_latent_attention, paged_,
+                                       ref, (2, None, None, None, None)),
+            "quantized_paged_latent_attention": (
+                pla.quantized_paged_latent_attention, paged_q, ref_q,
+                (2, None, None, None, None, None)),
+            "paged_latent_attention_dma": (pla.paged_latent_attention_dma,
+                                           paged_, ref,
+                                           (2, None, None, None, None)),
+            "quantized_paged_latent_attention_dma": (
+                pla.quantized_paged_latent_attention_dma, paged_q, ref_q,
+                (2, None, None, None, None, None))}
+        for name, (call, args, plain, axes) in calls.items():
+            with uncounted():
+                whole = call(*args, **kw)
+            for tp in TP_MLA_SIZES:
+                got = rank_launches(lambda *a: call(*a, **kw), args, axes,
+                                    tp)
+                case = (f"DeepSeek-V2-Lite {shape}, tp {tp}: {H // tp} heads "
+                        f"a rank ({latent_route(name, T, H // tp)}; "
+                        f"unsharded: {latent_route(name, T, H)})")
+                err = hold_against_plain(name, case, got, plain)
+                max_abs[name] = max(max_abs.get(name, 0.0), err)
+                log(f"    bit-equal to the unsharded launch: "
+                    f"{same_bits(got, whole)}")
+        del dense, quant, paged_, paged_q, ref, ref_q
+    counts = read_launch_counts()
+    log(f"  launches: {counts}")
+    return counts
+
+
+def phase_parallel_engines(cfg, params):
+    """Phase 22b: the distributed path on a one-rank NCCL group
+    (``init_process_group("nccl")`` through a file store, then
+    ``make_mesh(MeshConfig(1, 1), "cuda")``): the dense engine (with a
+    "cuda" tier, each prompt served twice: the second time from the tier)
+    and the paged engine on tinyllama-1.1B at full width, a CacheBlend
+    request on the dense engine (three chunks of ``TP_BLEND_DOC``), both MLA
+    engines
+    on DeepSeek-V2-Lite at full width cut to 3 layers, each with ``mesh=``
+    and ``parallel.shard_params``' parameters, must give the tokens of the
+    same engine without a mesh bit for bit; ``forward_ring`` at T 4096 on
+    the one-rank ring must agree with ``forward``'s logits by phase 3's
+    rule. Returns (launch counts by path, the numbers)."""
+    import torch.distributed as dist
+    from lmcache_tpu_torch import parallel
+    log("== phase 22b: the distributed path on a one-rank NCCL group")
+    store = tempfile.mktemp(prefix="lmc-nccl-")
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            world_size=1, rank=0)
+    launches, out = {}, {}
+    try:
+        mesh = parallel.make_mesh(parallel.MeshConfig(1, 1), "cuda")
+        log(f"  mesh {mesh} over {dist.get_backend()}")
+        rng = np.random.default_rng(22)
+        prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+                   for n in (1800, 1500, 900, 2000)]
+        sp = SamplingParams(max_new_tokens=TP_NEW)
+
+        def tier(name):
+            return LMCacheEngine(
+                LMCacheEngineConfig(local_device="cuda", chunk_size=256),
+                parallel.mesh.shard_metadata(LMCacheEngineMetadata(
+                    model_name=name, world_size=1, worker_id=0, fmt="vllm",
+                    dtype="bfloat16"), mesh))
+
+        def serve(make, ps, twice=False):
+            eng = make()
+            reqs = eng.generate(ps, sp)
+            toks = [r.output_tokens for r in reqs]
+            if twice:
+                eng.cache_engine.engine_.flush()
+                again = eng.generate(ps, sp)
+                toks += [r.output_tokens for r in again]
+                out.setdefault("cached_prefix_len", []).extend(
+                    r.cached_prefix_len for r in again)
+            return toks
+
+        dense_seq = 2048 + 64
+        sharded = parallel.shard_params(params, mesh)
+        runs = (
+            ("dense", lambda m, p, t: ServingEngine(
+                cfg, p, max_batch=4, max_seq=dense_seq, mesh=m,
+                cache_engine=t), True),
+            ("paged", lambda m, p, t: PagedServingEngine(
+                cfg, p, max_batch=4, max_seq=dense_seq, num_pages=160,
+                page_size=PAGE, mesh=m), False))
+        for name, make, twice in runs:
+            with uncounted():
+                want = serve(lambda: make(None, params, tier(
+                    f"tp-plain-{name}")), prompts, twice)
+            reset_launch_counts()
+            got = serve(lambda: make(mesh, sharded, tier(
+                f"tp-mesh-{name}")), prompts, twice)
+            torch.cuda.synchronize()
+            launches[f"parallel {name} tinyllama"] = read_launch_counts()
+            log(f"  {name} engine, tinyllama-1.1B: tokens with the mesh "
+                f"{'==' if got == want else '!='} without "
+                f"({len(got)} requests, {TP_NEW} tokens each)")
+            if got != want:
+                raise SystemExit(f"phase 22b: the {name} engine's tokens "
+                                 "differ with a mesh")
+        hits = out.get("cached_prefix_len", [])
+        log(f"  dense engine's second pass: cached prefixes {hits}")
+        if not all(h > 0 for h in hits):
+            raise SystemExit("phase 22b: the second pass missed the tier")
+
+        # a CacheBlend request: the chunk prefills and the heal on the mesh
+        docs = [np.random.default_rng(23).integers(
+            0, cfg.vocab_size, (3, TP_BLEND_DOC), dtype=np.int32)[i]
+            for i in range(3)]
+
+        def blend(m, p, t):
+            eng = ServingEngine(cfg, p, max_batch=1,
+                                max_seq=3 * TP_BLEND_DOC + 64, mesh=m,
+                                cache_engine=t)
+            req = Request(np.empty(0, np.int32), sp, context_chunks=docs)
+            eng.add_request(req)
+            eng.run()
+            return req.output_tokens
+
+        with uncounted():
+            want = blend(None, params, tier("tp-plain-blend"))
+        reset_launch_counts()
+        got = blend(mesh, sharded, tier("tp-mesh-blend"))
+        torch.cuda.synchronize()
+        launches["parallel blend tinyllama"] = read_launch_counts()
+        log(f"  CacheBlend request, 3 x {TP_BLEND_DOC} tokens: tokens with "
+            f"the mesh {'==' if got == want else '!='} without")
+        if got != want:
+            raise SystemExit("phase 22b: the blend request's tokens differ "
+                             "with a mesh")
+
+        mcfg = dataclasses.replace(MLA_CFG, n_layers=MLA_CHECKPOINT_LAYERS)
+        free_device_memory()
+        mparams = mla.init_params(
+            mcfg, generator=torch.Generator(device="cuda").manual_seed(0))
+        msharded = parallel.shard_params(mparams, mesh)
+        mprompts = prompts[:2]
+        for name, make in (
+                ("mla", lambda m, p: MLAServingEngine(
+                    mcfg, p, max_batch=2, max_seq=dense_seq, mesh=m)),
+                ("mla paged", lambda m, p: MLAPagedServingEngine(
+                    mcfg, p, max_batch=2, max_seq=dense_seq, num_pages=80,
+                    page_size=PAGE, mesh=m))):
+            with uncounted():
+                want = serve(lambda: make(None, mparams), mprompts)
+            reset_launch_counts()
+            got = serve(lambda: make(mesh, msharded), mprompts)
+            torch.cuda.synchronize()
+            launches[f"parallel {name} v2-lite"] = read_launch_counts()
+            log(f"  {name} engine, DeepSeek-V2-Lite at "
+                f"{MLA_CHECKPOINT_LAYERS} layers: tokens with the mesh "
+                f"{'==' if got == want else '!='} without")
+            if got != want:
+                raise SystemExit(f"phase 22b: the {name} engine's tokens "
+                                 "differ with a mesh")
+        del mparams, msharded
+        free_device_memory()
+
+        tokens = torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, TP_RING_T, dtype=np.int32),
+            device="cuda").long()[None]
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        ring_logits, ring_cache = llama.forward_ring(sharded, cfg, tokens,
+                                                     mesh)
+        torch.cuda.synchronize()
+        out["forward_ring_s"] = time.perf_counter() - t0
+        launches["parallel forward_ring"] = read_launch_counts()
+        with uncounted():
+            cache = llama.new_kv_cache(cfg, 1, TP_RING_T)
+            logits, _ = llama.forward(params, cfg, tokens, torch.zeros(
+                1, dtype=torch.int32, device="cuda"), cache)
+        whole_rel = ((ring_logits - logits).norm() / logits.norm()).item()
+        cache_rel = ((ring_cache.float() - cache.float()).norm()
+                     / cache.float().norm()).item()
+        out["forward_ring_rel_l2"] = whole_rel
+        log(f"  forward_ring, T {TP_RING_T} on the one-rank ring: "
+            f"{out['forward_ring_s']:.2f} s; logits rel_l2 over every "
+            f"position {whole_rel:.3e}, cache rel_l2 {cache_rel:.3e}")
+        if not (_logits_agree("forward_ring vs forward, last token",
+                              [ring_logits[0, -1]], [logits[0, -1]])
+                and whole_rel <= REL_L2_REUSE and cache_rel <= REL_L2_REUSE):
+            raise SystemExit("phase 22b: forward_ring disagrees with "
+                             "forward")
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    log("  NCCL across several ranks was not run: this machine has one GPU "
+        f"({torch.cuda.device_count()} visible); the multi-rank logic is "
+        "held on the CPU under gloo (tests/test_torch_parallel.py) and "
+        "run on four cards by lmcache_tpu_torch/tools/mesh_check.py")
+    return launches, out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -7014,6 +7413,10 @@ def run_phases(card, server, url):
     with phase_clock("19", seconds):
         hook_launches, hook_out = phase_hooks(cfg, loaded)
     launches.update(hook_launches)
+    with phase_clock("22", seconds):
+        launches["parallel kernels"] = phase_parallel_kernels(max_abs)
+        tp_launches, tp_out = phase_parallel_engines(cfg, params)
+    launches.update(tp_launches)
     del loaded, phase3_logits, params
     torch.cuda.empty_cache()
     with phase_clock("20", seconds):
@@ -7196,6 +7599,26 @@ def run_phases(card, server, url):
     expected["example rag_blend"] = ("flash_attention", ("prefill",))
     expected["example mla_latent_cache"] = ("latent_flash_attention",
                                             ("prefill", "decode"))
+    expected["parallel kernels"] = [
+        (k, both) for k in (
+            "flash_attention", "quantized_flash_attention",
+            "paged_attention", "quantized_paged_attention",
+            "paged_attention_dma", "quantized_paged_attention_dma",
+            "latent_flash_attention", "quantized_latent_flash_attention",
+            "paged_latent_attention", "quantized_paged_latent_attention",
+            "paged_latent_attention_dma",
+            "quantized_paged_latent_attention_dma")] + [
+        ("combine_partials", ("decode",)),
+        ("latent_combine_partials", ("decode",))]
+    expected["parallel dense tinyllama"] = dense_serving
+    expected["parallel paged tinyllama"] = [
+        ("paged_attention_dma", both), ("combine_partials", ("decode",))]
+    expected["parallel blend tinyllama"] = [
+        ("flash_attention", ("prefill", "decode"))]
+    expected["parallel mla v2-lite"] = ("latent_flash_attention", both)
+    expected["parallel mla paged v2-lite"] = [
+        ("paged_latent_attention_dma", both),
+        ("latent_combine_partials", ("decode",))]
     for phase, wanted in expected.items():
         for kernel, kinds in (wanted if isinstance(wanted, list)
                               else [wanted]):
@@ -7205,6 +7628,9 @@ def run_phases(card, server, url):
 
     if launches["training"]:
         raise SystemExit(f"training launched {launches['training']}")
+    if launches["parallel forward_ring"]:
+        raise SystemExit("forward_ring's plain ring attention launched "
+                         f"{launches['parallel forward_ring']}")
 
     with phase_clock("8", seconds):
         rows = phase_yardstick()
@@ -7237,7 +7663,8 @@ def run_phases(card, server, url):
               "decode_options": decode_out, "quality": quality_out,
               "tiers": tier_out, "checkpoints": ckpt_out, "http": http_out,
               "hooks": hook_out, "examples": example_out,
-              "training": train_out, "phase_seconds": seconds,
+              "training": train_out, "parallel": tp_out,
+              "phase_seconds": seconds,
               "int8_paged_build": int8_paged,
               "paged_softcap_build": paged_softcap,
               "variant_build": variant_build, "card": card}

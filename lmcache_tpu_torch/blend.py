@@ -29,6 +29,14 @@ forward's block structure (q/k norms, sandwich norms, MoE MLP, Llama-4's
 query traits by each layer's is-global flag), and the key shift spins at
 each layer's own rope frequencies where they differ by layer (Gemma-3's
 dual theta; Llama-4's NoPE global layers, whose keys do not move).
+
+On a ``mesh`` (``lmcache_tpu_torch.parallel``) each rank blends its head
+slice with the parameters of ``parallel.shard_params``: its chunk KV is
+stored and read under its own worker key (``parallel.shard_metadata``),
+the gathered attention runs on its heads, the output projection and the
+MLP are summed over "model" as in ``llama.forward``, and the deviation of
+a token is its rank's sum summed over "model", so that every rank selects
+the same tokens.
 """
 
 from typing import List, Sequence, Tuple
@@ -39,6 +47,7 @@ import torch
 from lmcache_tpu_torch.chunks import hash_tokens
 from lmcache_tpu_torch.models import llama
 from lmcache_tpu_torch.ops.attention import _NEG_INF
+from lmcache_tpu_torch.parallel.mesh import axis
 from lmcache_tpu_torch.utils import CacheEngineKey
 
 # gathered query rows per score matrix in the plain attention: the scores
@@ -143,13 +152,17 @@ def select_tokens(dev: torch.Tensor, n_recompute: int) -> torch.Tensor:
 
 @torch.no_grad()
 def blend_prefill(params, cfg: llama.LlamaConfig, tokens: torch.Tensor,
-                  blended_kv: torch.Tensor, n_recompute: int
+                  blended_kv: torch.Tensor, n_recompute: int, mesh=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Heal blended KV. tokens: int ``[T]``, the whole concatenated prompt;
     ``blended_kv``: ``[L, 2, T, H_kv, D]`` position-corrected chunk KV
     (:func:`assemble_chunks`). Returns (last-token logits ``[vocab]`` fp32,
-    healed KV ``[L, 2, T, H_kv, D]``, a new tensor)."""
+    healed KV ``[L, 2, T, H_kv, D]``, a new tensor). On ``mesh``, this
+    rank's parameters and kv heads (``llama.kv_heads``); the logits are
+    every rank's."""
     llama.check_supported(cfg)
+    tp = axis(mesh, "model")
+    split = llama.kv_heads(cfg, mesh) < cfg.n_kv_heads
     dev = blended_kv.device
     tokens = tokens.to(device=dev, dtype=torch.long)
     T = tokens.shape[0]
@@ -167,10 +180,10 @@ def blend_prefill(params, cfg: llama.LlamaConfig, tokens: torch.Tensor,
 
     def heads(x, li, lp, pos):
         return llama._qkv_heads(llama._attn_input(x, lp, cfg), lp, cfg,
-                                pos[None], globals_[li])
+                                pos[None], globals_[li], tp)
 
     def attend(q, k, v, qpos, li, lp):
-        opts = llama._attention_options(cfg, lp, windows[li])
+        opts = llama._attention_options(cfg, lp, windows[li], tp)
         return _attend_selected(q, k, v, qpos, T, group, **opts)
 
     # pass 1: exact layer 0 for every token, then true layer-1 K/V
@@ -179,12 +192,15 @@ def blend_prefill(params, cfg: llama.LlamaConfig, tokens: torch.Tensor,
     q0, k0, v0 = heads(x, 0, lp0, positions)
     kv[0, 0], kv[0, 1] = k0[0].to(kv.dtype), v0[0].to(kv.dtype)
     x = llama._block(
-        x, attend(q0[0], k0[0], v0[0], positions, 0, lp0)[None], lp0, cfg)
+        x, attend(q0[0], k0[0], v0[0], positions, 0, lp0)[None], lp0, cfg,
+        tp)
 
     l1 = min(1, cfg.n_layers - 1)
     _, k1, v1 = heads(x, l1, lp_at(l1), positions)
     deviation = (((k1[0].float() - kv[l1, 0].float())**2).sum(dim=(1, 2))
                  + ((v1[0].float() - kv[l1, 1].float())**2).sum(dim=(1, 2)))
+    if split:
+        deviation = tp.sum(deviation)
     sel = select_tokens(deviation, n_recompute)
 
     # pass 2: the selected tokens through layers 1..L-1, their K/V
@@ -196,7 +212,7 @@ def blend_prefill(params, cfg: llama.LlamaConfig, tokens: torch.Tensor,
         kv[li, 0, sel] = k[0].to(kv.dtype)
         kv[li, 1, sel] = v[0].to(kv.dtype)
         attn = attend(q[0], kv[li, 0], kv[li, 1], sel, li, lp)
-        xs = llama._block(xs, attn[None], lp, cfg)
+        xs = llama._block(xs, attn[None], lp, cfg, tp)
     logits = llama._lm_logits(xs[:, -1:], params, cfg)[0, 0]
     return logits, kv
 
@@ -255,14 +271,17 @@ class BlenderBase:
     ``_assemble(blobs) -> position-corrected cache`` and
     ``_heal(full_tokens, blended, n_rec) -> (logits, wire blob)``. Blobs
     are computed on the device of the parameters and stored as the cache
-    tier keeps them."""
+    tier keeps them. On a ``mesh``, ``params`` are this rank's and the
+    cache engine's metadata names its worker (``parallel.shard_metadata``).
+    """
 
     def __init__(self, cfg, params, cache_engine,
-                 recompute_ratio: float = 0.15):
+                 recompute_ratio: float = 0.15, mesh=None):
         self.cfg = cfg
         self.params = params
         self.engine = cache_engine
         self.ratio = recompute_ratio
+        self.mesh = mesh
         self.device = params["embed"].device
 
     def _key(self, tokens: np.ndarray) -> CacheEngineKey:
@@ -294,8 +313,7 @@ class BlenderBase:
             blobs.append(blob.to(self.device))
         full = np.concatenate([np.asarray(t, np.int32) for t in chunk_tokens])
         blended = self._assemble(blobs)
-        T = len(full)
-        n_rec = max(1, min(T, int(np.ceil(self.ratio * T))))
+        T, n_rec = self.counts(chunk_tokens)
         logits, kv = self._heal(
             torch.as_tensor(full, dtype=torch.long, device=self.device),
             blended, n_rec)
@@ -306,6 +324,12 @@ class BlenderBase:
             "total_tokens": T,
         }
 
+    def counts(self, chunk_tokens) -> Tuple[int, int]:
+        """(prompt tokens, tokens :meth:`blend` recomputes) of a blend of
+        ``chunk_tokens``."""
+        T = sum(len(t) for t in chunk_tokens)
+        return T, max(1, min(T, int(np.ceil(self.ratio * T))))
+
 
 class CacheBlender(BlenderBase):
     """:class:`BlenderBase` for dense-KV (llama-family) models; the wire
@@ -313,16 +337,17 @@ class CacheBlender(BlenderBase):
     ``llama.forward`` (kernel row 1 on the card)."""
 
     def __init__(self, cfg: llama.LlamaConfig, params, cache_engine,
-                 recompute_ratio: float = 0.15):
+                 recompute_ratio: float = 0.15, mesh=None):
         llama.check_supported(cfg)
-        super().__init__(cfg, params, cache_engine, recompute_ratio)
+        super().__init__(cfg, params, cache_engine, recompute_ratio, mesh)
 
     def _chunk_prefill(self, tokens: torch.Tensor) -> torch.Tensor:
         t = tokens.shape[1]
-        cache = llama.new_kv_cache(self.cfg, 1, t, device=self.device)
+        cache = llama.new_kv_cache(self.cfg, 1, t, device=self.device,
+                                   mesh=self.mesh)
         llama.forward(self.params, self.cfg, tokens,
                       torch.zeros(1, dtype=torch.int32, device=self.device),
-                      cache, last_logit_only=True)
+                      cache, last_logit_only=True, mesh=self.mesh)
         return llama.cache_to_blob(cache, 0, t)
 
     def _assemble(self, blobs):
@@ -335,4 +360,5 @@ class CacheBlender(BlenderBase):
             nope_global=c.nope_on_global_layers)
 
     def _heal(self, full, blended, n_rec):
-        return blend_prefill(self.params, self.cfg, full, blended, n_rec)
+        return blend_prefill(self.params, self.cfg, full, blended, n_rec,
+                             self.mesh)

@@ -18,7 +18,10 @@ each step:
 
 ``recompute_ratio=1.0`` is an exact full prefill. The chunk prefills run
 ``mla.forward``, whose attention is kernel row 8 on the card; the
-gathered-token attention is plain PyTorch, as in the JAX package.
+gathered-token attention is plain PyTorch, as in the JAX package. On a
+``mesh`` the latents are whole on every rank, which selects the tokens
+alone; each rank attends with its ``H / tp`` query heads, and the output
+projection and the MLPs are summed over "model" as in ``mla.forward``.
 """
 
 from typing import Tuple
@@ -83,13 +86,15 @@ def _attend_selected_latent(q_full, lat, qpos, kv_len, rank,
 
 @torch.no_grad()
 def mla_blend_prefill(params, cfg: mla.MLAConfig, tokens: torch.Tensor,
-                      blended: torch.Tensor, n_recompute: int
+                      blended: torch.Tensor, n_recompute: int, mesh=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Heal a blended latent stream. tokens: int ``[T]``, the whole prompt;
     ``blended``: ``[L, T, C]`` position-corrected latents
     (:func:`assemble_latent_chunks`). Returns (last-token logits
-    ``[vocab]`` fp32, healed latents ``[L, T, C]``, a new tensor)."""
+    ``[vocab]`` fp32, healed latents ``[L, T, C]``, a new tensor). On
+    ``mesh``, this rank's parameters (its query heads)."""
     mla.check_supported(cfg)
+    tp = mla.model_axis(cfg, mesh)
     dev = blended.device
     tokens = tokens.to(device=dev, dtype=torch.long)
     T = tokens.shape[0]
@@ -105,7 +110,7 @@ def mla_blend_prefill(params, cfg: mla.MLAConfig, tokens: torch.Tensor,
         """Output projection, residual and the layer's MLP: x [1, n, dim],
         ctx [n, H, r]."""
         return mla._mlp_residual(x, mla._context_out(ctx[None], lp, cfg, x),
-                                 lp, cfg, cfg.moe_layer(i))
+                                 lp, cfg, cfg.moe_layer(i), tp)
 
     # pass 1: exact layer-0 latents for every token, attention over the
     # healed layer-0 stream
@@ -141,16 +146,17 @@ class MLACacheBlender(BlenderBase):
     the healed result injects through the engines' unchanged hooks."""
 
     def __init__(self, cfg: mla.MLAConfig, params, cache_engine,
-                 recompute_ratio: float = 0.15):
+                 recompute_ratio: float = 0.15, mesh=None):
         mla.check_supported(cfg)
-        super().__init__(cfg, params, cache_engine, recompute_ratio)
+        super().__init__(cfg, params, cache_engine, recompute_ratio, mesh)
 
     def _chunk_prefill(self, tokens: torch.Tensor) -> torch.Tensor:
         t = tokens.shape[1]
-        cache = mla.new_latent_cache(self.cfg, 1, t, device=self.device)
+        cache = mla.new_latent_cache(self.cfg, 1, t, device=self.device,
+                                     mesh=self.mesh)
         mla.forward(self.params, self.cfg, tokens,
                     torch.zeros(1, dtype=torch.int32, device=self.device),
-                    cache, last_logit_only=True)
+                    cache, last_logit_only=True, mesh=self.mesh)
         return mla.cache_to_blob(cache, 0, t)
 
     def _assemble(self, blobs):
@@ -158,5 +164,5 @@ class MLACacheBlender(BlenderBase):
 
     def _heal(self, full, blended, n_rec):
         logits, lat = mla_blend_prefill(self.params, self.cfg, full, blended,
-                                        n_rec)
+                                        n_rec, self.mesh)
         return logits, lat[:, None, :, None, :]

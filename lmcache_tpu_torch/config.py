@@ -50,6 +50,10 @@ class LMCacheEngineMetadata:
     worker_id: int
     fmt: str  # "vllm" ([L,2,T,H,D]) or "huggingface" ([L,2,H,T,D])
     dtype: str = "bf16"
+    # the mesh axis that the KV heads are sharded over
+    # (lmcache_tpu_torch.parallel): a worker stores its head slice under
+    # ``worker_id`` = its index on that axis, ``world_size`` = the axis size
+    kv_shard_axis: str = "model"
 
     def __post_init__(self):
         if self.fmt not in ("vllm", "huggingface"):

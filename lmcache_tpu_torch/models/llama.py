@@ -59,6 +59,9 @@ from lmcache_tpu_torch.models import experts, hf_checkpoint
 from lmcache_tpu_torch.ops.attention import flash_attention, mha_reference
 from lmcache_tpu_torch.ops.quantized_attention import (
     quantize_tokens, quantized_attention_reference, quantized_flash_attention)
+from lmcache_tpu_torch.parallel.mesh import (Axis, axis, data_rows,
+                                             kv_cache_sharding, local_shape,
+                                             take_slice)
 from lmcache_tpu_torch.utils import resolve_device
 
 Params = Dict[str, Any]
@@ -977,34 +980,51 @@ def quantized_pool_from_jax(pool: Dict[str, Any],
     }
 
 
+def kv_cache_shape(cfg: LlamaConfig, batch: int, max_len: int,
+                   mesh=None) -> Tuple[int, ...]:
+    """The shape of this rank's block of the head-major pool [L, 2, B, H_kv,
+    S, D] on ``mesh`` (``parallel.kv_cache_sharding``): its share of the
+    batch rows on "data" and of the kv heads on "model", each whole where
+    it does not divide its axis (:func:`_gathers`)."""
+    return local_shape((cfg.n_layers, 2, batch, cfg.n_kv_heads, max_len,
+                        cfg.head_dim), kv_cache_sharding(), mesh)
+
+
+def kv_heads(cfg: LlamaConfig, mesh=None) -> int:
+    """The kv heads of this rank's block of a pool or an arena on
+    ``mesh``."""
+    return kv_cache_shape(cfg, 1, 1, mesh)[3]
+
+
 def new_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
-                 device="cuda") -> torch.Tensor:
+                 device="cuda", mesh=None) -> torch.Tensor:
     """Fresh KV cache [L, 2, B, H_kv, S, D] — HEAD-major, zeroed.
 
     The live pool is head-major so the attention kernel reads it directly;
     the cache-blob wire format stays token-major ([L, 2, T, H, D], the
     reference's vllm fmt) and is transposed once per chunk at the
-    inject/read boundary, not per step.
+    inject/read boundary, not per step. On ``mesh``, this rank's block
+    (:func:`kv_cache_shape`).
     """
-    return torch.zeros(
-        (cfg.n_layers, 2, batch, cfg.n_kv_heads, max_len, cfg.head_dim),
-        dtype=torch_dtype(cfg), device=resolve_device(device))
+    return torch.zeros(kv_cache_shape(cfg, batch, max_len, mesh),
+                       dtype=torch_dtype(cfg), device=resolve_device(device))
 
 
 def new_quantized_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
-                           device="cuda") -> Dict[str, torch.Tensor]:
+                           device="cuda",
+                           mesh=None) -> Dict[str, torch.Tensor]:
     """Int8 KV pool: {"sym" [L, 2, B, H_kv, S, D] int8, zeroed, "scale"
     [L, 2, B, S] fp32, initialised to 1}. Half the bytes of the
     :func:`new_kv_cache` pool; read by the kernel that dequantizes inside
     attention (``ops/quantized_attention.py``). One symmetric scale per
     (layer, token), the CacheGen quantization granularity; head-major
-    symbols for the same reason as :func:`new_kv_cache`."""
+    symbols for the same reason as :func:`new_kv_cache`. ``mesh`` as
+    there (the scales are head-free)."""
     dev = resolve_device(device)
-    L, Hkv, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    shape = kv_cache_shape(cfg, batch, max_len, mesh)
     return {
-        "sym": torch.zeros((L, 2, batch, Hkv, max_len, D), dtype=torch.int8,
-                           device=dev),
-        "scale": torch.ones((L, 2, batch, max_len), dtype=torch.float32,
+        "sym": torch.zeros(shape, dtype=torch.int8, device=dev),
+        "scale": torch.ones(shape[:3] + shape[4:5], dtype=torch.float32,
                             device=dev),
     }
 
@@ -1043,13 +1063,17 @@ def quantized_cache_to_blob(cache: Dict[str, torch.Tensor], b: int = 0,
 
 def blob_into_quantized_cache(cache: Dict[str, torch.Tensor],
                               blob: torch.Tensor, b: int = 0,
-                              pos: int = 0) -> Dict[str, torch.Tensor]:
+                              pos: int = 0, reduce_absmax=None
+                              ) -> Dict[str, torch.Tensor]:
     """Quantize a wire blob [L, 2, t, H, D] per (layer, K/V, token) over its
     (H, D) axes, as the model quantizes what it writes, and write symbols
     and scales into the int8 pool at token offset ``pos`` of batch row
-    ``b``, in place; returns ``cache``."""
+    ``b``, in place; returns ``cache``. ``reduce_absmax`` as in
+    ``quantize_tokens`` where the blob is a head slice (:func:`head_absmax`).
+    """
     t = blob.shape[2]
-    sym, scale = quantize_tokens(blob.to(cache["sym"].device), (3, 4))
+    sym, scale = quantize_tokens(blob.to(cache["sym"].device), (3, 4),
+                                 reduce_absmax)
     cache["sym"][:, :, b, :, pos:pos + t] = sym.transpose(2, 3)
     cache["scale"][:, :, b, pos:pos + t] = scale
     return cache
@@ -1229,23 +1253,59 @@ def _qkv(h, lp, cfg):
     return q, k, v
 
 
-def _qkv_heads(h, lp, cfg, positions, g=None):
+_ONE = Axis()  # the one-rank "model" axis of a forward without a mesh
+
+
+def _gathers(cfg, tp: Axis) -> bool:
+    """Whether this layer's heads are gathered over the mesh's "model" axis:
+    where its kv heads do not divide the axis (the JAX package then falls
+    back to its unwrapped kernel, which gathers the pool), every rank holds
+    every head, attends over the whole pool and applies its rows of ``wo``
+    to its columns of the output."""
+    return tp.size > 1 and cfg.n_kv_heads % tp.size != 0
+
+
+def _rms_norm_columns(x, weight, eps, one_offset, tp: Axis):
+    """:func:`_rms_norm` of a vector whose columns are split over ``tp``
+    (OLMo-2's full-width q/k norms on a head slice): the sum of squares
+    summed over the axis, this rank's columns of ``weight``."""
+    x32 = x.float()
+    width = x.shape[-1] * tp.size
+    ss = tp.sum(torch.sum(x32 * x32, dim=-1, keepdim=True))
+    rms = torch.rsqrt(ss / width + eps)
+    w = take_slice(weight, -1, tp.index, tp.size, "qk_norm_flat")
+    if one_offset:
+        return (x32 * rms * (1.0 + w.float())).to(x.dtype)
+    return (x32 * rms).to(x.dtype) * w
+
+
+def _qkv_heads(h, lp, cfg, positions, g=None, tp: Axis = _ONE):
     """q [B, T, H, D], k and v [B, T, H_kv, D] of one layer from its
     attention input ``h`` (:func:`_attn_input`): the projections, OLMo-2's
     full-width q/k norms before the head reshape, Qwen3's and Gemma-3's
     per-head q/k norms before RoPE, RoPE at the layer's frequencies
     (:func:`_layer_rope_freqs`), then Llama-4's L2 q/k norm on rope layers
     and its query temperature on NoPE layers. ``g`` is the layer's is-global
-    flag, which the per-layer traits need."""
+    flag, which the per-layer traits need. With the parameters of
+    ``parallel.shard_params`` on a "model" axis ``tp``, this rank's heads
+    (H / tp and H_kv / tp), or every head where :func:`_gathers`."""
     B, T = h.shape[:2]
     hd = cfg.head_dim
     q, k, v = _qkv(h, lp, cfg)
+    if _gathers(cfg, tp):
+        q, k, v = (tp.gather(t, -1) for t in (q, k, v))
     if cfg.qk_norm_flat:
-        q = _rms_norm(q, lp["q_norm"], cfg.norm_eps, cfg.norm_one_offset)
-        k = _rms_norm(k, lp["k_norm"], cfg.norm_eps, cfg.norm_one_offset)
-    q = q.reshape(B, T, cfg.n_heads, hd)
-    k = k.reshape(B, T, cfg.n_kv_heads, hd)
-    v = v.reshape(B, T, cfg.n_kv_heads, hd)
+        if tp.size > 1 and not _gathers(cfg, tp):
+            q = _rms_norm_columns(q, lp["q_norm"], cfg.norm_eps,
+                                  cfg.norm_one_offset, tp)
+            k = _rms_norm_columns(k, lp["k_norm"], cfg.norm_eps,
+                                  cfg.norm_one_offset, tp)
+        else:
+            q = _rms_norm(q, lp["q_norm"], cfg.norm_eps, cfg.norm_one_offset)
+            k = _rms_norm(k, lp["k_norm"], cfg.norm_eps, cfg.norm_one_offset)
+    q = q.reshape(B, T, -1, hd)
+    k = k.reshape(B, T, -1, hd)
+    v = v.reshape(B, T, -1, hd)
     if cfg.qk_norm:
         q = _rms_norm(q, lp["q_norm"], cfg.norm_eps, cfg.norm_one_offset)
         k = _rms_norm(k, lp["k_norm"], cfg.norm_eps, cfg.norm_one_offset)
@@ -1273,12 +1333,16 @@ def _qkv_heads(h, lp, cfg, positions, g=None):
     return q, k, v
 
 
-def _attn_residual(x, attn_flat, lp, cfg):
+def _attn_residual(x, attn_flat, lp, cfg, tp: Axis = _ONE):
     """Residual add of the attention block's output (``attn_flat``
     [B, T, H*D]): the output projection (GPT-OSS: with its bias), then the
     sandwich norm on it where the family has one (Gemma-2/3, GLM-4-0414,
-    OLMo-2)."""
-    y = attn_flat.to(x.dtype) @ lp["wo"]
+    OLMo-2). On a "model" axis ``tp`` the projection is row-parallel: this
+    rank's heads times its rows of ``wo``, summed over the axis, the bias
+    added once after."""
+    if _gathers(cfg, tp):
+        attn_flat = take_slice(attn_flat, -1, tp.index, tp.size, "wo")
+    y = tp.sum(attn_flat.to(x.dtype) @ lp["wo"])
     if cfg.attention_out_bias:
         y = y + lp["bo"]
     if cfg.post_norms:
@@ -1333,7 +1397,7 @@ def _route(h, lp, cfg):
 MOE_DISPATCH_BYTES = 4 << 30
 
 
-def _moe_mlp(h, lp, cfg):
+def _moe_mlp(h, lp, cfg, tp: Axis = _ONE):
     """The sparse-MoE MLP of tokens ``h [..., dim]``: each token's routed
     experts only (:func:`experts.dispatch`, the expert weights one batched
     product each), the JAX file's every-expert scan, whose unselected
@@ -1350,7 +1414,9 @@ def _moe_mlp(h, lp, cfg):
 
     All tokens are routed at once (:func:`_route`); the experts then run on
     slices of at most ``MOE_DISPATCH_BYTES`` of padded blocks. The sum over
-    experts is fp32, cast to ``h``'s dtype once."""
+    experts is fp32, cast to ``h``'s dtype once. On a "model" axis ``tp``
+    the experts are column- then row-parallel (each rank its columns of the
+    expert width), their outputs summed over the axis."""
     shape = h.shape
     hf = h.reshape(-1, shape[-1])
     ids, wts = _route(hf, lp, cfg)
@@ -1358,13 +1424,15 @@ def _moe_mlp(h, lp, cfg):
     step = max(experts.EXPERT_ROWS,
                MOE_DISPATCH_BYTES // (cfg.n_experts * row_bytes))
     out = [_expert_slice(hf[i:i + step], ids[i:i + step], wts[i:i + step],
-                         lp, cfg) for i in range(0, hf.shape[0], step)]
-    return torch.cat(out).reshape(shape)
+                         lp, cfg, tp.index == 0)
+           for i in range(0, hf.shape[0], step)]
+    return tp.sum(torch.cat(out).reshape(shape))
 
 
-def _expert_slice(hf, ids, wts, lp, cfg):
+def _expert_slice(hf, ids, wts, lp, cfg, add_down_bias=True):
     """:func:`_moe_mlp` of tokens ``hf [n, dim]`` routed to ``ids`` with
-    weights ``wts``: [n, dim] in ``hf``'s dtype."""
+    weights ``wts``: [n, dim] in ``hf``'s dtype (a rank's part of it on a
+    "model" axis, where one rank adds GPT-OSS's down-projection bias)."""
     k, dt = ids.shape[1], hf.dtype
     if cfg.moe_style == "llama4":
         x, slot = experts.dispatch(hf, ids, cfg.n_experts, scale=wts)
@@ -1377,8 +1445,9 @@ def _expert_slice(hf, ids, wts, lp, cfg):
         gate = (gate + lp["e_bg"][:, None].float()).clamp(max=limit)
         up = (up + lp["e_bu"][:, None].float()).clamp(-limit, limit)
         act = (up + 1.0) * (gate * torch.sigmoid(gate * 1.702))
-        y = (torch.bmm(act.to(dt), lp["e_down"]).float()
-             + lp["e_bd"][:, None].float())
+        y = torch.bmm(act.to(dt), lp["e_down"]).float()
+        if add_down_bias:
+            y = y + lp["e_bd"][:, None].float()
     else:
         y = torch.bmm((_act(gate, cfg.mlp_act) * up).to(dt), lp["e_down"])
     pairs = experts.gather(y, slot, k).float()  # [n, k, dim]
@@ -1392,30 +1461,31 @@ def _expert_slice(hf, ids, wts, lp, cfg):
     return out.to(dt)
 
 
-def _mlp_residual(x, lp, cfg):
+def _mlp_residual(x, lp, cfg, tp: Axis = _ONE):
     """The MLP block and its residual: pre-normed input (raw for OLMo-2),
     the gated dense MLP or the MoE MLP (``cfg.n_experts``), and the sandwich
-    norm on its output where the family has one."""
+    norm on its output where the family has one. On a "model" axis ``tp``
+    the MLP is column- then row-parallel, one sum over the axis."""
     h = (_rms_norm(x, lp["mlp_norm"], cfg.norm_eps, cfg.norm_one_offset)
          if cfg.pre_norms else x)
     if cfg.n_experts:
-        y = _moe_mlp(h, lp, cfg)
+        y = _moe_mlp(h, lp, cfg, tp)
     else:
         gate = _act((h @ lp["w_gate"]).float(), cfg.mlp_act)
         up = (h @ lp["w_up"]).float()
-        y = (gate * up).to(x.dtype) @ lp["w_down"]
+        y = tp.sum((gate * up).to(x.dtype) @ lp["w_down"])
     if cfg.post_norms:
         y = _rms_norm(y, lp["post_mlp_norm"], cfg.norm_eps,
                       cfg.norm_one_offset)
     return x + y
 
 
-def _block(x, attn, lp, cfg):
+def _block(x, attn, lp, cfg, tp: Axis = _ONE):
     """The rest of a layer after attention (``attn`` [B, T, H, D]): the
     attention residual, then the MLP block's."""
     B, T = x.shape[:2]
-    x = _attn_residual(x, attn.reshape(B, T, -1), lp, cfg)
-    return _mlp_residual(x, lp, cfg)
+    x = _attn_residual(x, attn.reshape(B, T, -1), lp, cfg, tp)
+    return _mlp_residual(x, lp, cfg, tp)
 
 
 def _layer_windows(cfg):
@@ -1442,12 +1512,18 @@ def _layer_plan(cfg):
                     _layer_globals(cfg)))
 
 
-def _attention_options(cfg, lp, window):
-    """The options of one layer's attention call."""
+def _attention_options(cfg, lp, window, tp: Axis = _ONE):
+    """The options of one layer's attention call (on a "model" axis, the
+    sinks of this rank's heads, or of every head where they are
+    gathered)."""
+    sinks = None
+    if cfg.attn_sinks:
+        sinks = lp["sinks"].float()
+        if _gathers(cfg, tp):
+            sinks = tp.gather(sinks, -1)
     return dict(sm_scale=cfg.sm_scale, sliding_window=window,
                 window_kind=cfg.local_attention_kind,
-                logit_softcap=cfg.attn_logit_softcap,
-                sinks=lp["sinks"].float() if cfg.attn_sinks else None)
+                logit_softcap=cfg.attn_logit_softcap, sinks=sinks)
 
 
 def _positions(start_pos, T, dev):
@@ -1459,16 +1535,16 @@ def _positions(start_pos, T, dev):
 
 
 def _layer(x, lp, cfg, kc, vc, positions, start_pos, kv_len, window, g,
-           use_kernel):
+           use_kernel, tp: Axis = _ONE):
     """One decoder layer (window ``window``, is-global flag ``g``); writes
-    this step's K/V into ``kc``/``vc`` ([B, H_kv, S, D] views of the pool)
-    in place. Without a pool (``kc`` None: a training step of
-    :func:`forward_train`, every row from position 0) the queries attend
-    over the step's own K/V with the plain attention, which autograd
-    differentiates."""
+    this step's K/V into ``kc``/``vc`` ([B, H_kv, S, D] views of the pool,
+    this rank's heads on a "model" axis ``tp``) in place. Without a pool
+    (``kc`` None: a training step of :func:`forward_train`, every row from
+    position 0) the queries attend over the step's own K/V with the plain
+    attention, which autograd differentiates."""
     B = x.shape[0]
-    q, k, v = _qkv_heads(_attn_input(x, lp, cfg), lp, cfg, positions, g)
-    opts = _attention_options(cfg, lp, window)
+    q, k, v = _qkv_heads(_attn_input(x, lp, cfg), lp, cfg, positions, g, tp)
+    opts = _attention_options(cfg, lp, window, tp)
     if kc is None:
         attn = mha_reference(q, k, v, start_pos, kv_len, **opts)
         return _block(x, attn, lp, cfg)
@@ -1484,25 +1560,34 @@ def _layer(x, lp, cfg, kc, vc, positions, start_pos, kv_len, window, g,
     else:
         attn = mha_reference(q, kc.transpose(1, 2), vc.transpose(1, 2),
                              start_pos, kv_len, **opts)
-    return _block(x, attn, lp, cfg)
+    return _block(x, attn, lp, cfg, tp)
+
+
+def head_absmax(cfg, tp: Axis):
+    """The ``reduce_absmax`` of ``quantize_tokens`` for this rank's K/V: the
+    absmax of a token over every rank's heads where they are split (one
+    scale a token, head-free, as in the JAX package), None otherwise."""
+    return tp.max if tp.size > 1 and not _gathers(cfg, tp) else None
 
 
 def _layer_quantized(x, lp, cfg, sym, scale, positions, start_pos, kv_len,
-                     window, g, use_kernel):
+                     window, g, use_kernel, tp: Axis = _ONE):
     """:func:`_layer` over one layer of the int8 pool (``sym``
     [2, B, H_kv, S, D], ``scale`` [2, B, S]): the new tokens are quantized
     and written first, and attention reads them back quantized like every
     older token."""
     B = x.shape[0]
-    q, k, v = _qkv_heads(_attn_input(x, lp, cfg), lp, cfg, positions, g)
+    q, k, v = _qkv_heads(_attn_input(x, lp, cfg), lp, cfg, positions, g, tp)
 
     rows = torch.arange(B, device=x.device)[:, None]
     for i, new in enumerate((k, v)):
-        new_sym, new_scale = quantize_tokens(new, (2, 3))  # [B,T,H,D], [B,T]
+        # [B, T, H, D], [B, T]
+        new_sym, new_scale = quantize_tokens(new, (2, 3),
+                                             head_absmax(cfg, tp))
         sym[i][rows, :, positions] = new_sym
         scale[i][rows, positions] = new_scale
 
-    opts = _attention_options(cfg, lp, window)
+    opts = _attention_options(cfg, lp, window, tp)
     if use_kernel:
         attn = quantized_flash_attention(q, sym[0], sym[1], scale[0],
                                          scale[1], start_pos, kv_len,
@@ -1511,7 +1596,7 @@ def _layer_quantized(x, lp, cfg, sym, scale, positions, start_pos, kv_len,
         attn = quantized_attention_reference(
             q, sym[0].transpose(1, 2), sym[1].transpose(1, 2), scale[0],
             scale[1], start_pos, kv_len, **opts)
-    return _block(x, attn, lp, cfg)
+    return _block(x, attn, lp, cfg, tp)
 
 
 @torch.no_grad()
@@ -1524,6 +1609,7 @@ def forward(
     *,
     use_kernel: bool = True,
     last_logit_only: bool = False,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One forward step (prefill when T>1, decode when T==1).
 
@@ -1536,20 +1622,47 @@ def forward(
     on the final position only (logits [B, 1, vocab]). ``use_kernel=False``
     (the JAX function's ``use_pallas=False``) computes attention with the
     plain version on whatever device the cache lives on.
+
+    With ``mesh`` (``parallel.make_mesh``), ``params`` are this rank's
+    (``parallel.shard_params``) and ``kv_cache`` its block of the pool
+    (``parallel.kv_cache_sharding``): its kv heads on "model" (every head
+    where they do not divide it), and its share of the batch rows on "data"
+    where ``tokens``' B divides it, else every row. ``tokens`` and
+    ``start_pos`` are the whole step's on every rank; each rank attends over
+    its heads with the unchanged kernel, the output projection and the MLP
+    are summed over "model", and the logits of the rows split over "data"
+    are gathered, so every rank returns the whole step's logits.
     """
     check_supported(cfg)
     T = tokens.shape[1]
     dev = kv_cache.device
+    rows = data_rows(tokens.shape[0], kv_cache.shape[2], mesh)
+    tokens, start_pos = _rows(tokens, start_pos, rows)
+    tp = axis(mesh, "model")
     start_pos, positions, kv_len = _positions(start_pos, T, dev)
     x = _embed(params, cfg, tokens.to(dev))
     lps = params["layers"]
     for li, window, g in _layer_plan(cfg):
         lp = {name: w[li] for name, w in lps.items()}
         x = _layer(x, lp, cfg, kv_cache[li, 0], kv_cache[li, 1], positions,
-                   start_pos, kv_len, window, g, use_kernel)
+                   start_pos, kv_len, window, g, use_kernel, tp)
     if last_logit_only:
         x = x[:, -1:]
-    return _lm_logits(x, params, cfg), kv_cache
+    return _gather_rows(_lm_logits(x, params, cfg), rows, mesh), kv_cache
+
+
+def _rows(tokens, start_pos, rows):
+    """The rows of the step that this rank computes (all where None)."""
+    if rows is None:
+        return tokens, start_pos
+    return tokens[rows], start_pos[rows]
+
+
+def _gather_rows(logits, rows, mesh):
+    """Every row's logits on every rank where "data" split the rows."""
+    if rows is None:
+        return logits
+    return axis(mesh, "data").gather(logits, 0)
 
 
 def forward_train(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
@@ -1590,6 +1703,7 @@ def forward_quantized(
     *,
     use_kernel: bool = True,
     last_logit_only: bool = False,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """:func:`forward` over an int8 KV pool, dequantized inside attention.
 
@@ -1597,12 +1711,17 @@ def forward_quantized(
     place** (symbols and scales) before the layer's attention, which reads
     the whole pool, the new tokens included, as int8. The pool's tensors may
     be views, such as one slot of a serving pool. Returns (logits fp32,
-    kv_cache).
+    kv_cache). ``mesh`` as in :func:`forward`: the symbols hold this rank's
+    heads, the scales are head-free (a token's absmax is taken over every
+    rank's heads), both hold this rank's rows.
     """
     check_supported(cfg)
     T = tokens.shape[1]
     sym_pool, scale_pool = kv_cache["sym"], kv_cache["scale"]
     dev = sym_pool.device
+    rows = data_rows(tokens.shape[0], sym_pool.shape[2], mesh)
+    tokens, start_pos = _rows(tokens, start_pos, rows)
+    tp = axis(mesh, "model")
     start_pos, positions, kv_len = _positions(start_pos, T, dev)
     x = _embed(params, cfg, tokens.to(dev))
     lps = params["layers"]
@@ -1610,7 +1729,75 @@ def forward_quantized(
         lp = {name: w[li] for name, w in lps.items()}
         x = _layer_quantized(x, lp, cfg, sym_pool[li], scale_pool[li],
                              positions, start_pos, kv_len, window, g,
-                             use_kernel)
+                             use_kernel, tp)
     if last_logit_only:
         x = x[:, -1:]
-    return _lm_logits(x, params, cfg), kv_cache
+    return _gather_rows(_lm_logits(x, params, cfg), rows, mesh), kv_cache
+
+
+@torch.no_grad()
+def forward_ring(
+    params: Params,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # int [B, T], the whole prompt on every rank
+    mesh,
+    *,
+    seq_axis: str = "data",
+    head_axis: Optional[str] = "model",
+    last_logit_only: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Context-parallel FULL prefill (sequence parallelism), the JAX file's
+    ``forward_ring``: the token axis is split over ``mesh``'s ``seq_axis``,
+    each rank embedding, projecting and running the MLP on its contiguous
+    block of ``T / p`` tokens, and attention runs as ring attention
+    (:func:`lmcache_tpu_torch.parallel.ring_attention.ring_body`), the KV
+    blocks passed around the ring, so that no rank holds more than two
+    blocks of KV. It composes with tensor parallelism on ``head_axis``
+    (``params`` of ``parallel.shard_params``). Every family trait rides the
+    ring: windows (blocks outside a layer's window skip their compute),
+    per-layer rope and query traits by the layer's is-global flag, qk
+    norms, softcaps, sinks and MoE.
+
+    Returns this rank's ``(logits [B, T / p, vocab] fp32, kv_cache [L, 2, B,
+    H_kv', T / p, D])``: its block of the logits and of the head-major
+    cache, whose chunks it can store per shard. With ``last_logit_only`` the
+    logits of the prompt's last token [B, 1, vocab] on every rank. ``T``
+    must divide the ``seq_axis`` size."""
+    from lmcache_tpu_torch.parallel.ring_attention import ring_body
+    check_supported(cfg)
+    B, T = tokens.shape
+    seq = axis(mesh, seq_axis)
+    tp = axis(mesh, head_axis) if head_axis else _ONE
+    if T % seq.size:
+        raise ValueError(f"T ({T}) must divide the {seq_axis!r} axis size "
+                         f"({seq.size})")
+    Tl = T // seq.size
+    dev = params["embed"].device
+    local = tokens[:, seq.index * Tl:(seq.index + 1) * Tl].to(dev)
+    positions = (seq.index * Tl + torch.arange(Tl, device=dev))[None].expand(
+        B, Tl)
+    q_off = torch.zeros(B, dtype=torch.int32, device=dev)
+    kv_len = torch.full((B,), T, dtype=torch.int32, device=dev)
+    globals_ = cfg.layer_windows()
+    x = _embed(params, cfg, local)
+    blocks = []
+    lps = params["layers"]
+    for li in range(cfg.n_layers):
+        g = bool(globals_[li])
+        lp = {name: w[li] for name, w in lps.items()}
+        q, k, v = _qkv_heads(_attn_input(x, lp, cfg), lp, cfg, positions, g,
+                             tp)
+        opts = _attention_options(cfg, lp, cfg.sliding_window, tp)
+        attn = ring_body(q, k, v, q_off, kv_len, seq,
+                         scale=(opts["sm_scale"] if opts["sm_scale"]
+                                is not None else 1.0 / cfg.head_dim**0.5),
+                         logit_softcap=opts["logit_softcap"],
+                         sliding_window=cfg.sliding_window,
+                         window_kind=cfg.local_attention_kind,
+                         is_global=g, sinks=opts["sinks"])
+        x = _block(x, attn, lp, cfg, tp)
+        blocks.append(torch.stack((k.transpose(1, 2), v.transpose(1, 2))))
+    if last_logit_only:
+        logits = _lm_logits(x[:, -1:], params, cfg).contiguous()
+        return seq.broadcast(logits, seq.size - 1), torch.stack(blocks)
+    return _lm_logits(x, params, cfg), torch.stack(blocks)

@@ -35,8 +35,16 @@ DeepSeek-V2-Lite geometry 576 values a token and layer.
 
 :meth:`MLAConfig.from_hf` and :func:`load_hf` read a local HuggingFace
 checkpoint directory through :mod:`lmcache_tpu_torch.models.hf_checkpoint`,
-without ``transformers``. Not ported yet: ``mesh`` (query heads sharded over
-a mesh, ``_shard_latent_attend``; ROADMAP module item 16), which raises.
+without ``transformers``.
+
+With ``mesh`` (``lmcache_tpu_torch.parallel``; the JAX file's
+``_shard_latent_attend`` and ``_shard_paged_latent_attend``) each rank holds
+the parameters of ``parallel.shard_params``: the query projection
+(``wq``/``wq_b``) and the absorbed ``w_kb_k``/``w_kb_v`` of its ``H / tp``
+query heads, its rows of ``wo`` and its columns of the MLPs and experts. The
+latent pool or arena has no head axis and is replicated over "model" (every
+rank writes the same latents); the latent kernels run on the rank's heads,
+and the output projection and the MLPs are summed over "model".
 """
 
 from dataclasses import dataclass
@@ -48,18 +56,21 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from lmcache_tpu_torch.models import experts, hf_checkpoint
-from lmcache_tpu_torch.models.llama import (_positions, _rms_norm, _rope,
+from lmcache_tpu_torch.models.llama import (_gather_rows, _positions,
+                                            _rms_norm, _rope, _rows,
                                             _tensor_from_numpy, torch_dtype)
 from lmcache_tpu_torch.ops.latent_attention import (
     dequantize_latents, latent_attention_reference, latent_flash_attention,
     quantize_latents, quantized_latent_flash_attention)
 from lmcache_tpu_torch.ops.paged_latent_attention import (
     paged_latent_attention_dma, quantized_paged_latent_attention_dma)
+from lmcache_tpu_torch.parallel.mesh import (Axis, axis, data_rows,
+                                             latent_cache_sharding,
+                                             local_shape)
 from lmcache_tpu_torch.utils import resolve_device
 
 Params = Dict[str, Any]
-
-_MESH_NOT_PORTED = "mesh is not ported yet (ROADMAP, module item 16)"
+_ONE = Axis()  # the one-rank "model" axis of a forward without a mesh
 
 
 def _yarn_mscale(scale: float, mscale: float = 1.0) -> float:
@@ -293,26 +304,38 @@ def check_supported(cfg) -> None:
 # ---------------------------------------------------------------------------
 
 
+def latent_cache_shape(cfg: MLAConfig, batch: int, max_len: int,
+                       mesh=None) -> Tuple[int, ...]:
+    """The shape of this rank's block of the latent pool [L, B, S, r + p]
+    on ``mesh`` (``parallel.latent_cache_sharding``): its share of the
+    batch rows on "data" (every row where they do not divide it), every
+    latent."""
+    return local_shape((cfg.n_layers, batch, max_len, cfg.latent_dim),
+                       latent_cache_sharding(), mesh)
+
+
 def new_latent_cache(cfg: MLAConfig, batch: int, max_len: int,
-                     device="cuda") -> torch.Tensor:
+                     device="cuda", mesh=None) -> torch.Tensor:
     """Latent pool ``[L, B, S, r + p]``, zeroed: per (layer, token) one
     normalized latent (first r dims) and one roped MQA key (last p dims).
-    There is no head axis: that is the compression."""
-    return torch.zeros((cfg.n_layers, batch, max_len, cfg.latent_dim),
+    There is no head axis: that is the compression. On ``mesh``, this rank's
+    block (:func:`latent_cache_shape`)."""
+    return torch.zeros(latent_cache_shape(cfg, batch, max_len, mesh),
                        dtype=torch_dtype(cfg), device=resolve_device(device))
 
 
 def new_quantized_latent_cache(cfg: MLAConfig, batch: int, max_len: int,
-                               device="cuda") -> Dict[str, torch.Tensor]:
+                               device="cuda",
+                               mesh=None) -> Dict[str, torch.Tensor]:
     """Int8 latent pool: ``{"sym" [L, B, S, r + p] int8, zeroed, "scale"
     [L, B, S] fp32, initialised to 1}`` (one scale per token over the latent
-    dim), read by the int8 latent kernel."""
+    dim), read by the int8 latent kernel. ``mesh`` as in
+    :func:`new_latent_cache`."""
     dev = resolve_device(device)
+    shape = latent_cache_shape(cfg, batch, max_len, mesh)
     return {
-        "sym": torch.zeros((cfg.n_layers, batch, max_len, cfg.latent_dim),
-                           dtype=torch.int8, device=dev),
-        "scale": torch.ones((cfg.n_layers, batch, max_len),
-                            dtype=torch.float32, device=dev),
+        "sym": torch.zeros(shape, dtype=torch.int8, device=dev),
+        "scale": torch.ones(shape[:3], dtype=torch.float32, device=dev),
     }
 
 
@@ -634,9 +657,10 @@ def load_hf(model_name: str, cfg: Optional[MLAConfig] = None,
 
 def _mla_project(x, lp, cfg: MLAConfig, positions):
     """Shared MLA projections of one layer: (q_full [B, T, H, r + p] fp32,
-    the absorbed query; new_tok [B, T, r + p], the tokens' latent rows)."""
+    the absorbed query, of the heads whose projections ``lp`` holds; new_tok
+    [B, T, r + p], the tokens' latent rows)."""
     B, T = x.shape[:2]
-    H, n, r = cfg.n_heads, cfg.qk_nope_head_dim, cfg.kv_lora_rank
+    H, n, r = lp["w_kb_k"].shape[0], cfg.qk_nope_head_dim, cfg.kv_lora_rank
     h = _rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     if cfg.q_lora_rank is None:
         q = h @ lp["wq"]
@@ -666,7 +690,7 @@ def _context_out(ctx, lp, cfg: MLAConfig, x):
     [B, T, H * v] in the model dtype (``w_kb_v`` applied in fp32)."""
     B, T = x.shape[:2]
     attn = torch.einsum("bthr,hrv->bthv", ctx.float(), lp["w_kb_v"].float())
-    return attn.to(x.dtype).reshape(B, T, cfg.n_heads * cfg.v_head_dim)
+    return attn.to(x.dtype).reshape(B, T, -1)
 
 
 def _mla_attention(x, lp, cfg: MLAConfig, cache_l, start_pos, positions,
@@ -754,36 +778,50 @@ def _routed_experts(hf, topi, topw, lp, cfg: MLAConfig):
     return (topw[..., None] * experts.gather(y, slot, k).float()).sum(dim=1)
 
 
-def _moe_mlp(h, lp, cfg: MLAConfig):
+def _moe_mlp(h, lp, cfg: MLAConfig, tp: Axis = _ONE):
     """Routed experts plus the always-on shared experts. The routed experts
     run on the tokens routed to them only (:func:`_routed_experts`), their
     weighted outputs summed in fp32: the JAX scan's function, which runs
     every expert on every token and weights the unselected ones by exactly
-    0."""
+    0. On a "model" axis ``tp`` both are column- then row-parallel, one sum
+    over the axis."""
     shape = h.shape
     hf = h.reshape(-1, shape[-1])
     topi, topw = _gate(hf, lp, cfg)
     out = _routed_experts(hf, topi, topw, lp, cfg).to(h.dtype).reshape(shape)
     if cfg.n_shared_experts:
         out = out + _swiglu(h, lp["s_gate"], lp["s_up"], lp["s_down"])
-    return out
+    return tp.sum(out)
 
 
-def _mlp_residual(x, attn, lp, cfg: MLAConfig, moe: bool):
+def _mlp_residual(x, attn, lp, cfg: MLAConfig, moe: bool,
+                  tp: Axis = _ONE):
     """The rest of a layer after attention: output projection and residual,
-    then the dense or MoE MLP and its residual."""
-    x = x + attn @ lp["wo"]
+    then the dense or MoE MLP and its residual (on a "model" axis ``tp``,
+    each row-parallel product summed over it)."""
+    x = x + tp.sum(attn @ lp["wo"])
     h = _rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     if moe:
-        return x + _moe_mlp(h, lp, cfg)
-    return x + _swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+        return x + _moe_mlp(h, lp, cfg, tp)
+    return x + tp.sum(_swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]))
 
 
 def _layer(x, lp, cfg: MLAConfig, cache_l, start_pos, positions, kv_len,
-           moe: bool):
+           moe: bool, tp: Axis = _ONE):
     """One decoder layer over ``cache_l`` (None: a training step)."""
     attn = _mla_attention(x, lp, cfg, cache_l, start_pos, positions, kv_len)
-    return _mlp_residual(x, attn, lp, cfg, moe)
+    return _mlp_residual(x, attn, lp, cfg, moe, tp)
+
+
+def model_axis(cfg: MLAConfig, mesh) -> Axis:
+    """The mesh's "model" axis, whose size must divide the query heads: the
+    latent kernels run on a rank's ``H / tp`` heads."""
+    tp = axis(mesh, "model")
+    if cfg.n_heads % tp.size:
+        raise ValueError(
+            f"n_heads ({cfg.n_heads}) must divide the mesh's model axis "
+            f"({tp.size}) for the latent kernels")
+    return tp
 
 
 def _layers(params, cfg: MLAConfig):
@@ -822,20 +860,31 @@ def forward(
     pool; an int8 pool quantizes them per token), and cached-prefix reuse is
     ``blob_into_cache`` + a call with the suffix. Returns (logits
     [B, T, vocab] fp32, the pool); with ``last_logit_only`` the lm_head runs
-    on the final position only."""
-    if mesh is not None:
-        raise ValueError(_MESH_NOT_PORTED)
+    on the final position only.
+
+    With ``mesh``, ``params`` are this rank's (``parallel.shard_params``)
+    and ``latent_cache`` its block of the pool
+    (``parallel.latent_cache_sharding``: its share of the batch rows on
+    "data" where ``tokens``' B divides it, else every row; every latent on
+    "model"); ``tokens`` and ``start_pos`` are the whole step's, and every
+    rank returns the whole step's logits, as ``llama.forward`` does."""
     check_supported(cfg)
+    tp = model_axis(cfg, mesh)
     T = tokens.shape[1]
     quant = isinstance(latent_cache, dict)
-    dev = (latent_cache["sym"] if quant else latent_cache).device
+    pool = latent_cache["sym"] if quant else latent_cache
+    dev = pool.device
+    rows = data_rows(tokens.shape[0], pool.shape[1], mesh)
+    tokens, start_pos = _rows(tokens, start_pos, rows)
     start_pos, positions, kv_len = _positions(start_pos, T, dev)
     x = params["embed"][tokens.to(dev).long()]
     for li, lp, moe in _layers(params, cfg):
         cache_l = ({k: v[li] for k, v in latent_cache.items()} if quant
                    else latent_cache[li])
-        x = _layer(x, lp, cfg, cache_l, start_pos, positions, kv_len, moe)
-    return _logits(x, params, cfg, last_logit_only), latent_cache
+        x = _layer(x, lp, cfg, cache_l, start_pos, positions, kv_len, moe,
+                   tp)
+    return (_gather_rows(_logits(x, params, cfg, last_logit_only), rows,
+                         mesh), latent_cache)
 
 
 def forward_train(params: Params, cfg: MLAConfig, tokens: torch.Tensor, *,
@@ -905,10 +954,13 @@ def forward_paged(
     tokens' latent rows are scattered **in place** into the pages named by
     ``page_table`` (quantized per token for an int8 arena) and attention
     reads the pages through the table inside the kernel
-    (``paged_latent_attention_dma``). Returns (logits fp32, the arena)."""
-    if mesh is not None:
-        raise ValueError(_MESH_NOT_PORTED)
+    (``paged_latent_attention_dma``). Returns (logits fp32, the arena). With
+    ``mesh``, ``params`` are this rank's and the arena is replicated over
+    both axes (the JAX engine's ``P()``): every rank writes the same latent
+    rows, attends with its ``H / tp`` heads and computes every row of the
+    step."""
     check_supported(cfg)
+    tp = model_axis(cfg, mesh)
     B, T = tokens.shape
     quant = isinstance(latent_pool, dict)
     arena = latent_pool["sym"] if quant else latent_pool
@@ -924,5 +976,5 @@ def forward_paged(
                   else latent_pool[li])
         attn = _mla_attention_paged(x, lp, cfg, pool_l, table, pidx, poff,
                                     start_pos, positions, kv_len)
-        x = _mlp_residual(x, attn, lp, cfg, moe)
+        x = _mlp_residual(x, attn, lp, cfg, moe, tp)
     return _logits(x, params, cfg, last_logit_only), latent_pool

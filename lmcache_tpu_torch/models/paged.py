@@ -26,7 +26,15 @@ memory is bounded by the tokens actually resident.
   so every ``LlamaConfig`` preset runs here.
 
 Page size should divide the cache-engine chunk_size so retrieved chunks land
-on whole pages. ``mesh`` (head-sharded arenas) is not ported yet.
+on whole pages.
+
+With ``mesh`` (``lmcache_tpu_torch.parallel``) each rank keeps a local arena
+of its ``H_kv / tp`` kv heads (``[L, 2, P, H_kv / tp, page, D]``; the int8
+scales ``[L, 2, P, page]`` are head-free, a token's absmax taken over every
+rank's heads) and runs the unchanged kernels on it: the JAX file's
+``_shard_paged_attend``. The arena is the cross-request resource and has no
+batch axis, so it is replicated over "data" and every data rank computes
+every row of a step.
 """
 
 from collections import OrderedDict
@@ -37,34 +45,42 @@ import torch
 from lmcache_tpu_torch.models import llama
 from lmcache_tpu_torch.ops import paged_attention as pa
 from lmcache_tpu_torch.ops.quantized_attention import quantize_tokens
+from lmcache_tpu_torch.parallel.mesh import (axis, local_shape,
+                                             paged_kv_sharding)
 from lmcache_tpu_torch.utils import resolve_device
 
-_MESH_NOT_PORTED = "mesh is not ported yet (ROADMAP, module item 16)"
+
+def paged_pool_shape(cfg: llama.LlamaConfig, num_pages: int,
+                     page_size: int, mesh=None) -> Tuple[int, ...]:
+    """The shape of this rank's arena [L, 2, P, H_kv, page_size, D] on
+    ``mesh`` (``parallel.paged_kv_sharding``): its kv heads on "model"."""
+    return local_shape((cfg.n_layers, 2, num_pages, cfg.n_kv_heads,
+                        page_size, cfg.head_dim), paged_kv_sharding(), mesh)
 
 
 def new_paged_kv_pool(cfg: llama.LlamaConfig, num_pages: int, page_size: int,
-                      device="cuda") -> torch.Tensor:
+                      device="cuda", mesh=None) -> torch.Tensor:
     """Global page arena [L, 2, P, H_kv, page_size, D], zeroed: HEAD-major
-    pages, so the kernel reads a page of one head as one contiguous run."""
-    return torch.zeros(
-        (cfg.n_layers, 2, num_pages, cfg.n_kv_heads, page_size,
-         cfg.head_dim), dtype=llama.torch_dtype(cfg),
-        device=resolve_device(device))
+    pages, so the kernel reads a page of one head as one contiguous run. On
+    ``mesh``, this rank's arena (:func:`paged_pool_shape`)."""
+    return torch.zeros(paged_pool_shape(cfg, num_pages, page_size, mesh),
+                       dtype=llama.torch_dtype(cfg),
+                       device=resolve_device(device))
 
 
 def new_quantized_paged_pool(cfg: llama.LlamaConfig, num_pages: int,
-                             page_size: int,
-                             device="cuda") -> Dict[str, torch.Tensor]:
+                             page_size: int, device="cuda",
+                             mesh=None) -> Dict[str, torch.Tensor]:
     """Int8 page arena: {"sym" [L,2,P,H,page,D] i8, "scale" [L,2,P,page]
     f32, initialised to 1}. Half the bytes of the bf16 arena; read by the
-    int8 paged kernels. Head-major pages like :func:`new_paged_kv_pool`."""
+    int8 paged kernels. Head-major pages like :func:`new_paged_kv_pool`
+    (``mesh`` as there; the scales are head-free)."""
     dev = resolve_device(device)
+    shape = paged_pool_shape(cfg, num_pages, page_size, mesh)
     return {
-        "sym": torch.zeros((cfg.n_layers, 2, num_pages, cfg.n_kv_heads,
-                            page_size, cfg.head_dim), dtype=torch.int8,
-                           device=dev),
-        "scale": torch.ones((cfg.n_layers, 2, num_pages, page_size),
-                            dtype=torch.float32, device=dev),
+        "sym": torch.zeros(shape, dtype=torch.int8, device=dev),
+        "scale": torch.ones(shape[:3] + shape[4:5], dtype=torch.float32,
+                            device=dev),
     }
 
 
@@ -154,12 +170,13 @@ def _streams(cfg: llama.LlamaConfig) -> bool:
 
 
 def _paged_forward(params, cfg, tokens, start_pos, page_table, page, dev,
-                   write_and_attend, last_logit_only):
+                   write_and_attend, last_logit_only, tp):
     """The layer loop shared by both arena dtypes, each layer under its own
     window and the config's softcap and sinks; ``write_and_attend(li, q, k,
     v, pidx, poff, table, start, kv_len, opts)`` scatters the new K/V into
     layer ``li`` of the arena and returns the attention output under the
-    options ``opts`` (``llama._attention_options``)."""
+    options ``opts`` (``llama._attention_options``). ``tp`` is the mesh's
+    "model" axis."""
     B, T = tokens.shape
     start_pos = start_pos.to(device=dev, dtype=torch.int32)
     table = page_table.to(device=dev, dtype=torch.int32).contiguous()
@@ -174,11 +191,11 @@ def _paged_forward(params, cfg, tokens, start_pos, page_table, page, dev,
     for li, window, g in llama._layer_plan(cfg):
         lp = {name: w[li] for name, w in lps.items()}
         q, k, v = llama._qkv_heads(llama._attn_input(x, lp, cfg), lp, cfg,
-                                   positions, g)
+                                   positions, g, tp)
         attn = write_and_attend(li, q, k, v, pidx, poff, table, start_pos,
                                 kv_len, llama._attention_options(cfg, lp,
-                                                                 window))
-        x = llama._block(x, attn, lp, cfg)
+                                                                 window, tp))
+        x = llama._block(x, attn, lp, cfg, tp)
     if last_logit_only:
         x = x[:, -1:]
     return llama._lm_logits(x, params, cfg)
@@ -203,10 +220,11 @@ def forward_paged(
     ``page_table``; attention reads the pages through the page table inside
     the kernel. Returns (logits fp32, kv_pool). ``use_kernel=False`` (the
     JAX function's ``use_pallas=False``) computes attention with the plain
-    version on whatever device the arena lives on.
+    version on whatever device the arena lives on. With ``mesh``,
+    ``params`` are this rank's (``parallel.shard_params``) and ``kv_pool``
+    its arena of ``H_kv / tp`` heads (every head where they do not divide
+    "model"); the logits are the whole step's on every rank.
     """
-    if mesh is not None:
-        raise ValueError(_MESH_NOT_PORTED)
     llama.check_supported(cfg)
     page = kv_pool.shape[4]
     if not use_kernel:
@@ -228,7 +246,7 @@ def forward_paged(
 
     logits = _paged_forward(params, cfg, tokens, start_pos, page_table, page,
                             kv_pool.device, write_and_attend,
-                            last_logit_only)
+                            last_logit_only, axis(mesh, "model"))
     return logits, kv_pool
 
 
@@ -246,10 +264,10 @@ def forward_paged_quantized(
     mesh=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """:func:`forward_paged` over the int8 page arena: per-(layer, token)
-    quantization on write, dequantization inside the kernel on read."""
-    if mesh is not None:
-        raise ValueError(_MESH_NOT_PORTED)
+    quantization on write, dequantization inside the kernel on read.
+    ``mesh`` as in :func:`forward_paged`."""
     llama.check_supported(cfg)
+    tp = axis(mesh, "model")
     sym_pool, scale_pool = kv_pool["sym"], kv_pool["scale"]
     page = sym_pool.shape[4]
     if not use_kernel:
@@ -261,8 +279,9 @@ def forward_paged_quantized(
 
     def write_and_attend(li, q, k, v, pidx, poff, table, start, kv_len,
                          opts):
-        k_sym, k_scale = quantize_tokens(k, (2, 3))  # [B,T,H,D], [B,T]
-        v_sym, v_scale = quantize_tokens(v, (2, 3))
+        absmax = llama.head_absmax(cfg, tp)
+        k_sym, k_scale = quantize_tokens(k, (2, 3), absmax)  # [B,T,H,D]
+        v_sym, v_scale = quantize_tokens(v, (2, 3), absmax)
         sym, scl = sym_pool[li], scale_pool[li]
         sym[0][pidx, :, poff] = k_sym
         sym[1][pidx, :, poff] = v_sym
@@ -273,5 +292,5 @@ def forward_paged_quantized(
 
     logits = _paged_forward(params, cfg, tokens, start_pos, page_table, page,
                             sym_pool.device, write_and_attend,
-                            last_logit_only)
+                            last_logit_only, tp)
     return logits, kv_pool

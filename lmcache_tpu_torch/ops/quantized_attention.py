@@ -33,15 +33,19 @@ from lmcache_tpu_torch.ops import attention as _attn
 from lmcache_tpu_torch.ops.attention import mha_reference
 
 
-def quantize_tokens(t: torch.Tensor, dims) -> Tuple[torch.Tensor,
-                                                    torch.Tensor]:
+def quantize_tokens(t: torch.Tensor, dims, reduce_absmax=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-token symmetric int8 quantization over ``dims`` (the head and
     channel axes): ``scale = absmax / 127`` (1/127 for an all-zero token),
     symbols ``x / scale`` rounded half to even and clipped to +-127. Returns
     (int8 symbols, fp32 scales without ``dims``). Identical to the JAX
-    package's quantization, symbol for symbol."""
+    package's quantization, symbol for symbol. ``reduce_absmax`` maps the
+    local absmax to the token's whole one where ``t`` holds a head slice
+    (``parallel.Axis.max`` over the mesh's "model" axis)."""
     t32 = t.float()
     absmax = t32.abs().amax(dim=dims)
+    if reduce_absmax is not None:
+        absmax = reduce_absmax(absmax)
     scale = torch.where(absmax == 0.0, torch.ones_like(absmax),
                         absmax) / 127.0
     sym = torch.round(t32 / scale[(..., ) + (None, ) * len(dims)])

@@ -53,8 +53,20 @@ Greedy decoding gives the JAX engine's tokens. Sampled decoding draws from a
 from the engine's own generator), one draw a token whatever the decode mode:
 reproducible within the port, not equal to ``jax.random``'s draws.
 
-``mesh`` is not ported yet (ROADMAP, module item 16) and raises
-``ValueError``.
+``mesh`` (``lmcache_tpu_torch.parallel.make_mesh``): one engine a rank, every
+rank running the same scheduler over the same requests with the parameters
+of ``parallel.shard_params``. The pool holds this rank's kv heads on "model"
+(every head where they do not divide it) and, where ``max_batch`` divides
+"data", the slots of this rank's data index: a slot's prefill runs on its
+owners only, whose last logits are then broadcast over "data", and a
+batched step computes each rank's own rows and gathers the logits over
+"data", so every rank samples every row from the same seeded generator and
+picks the same token. The cache tiers: a ``cache_engine`` a rank, over the
+metadata of ``parallel.shard_metadata`` (``world_size`` the "model" size,
+``worker_id`` the rank's "model" index), stores and retrieves the rank's
+head slice of the slots it owns; the ranks agree on the hit length before
+they inject. CacheBlend (``context_chunks``) blends each rank's head slice
+(``blend.py``) on the slot's owners.
 """
 
 import time
@@ -67,6 +79,7 @@ from lmcache_tpu_torch import kv
 from lmcache_tpu_torch.cache_engine import LMCacheEngine
 from lmcache_tpu_torch.logging_utils import init_logger
 from lmcache_tpu_torch.models import llama
+from lmcache_tpu_torch.parallel.mesh import axis
 from lmcache_tpu_torch.serving.request import (Request, RequestState,
                                                SamplingParams)
 from lmcache_tpu_torch.storage.serde.cachegen_serde import (
@@ -191,20 +204,26 @@ class ServingEngine:
         mesh=None,
         blend_recompute_ratio: float = 0.15,
     ):
-        if mesh is not None:
-            raise ValueError(
-                "mesh is not ported yet (ROADMAP, module item 16)")
         if kv_dtype not in ("native", "int8"):
             raise ValueError(f"Invalid kv_dtype: {kv_dtype}")
         if spec_lookahead and decode_block > 1:
             raise ValueError(
                 "spec_lookahead and decode_block > 1 are mutually "
                 "exclusive multi-token mechanisms")
+        self.mesh = mesh
         self._check_config(cfg)
         self.cfg = cfg
         self.params = params
         self.device = resolve_device(device)
+        self._tp, self._dp = axis(mesh, "model"), axis(mesh, "data")
         self.B = max_batch
+        # with "data" splitting the slots, this rank keeps slots
+        # [_slot0, _slot0 + _local_B) of the pool
+        self._local_B = self.B
+        if self._splits_slots():
+            self._local_B = self.B // self._dp.size
+        self._slot0 = (self._dp.index * self._local_B
+                       if self._local_B < self.B else 0)
         self.S = max_seq or cfg.max_seq_len
         self.cache_engine = cache_engine
         self.eos_token_id = eos_token_id
@@ -243,10 +262,82 @@ class ServingEngine:
         self._head_bypasses = 0
         self._blend_ratio = blend_recompute_ratio
         self._blender = None
+        self._check_shard_metadata()
+        if self._tp.size > 1 and not self._heads_split() and isinstance(
+                cfg, llama.LlamaConfig):
+            logger.warning(
+                "n_kv_heads (%d) does not divide the mesh's model axis "
+                "(%d): every rank gathers q, k and v and holds the whole "
+                "pool", cfg.n_kv_heads, self._tp.size)
 
     def _check_config(self, cfg: llama.LlamaConfig) -> None:
         """Refuse a config this engine's forward does not run."""
         llama.check_supported(cfg)
+
+    # -- the mesh -------------------------------------------------------------
+
+    def _splits_slots(self) -> bool:
+        """Whether "data" splits the slots between the data ranks (the
+        dense pools); a paged arena is replicated over "data"."""
+        return self._dp.size > 1 and self.B % self._dp.size == 0
+
+    def _heads_split(self) -> bool:
+        """Whether each rank holds a head slice of the KV."""
+        return llama.kv_heads(self.cfg, self.mesh) < self.cfg.n_kv_heads
+
+    def _check_shard_metadata(self) -> None:
+        """A rank that stores a head slice does so under its own key
+        namespace: the cache engine's metadata must name this rank's
+        "model" index as its worker among the "model" size."""
+        if self.cache_engine is None or not self._heads_split():
+            return
+        meta = self.cache_engine.metadata
+        if (meta.world_size, meta.worker_id) != (self._tp.size,
+                                                 self._tp.index):
+            raise ValueError(
+                f"this rank stores head slice {self._tp.index} of "
+                f"{self._tp.size}; its cache engine's metadata says worker "
+                f"{meta.worker_id} of {meta.world_size} "
+                f"(parallel.shard_metadata)")
+
+    def _owns(self, slot: int) -> bool:
+        """Whether this rank holds ``slot`` of the pool."""
+        return self._slot0 <= slot < self._slot0 + self._local_B
+
+    def _local(self, slot: int) -> int:
+        """``slot``'s row in this rank's pool."""
+        return slot - self._slot0
+
+    def _share_row(self, logits, slot: int):
+        """The logits [V] of a row computed by ``slot``'s owners, on every
+        rank (a broadcast over "data" where it splits the slots)."""
+        if self._local_B == self.B:
+            return logits
+        if logits is None:
+            logits = torch.empty(self.cfg.vocab_size, dtype=torch.float32,
+                                 device=self.device)
+        return self._dp.broadcast(logits.contiguous(),
+                                  slot // self._local_B)
+
+    def _world_min(self, n: int) -> int:
+        """The least ``n`` over every rank of the mesh."""
+        if self.mesh is None:
+            return n
+        t = torch.tensor([n], dtype=torch.int64, device=self.device)
+        torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MIN)
+        return int(t)
+
+    def _hit_limit(self, req: Request, tokens: np.ndarray,
+                   limit: int) -> int:
+        """The tokens a retrieve may inject: at most ``limit``, and on a
+        mesh at most every rank's hit length, so that every rank injects
+        (and for an int8 pool quantizes, with a sum over "model") the same
+        chunks."""
+        if self.mesh is None:
+            return limit
+        hits = (self.cache_engine.lookup(tokens) if self._owns(req.slot)
+                else len(tokens))
+        return min(limit, self._world_min(hits))
 
     def _alloc_pool(self):
         """Allocate the engine's KV residence (dense slot pool, a tensor or
@@ -258,14 +349,15 @@ class ServingEngine:
         new = (llama.new_quantized_kv_cache if self.kv_dtype == "int8"
                else llama.new_kv_cache)
         return new(self.cfg, self.B, self.S + self._write_horizon,
-                   device=self.device)
+                   device=self.device, mesh=self.mesh)
 
     def _slot_view(self, slot: int):
         """One slot of the pool as a batch-1 pool (views, no copy)."""
+        b = self._local(slot)
         if self.kv_dtype == "int8":
-            return {name: t[:, :, slot:slot + 1]
+            return {name: t[:, :, b:b + 1]
                     for name, t in self.kv_pool.items()}
-        return self.kv_pool[:, :, slot:slot + 1]
+        return self.kv_pool[:, :, b:b + 1]
 
     def _get_blender(self):
         if self._blender is None:
@@ -279,7 +371,7 @@ class ServingEngine:
         """The blender of this engine's model family."""
         from lmcache_tpu_torch.blend import CacheBlender
         return CacheBlender(self.cfg, self.params, self.cache_engine,
-                            recompute_ratio=self._blend_ratio)
+                            recompute_ratio=self._blend_ratio, mesh=self.mesh)
 
     # -- public API ---------------------------------------------------------
 
@@ -424,10 +516,11 @@ class ServingEngine:
         take = self.prefill_chunk if budget is None else min(
             self.prefill_chunk, budget)
         seg = tokens[pos:pos + take]
-        logits = self._prefill_segment(req, pos, seg)
+        logits = (self._prefill_segment(req, pos, seg)
+                  if self._owns(req.slot) else None)
         req.prefill_pos = pos + len(seg)
         if req.prefill_pos == len(tokens):
-            self._finish_prefill(req, logits)
+            self._finish_prefill(req, self._share_row(logits, req.slot))
         return len(seg)
 
     def _prefill_segment(self, req: Request, pos: int, seg: np.ndarray):
@@ -439,7 +532,7 @@ class ServingEngine:
         start = torch.tensor([pos], dtype=torch.int32, device=self.device)
         logits, _ = self._forward(self.params, self.cfg, tokens, start,
                                   self._slot_view(req.slot),
-                                  last_logit_only=True)
+                                  last_logit_only=True, mesh=self.mesh)
         return logits[0, -1]
 
     def _finish_prefill(self, req: Request, logits) -> None:
@@ -448,7 +541,8 @@ class ServingEngine:
         the request to decoding."""
         self.prefilling.remove(req)
         self._on_prefill_complete(req)
-        if self.eager_store and self.cache_engine is not None:
+        if (self.eager_store and self.cache_engine is not None
+                and self._owns(req.slot)):
             np_ = req.num_prompt_tokens
             self.cache_engine.store(req.all_tokens[:np_],
                                     self._read_slot(req.slot, np_),
@@ -466,17 +560,22 @@ class ServingEngine:
         """KV blob [L, 2, n, H, D] (wire fmt) of one slot: a VIEW of the
         pool, which the storage tier copies before ``put`` returns. An int8
         pool is dequantized to the model dtype (a new tensor)."""
+        b = self._local(slot)
         if self.kv_dtype != "int8":
-            return llama.cache_to_blob(self.kv_pool, slot, n)
+            return llama.cache_to_blob(self.kv_pool, b, n)
         return llama.quantized_cache_to_blob(
-            self.kv_pool, slot, n, llama.torch_dtype(self.cfg))
+            self.kv_pool, b, n, llama.torch_dtype(self.cfg))
 
     def _inject(self, blob: torch.Tensor, slot: int, pos: int) -> None:
         """Write a wire blob [L, 2, t, H, D] into ``slot`` at token offset
-        ``pos``, in place; an int8 pool quantizes it on the way in."""
-        into = (llama.blob_into_quantized_cache if self.kv_dtype == "int8"
-                else llama.blob_into_cache)
-        into(self.kv_pool, blob, slot, pos)
+        ``pos``, in place; an int8 pool quantizes it on the way in (a
+        token's absmax over every rank's heads on a mesh)."""
+        if self.kv_dtype == "int8":
+            llama.blob_into_quantized_cache(
+                self.kv_pool, blob, self._local(slot), pos,
+                llama.head_absmax(self.cfg, self._tp))
+        else:
+            llama.blob_into_cache(self.kv_pool, blob, self._local(slot), pos)
 
     # chunks per grouped upload + decode + inject in _stream_inject: large
     # enough to amortize the per-group launches, small enough that the first
@@ -571,20 +670,32 @@ class ServingEngine:
         new token). Returns the number of cached tokens injected."""
         if self.cache_engine is None:
             return 0
-        cached = self._grouped_stream(
-            self.cache_engine.retrieve_stream(tokens), len(tokens) - 1, 1,
-            lambda blob, pos: self._inject(blob, req.slot, pos))
-        return cached or 0
+        limit = self._hit_limit(req, tokens, len(tokens) - 1)
+        cached = None
+        if self._owns(req.slot):
+            cached = self._grouped_stream(
+                self.cache_engine.retrieve_stream(tokens), limit, 1,
+                lambda blob, pos: self._inject(blob, req.slot, pos))
+        if self.mesh is None:
+            return cached or 0
+        return self._world_min((cached or 0) if self._owns(req.slot)
+                               else len(tokens))
 
     def _admit_blend(self, req: Request) -> None:
         """Admit a chunked-context request through CacheBlend: reuse each
         chunk's independently cached KV (any position), heal a selected
-        fraction, inject the result and start decoding: no full prefill."""
-        logits, kv_blob, info = self._get_blender().blend(req.context_chunks)
-        req.blended_tokens_recomputed = info["recomputed_tokens"]
-        req.cached_prefix_len = (info["total_tokens"]
-                                 - info["recomputed_tokens"])
-        self._inject_blend(req, kv_blob)
+        fraction, inject the result and start decoding: no full prefill.
+        Where "data" splits the slots, the slot's owners blend and broadcast
+        the last logits, as a prefill does."""
+        blender = self._get_blender()
+        logits = None
+        if self._owns(req.slot):
+            logits, kv_blob, _ = blender.blend(req.context_chunks)
+            self._inject_blend(req, kv_blob)
+        total, n_rec = blender.counts(req.context_chunks)
+        req.blended_tokens_recomputed = n_rec
+        req.cached_prefix_len = total - n_rec
+        logits = self._share_row(logits, req.slot)
         self._assign_slot_generator(req)
         tok = self._sample_row(logits, req)
         req.output_tokens.append(tok)
@@ -614,7 +725,7 @@ class ServingEngine:
         on the device; returns logits [B, T, V]. The KV of the tokens is
         written at ``start`` in place."""
         logits, _ = self._forward(self.params, self.cfg, tokens, start,
-                                  self.kv_pool, *ctx)
+                                  self.kv_pool, *ctx, mesh=self.mesh)
         return logits
 
     def _gather_rows(self):
@@ -762,7 +873,8 @@ class ServingEngine:
     def _store_back(self, req: Request) -> None:
         """Store the finished request's KV into the cache tiers without
         blocking (reference lmcache_store_kv semantics)."""
-        if self.cache_engine is None or req.context_chunks is not None:
+        if (self.cache_engine is None or req.context_chunks is not None
+                or not self._owns(req.slot)):
             # healed blend KV is approximate: stored under the exact prefix
             # hashes, later prompts would reuse it as exact
             return

@@ -16,7 +16,9 @@ CacheBlend ``context_chunks`` requests are healed by
 :class:`lmcache_tpu_torch.blend_mla.MLACacheBlender` and injected as latent
 wire blobs. ``decode_block > 1``, ``spec_lookahead`` (the verification is
 a ``K + 1``-token ``mla.forward`` over every slot) and ``logprobs`` are the
-scheduler's; ``mesh`` is refused there (ROADMAP, module item 16).
+scheduler's. On a ``mesh`` the latent pool is replicated over "model" (it
+has no head axis) and its slots split over "data" as the dense engine's;
+each rank's forward runs its query heads (``models/mla.py``).
 """
 
 import torch
@@ -29,7 +31,7 @@ def new_mla_blender(eng):
     """The MLA blender of an MLA engine (dense or paged)."""
     from lmcache_tpu_torch.blend_mla import MLACacheBlender
     return MLACacheBlender(eng.cfg, eng.params, eng.cache_engine,
-                           recompute_ratio=eng._blend_ratio)
+                           recompute_ratio=eng._blend_ratio, mesh=eng.mesh)
 
 
 class MLAServingEngine(ServingEngine):
@@ -40,28 +42,33 @@ class MLAServingEngine(ServingEngine):
 
     def _check_config(self, cfg) -> None:
         mla.check_supported(cfg)
+        mla.model_axis(cfg, self.mesh)
+
+    def _heads_split(self) -> bool:
+        return False  # the latents are whole on every rank
 
     def _alloc_pool(self):
         new = (mla.new_quantized_latent_cache if self.kv_dtype == "int8"
                else mla.new_latent_cache)
         return new(self.cfg, self.B, self.S + self._write_horizon,
-                   device=self.device)
+                   device=self.device, mesh=self.mesh)
 
     def _slot_view(self, slot: int):
         """One slot of the pool as a batch-1 pool (views; slot axis 1)."""
+        b = self._local(slot)
         if self.kv_dtype == "int8":
-            return {name: t[:, slot:slot + 1]
-                    for name, t in self.kv_pool.items()}
-        return self.kv_pool[:, slot:slot + 1]
+            return {name: t[:, b:b + 1] for name, t in self.kv_pool.items()}
+        return self.kv_pool[:, b:b + 1]
 
     _new_blender = new_mla_blender
 
     def _read_slot(self, slot: int, n: int) -> torch.Tensor:
         """Latent wire blob [L, 1, n, 1, C] of one slot: a VIEW of the pool,
         or for an int8 pool the dequantized latents (a new tensor)."""
+        b = self._local(slot)
         if self.kv_dtype != "int8":
-            return mla.cache_to_blob(self.kv_pool, slot, n)
-        return mla.quantized_cache_to_blob(self.kv_pool, slot, n,
+            return mla.cache_to_blob(self.kv_pool, b, n)
+        return mla.quantized_cache_to_blob(self.kv_pool, b, n,
                                            mla.torch_dtype(self.cfg))
 
     def _inject(self, blob: torch.Tensor, slot: int, pos: int) -> None:
@@ -69,4 +76,4 @@ class MLAServingEngine(ServingEngine):
         an int8 pool quantizes it per token on the way in."""
         into = (mla.blob_into_quantized_cache if self.kv_dtype == "int8"
                 else mla.blob_into_cache)
-        into(self.kv_pool, blob, slot, pos)
+        into(self.kv_pool, blob, self._local(slot), pos)

@@ -18,7 +18,9 @@ CacheBlend ``context_chunks`` requests are healed by
 whole pages as the dense-KV paged engine does. ``decode_block > 1``,
 ``spec_lookahead`` (the verification is a ``K + 1``-token
 ``mla.forward_paged`` through the page tables) and ``logprobs`` are the
-scheduler's; ``mesh`` is refused there (ROADMAP, module item 16).
+scheduler's. On a ``mesh`` the arena is replicated over both axes (every
+rank writes the same latent rows) and each rank's forward runs its query
+heads (``models/mla.py``).
 """
 
 from typing import List
@@ -38,6 +40,10 @@ class MLAPagedServingEngine(PagedServingEngine):
 
     def _check_config(self, cfg) -> None:
         mla.check_supported(cfg)
+        mla.model_axis(cfg, self.mesh)
+
+    def _heads_split(self) -> bool:
+        return False  # the latents are whole on every rank
 
     def _alloc_arena(self):
         new = (mla.new_quantized_paged_latent_pool if self.kv_dtype == "int8"

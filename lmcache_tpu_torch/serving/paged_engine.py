@@ -31,8 +31,13 @@ groups, as in the dense engine.
 engine's (:class:`ServingEngine`), run through the page tables, which are
 uploaded once for a block; decode pages grow to the step's write horizon
 (``K + 1`` positions for a verification, ``decode_block`` for a block)
-before it runs. ``mesh`` is not ported yet (ROADMAP, module item 16) and
-raises ``ValueError``.
+before it runs.
+
+``mesh``: as the dense engine's, except that the arena is replicated over
+"data" (it has no batch axis: pages are the cross-request resource), so
+every rank computes every row; each rank's arena holds its kv heads on
+"model" (``models/paged.py``) and its cache engine its head slice of the
+pages.
 """
 
 from typing import Dict, List, Optional
@@ -83,9 +88,6 @@ class PagedServingEngine(ServingEngine):
         max_admission_bypass: int = 64,
         blend_recompute_ratio: float = 0.15,
     ):
-        if mesh is not None:
-            raise ValueError(
-                "mesh is not ported yet (ROADMAP, module item 16)")
         if (cache_engine is not None
                 and cache_engine.chunk_size % page_size != 0):
             raise ValueError("page_size must divide the cache chunk_size")
@@ -98,7 +100,8 @@ class PagedServingEngine(ServingEngine):
                          eos_token_id=eos_token_id,
                          save_decode_cache=save_decode_cache,
                          eager_store=eager_store, device=device,
-                         kv_dtype=kv_dtype, decode_block=decode_block,
+                         mesh=mesh, kv_dtype=kv_dtype,
+                         decode_block=decode_block,
                          prefill_chunk=prefill_chunk,
                          prefill_token_budget=prefill_token_budget,
                          admission_window=admission_window,
@@ -111,6 +114,9 @@ class PagedServingEngine(ServingEngine):
 
     def _check_config(self, cfg: llama.LlamaConfig) -> None:
         llama.check_supported(cfg)
+
+    def _splits_slots(self) -> bool:
+        return False
 
     def _alloc_pool(self):
         """Build the page arena instead of the dense slot pool, and the
@@ -136,9 +142,10 @@ class PagedServingEngine(ServingEngine):
         if self.kv_dtype == "int8":
             return new_quantized_paged_pool(self.cfg, self.num_pages,
                                             self.page_size,
-                                            device=self.device)
+                                            device=self.device,
+                                            mesh=self.mesh)
         return new_paged_kv_pool(self.cfg, self.num_pages, self.page_size,
-                                 device=self.device)
+                                 device=self.device, mesh=self.mesh)
 
     def _page_ids(self, pages: List[int]) -> torch.Tensor:
         return torch.as_tensor(pages, dtype=torch.long, device=self.device)
@@ -152,7 +159,9 @@ class PagedServingEngine(ServingEngine):
         ids = self._page_ids(pages)
         blob = blob.to(self.device)
         if self.kv_dtype == "int8":
-            sym, scl = quantize_tokens(blob, (3, 4))  # scl [L, 2, n*page]
+            # scl [L, 2, n*page]
+            sym, scl = quantize_tokens(blob, (3, 4),
+                                       llama.head_absmax(self.cfg, self._tp))
             sym = sym.reshape(L, 2, n, pg, H, D).permute(0, 1, 2, 4, 3, 5)
             self.kv_pool["sym"][:, :, ids] = sym
             self.kv_pool["scale"][:, :, ids] = scl.reshape(L, 2, n, pg)
@@ -282,7 +291,7 @@ class PagedServingEngine(ServingEngine):
         logits, _ = self._forward(
             self.params, self.cfg, tokens, start, self.kv_pool,
             self._tables(self.page_tables[req.slot:req.slot + 1]),
-            last_logit_only=True)
+            last_logit_only=True, mesh=self.mesh)
         return logits[0, -1]
 
     # -- decode-page growth + preemption -------------------------------------
@@ -382,8 +391,9 @@ class PagedServingEngine(ServingEngine):
 
         cached = self._grouped_stream(
             self.cache_engine.retrieve_stream(tokens, mask=mask),
-            len(tokens) - 1, self.page_size, scatter)
-        return shared_tok if cached is None else cached
+            self._hit_limit(req, tokens, len(tokens) - 1), self.page_size,
+            scatter)
+        return self._world_min(shared_tok if cached is None else cached)
 
     def _inject_blend(self, req: Request, blob: torch.Tensor) -> None:
         """Scatter a blended prompt's wire blob onto the request's first

@@ -15,6 +15,11 @@ import jax.numpy as jnp  # noqa: E402
 from lmcache_tpu.ops import attention as jattn  # noqa: E402
 from lmcache_tpu_torch.ops import attention as tattn  # noqa: E402
 
+
+# every test of this file on one torch thread (an autouse fixture)
+from torch_test_helpers import one_torch_thread  # noqa: E402,F401
+
+
 # (T, S, q_offset, kv_len) per scenario, batch of 2
 SCENARIOS = {
     "prefill": (24, 64, [0, 0], [24, 24]),

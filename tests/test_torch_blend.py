@@ -34,6 +34,11 @@ from lmcache_tpu_torch.models import llama as tl  # noqa: E402
 from lmcache_tpu_torch.serving import (PagedServingEngine, Request,  # noqa
                                        SamplingParams, ServingEngine)
 
+
+# every test of this file on one torch thread (an autouse fixture)
+from torch_test_helpers import one_torch_thread  # noqa: E402,F401
+
+
 ATOL = 2e-5  # port vs JAX, both fp32
 GOLD = 2e-3  # blend at ratio 1.0 vs a full prefill (the JAX tests' bound)
 

@@ -36,6 +36,11 @@ from lmcache_tpu_torch.serving import (MLAPagedServingEngine,  # noqa: E402
                                        MLAServingEngine, Request,
                                        SamplingParams)
 
+
+# every test of this file on one torch thread (an autouse fixture)
+from torch_test_helpers import one_torch_thread  # noqa: E402,F401
+
+
 ATOL = 1e-4
 GOLD = 2e-3  # blend at ratio 1.0 vs a full prefill (the JAX tests' bound)
 

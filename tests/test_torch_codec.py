@@ -31,6 +31,11 @@ from lmcache_tpu_torch.ops import quant
 from lmcache_tpu_torch.ops import range_decode as rd
 from lmcache_tpu_torch.ops import range_encode as re_
 
+
+# every test of this file on one torch thread (an autouse fixture)
+from torch_test_helpers import one_torch_thread  # noqa: E402,F401
+
+
 KINDS = ("uniform", "skewed", "binary", "extreme", "gauss")
 
 

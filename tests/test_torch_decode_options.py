@@ -33,6 +33,11 @@ from lmcache_tpu_torch.models import llama as tl  # noqa: E402
 from lmcache_tpu_torch.models import mla as tm  # noqa: E402
 from lmcache_tpu_torch.serving import engine as tengine  # noqa: E402
 
+
+# every test of this file on one torch thread (an autouse fixture)
+from torch_test_helpers import one_torch_thread  # noqa: E402,F401
+
+
 MAX_SEQ = 128
 NEW = 12
 LOGPROBS = 3

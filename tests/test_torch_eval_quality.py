@@ -29,6 +29,11 @@ from lmcache_tpu_torch.models import mla as tmla
 from lmcache_tpu_torch.tools import eval_quality as teq
 from lmcache_tpu_torch.tools import quality_common as tqc
 
+
+# every test of this file on one torch thread (an autouse fixture)
+from torch_test_helpers import one_torch_thread  # noqa: E402,F401
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CTX, CONT = 2048, 64
 ATOL = 1e-4  # fp32 forwards of both packages (tests/test_torch_llama.py)

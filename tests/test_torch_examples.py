@@ -43,15 +43,8 @@ CONFIG_FIELDS = ("chunk_size", "remote_url", "remote_serde",
                  "hybrid_prefetch_async")
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for this file's small models: the suite runs
-    six workers on the machine's cores, and every worker's full thread pool
-    would spin against the others'."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+# every test of this file on one torch thread (an autouse fixture)
+from torch_test_helpers import one_torch_thread  # noqa: E402,F401
 
 
 def test_offline_inference_reuses_and_matches_the_jax_example():

@@ -56,6 +56,7 @@ def test_import_leaves_jax_and_lmcache_tpu_out():
             "lmcache_tpu_torch.models.hf_checkpoint, "
             "lmcache_tpu_torch.serving.api, lmcache_tpu_torch.integration, "
             "lmcache_tpu_torch.tools.train_quality_model, "
+            "lmcache_tpu_torch.tools.mesh_check, "
             "lmcache_tpu_torch.examples, "
             "lmcache_tpu_torch.examples.offline_inference, "
             "lmcache_tpu_torch.examples.save_decode_cache, "
@@ -68,7 +69,9 @@ def test_import_leaves_jax_and_lmcache_tpu_out():
             "lmcache_tpu_torch.examples.storage_backends.round_trip, "
             "lmcache_tpu_torch.examples.rag_blend, "
             "lmcache_tpu_torch.examples.speculative_decode, "
-            "lmcache_tpu_torch.examples.mla_latent_cache; "
+            "lmcache_tpu_torch.examples.mla_latent_cache, "
+            "lmcache_tpu_torch.parallel, lmcache_tpu_torch.parallel.mesh, "
+            "lmcache_tpu_torch.parallel.ring_attention; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'lmcache_tpu' "
             "or m.startswith('lmcache_tpu.')]; print(bad)")
@@ -150,8 +153,8 @@ def _entry_points():
                                            PagedServingEngine, ServingEngine)
     from lmcache_tpu_torch.storage.local_backend import LMCLocalBackend
     from lmcache_tpu_torch.tools import (bench_prefill_mfu, eval_quality,
-                                         train_quality_model)
-    from lmcache_tpu_torch import examples
+                                         mesh_check, train_quality_model)
+    from lmcache_tpu_torch import examples, parallel
     from lmcache_tpu_torch.examples import (
         disaggregated_prefill, mla_latent_cache, offline_inference,
         online_session, rag_blend, save_decode_cache, speculative_decode)
@@ -214,6 +217,8 @@ def _entry_points():
         "rag_blend_example": rag_blend.main,
         "speculative_decode_example": speculative_decode.main,
         "mla_latent_cache_example": mla_latent_cache.main,
+        "make_mesh": lambda: parallel.make_mesh(parallel.MeshConfig(1, 1)),
+        "mesh_check_tool": lambda: mesh_check.main([]),
     }
 
 
@@ -286,7 +291,8 @@ def _cachegen_deserializer():
                                   "storage_backends_example",
                                   "rag_blend_example",
                                   "speculative_decode_example",
-                                  "mla_latent_cache_example"])
+                                  "mla_latent_cache_example",
+                                  "make_mesh", "mesh_check_tool"])
 def test_entry_point_without_cuda_raises(name):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
@@ -327,3 +333,12 @@ def test_entry_points_run_on_cpu_when_asked():
                                     device="cpu")
         pool = eng.kv_pool["sym"] if kv_dtype == "int8" else eng.kv_pool
         assert pool.device.type == "cpu" and pool.shape == (1, 4, 16, 128)
+
+
+def test_a_mesh_needs_a_process_group_of_its_backend():
+    """``make_mesh`` runs over an initialized process group whose backend
+    is its device's (gloo for "cpu"; "cuda" needs CUDA and NCCL, and never
+    carries on over gloo)."""
+    from lmcache_tpu_torch import parallel
+    with pytest.raises(RuntimeError, match="initialized"):
+        parallel.make_mesh(parallel.MeshConfig(1, 1), "cpu")

@@ -20,6 +20,8 @@ import jax.numpy as jnp  # noqa: E402
 from lmcache_tpu.models import mla as jm  # noqa: E402
 from lmcache_tpu.ops import latent_attention as jla  # noqa: E402
 from lmcache_tpu_torch.models import mla as tm  # noqa: E402
+from torch_test_helpers import (FakeMesh,  # noqa: E402,F401
+                                one_torch_thread)
 
 ATOL = 1e-4
 TINY = dict(n_layers=3, n_routed_experts=4, n_shared_experts=1,
@@ -231,14 +233,17 @@ def test_unported_parts_raise():
     params = tm.init_params(cfg, device="cpu")
     toks = torch.zeros((1, 2), dtype=torch.long)
     zero = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(ValueError, match="item 16"):
+    # a mesh whose "model" axis does not divide the query heads: the latent
+    # kernels run on a rank's H / tp heads (tests/test_torch_parallel.py)
+    mesh = FakeMesh(1, 3, 0)
+    with pytest.raises(ValueError, match="divide the mesh"):
         tm.forward(params, cfg, toks, zero,
-                   tm.new_latent_cache(cfg, 1, 8, device="cpu"), mesh=object())
-    with pytest.raises(ValueError, match="item 16"):
+                   tm.new_latent_cache(cfg, 1, 8, device="cpu"), mesh=mesh)
+    with pytest.raises(ValueError, match="divide the mesh"):
         tm.forward_paged(params, cfg, toks, zero,
                          tm.new_paged_latent_pool(cfg, 2, 8, device="cpu"),
                          torch.ones((1, 1), dtype=torch.int32),
-                         mesh=object())
+                         mesh=mesh)
     with pytest.raises(TypeError, match="MLAConfig"):
         tm.check_supported(object())
 

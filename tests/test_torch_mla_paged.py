@@ -20,6 +20,8 @@ from lmcache_tpu.models import mla as jm  # noqa: E402
 import lmcache_tpu_torch as tpkg  # noqa: E402
 from lmcache_tpu_torch import serving as tserving  # noqa: E402
 from lmcache_tpu_torch.models import mla as tm  # noqa: E402
+from torch_test_helpers import (FakeMesh,  # noqa: E402,F401
+                                one_torch_thread)
 
 CHUNK = PAGE = 16
 
@@ -203,8 +205,9 @@ def test_unsupported_modes_raise(sides):
 
     with pytest.raises(ValueError, match="kv_dtype"):
         engine(kv_dtype="int4")
-    with pytest.raises(ValueError, match="item 16"):
-        engine(mesh=object())
+    # a mesh whose "model" axis does not divide the query heads
+    with pytest.raises(ValueError, match="divide the mesh"):
+        engine(mesh=FakeMesh(1, 3, 0))
     ce = tpkg.LMCacheEngine(
         tpkg.LMCacheEngineConfig(local_device="cpu", chunk_size=24),
         tpkg.LMCacheEngineMetadata(model_name="m", world_size=1, worker_id=0,

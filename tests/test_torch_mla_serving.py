@@ -19,6 +19,8 @@ from lmcache_tpu.models import mla as jm  # noqa: E402
 import lmcache_tpu_torch as tpkg  # noqa: E402
 from lmcache_tpu_torch import serving as tserving  # noqa: E402
 from lmcache_tpu_torch.models import mla as tm  # noqa: E402
+from torch_test_helpers import (FakeMesh,  # noqa: E402,F401
+                                one_torch_thread)
 
 CHUNK = 16
 
@@ -139,9 +141,9 @@ def test_unsupported_modes_raise(sides):
     with pytest.raises(ValueError, match="kv_dtype"):
         tserving.MLAServingEngine(cfg, params, max_seq=64, kv_dtype="int4",
                                   device="cpu")
-    with pytest.raises(ValueError, match="not ported yet"):
+    with pytest.raises(ValueError, match="divide the mesh"):
         tserving.MLAServingEngine(cfg, params, max_seq=64, device="cpu",
-                                  mesh=object())
+                                  mesh=FakeMesh(1, 3, 0))
     eng = tserving.MLAServingEngine(cfg, params, max_seq=64, device="cpu")
     req = tserving.Request(_prompt(cfg.vocab_size, 8, 0),
                            tserving.SamplingParams(max_new_tokens=2))

@@ -16,6 +16,11 @@ import jax.numpy as jnp  # noqa: E402
 from lmcache_tpu.ops import paged_attention as jpa  # noqa: E402
 from lmcache_tpu_torch.ops import paged_attention as tpa  # noqa: E402
 
+
+# every test of this file on one torch thread (an autouse fixture)
+from torch_test_helpers import one_torch_thread  # noqa: E402,F401
+
+
 ATOL_REF = 2e-5
 ATOL_INTERPRET = 2e-3
 

@@ -19,6 +19,8 @@ from lmcache_tpu.models import llama as jl  # noqa: E402
 import lmcache_tpu_torch as tpkg  # noqa: E402
 from lmcache_tpu_torch import serving as tserving  # noqa: E402
 from lmcache_tpu_torch.models import llama as tl  # noqa: E402
+from torch_test_helpers import (FakeMesh,  # noqa: E402,F401
+                                one_torch_thread)
 
 CHUNK = PAGE = 16
 
@@ -322,12 +324,15 @@ def test_read_pages_is_a_copy_and_inject_round_trips(sides):
                                    atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("kw, item", [(dict(mesh=object()), "item 16")],
-                         ids=["mesh"])
+@pytest.mark.parametrize("kw, item", [(dict(mesh=FakeMesh(1, 2, 1)),
+                                       "shard_metadata")], ids=["mesh"])
 def test_unported_options_raise(sides, kw, item):
+    """On a mesh that splits the kv heads, a cache engine whose metadata
+    does not name this rank's head slice is refused (it would store the
+    slice under another worker's keys)."""
     t = sides[1]
-    with pytest.raises(ValueError, match=f"not ported yet.*{item}"):
-        t.paged(num_pages=8, **kw)
+    with pytest.raises(ValueError, match=f"head slice 1 of 2.*{item}"):
+        t.paged(num_pages=8, cache_engine=t.cache_engine("m"), **kw)
 
 
 def test_unported_requests_and_chunks_raise(sides):

@@ -28,6 +28,11 @@ import jax.numpy as jnp  # noqa: E402
 from lmcache_tpu.models import llama as jl  # noqa: E402
 from lmcache_tpu_torch.models import llama as tl  # noqa: E402
 
+
+# every test of this file on one torch thread (an autouse fixture)
+from torch_test_helpers import one_torch_thread  # noqa: E402,F401
+
+
 B, T, S = 2, 24, 64
 ATOL = 1e-4
 ATOL_INT8 = 2e-3

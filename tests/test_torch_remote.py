@@ -40,6 +40,11 @@ from lmcache_tpu_torch.serving import PagedServingEngine  # noqa: E402
 from lmcache_tpu_torch.serving import Request, SamplingParams  # noqa: E402
 from lmcache_tpu_torch.serving import ServingEngine  # noqa: E402
 
+
+# every test of this file on one torch thread (an autouse fixture)
+from torch_test_helpers import one_torch_thread  # noqa: E402,F401
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHUNK = 16
 PROMPT = 70  # four whole chunks and a trailing chunk of 6 tokens

@@ -20,6 +20,8 @@ import lmcache_tpu_torch as tpkg  # noqa: E402
 from lmcache_tpu_torch.models import llama as tl  # noqa: E402
 from lmcache_tpu_torch.serving import Request, SamplingParams  # noqa: E402
 from lmcache_tpu_torch.serving import ServingEngine  # noqa: E402
+from torch_test_helpers import (FakeMesh,  # noqa: E402,F401
+                                one_torch_thread)
 
 CHUNK = 16
 ENGINE_KW = dict(max_batch=2, max_seq=128, prefill_chunk=16)
@@ -154,14 +156,18 @@ def test_eager_store_publishes_at_prefill_complete(model):
     ce.close()
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object())], ids=["mesh"])
+@pytest.mark.parametrize("kw", [dict(mesh=FakeMesh(1, 2, 1))], ids=["mesh"])
 def test_unported_options_raise(model, kw):
-    """``mesh`` goes on raising (decode_block, spec_lookahead and logprobs
-    are held by tests/test_torch_decode_options.py), as does an unknown
-    kv_dtype."""
+    """On a mesh that splits the kv heads, a cache engine whose metadata
+    does not name this rank's head slice is refused (the mesh itself runs:
+    tests/test_torch_parallel.py), as is an unknown kv_dtype."""
     _, _, tcfg, tparams = model
-    with pytest.raises(ValueError, match="not ported yet"):
-        ServingEngine(tcfg, tparams, device="cpu", **kw)
+    ce = tpkg.LMCacheEngine(
+        tpkg.LMCacheEngineConfig(local_device="cpu"),
+        tpkg.LMCacheEngineMetadata(model_name="m", world_size=1,
+                                   worker_id=0, fmt="vllm"))
+    with pytest.raises(ValueError, match="head slice 1 of 2"):
+        ServingEngine(tcfg, tparams, device="cpu", cache_engine=ce, **kw)
     with pytest.raises(ValueError, match="Invalid kv_dtype"):
         ServingEngine(tcfg, tparams, device="cpu", kv_dtype="fp8")
 

@@ -51,15 +51,8 @@ MLA_KW = dict(vocab_size=qc.VOCAB, dim=64, n_layers=2, n_heads=2,
               v_head_dim=16, dtype="float32")
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for this file's small models: the suite runs
-    six workers on the machine's cores, and every worker's full thread pool
-    would spin against the others'."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+# every test of this file on one torch thread (an autouse fixture)
+from torch_test_helpers import one_torch_thread  # noqa: E402,F401
 
 
 def _configs(family):
