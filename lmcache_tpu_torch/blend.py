@@ -301,17 +301,17 @@ class BlenderBase:
     def blend(self, chunk_tokens: List[np.ndarray]):
         """Blend cached chunks into a healed prompt KV. Returns
         (last logits ``[vocab]`` fp32, wire KV blob, info dict). Chunks
-        missing from the cache are prefilled and stored first."""
-        blobs, misses = [], 0
-        for tokens in chunk_tokens:
-            tokens = np.asarray(tokens, np.int32)
-            blob = self.engine.engine_.get(self._key(tokens))
-            if blob is None:
-                misses += 1
+        missing from the cache are prefilled and stored first; on a mesh,
+        those that any rank of "model" misses (:meth:`_agreed_misses`)."""
+        chunk_tokens = [np.asarray(t, np.int32) for t in chunk_tokens]
+        blobs = [self.engine.engine_.get(self._key(t)) for t in chunk_tokens]
+        missed = self._agreed_misses([b is None for b in blobs])
+        for i, tokens in enumerate(chunk_tokens):
+            if missed[i]:
                 self.store_chunk(tokens)
-                blob = self.engine.engine_.get(self._key(tokens))
-            blobs.append(blob.to(self.device))
-        full = np.concatenate([np.asarray(t, np.int32) for t in chunk_tokens])
+                blobs[i] = self.engine.engine_.get(self._key(tokens))
+        blobs = [b.to(self.device) for b in blobs]
+        full = np.concatenate(chunk_tokens)
         blended = self._assemble(blobs)
         T, n_rec = self.counts(chunk_tokens)
         logits, kv = self._heal(
@@ -319,10 +319,21 @@ class BlenderBase:
             blended, n_rec)
         return logits, kv, {
             "num_chunks": len(chunk_tokens),
-            "misses": misses,
+            "misses": sum(missed),
             "recomputed_tokens": n_rec,
             "total_tokens": T,
         }
+
+    def _agreed_misses(self, missed: List[bool]) -> List[bool]:
+        """The chunks to prefill: on a mesh, those that any rank of "model"
+        misses. A chunk prefill is a forward with sums over "model", so the
+        ranks of one group must prefill the same chunks; their hits can
+        differ, since each rank's tier is its own (a disk tier replays the
+        shared directory when it opens, while other ranks store)."""
+        if self.mesh is None:
+            return missed
+        flags = torch.tensor(missed, dtype=torch.int32, device=self.device)
+        return [bool(m) for m in axis(self.mesh, "model").max(flags).tolist()]
 
     def counts(self, chunk_tokens) -> Tuple[int, int]:
         """(prompt tokens, tokens :meth:`blend` recomputes) of a blend of

@@ -202,7 +202,10 @@ class LMCLocalDiskBackend(LMCBackendInterface):
     characters cannot collide. Every new key is appended to ``keys.idx``;
     a backend opened on the directory again replays it and keeps the keys
     whose file exists (restart recovery). ``get`` returns a CPU tensor: the
-    consumer moves it to its device.
+    consumer moves it to its device. Several processes may share the
+    directory (the ranks of a mesh): a file is written under a temporary
+    name of its writer's own and published by an atomic rename, so two
+    writers of one key never interleave their bytes.
     """
 
     _INDEX = "keys.idx"
@@ -263,7 +266,7 @@ class LMCLocalDiskBackend(LMCBackendInterface):
             ready.synchronize()
         data = encode_array(blob)
         path = self._key_to_path(key)
-        tmp = path + ".tmp"
+        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
         with open(tmp, "wb") as f:
             f.write(data)
         os.replace(tmp, path)  # atomic publish

@@ -26,15 +26,21 @@ Gates (the process exits 1 where one fails):
 
 - every rank samples the same tokens (all-gathered);
 - each token of a mesh engine is the greedy choice of the model without a
-  mesh (one forward over the prompt and the engine's tokens) up to one
-  bf16 step of the top logit, or up to the distance that the same engine
-  without a mesh shows from that forward, where that is larger (the
-  control: its chunked prefill, its decode steps and MoE routing near
-  ties). The sums over "model" add the ranks' bf16 partial products in
-  fp32, in another order than one product does, so the tokens need not
-  equal the engine's without a mesh bit for bit; how many do is reported,
-  and how far the mesh engine's tokens and the one-card engine's lie from
-  one forward with the mesh;
+  mesh, decided as ``chip_smoke.py`` phase 5 decides two first tokens:
+  against the fp32-headed witness, one forward without a mesh over the
+  prompt and the engine's tokens with the plain attention (fp32 inside)
+  and the final norm and LM head in fp32 (the engines round both to
+  bf16). A token that differs from the witness's greedy choice passes
+  where the witness puts the two tokens' logits at most ``TIE_STEPS`` = 1
+  bf16 step apart, the step taken at the larger of their magnitudes, or
+  at most as far apart as the same engine without a mesh puts its own
+  tokens in that unit, where that is larger (the control: its chunked
+  prefill, its decode steps and MoE routing near ties). The sums over
+  "model" add the ranks' bf16 partial products in fp32, in another order
+  than one product does, so the tokens need not equal the engine's
+  without a mesh bit for bit; how many do is reported, and how far, in
+  the same unit, the mesh engine's tokens and the one-card engine's lie
+  from one bf16 forward with the mesh;
 - the second pass retrieves a prefix from the tier;
 - where a request's tokens first differ from the one-card engine's, both
   engines' gaps between their top two logprobs at that step are reported
@@ -52,6 +58,7 @@ kernels' plain versions run (no card needed).
 """
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -68,6 +75,7 @@ from lmcache_tpu_torch.config import LMCacheEngineConfig, LMCacheEngineMetadata
 from lmcache_tpu_torch.cache_engine import LMCacheEngine
 from lmcache_tpu_torch.models import llama, mla
 from lmcache_tpu_torch.ops.attention import mha_reference
+from lmcache_tpu_torch.ops.latent_attention import latent_attention_reference
 from lmcache_tpu_torch.parallel import (MeshConfig, make_mesh,
                                         ring_attention, shard_params)
 from lmcache_tpu_torch.parallel.mesh import shard_metadata
@@ -80,6 +88,7 @@ RING_T = 4096
 DECODE_ROWS, DECODE_CTX = 4, 2048
 RING_ATOL = 1e-4
 REL_L2 = 5e-2
+TIE_STEPS = 1.0
 JOIN_SECONDS = 420
 
 
@@ -123,21 +132,69 @@ def agree(name, value):
         raise AssertionError(f"{name}: the ranks disagree: {everyone}")
 
 
+def _bf16_step(x):
+    """The spacing of bf16 values at the magnitude of ``x`` (fp32): 8
+    significand bits, so 2 ** (floor(log2 |x|) - 7)."""
+    mag = x.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def _head32(x, params, cfg):
+    """The final norm and the LM head in fp32, with a final softcap."""
+    x32 = x.float()
+    h = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + cfg.norm_eps)
+    w = params["final_norm"].float()
+    h = h * (1.0 + w) if getattr(cfg, "norm_one_offset", False) else h * w
+    logits = h @ params["lm_head"].float()
+    cap = getattr(cfg, "final_logit_softcap", None)
+    return logits if cap is None else cap * torch.tanh(logits / cap)
+
+
+@contextlib.contextmanager
+def _fp32_witness(module):
+    """``module.forward`` as the fp32-headed witness: the final norm and
+    LM head of :func:`_head32`; MLA's latent attention plain (the dense
+    forward takes ``use_kernel=False``)."""
+    if module is mla:
+        saved = mla.latent_flash_attention, mla._logits
+        mla.latent_flash_attention = latent_attention_reference
+        mla._logits = lambda x, p, c, last: _head32(
+            x[:, -1:] if last else x, p, c)
+    else:
+        saved = llama._lm_logits
+        llama._lm_logits = _head32
+    try:
+        yield
+    finally:
+        if module is mla:
+            mla.latent_flash_attention, mla._logits = saved
+        else:
+            llama._lm_logits = saved
+
+
 def greedy_margin(module, cfg, params, prompt, tokens, dev, mesh=None):
-    """How far ``tokens`` lie from the greedy choices of the model (without
-    a mesh, or with ``mesh`` and this rank's ``params``), in bf16 steps: one
-    forward over ``prompt`` and the tokens, and at each token (top logit -
-    its logit) / (2^-7 |top logit|); the largest."""
+    """How far ``tokens`` lie from the greedy choices of one forward over
+    ``prompt`` and the tokens: at each token, its row's top logit minus its
+    own in bf16 steps at the larger of the two magnitudes; the largest (0
+    where every token is its row's greedy choice). Without a mesh the
+    forward is the fp32-headed witness (:func:`_fp32_witness`); with
+    ``mesh`` it is the forward with the mesh and this rank's ``params``."""
     seq = np.concatenate([prompt, np.asarray(tokens[:-1], np.int32)])
     new = (mla.new_latent_cache if module is mla else llama.new_kv_cache)
     cache = new(cfg, 1, len(seq), device=dev, mesh=mesh)
-    logits, _ = module.forward(
-        params, cfg, torch.as_tensor(seq, device=dev).long()[None],
-        torch.zeros(1, dtype=torch.int32, device=dev), cache, mesh=mesh)
+    args = (params, cfg, torch.as_tensor(seq, device=dev).long()[None],
+            torch.zeros(1, dtype=torch.int32, device=dev), cache)
+    if mesh is not None:
+        logits, _ = module.forward(*args, mesh=mesh)
+    else:
+        with _fp32_witness(module):
+            logits, _ = module.forward(*args, **(
+                {} if module is mla else {"use_kernel": False}))
     rows = logits[0, len(prompt) - 1:].float()
     top = rows.max(dim=-1).values
     picked = rows[torch.arange(len(tokens)), torch.as_tensor(tokens)]
-    return float(((top - picked) / (top.abs() * 2.0**-7)).max())
+    step = _bf16_step(torch.maximum(top.abs(), picked.abs()))
+    return float(((top - picked) / step).max())
 
 
 def top_gaps(req):
@@ -268,7 +325,7 @@ def run_engines(args, dev, out):
             agree(name + " again", [r.output_tokens for r in again])
             t.close()
         res["margin_steps"] = max(margins)
-        res["ok"] = (res["margin_steps"] <= max(1.0, plain_margin)
+        res["ok"] = (res["margin_steps"] <= max(TIE_STEPS, plain_margin)
                      and all(n > 0 for n in res.get("second_cached", [1])))
         out[name] = res
         del eng

@@ -9,14 +9,17 @@ the JAX ``shard_params`` on a (1, 4) mesh of the 8 virtual CPU devices,
 ranks for the module (``tests/torch_parallel_worker.py``, no JAX there):
 the engines at (1, 4) and (2, 2), native and int8, and where tiered a
 second engine over the per-shard tier that the first filled; CacheBlend
-requests; ring attention at (4, 1) and (2, 2); ``forward_ring``; the
-per-shard cache tier. Their arrays come back here and each case holds them
-to JAX on the CPU. Tolerances: tokens and cached prefix lengths equal;
-ring attention 2e-5 and ``forward_ring``'s logits 2e-4, its cache 2e-5 (the
-JAX package's own ring tests' rules, against the JAX forward and, at
-(2, 2), the JAX ``forward_ring``); the stored KV, the injected int8 scales
-and the blenders' logits and healed blobs 2e-5 (fp32, the port's blend
-files' rule).
+requests, one of them with a rank whose tier opens late; ring attention
+at (4, 1) and (2, 2); ``forward_ring``; the per-shard cache tier. Their
+arrays come back here and each case holds them to JAX on the CPU; the ring
+cases also to numpy in fp64 from the file the ranks read, and each ring
+step's received blocks to what the source rank held. Tolerances: tokens
+and cached prefix lengths equal; ring attention 2e-5 (against fp64 too)
+and ``forward_ring``'s logits 2e-4, its cache 2e-5 (the JAX package's own
+ring tests' rules, against the JAX forward and, at (2, 2), the JAX
+``forward_ring``); the received ring blocks equal; the stored KV, the
+injected int8 scales and the blenders' logits and healed blobs 2e-5 (fp32,
+the port's blend files' rule).
 """
 
 import concurrent.futures
@@ -134,7 +137,7 @@ def _launch(tmp):
         [sys.executable, W.__file__, str(r), str(W.WORLD), store, path, tmp],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         for r in range(W.WORLD)]
-    return arrays, procs
+    return arrays, path, procs
 
 
 def _join(procs):
@@ -149,8 +152,15 @@ def _join(procs):
                 q.kill()
             pytest.fail(f"a rank did not finish in {JOIN_SECONDS} s")
         logs.append(out.decode(errors="replace"))
-    for p, log in zip(procs, logs):
-        assert p.returncode == 0, log[-4000:]
+    failed = [r for r, p in enumerate(procs) if p.returncode]
+    if failed:
+        # a rank that fails takes the others down with it (gloo's
+        # "Connection closed by peer"): every failed rank's log, first
+        # those that do not blame a peer
+        failed.sort(key=lambda r: "by peer" in logs[r])
+        pytest.fail("\n".join(
+            f"rank {r} exited with {procs[r].returncode}:\n{logs[r][-3000:]}"
+            for r in failed), pytrace=False)
 
 
 # the port's engine cases held to the JAX mesh engines, and those held to
@@ -250,22 +260,34 @@ def _jax_mesh_engines(arrays):
         return dict(zip(keys, pool.map(run, keys)))
 
 
+def _ring_case(name, inputs):
+    """(q_offset, kv_len, options) of ring case ``name`` as the worker runs
+    it, in numpy: ragged offsets where the case says so, the inputs' sinks
+    where it has them."""
+    B, T = inputs["ring_q"].shape[:2]
+    kw = dict(W.RINGS[name][1])
+    o = np.zeros(B, np.int32)
+    kvl = np.asarray([T, T - 14], np.int32)
+    if kw.pop("ragged", False):
+        o = np.asarray([0, 19], np.int32)
+        kvl = o + np.asarray([T, T - 8], np.int32)
+    if kw.pop("sinks", False):
+        kw["sinks"] = inputs["ring_sinks"]
+    return o, kvl, kw
+
+
 def _ring_references(arrays):
     q, k, v = (jnp.asarray(arrays[f"ring_{x}"]) for x in "qkv")
     B, T = q.shape[:2]
     refs = {}
     for name, (shape, opts) in W.RINGS.items():
-        kw = dict(opts)
-        o = jnp.zeros(B, jnp.int32)
-        kvl = jnp.asarray([T, T - 14], jnp.int32)
-        if kw.pop("ragged", False):
-            o = jnp.asarray([0, 19], jnp.int32)
-            kvl = o + jnp.asarray([T, T - 8], jnp.int32)
-            refs[name] = _ring_offsets_reference(
-                arrays, np.asarray(o), np.asarray(kvl), kw["sliding_window"])
+        o, kvl, kw = _ring_case(name, arrays)
+        if opts.get("ragged"):
+            refs[name] = _ring_fp64_reference(arrays, o, kvl, **kw)
             continue
-        if kw.pop("sinks", False):
-            kw["sinks"] = jnp.asarray(arrays["ring_sinks"])
+        o, kvl = jnp.asarray(o), jnp.asarray(kvl)
+        if "sinks" in kw:
+            kw["sinks"] = jnp.asarray(kw["sinks"])
         if name.startswith("plain"):
             # the JAX ring itself on the same mesh shape
             devs = np.asarray(jax.devices()[:4]).reshape(shape)
@@ -303,23 +325,40 @@ def _dead_rows(o, kvl, T, kw):
     return ~live.any(-1)
 
 
-def _ring_offsets_reference(arrays, o, kvl, W_):
-    """The ring's position convention with ragged offsets (row b's keys at
-    ``o[b] + [0, T)``), chunked windows, dead rows 0: numpy in fp64."""
-    q, k, v = (arrays[f"ring_{x}"].astype(np.float64) for x in "qkv")
+def _ring_fp64_reference(inputs, o, kvl, sm_scale=None, logit_softcap=None,
+                         sliding_window=None, window_kind="sliding",
+                         is_global=False, sinks=None):
+    """The ring's function in numpy fp64: row b's queries and keys at
+    ``o[b] + [0, T)``, the softcap on the scaled scores, the sliding or
+    chunked window unless ``is_global``, the sinks joined to the
+    normalization; a row that sees no key gives 0 (without sinks)."""
+    q, k, v = (inputs[f"ring_{x}"].astype(np.float64) for x in "qkv")
     B, T, H, D = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
     qh = q.reshape(B, T, Hkv, G, D).transpose(0, 2, 3, 1, 4)
-    s = np.einsum("bhgtd,bshd->bhgts", qh, k) / np.sqrt(D)
+    scale = sm_scale if sm_scale is not None else 1.0 / np.sqrt(D)
+    s = np.einsum("bhgtd,bshd->bhgts", qh, k) * scale
+    if logit_softcap is not None:
+        s = logit_softcap * np.tanh(s / logit_softcap)
     pos = o[:, None] + np.arange(T)[None]
-    mask = ((pos[:, None, :] <= pos[:, :, None])
-            & (pos[:, None, :] < kvl[:, None, None])
-            & (pos[:, None, :] // W_ == pos[:, :, None] // W_))
-    s = np.where(mask[:, None, None], s, -1e30)
-    p = np.exp(s - s.max(-1, keepdims=True)) * mask[:, None, None]
-    p = p / np.maximum(p.sum(-1, keepdims=True), 1e-300)
-    out = np.einsum("bhgts,bshd->bhgtd", p, v)
+    kpos, qpos = pos[:, None, :], pos[:, :, None]
+    mask = (kpos <= qpos) & (kpos < kvl[:, None, None])
+    if sliding_window is not None and not is_global:
+        if window_kind == "chunked":
+            mask &= kpos // sliding_window == qpos // sliding_window
+        else:
+            mask &= kpos > qpos - sliding_window
+    s = np.where(mask[:, None, None], s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    rest = 0.0
+    if sinks is not None:
+        snk = np.asarray(sinks, np.float64).reshape(1, Hkv, G, 1, 1)
+        m = np.maximum(m, snk)
+        rest = np.exp(snk - m)
+    p = np.exp(s - np.where(np.isfinite(m), m, 0.0))
+    den = np.maximum(p.sum(-1, keepdims=True) + rest, 1e-300)
+    out = np.einsum("bhgts,bshd->bhgtd", p / den, v)
     return out.transpose(0, 3, 1, 2, 4).reshape(B, T, H, D)
 
 
@@ -374,10 +413,13 @@ def _teacher_forced(model, prompt, tokens):
 
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
-    """Every rank's arrays, the JAX side's beside them. The JAX work that
-    does not need the ranks' tokens runs while they run."""
+    """Every rank's arrays, the JAX side's beside them, and what comes of
+    the file that the ranks read: the names of its ring inputs and ring
+    models' weights that the JAX side no longer holds as they are there,
+    and each ring case's fp64 reference from it. The JAX work that does
+    not need the ranks' tokens runs while they run."""
     tmp = str(tmp_path_factory.mktemp("ranks"))
-    arrays, procs = _launch(tmp)
+    arrays, path, procs = _launch(tmp)
     try:
         jax_side = {"engines": _jax_mesh_engines(arrays),
                     "rings": _ring_references(arrays),
@@ -386,7 +428,14 @@ def results(tmp_path_factory):
         _join(procs)
     ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
              for r in range(W.WORLD)]
-    return arrays, ranks, jax_side
+    with np.load(path) as inputs:
+        changed = [k for k in inputs.files if k.startswith("ring")
+                   and not np.array_equal(inputs[k], arrays[k])]
+        fp64 = {}
+        for name in W.RINGS:
+            o, kvl, kw = _ring_case(name, inputs)
+            fp64[name] = _ring_fp64_reference(inputs, o, kvl, **kw)
+    return arrays, ranks, jax_side, {"changed": changed, "fp64": fp64}
 
 
 # -- single process ----------------------------------------------------------
@@ -533,7 +582,7 @@ def test_engine_tokens_equal_the_jax_mesh_engine(results, case):
     """The tokens of the JAX mesh engine of the same engine, kv dtype and
     mesh shape (the int8 pools: a token's scale over every rank's heads,
     a max over "model")."""
-    arrays, ranks, jax_side = results
+    arrays, ranks, jax_side, _ = results
     want = jax_side["engines"][_jax_key(case)]["tokens"]
     for r in ranks:
         assert r[case]["tokens"] == want
@@ -547,7 +596,7 @@ def test_second_pass_retrieves_the_per_shard_tier(results, case):
     "model"; at (2, 2) only the slot's owners retrieving) and injects it,
     and the cached prefix lengths and tokens are those of the JAX mesh
     engine's second pass over its own tier."""
-    _, ranks, jax_side = results
+    _, ranks, jax_side, _ = results
     want = jax_side["engines"][_jax_key(case)]
     assert all(n > 0 for n in want["second_cached"])
     for r in ranks:
@@ -570,7 +619,7 @@ def test_engine_tokens_are_the_jax_models_greedy_tokens(results, case):
     """One JAX forward over the prompt and the port's tokens: its greedy
     choice at every position is the port's next token, so a greedy JAX
     engine gives these tokens."""
-    arrays, ranks, _ = results
+    arrays, ranks, _, _ = results
     model = W.ENGINES[case][0]
     toks = ranks[0][case]["tokens"]
     for r in ranks:
@@ -583,7 +632,7 @@ def test_engine_tokens_are_the_jax_models_greedy_tokens(results, case):
 def test_int8_engine_tokens_equal_the_port_without_a_mesh(results, case):
     """The int8 pools on a mesh (a token's scale over every rank's heads):
     the tokens of the same engine without one."""
-    _, ranks, _ = results
+    _, ranks, _, _ = results
     for r in ranks:
         assert r[case]["tokens"] == r[case]["plain"]
 
@@ -592,7 +641,7 @@ def test_per_shard_store_and_retrieve(results):
     """Each rank stored its head slice under its own worker id; the slices
     put back together are the blob the JAX mesh engine stored, and a
     deployment of another world size sees none of them."""
-    arrays, ranks, jax_side = results
+    arrays, ranks, jax_side, _ = results
     want = jax_side["engines"][("dense", "native", (1, 4))]["blob"]
     res = ranks[0]["dense 1x4"]
     n = len(arrays["prompt0"])
@@ -613,7 +662,7 @@ def test_cacheblend_tokens_equal_the_jax_mesh_engine(results, case):
     the reused prefix are the JAX mesh engine's, and the blender's last
     logits and healed blob the JAX blender's (2e-5, the port's blend files'
     rule)."""
-    _, ranks, jax_side = results
+    _, ranks, jax_side, _ = results
     want = jax_side["engines"][_jax_blend_key(case)]["blend"]
     n = 3 * W.BLEND_DOCS
     for r in ranks:
@@ -631,6 +680,22 @@ def test_cacheblend_tokens_equal_the_jax_mesh_engine(results, case):
                                rtol=ATOL_KV)
 
 
+@pytest.mark.parametrize("case", sorted(W.BLENDS))
+def test_blend_ranks_of_a_group_prefill_the_same_chunks(results, case):
+    """The worker's second blend of each case: the ranks of one "model"
+    group prefill the same chunks, those that any of them misses (a chunk
+    prefill sums over "model"). In the late case the late rank's tier holds
+    all three chunks and its partner's none, and both prefill all three;
+    the slot's owners, which stored them, prefill none."""
+    _, ranks, _, _ = results
+    model = W.BLENDS[case][2][1]
+    misses = [r[case]["misses"] for r in ranks]
+    for g, n in enumerate(misses):
+        assert n == misses[g - g % model], misses
+    if case in W.LATE:
+        assert misses == [0, 0, 3, 3]
+
+
 def _reassemble(ranks, key, shape, name, T_axis=1, head_axis=2,
                 split_heads=True):
     """The whole array from the ranks' blocks: "data" blocks along
@@ -646,7 +711,7 @@ def _reassemble(ranks, key, shape, name, T_axis=1, head_axis=2,
 
 @pytest.mark.parametrize("case", sorted(W.RINGS))
 def test_ring_attention_matches_jax(results, case):
-    _, ranks, jax_side = results
+    _, ranks, jax_side, _ = results
     shape = W.RINGS[case][0]
     got = _reassemble(ranks, "out", shape, case)
     np.testing.assert_allclose(got, jax_side["rings"][case], atol=ATOL_RING,
@@ -655,7 +720,7 @@ def test_ring_attention_matches_jax(results, case):
 
 @pytest.mark.parametrize("case", sorted(W.FORWARD_RINGS))
 def test_forward_ring_matches_the_jax_forward(results, case):
-    _, ranks, jax_side = results
+    _, ranks, jax_side, _ = results
     model, shape = W.FORWARD_RINGS[case]
     logits, cache = jax_side["forward_rings"][case]
     got = _reassemble(ranks, "logits", shape, case, split_heads=False)
@@ -675,3 +740,43 @@ def test_forward_ring_matches_the_jax_forward(results, case):
                                    rtol=ATOL_RING_LOGITS)
         np.testing.assert_allclose(got_cache, ring_cache, atol=ATOL_KV,
                                    rtol=ATOL_KV)
+
+
+def test_jax_side_read_the_ranks_inputs(results):
+    """The ring inputs and the ring models' weights that the JAX references
+    were computed from (after the JAX engines ran in threads) are still
+    those of the file that the ranks read."""
+    assert results[3]["changed"] == []
+
+
+@pytest.mark.parametrize("case", sorted(W.RINGS))
+def test_ring_attention_matches_an_fp64_reference(results, case):
+    """The port's ring against the function in numpy fp64 from the file
+    that the ranks read, whatever the JAX side computed."""
+    _, ranks, _, read = results
+    got = _reassemble(ranks, "out", W.RINGS[case][0], case)
+    np.testing.assert_allclose(got, read["fp64"][case], atol=ATOL_RING,
+                               rtol=ATOL_RING)
+
+
+@pytest.mark.parametrize("case", sorted(W.RINGS) + sorted(W.FORWARD_RINGS))
+def test_ring_blocks_arrive_from_their_source(results, case):
+    """At each step r of every call of the ring body, each rank received
+    the k and v blocks (apart, bit for bit) that its source, r + 1 places
+    before it on the ring, held at that call."""
+    _, ranks, _, _ = results
+    data, model = (W.RINGS[case][0] if case in W.RINGS
+                   else W.FORWARD_RINGS[case][1])
+    calls = len(ranks[0][case]["blocks"])
+    assert calls > 0
+    for g, rank in enumerate(ranks):
+        d, m = divmod(g, model)
+        assert len(rank[case]["blocks"]) == calls
+        for n, call in enumerate(rank[case]["blocks"]):
+            assert len(call["recv"]) == data - 1
+            for r, got in enumerate(call["recv"]):
+                src = ((d - r - 1) % data) * model + m
+                want = ranks[src][case]["blocks"][n]["own"]
+                for x, a, b in zip("kv", got, want):
+                    np.testing.assert_array_equal(
+                        a, b, err_msg=f"rank {g}, call {n}, step {r}: {x}")

@@ -11,6 +11,7 @@ import os
 import socket
 import subprocess
 import sys
+import threading
 import time
 
 import ml_dtypes
@@ -160,6 +161,34 @@ def test_disk_get_reads_the_whole_file(tmp_path, monkeypatch, autorelease,
     else:
         with pytest.raises(OSError, match="ended after 100 of"):
             backend.get(make_key(0))
+
+
+def test_disk_writers_of_one_key_use_their_own_temporary_files(
+        tmp_path, monkeypatch, autorelease):
+    """Two tiers on one directory storing one key, as the ranks of a mesh
+    that share a worker id do: the second's whole write lands while the
+    first is between its write and its rename, and both complete; the file
+    holds the last rename's bytes."""
+    path = str(tmp_path / "disk")
+    first, second = (autorelease(LMCLocalDiskBackend(path))
+                     for _ in range(2))
+    mine, theirs = blobs(2, seed=7)
+    replace = os.replace
+
+    def interleaved(src, dst):
+        monkeypatch.setattr(os, "replace", replace)
+        other = threading.Thread(target=second.put,
+                                 args=(make_key(0), theirs))
+        other.start()
+        other.join()
+        assert same(second.get(make_key(0)), theirs)
+        replace(src, dst)
+
+    monkeypatch.setattr(os, "replace", interleaved)
+    first.put(make_key(0), mine)
+    assert same(first.get(make_key(0)), mine)
+    assert sorted(os.listdir(path)) == sorted(
+        ["keys.idx", os.path.basename(first._key_to_path(make_key(0)))])
 
 
 @pytest.mark.parametrize("writer", ["jax", "port"])

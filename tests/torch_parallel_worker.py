@@ -6,11 +6,16 @@ joins a gloo process group of WORLD ranks through the file STORE, runs every
 case of ``ENGINES``, ``BLENDS``, ``RINGS`` and ``FORWARD_RINGS`` on the mesh
 it names with the inputs and weights in the ``.npz`` INPUTS (written by the
 test), and saves what this rank computed to ``OUT/rank<RANK>.pt``. It imports the port
-only, never JAX; one torch thread a rank.
+only, never JAX; one torch thread a rank. Each ring case also keeps, for
+every call of the ring body, the key and value blocks that this rank held
+and those it received at each step (``record_rotations``), so that the
+test can hold what arrived to what the source rank sent.
 """
 
+import importlib
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -25,6 +30,7 @@ from lmcache_tpu_torch.models import llama, mla  # noqa: E402
 from lmcache_tpu_torch.parallel import (MeshConfig, make_mesh,  # noqa: E402
                                         ring_attention, shard_params)
 from lmcache_tpu_torch.parallel.mesh import shard_metadata  # noqa: E402
+from lmcache_tpu_torch.storage import local_backend  # noqa: E402
 from lmcache_tpu_torch.serving import (MLAPagedServingEngine,  # noqa: E402
                                        MLAServingEngine, PagedServingEngine,
                                        Request, SamplingParams, ServingEngine)
@@ -90,8 +96,15 @@ BLENDS = {
     "blend 2x2": ("dense", "dense", (2, 2), {}),
     "blend paged int8 1x4": ("dense", "paged", (1, 4), {"kv_dtype": "int8"}),
     "mla blend 1x4": ("mla", "mla", (1, 4), {}),
+    "blend 2x2 late": ("dense", "dense", (2, 2), {}),
 }
 BLEND_DOCS = 24
+# the CacheBlend cases whose rank LATE_RANK, at (1, 0) off the slot's
+# owners, opens its tier only once the owners stored every chunk: its
+# replay of the shared directory holds them, its "model" partner's (opened
+# before anything was stored) does not
+LATE = ("blend 2x2 late",)
+LATE_RANK = 2
 BLEND_RATIO = 0.15
 # ring attention: (mesh, options); q/k/v of RING_SHAPE drawn by the test
 RING_SHAPE = (2, 64, 2, 2, 16)  # B, T, H_kv, G, D
@@ -230,13 +243,35 @@ def run_engines(inputs, tmp, out):
         out[name] = res
 
 
+def await_index(path, n, seconds=60.0):
+    """Wait until the disk tier in ``path`` has indexed ``n`` keys."""
+    index = os.path.join(path, local_backend.LMCLocalDiskBackend._INDEX)
+    deadline = time.monotonic() + seconds
+    while True:
+        if os.path.exists(index):
+            with open(index) as f:
+                if len(f.readlines()) >= n:
+                    return
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{index} did not reach {n} keys")
+        time.sleep(0.01)
+
+
 def run_blends(inputs, tmp, out):
     """One ``context_chunks`` request a case, on a per-shard disk tier."""
     docs = [inputs[f"blend_doc{i}"] for i in range(3)]
     for name, (model, kind, shape, opts) in BLENDS.items():
         mesh = mesh_of(shape)
         cfg, whole = params(inputs, model)
-        cache = tier(os.path.join(tmp, name), "blend", mesh)
+        path = os.path.join(tmp, name)
+        late = name in LATE and dist.get_rank() == LATE_RANK
+        cache = None if late else tier(path, "blend", mesh)
+        if name in LATE:
+            dist.barrier()  # the other ranks' tiers open on an empty dir
+        if late:
+            # both owners (two head slices) stored the three chunks
+            await_index(path, 2 * len(docs))
+            cache = tier(path, "blend", mesh)
         eng = engine(kind, cfg, shard_params(whole, mesh), mesh, cache,
                      dict(opts, blend_recompute_ratio=BLEND_RATIO))
         req = Request(np.empty(0, np.int32),
@@ -247,11 +282,12 @@ def run_blends(inputs, tmp, out):
         agree(name, req.output_tokens)
         # the blender once more over the now cached chunks: its last
         # logits and this rank's healed blob
-        logits, blob, _ = eng._get_blender().blend(docs)
+        logits, blob, info = eng._get_blender().blend(docs)
         out[name] = {"tokens": req.output_tokens,
                      "cached": req.cached_prefix_len,
                      "recomputed": req.blended_tokens_recomputed,
-                     "logits": logits.numpy(), "blob": blob.numpy()}
+                     "logits": logits.numpy(), "blob": blob.numpy(),
+                     "misses": info["misses"]}
         cache.close()
 
 
@@ -293,7 +329,40 @@ def shard_tier(path, prompt, req):
     return res
 
 
-def run_rings(inputs, out):
+def record_rotations():
+    """Wrap the ring body's ``_rotate``. Returns the list that each call
+    appends to: (the ring's size, copies of the k and v this rank sends,
+    the buffers that receive the previous rank's), which hold what arrived
+    once the ring body has returned."""
+    module = importlib.import_module(
+        "lmcache_tpu_torch.parallel.ring_attention")
+    send = module._rotate
+    calls = []
+
+    def rotate(seq, k, v):
+        reqs, (k_in, v_in) = send(seq, k, v)
+        calls.append((seq.size, k.clone(), v.clone(), k_in, v_in))
+        return reqs, (k_in, v_in)
+
+    module._rotate = rotate
+    return calls
+
+
+def ring_blocks(calls):
+    """The recorded calls of ``_rotate`` since the last, grouped by call of
+    the ring body (``size - 1`` each): [{"own": (k, v) this rank held,
+    "recv": [(k, v) received at step r]}], as numpy; the list is emptied."""
+    out = []
+    while calls:
+        p = calls[0][0]
+        body = calls[:p - 1]
+        del calls[:p - 1]
+        out.append({"own": (body[0][1].numpy(), body[0][2].numpy()),
+                    "recv": [(c[3].numpy(), c[4].numpy()) for c in body]})
+    return out
+
+
+def run_rings(inputs, out, calls):
     B, T, Hkv, G, D = RING_SHAPE
     q, k, v = (torch.from_numpy(inputs[f"ring_{x}"]) for x in "qkv")
     for name, (shape, opts) in RINGS.items():
@@ -308,10 +377,11 @@ def run_rings(inputs, out):
             kw["sinks"] = torch.from_numpy(inputs["ring_sinks"])
         o = ring_attention(q, k, v, torch.from_numpy(offs),
                            torch.from_numpy(kvl), mesh, **kw)
-        out[name] = {"out": o.numpy(), "offsets": offs, "kv_len": kvl}
+        out[name] = {"out": o.numpy(), "offsets": offs, "kv_len": kvl,
+                     "blocks": ring_blocks(calls)}
 
 
-def run_forward_rings(inputs, out):
+def run_forward_rings(inputs, out, calls):
     for name, (model, shape) in FORWARD_RINGS.items():
         mesh = mesh_of(shape)
         cfg, whole = params(inputs, model)
@@ -321,7 +391,7 @@ def run_forward_rings(inputs, out):
         last, _ = llama.forward_ring(shard_params(whole, mesh), cfg, tokens,
                                      mesh, last_logit_only=True)
         out[name] = {"logits": logits.numpy(), "cache": cache.numpy(),
-                     "last": last.numpy()}
+                     "last": last.numpy(), "blocks": ring_blocks(calls)}
 
 
 def main(rank, world, store, inputs_path, out_dir):
@@ -333,8 +403,9 @@ def main(rank, world, store, inputs_path, out_dir):
     with torch.no_grad():
         run_engines(inputs, out_dir, out)
         run_blends(inputs, out_dir, out)
-        run_rings(inputs, out)
-        run_forward_rings(inputs, out)
+        calls = record_rotations()
+        run_rings(inputs, out, calls)
+        run_forward_rings(inputs, out, calls)
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
